@@ -1,0 +1,104 @@
+"""Package rules of the PyTorch/CUDA port: it imports nothing of JAX or
+of the JAX package, its entry points refuse to run on the CPU unless
+asked, and its kernels build for Hopper with the flags their bitwise
+contract needs."""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from triton_client_tpu_torch.ops import cuda_build
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_BLOCKER = r"""
+import importlib, json, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import triton_client_tpu_torch as pkg
+
+names = [pkg.__name__] + [
+    m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps(sorted(names)))
+"""
+
+
+def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    for must in (
+        "triton_client_tpu_torch.pipelines.detect2d",
+        "triton_client_tpu_torch.channel.cuda_channel",
+        "triton_client_tpu_torch.ops.gpu_decode",
+        "triton_client_tpu_torch.ops.gpu_nms",
+        "triton_client_tpu_torch.cli.detect2d",
+        "triton_client_tpu_torch.__main__",
+    ):
+        assert must in names
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_default_device_entry_points_raise_without_cuda(no_cuda):
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.pipelines.detect2d import build_yolov5_pipeline
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_yolov5_pipeline(num_classes=2, input_hw=(64, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CUDAChannel(ModelRepository())
+    out = subprocess.run(
+        [sys.executable, "-m", "triton_client_tpu_torch", "detect2d", "-i", "synthetic:1",
+         "--input-size", "64"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """Tensors anywhere but the CPU never reach the plain version: a
+    wrapper launches its kernel on CUDA or raises."""
+    from triton_client_tpu_torch.ops import gpu_decode, gpu_nms
+
+    boxes, scores = torch.zeros(1, 8, 4, device="meta"), torch.zeros(1, 8, device="meta")
+    with pytest.raises(ValueError, match="nms_greedy"):
+        gpu_nms.nms_greedy(boxes, scores)
+    with pytest.raises(ValueError, match="fused_decode_nms_2d"):
+        gpu_decode.fused_decode_nms_2d(boxes, scores, scores, scores.bool())
+    with pytest.raises(ValueError, match="nms_greedy"):  # mixed devices
+        gpu_nms.nms_greedy(torch.zeros(1, 8, 4), scores)
+
+
+def test_build_command_targets_hopper_with_exact_float_rules():
+    cmd = cuda_build.build_command("greedy_nms.cu", pathlib.Path("/tmp/x.so"))
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "--fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert "-shared" in cmd and "-fPIC" in cmd
+    assert set(cuda_build.SOURCES) == {
+        p.name for p in (ROOT / "triton_client_tpu_torch" / "csrc").glob("*.cu")
+    }

@@ -1,0 +1,28 @@
+"""``python -m triton_client_tpu_torch <command>`` dispatch.
+
+Commands ported so far:
+  detect2d   — in-process 2D detection over synthetic frames
+"""
+
+from __future__ import annotations
+
+import sys
+
+COMMANDS = ("detect2d",)
+
+
+def main() -> None:
+    if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help"):
+        print(__doc__)
+        raise SystemExit(0 if len(sys.argv) >= 2 else 2)
+    cmd, argv = sys.argv[1], sys.argv[2:]
+    if cmd == "detect2d":
+        from triton_client_tpu_torch.cli.detect2d import main as run
+    else:
+        print(f"unknown command '{cmd}'; commands: {', '.join(COMMANDS)}")
+        raise SystemExit(2)
+    run(argv)
+
+
+if __name__ == "__main__":
+    main()

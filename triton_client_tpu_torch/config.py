@@ -1,0 +1,77 @@
+"""Model specs: the served tensor contract of each model.
+
+The port's copy of ``triton_client_tpu.config``, cut to what the
+in-process serving path reads. The port imports nothing of the JAX
+package, so this module stands alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+
+# KServe v2 dtype strings -> numpy. BF16 has no numpy dtype (the JAX
+# package takes it from ml_dtypes) and is refused by TensorSpec.np_dtype:
+# the port does not serve bf16 yet.
+_DTYPES = {
+    "FP64": np.float64,
+    "FP32": np.float32,
+    "FP16": np.float16,
+    "BF16": None,
+    "INT64": np.int64,
+    "INT32": np.int32,
+    "INT16": np.int16,
+    "INT8": np.int8,
+    "UINT64": np.uint64,
+    "UINT32": np.uint32,
+    "UINT16": np.uint16,
+    "UINT8": np.uint8,
+    "BOOL": np.bool_,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """One input/output tensor contract; -1 dims are dynamic."""
+
+    name: str
+    shape: tuple[int, ...]
+    dtype: str = "FP32"
+    layout: str = ""  # e.g. "NHWC" for image inputs
+
+    def np_dtype(self) -> np.dtype:
+        if _DTYPES.get(self.dtype) is None:
+            raise ValueError(f"no numpy dtype for {self.dtype}")
+        return np.dtype(_DTYPES[self.dtype])
+
+    def validate(self, arr: np.ndarray) -> None:
+        if len(arr.shape) != len(self.shape):
+            raise ValueError(
+                f"tensor '{self.name}': rank {len(arr.shape)} != spec rank {len(self.shape)}"
+            )
+        for got, want in zip(arr.shape, self.shape):
+            if want != -1 and got != want:
+                raise ValueError(
+                    f"tensor '{self.name}': shape {arr.shape} incompatible with spec {self.shape}"
+                )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """A model's full serving contract (name, version, tensors, limits)."""
+
+    name: str
+    version: str = "1"
+    platform: str = "torch"
+    inputs: tuple[TensorSpec, ...] = ()
+    outputs: tuple[TensorSpec, ...] = ()
+    max_batch_size: int = 1
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def input_by_name(self, name: str) -> TensorSpec:
+        for t in self.inputs:
+            if t.name == name:
+                return t
+        raise KeyError(f"model '{self.name}' has no input '{name}'")
