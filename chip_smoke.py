@@ -6,10 +6,11 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``triton_client_tpu_torch/
-csrc/`` and drives the port's main path: YOLOv5n at 512x512 (the
-settings of ``examples/yolov5_crop_base``, random weights from a seed)
-served in-process through ``ModelRepository`` and ``CUDAChannel``. One
-JSON line per phase:
+csrc/`` and drives the port's two main paths, each served in-process
+through ``ModelRepository`` and ``CUDAChannel`` with random weights from
+a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``)
+and PointPillars at the full KITTI width (``examples/pointpillar_kitti``).
+One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -18,11 +19,24 @@ JSON line per phase:
   3. main_path — requests at batch 1 and 8 through the channel, fused and
                  unfused routes; launch counts read around this phase only
   4. check     — the card's output against the plain tail and the CPU path
-  5. times     — kernel and plain-version times (CUDA events), frames/s
+  5. times     — each kernel's device time (CUDA events around launches
+                 queued behind a sleep kernel), its wrapper's call time
+                 and its plain version's (CUDA events), frames/s
                  and p50 latency at batch 1 and 8
   6. profile   — where a request's time goes, under torch.profiler: device
                  ms and busy share per request, device ops per request,
                  the device ops that took the most time, at batch 1 and 8
+  7. kernels_vs_plain_3d — the 3D decode and suppress+pack kernels against
+                 their plain versions at B = 1, K = 256, max_det 128, over
+                 edge cases (ops/kernel_cases.py)
+  8. main_path_3d — scans of 20,000 and 120,000 points through the channel,
+                 fused and unfused routes; launch counts read around this
+                 phase only
+  9. check_3d  — the kernels on the main path's own candidates, and the
+                 card against the CPU path at a tiny grid
+ 10. times_3d  — the 3D kernels' and plain versions' times, scans/s and
+                 p50 latency at 20k and 120k points
+ 11. profile_3d — phase 6 for a 120k-point scan
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -47,6 +61,13 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 B_MAIN, K_MAIN, MAX_DET, NC = 8, 1024, 300, 2
 PROFILE_REQUESTS, PROFILE_TOP = 10, 12
+# the 3D path: PointPillars' pre_max candidates, max_det rows of 9 columns
+K_3D, MAX_DET_3D, COLS_3D = 256, 128, 9
+SCAN_POINTS = (20000, 120000)  # the source's default; a full HDL-64 scan
+SERVE_REQUESTS_3D = 30
+# float operations of kernel 3 per candidate: diag 4, centres 6, sizes
+# 3 x (2 clamp, exp, mul), heading 9
+DECODE_OPS = 31
 # fp32 non-tensor-core rate and memory rate of an H100 SXM at 700 W
 # (NVIDIA H100 data sheet)
 PEAK_FP32_FLOPS = 67e12
@@ -85,6 +106,34 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, counter, reps: int = 50) -> float:
+    """Mean device time of one launch by ``fn``, which must launch its
+    kernel and nothing else (inputs already of the kernel's types): CUDA
+    events around ``reps`` back-to-back calls queued behind a sleep
+    kernel, so the card runs them without waiting on the host in between
+    (its wrapper's host time, tens of microseconds, would otherwise be
+    measured for a kernel of microseconds). Fails unless all ``reps``
+    launches were queued before the card reached the first event."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24  # about 9 ms at 1.98 GHz
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = counter.count
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        check(counter.count - before == reps, f"{reps} calls launched {counter.count - before} times")
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail(f"the card reached the first event before {reps} launches were queued")
+
+
 def live_counts(boxes, live, thresh, max_det):
     """Live candidates at each step of the greedy loop, summed over the
     batch: the IoU tests this run's data needs (the kernel skips the
@@ -109,6 +158,27 @@ def live_counts(boxes, live, thresh, max_det):
     return total
 
 
+def live_counts_3d(iou, live, thresh, max_det):
+    """Kernel 4's loop on the card in plain PyTorch, counting what this
+    run's data needs: the live candidates tested at each step (summed
+    over the batch) and the steps that kept a candidate (each reads one
+    IoU row)."""
+    lane = torch.arange(live.shape[1], device=live.device)
+    image = torch.arange(live.shape[0], device=live.device)
+    tests = kept = 0
+    for _ in range(max_det):
+        alive = live > float("-inf")
+        n = int(alive.sum())
+        if n == 0:
+            break
+        tests += n
+        kept += int(alive.any(1).sum())
+        best = live.argmax(1)
+        suppress = (iou[image, best] > thresh) | (lane == best[:, None])
+        live = torch.where(suppress, float("-inf"), live)
+    return tests, kept
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -117,7 +187,14 @@ def main() -> int:
     from triton_client_tpu_torch.channel.base import InferRequest
     from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
     from triton_client_tpu_torch.io.sources import SyntheticImageSource
-    from triton_client_tpu_torch.ops import cuda_build, gpu_decode, gpu_nms, kernel_cases
+    from triton_client_tpu_torch.ops import (
+        cuda_build,
+        gpu_decode,
+        gpu_decode3d,
+        gpu_nms,
+        gpu_suppress3d,
+        kernel_cases,
+    )
     from triton_client_tpu_torch.ops import nms as tnms
     from triton_client_tpu_torch.ops.boxes import xywh2xyxy
     from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes, topk_candidates
@@ -131,6 +208,8 @@ def main() -> int:
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     dev = torch.device("cuda")
+    counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,
+                gpu_suppress3d.launches)
 
     # -- 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -232,8 +311,8 @@ def main() -> int:
         ask(name, b1[0])
         ask(name, b8[0])
     os.environ["TRITON_CLIENT_TPU_NMS"] = "pallas"  # the unfused route's kernel
-    gpu_decode.launches.reset()
-    gpu_nms.launches.reset()
+    for counter in counters:
+        counter.reset()
     out = {}
     for i, batch in enumerate(b1 + b8):
         out[("yolov5n", i)] = ask("yolov5n", batch)
@@ -303,9 +382,14 @@ def main() -> int:
     # -- 5. times on the card's clock ---------------------------------------------
     offset = class_offset_boxes(xywh2xyxy(cands[0]), cands[2])
     masked = torch.where(cands[3], cands[1], float("-inf"))
-    k1_ms = cuda_ms(lambda: gpu_decode.fused_decode_nms_2d(*cands, **kw1), reps=200)
+    k1_call_ms = cuda_ms(lambda: gpu_decode.fused_decode_nms_2d(*cands, **kw1), reps=200)
+    k1_args = (cands[0].float(), cands[1].float(), cands[2].float(), cands[3].bool())
+    k1_ms = kernel_device_ms(lambda: gpu_decode.fused_decode_nms_2d(*k1_args, **kw1),
+                             gpu_decode.launches)
     k1_plain_ms = cuda_ms(lambda: gpu_decode.decode_nms_2d_reference(*cands, **kw1), reps=5, warmup=1)
-    k2_ms = cuda_ms(lambda: gpu_nms.nms_greedy(offset, masked, 0.45, MAX_DET), reps=200)
+    k2_call_ms = cuda_ms(lambda: gpu_nms.nms_greedy(offset, masked, 0.45, MAX_DET), reps=200)
+    k2_ms = kernel_device_ms(lambda: gpu_nms.nms_greedy(offset, masked, 0.45, MAX_DET),
+                             gpu_nms.launches)
     k2_plain_ms = cuda_ms(lambda: gpu_nms.nms_greedy_reference(offset, masked, 0.45, MAX_DET),
                           reps=5, warmup=1)
     iou_tests = live_counts(offset, masked, torch.tensor(0.45, device=dev), MAX_DET)
@@ -333,6 +417,7 @@ def main() -> int:
 
     e2e = {"batch1": serve(b1, 40), "batch8": serve(b8, 20)}
     emit("times", card, kernel_ms={"decode_nms_2d": k1_ms, "greedy_nms": k2_ms},
+         call_ms={"decode_nms_2d": k1_call_ms, "greedy_nms": k2_call_ms},
          plain_ms={"decode_nms_2d": k1_plain_ms, "greedy_nms": k2_plain_ms},
          iou_tests=iou_tests, in_process=e2e)
 
@@ -361,19 +446,24 @@ def main() -> int:
              device_ops_per_request=len(device_ops) / PROFILE_REQUESTS,
              top_device_ops_ms_per_request=dict(top))
 
+    record_3d = run_3d(card, dev, counters)
+
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/decode_nms_2d.cu",
          "replaces": "triton_client_tpu/ops/pallas_decode.py:155",
          "launches": launches["decode_nms_2d"], "max_abs_err": k1_err, "match": True,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": k1_by,
          "library_ms": None, "card": card},
         {"name": "greedy_nms", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "triton_client_tpu/ops/pallas_nms.py:111",
          "launches": launches["greedy_nms"], "max_abs_err": k2_err, "match": True,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by,
          "library_ms": None, "card": card},
+        *record_3d,
     ]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -381,6 +471,281 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
+    """Phases 7-11: the PointPillars path. ``counters`` are every kernel's
+    launch counters, all set to 0 just before the main path. Returns the
+    3D kernels' rows of the ``{"kernels": [...]}`` record."""
+    import dataclasses as dc
+
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, kernel_cases
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        Detect3DConfig,
+        build_pointpillars_pipeline,
+        prepare_points,
+    )
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev) for a in arrays]
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def decode_match(got, want, label):
+        """Bitwise in every column, -0.0 included: the kernel's expf,
+        sqrtf and division are the libdevice functions PyTorch's CUDA ops
+        call, and --fmad=false rounds each product and sum as they do."""
+        check(torch.equal(bits(got), bits(want)), f"residual_decode_3d differs ({label})")
+
+    # -- 7. the 3D kernels against their plain versions, on the card ------------
+    for i, kind in enumerate(kernel_cases.DECODE3D_KINDS):
+        args = on_card(*kernel_cases.decode3d_inputs(kind, K_3D, seed=50 + i))
+        got = gpu_decode3d.fused_residual_decode(*args)
+        want = gpu_decode3d.residual_decode_reference(*args)
+        torch.cuda.synchronize()
+        decode_match(got, want, kind)
+    k4_cases = 0
+    for i, kind in enumerate(kernel_cases.SUPPRESS3D_KINDS):
+        boxes, scores, labels = on_card(*kernel_cases.suppress3d_inputs(kind, K_3D, seed=60 + i))
+        rows, keep = gpu_suppress3d.fused_suppress_pack_3d(boxes, scores, labels, 0.01, MAX_DET_3D)
+        iou, srows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+        want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(
+            iou, srows, 0.01, MAX_DET_3D
+        )
+        torch.cuda.synchronize()
+        check(torch.equal(keep, want_keep), f"suppress_pack_3d keep differs ({kind})")
+        check(torch.equal(bits(rows), bits(want_rows)), f"suppress_pack_3d rows differ ({kind})")
+        k4_cases += 1
+    iou, srows = on_card(*kernel_cases.planted_iou(K_3D, seed=70))  # IoU == the threshold
+    got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
+    want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
+    check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
+          "suppress_pack_3d differs at the threshold")
+    k4_cases += 1
+    n_big = 8192  # past a block's shared memory: raises, launches nothing
+    check(not gpu_suppress3d.smem_fits(n_big, COLS_3D), f"{n_big} candidates fit shared memory")
+    before = gpu_suppress3d.launches.count
+    try:
+        gpu_suppress3d.suppress_pack_3d(torch.zeros((1, n_big, n_big), device=dev),
+                                        torch.zeros((1, n_big, COLS_3D), device=dev))
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and gpu_suppress3d.launches.count == before,
+          "suppress_pack_3d past shared memory did not raise on the card")
+    emit("kernels_vs_plain_3d", card, kernels=[
+        {"name": "residual_decode_3d", "cases": len(kernel_cases.DECODE3D_KINDS),
+         "shape": [1, K_3D, 7], "match": True, "max_abs_err": 0.0},
+        {"name": "suppress_pack_3d", "cases": k4_cases, "shape": [1, K_3D, MAX_DET_3D, COLS_3D],
+         "match": True, "max_abs_err": 0.0},
+    ])
+
+    # -- 8. the main path: full-width KITTI PointPillars through the channel ----
+    repo = ModelRepository()
+    pipes = {}
+    for name, fused in (("pointpillars", "auto"), ("pointpillars_unfused", "off")):
+        pipe, spec, model = build_pointpillars_pipeline(
+            config=Detect3DConfig(model_name=name, fused=fused), device="cuda", seed=0
+        )  # one seed: both hold the same weights
+        repo.register(spec, pipe.infer_fn())
+        pipes[name] = (pipe, spec, model)
+    check(pipes["pointpillars"][1].extra["fused_stages"] == ["decode_nms"], "auto did not fuse")
+    check(pipes["pointpillars_unfused"][1].extra["fused_stages"] == [], "off still fused")
+    pipe, spec, model = pipes["pointpillars"]
+    check(model.cfg.voxel.grid_size == (432, 496, 1) and pipe.use_scatter, "not the KITTI grid")
+    channel = CUDAChannel(repo)
+    channel.register_channel()
+    infer = {name: channel_infer3d(channel, name) for name in pipes}
+    scans = {
+        n: [f.data for f in SyntheticPointCloudSource(3, points=n, seed=i)]
+        for i, n in enumerate(SCAN_POINTS)
+    }
+    for name in pipes:  # warm-up, not counted
+        for n in SCAN_POINTS:
+            infer[name](scans[n][0])
+    torch.cuda.synchronize()
+    for counter in counters:
+        counter.reset()
+    out = {n: [infer["pointpillars"](pc) for pc in scans[n]] for n in SCAN_POINTS}
+    repeat = infer["pointpillars"](scans[SCAN_POINTS[1]][0])
+    fused_requests = sum(len(v) for v in scans.values()) + 1
+    before = [gpu_decode3d.launches.count, gpu_suppress3d.launches.count]
+    unfused = {n: infer["pointpillars_unfused"](scans[n][0]) for n in SCAN_POINTS}
+    after = [gpu_decode3d.launches.count, gpu_suppress3d.launches.count]
+    launches = {c_name: c.count for c_name, c in
+                (("residual_decode_3d", gpu_decode3d.launches),
+                 ("suppress_pack_3d", gpu_suppress3d.launches))}
+    check(before == after, "the unfused route launched a 3D kernel")
+    for k_name, count in launches.items():
+        check(count == fused_requests,
+              f"{k_name} launched {count} times for {fused_requests} fused requests")
+    kept = {}
+    for n in SCAN_POINTS:
+        for o in out[n]:
+            check(o["pred_boxes"].shape[1] == 7 and bool(np.isfinite(o["pred_boxes"]).all()),
+                  "non-finite or misshapen boxes")
+            check(len(o["pred_scores"]) <= MAX_DET_3D and o["pred_labels"].min() >= 1, "rows")
+        kept[n] = [len(o["pred_scores"]) for o in out[n]]
+        check(min(kept[n]) > 0, f"no detection kept at {n} points")
+        for key in unfused[n]:  # fused rows equal the unfused ones, by value
+            check(np.array_equal(out[n][0][key], unfused[n][key]), f"fused != unfused {key} ({n})")
+    for key in repeat:
+        check(np.array_equal(repeat[key], out[SCAN_POINTS[1]][0][key]),
+              f"the same scan twice gave other {key}")
+    bitwise_repeat = all(repeat[k].tobytes() == out[SCAN_POINTS[1]][0][k].tobytes() for k in repeat)
+    # live candidates: the gate + top-k of the same scans, launching nothing
+    live = {}
+    with torch.no_grad():
+        for n in SCAN_POINTS:
+            padded, m = prepare_points(scans[n][0], 4, Detect3DConfig().point_buckets)
+            heads = model.from_points(torch.from_numpy(padded).to(dev),
+                                      torch.tensor(m, dtype=torch.int32, device=dev))
+            cand = model.topk_candidates(heads, K_3D, Detect3DConfig().score_thresh)
+            live[n] = int(torch.isfinite(cand["scores"]).sum())
+            check(live[n] > 0, f"no live candidate at {n} points")
+    emit("main_path_3d", card, model="pointpillars", grid=list(model.cfg.voxel.grid_size),
+         anchors=int(model.anchors.shape[0]), points=list(SCAN_POINTS),
+         requests={"fused": fused_requests, "unfused": len(unfused)},
+         live_candidates=live, kept=kept, fused_equals_unfused=True,
+         repeat_equal=True, repeat_bitwise=bitwise_repeat, launches=launches,
+         deterministic_sum_route="index_put_(accumulate=True), models/pointpillars.pillar_sums")
+
+    # -- 9. kernels on the main path's own candidates; the card against the CPU --
+    with torch.no_grad():
+        padded, m = prepare_points(scans[SCAN_POINTS[1]][1], 4, Detect3DConfig().point_buckets)
+        heads = model.from_points(torch.from_numpy(padded).to(dev),
+                                  torch.tensor(m, dtype=torch.int32, device=dev))
+        cand = model.topk_candidates(heads, K_3D, Detect3DConfig().score_thresh)
+    dec_args = (cand["deltas"], cand["anchors"], cand["dir_bin"])
+    boxes = gpu_decode3d.fused_residual_decode(*dec_args)
+    decode_match(boxes, gpu_decode3d.residual_decode_reference(*dec_args), "main path")
+    iou, srows = gpu_suppress3d.sorted_candidates(boxes, cand["scores"], cand["labels"])
+    got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
+    want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
+    check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
+          "suppress_pack_3d differs on the main path's candidates")
+    # the tiny grid of tests/test_pointpillars.py, same seed on both devices:
+    # equal kept counts and labels, rows within 1e-5, the bar at which the
+    # CPU tests hold the port to the JAX package
+    tiny = PointPillarsConfig(
+        voxel=VoxelConfig(point_cloud_range=(0.0, -6.4, -3.0, 12.8, 6.4, 1.0),
+                          voxel_size=(0.2, 0.2, 4.0), max_voxels=512, max_points_per_voxel=8),
+        backbone_layers=(1, 1, 1),
+    )
+    tiny_cfg = Detect3DConfig(point_buckets=(2048,), max_det=16, pre_max=64)
+    card_pipe, _, _ = build_pointpillars_pipeline(tiny, tiny_cfg, device="cuda", seed=0)
+    cpu_pipe, _, _ = build_pointpillars_pipeline(tiny, dc.replace(tiny_cfg, fused="on"),
+                                                 device="cpu", seed=0)
+    rng = np.random.default_rng(9)
+    r = tiny.voxel.point_cloud_range
+    tiny_err, tiny_kept = 0.0, 0
+    for _ in range(2):
+        pc = np.column_stack([rng.uniform(r[0], r[3], 500), rng.uniform(r[1], r[4], 500),
+                              rng.uniform(r[2], r[5], 500), rng.uniform(0, 1, 500)])
+        g, c = card_pipe.infer(pc.astype(np.float32)), cpu_pipe.infer(pc.astype(np.float32))
+        check(len(g["pred_scores"]) == len(c["pred_scores"]) > 0, "card and CPU keep other counts")
+        check(np.array_equal(g["pred_labels"], c["pred_labels"]), "card and CPU labels differ")
+        err = max(float(np.abs(g[k] - c[k]).max()) for k in ("pred_boxes", "pred_scores"))
+        check(err <= 1e-5, f"card and CPU rows differ by {err}")
+        tiny_err, tiny_kept = max(tiny_err, err), tiny_kept + len(g["pred_scores"])
+    emit("check_3d", card, kernels_equal_plain_on_main_path=True, candidates=int(
+        torch.isfinite(cand["scores"]).sum()), kept=int(got[1].sum()),
+        cpu_vs_card_kept=tiny_kept, cpu_vs_card_max_abs_err=tiny_err)
+
+    # -- 10. times on the card's clock ---------------------------------------------
+    k3_call_ms = cuda_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args), reps=500)
+    k3_ms = kernel_device_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args),
+                             gpu_decode3d.launches)
+    k3_plain_ms = cuda_ms(lambda: gpu_decode3d.residual_decode_reference(*dec_args), reps=100)
+    k4_call_ms = cuda_ms(lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D),
+                         reps=200)
+    k4_ms = kernel_device_ms(lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D),
+                             gpu_suppress3d.launches)
+    k4_plain_ms = cuda_ms(
+        lambda: gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D),
+        reps=5, warmup=1,
+    )
+    tests, kept_steps = live_counts_3d(iou, srows[..., COLS_3D - 2].clone(),
+                                       torch.tensor(0.01, device=dev), MAX_DET_3D)
+    n_cand = K_3D  # B = 1
+    k3_bytes = n_cand * (7 * 4 + 7 * 4 + 8 + 7 * 4)
+    # the IoU rows of the kept steps, the sorted rows, the packed output
+    k4_bytes = kept_steps * K_3D * 4 + K_3D * COLS_3D * 4 + MAX_DET_3D * (COLS_3D * 4 + 1)
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    k3_bound, k3_by = bound(k3_bytes, n_cand * DECODE_OPS)
+    k4_bound, k4_by = bound(k4_bytes, tests)  # one compare per live candidate a step
+
+    def serve(points, reps):
+        lat = []
+        t0 = time.perf_counter()
+        for r_ in range(reps):
+            t = time.perf_counter()
+            infer["pointpillars"](scans[points][r_ % len(scans[points])])
+            lat.append(time.perf_counter() - t)
+        wall = time.perf_counter() - t0
+        return {"scans_per_s": reps / wall, "p50_ms": float(np.median(lat)) * 1e3,
+                "requests": reps}
+
+    e2e = {f"points{n}": serve(n, SERVE_REQUESTS_3D) for n in SCAN_POINTS}
+    emit("times_3d", card,
+         kernel_ms={"residual_decode_3d": k3_ms, "suppress_pack_3d": k4_ms},
+         call_ms={"residual_decode_3d": k3_call_ms, "suppress_pack_3d": k4_call_ms},
+         plain_ms={"residual_decode_3d": k3_plain_ms, "suppress_pack_3d": k4_plain_ms},
+         bound_ms={"residual_decode_3d": k3_bound, "suppress_pack_3d": k4_bound},
+         live_tests=tests, kept_steps=kept_steps, in_process=e2e)
+
+    # -- 11. where a 120k-point request's time goes -------------------------------
+    pc = scans[SCAN_POINTS[1]][0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_REQUESTS):
+            infer["pointpillars"](pc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    check(len(device_ops) > 0, "torch.profiler saw no device op")
+    device_s = sum(e.device_time_total for e in device_ops) / 1e6
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            key = e.key[:80]
+            by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / PROFILE_REQUESTS / 1e3
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:PROFILE_TOP]
+    emit("profile_3d", card, points=SCAN_POINTS[1], requests=PROFILE_REQUESTS,
+         wall_ms_per_request=wall / PROFILE_REQUESTS * 1e3,
+         device_ms_per_request=device_s / PROFILE_REQUESTS * 1e3,
+         device_busy_share=device_s / wall, device_idle_share=1.0 - device_s / wall,
+         device_ops_per_request=len(device_ops) / PROFILE_REQUESTS,
+         top_device_ops_ms_per_request=dict(top))
+
+    return [
+        {"name": "residual_decode_3d", "route": "cuda",
+         "source": "triton_client_tpu_torch/csrc/residual_decode_3d.cu",
+         "replaces": "triton_client_tpu/ops/pallas_decode.py:233",
+         "launches": launches["residual_decode_3d"], "max_abs_err": 0.0, "match": True,
+         "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by,
+         "library_ms": None, "card": card},
+        {"name": "suppress_pack_3d", "route": "cuda",
+         "source": "triton_client_tpu_torch/csrc/suppress_pack_3d.cu",
+         "replaces": "triton_client_tpu/ops/pallas_decode.py:321",
+         "launches": launches["suppress_pack_3d"], "max_abs_err": 0.0, "match": True,
+         "ms": k4_ms, "call_ms": k4_call_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by,
+         "library_ms": None, "card": card},
+    ]
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
-"""The port's two greedy-suppression kernels against the JAX package's
-TPU kernels.
+"""The port's CUDA kernels against the JAX package's TPU kernels.
 
 On the CPU each wrapper runs its plain PyTorch version, which must equal
 the Pallas kernel run in interpret mode BITWISE: rows and keep for the
 fused decode+NMS tail, index sequences (invalid slots included) and
-valid for greedy NMS. The CUDA kernels themselves are held against the
+valid for greedy NMS, rows and keep for the 3D suppress+pack given the
+same IoU matrix. The 3D residual decode is the exception: XLA's CPU code
+contracts a product and a sum into an FMA where the port (and the CUDA
+kernel, built with ``--fmad=false``) rounds twice, and its ``exp`` is
+another polynomial, so the plain version is held to 4 ulps of the
+operands' magnitude there. The CUDA kernels themselves are held against the
 plain versions on the card (``cuda``-marked tests here, and
 ``chip_smoke.py``). The JAX package is imported inside the tests that
 use it, so the card's machine, which has no JAX, runs the ``cuda`` tests
@@ -15,7 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from triton_client_tpu_torch.ops import cuda_build, gpu_decode, gpu_nms, kernel_cases
+from triton_client_tpu_torch.ops import (
+    cuda_build,
+    gpu_decode,
+    gpu_decode3d,
+    gpu_nms,
+    gpu_suppress3d,
+    kernel_cases,
+)
 
 B = 2
 
@@ -121,6 +132,148 @@ def test_smem_limits():
     assert not gpu_decode.smem_fits(8192) and not gpu_nms.smem_fits(16128)
 
 
+# -- 3D: residual decode (kernel 3) and rotated suppress+pack (kernel 4) --
+
+
+def _decode_tolerance(deltas, anchors, want):
+    """4 ulps of each column's operand magnitude: |d * diag| + |xa| for the
+    centres, |d * dza| + |za| for z, the result for the exp columns, and
+    |rot| + 2 pi for the heading."""
+    d = deltas.astype(np.float64)
+    a = anchors.astype(np.float64)
+    diag = np.sqrt(a[:, 3] ** 2 + a[:, 4] ** 2)
+    scale = np.column_stack(
+        [
+            np.abs(d[:, 0] * diag) + np.abs(a[:, 0]),
+            np.abs(d[:, 1] * diag) + np.abs(a[:, 1]),
+            np.abs(d[:, 2] * a[:, 5]) + np.abs(a[:, 2]),
+            np.abs(want[:, 3:6]),
+            np.abs(d[:, 6] + a[:, 6]) + 2 * np.pi,
+        ]
+    )
+    return 4 * np.spacing(scale.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", kernel_cases.DECODE3D_KINDS)
+def test_residual_decode_plain_matches_tpu_kernel(kind):
+    import jax.numpy as jnp
+    from triton_client_tpu.ops.pallas_decode import fused_residual_decode as jax_decode
+
+    deltas, anchors, dir_bin = kernel_cases.decode3d_inputs(kind, 256, seed=12)
+    want = np.asarray(
+        jax_decode(jnp.asarray(deltas), jnp.asarray(anchors), jnp.asarray(dir_bin),
+                   num_dir_bins=2, dir_offset=0.78539, interpret=True)
+    )
+    got = gpu_decode3d.residual_decode_reference(
+        torch.from_numpy(deltas), torch.from_numpy(anchors), torch.from_numpy(dir_bin)
+    ).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    tol = _decode_tolerance(deltas, anchors, want)
+    assert (err <= tol).all(), f"max excess {np.max(err - tol)} in columns {np.where(err > tol)[1]}"
+    # the plain version equals the unfused op chain of the pipeline bit for bit
+    from triton_client_tpu_torch.models.pointpillars import decode_candidates
+
+    chain = decode_candidates(
+        {"deltas": torch.from_numpy(deltas), "anchors": torch.from_numpy(anchors),
+         "dir_bin": torch.from_numpy(dir_bin), "scores": None, "labels": None},
+        2, 0.78539,
+    )["boxes"]
+    assert torch.equal(chain, torch.from_numpy(got))
+
+
+def _jax_sorted_matrix(boxes, scores, labels):
+    """The JAX package's kernel inputs, built as its fused_suppress_pack_3d
+    builds them: stable score sort, gathers, rotated IoU of the sorted
+    BEV boxes."""
+    import jax.numpy as jnp
+    from triton_client_tpu.ops.boxes3d import boxes7_to_bev, rotated_iou_bev
+
+    order = np.argsort(-scores, kind="stable")
+    bev = boxes7_to_bev(jnp.asarray(boxes[order]))
+    iou = np.array(rotated_iou_bev(bev, bev))
+    rows = np.column_stack([boxes[order], scores[order], labels[order].astype(np.float32)])
+    return iou, rows.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", kernel_cases.SUPPRESS3D_KINDS)
+def test_suppress_pack_3d_plain_matches_tpu_kernel_bitwise(kind):
+    """The plain version fed the JAX-built sorted IoU matrix equals the
+    Pallas kernel (interpret mode) bit for bit: rows and keep. K = 128
+    keeps interpret mode fast."""
+    import jax.numpy as jnp
+    from triton_client_tpu.ops.pallas_decode import fused_suppress_pack_3d as jax_pack
+
+    max_det = 64
+    boxes, scores, labels = kernel_cases.suppress3d_inputs(kind, 128, seed=13)
+    want_rows, want_keep = jax_pack(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(labels), iou_thresh=0.01,
+        max_det=max_det, interpret=True,
+    )
+    iou, rows = _jax_sorted_matrix(boxes, scores, labels)
+    got_rows, got_keep = gpu_suppress3d.suppress_pack_3d_reference(
+        torch.from_numpy(iou)[None], torch.from_numpy(rows)[None], 0.01, max_det
+    )
+    np.testing.assert_array_equal(got_keep[0].numpy(), np.asarray(want_keep))
+    np.testing.assert_array_equal(got_rows[0].numpy(), np.asarray(want_rows))
+    kept = int(got_keep.sum())
+    live = int(np.isfinite(scores).sum())
+    if kind == "all_gated":
+        assert kept == 0 and not got_rows.any()
+    elif kind == "few":
+        assert 0 < kept <= live < max_det
+    elif kind == "disjoint":
+        assert kept == max_det < live  # more kept than max_det
+    elif kind == "identical":
+        assert kept <= (live + 3) // 4 + 1
+
+
+def test_suppress_pack_3d_plain_matches_tpu_kernel_at_the_threshold(monkeypatch):
+    """IoUs equal to the float32 threshold (and one ulp either side) in the
+    matrix: ``iou > thresh`` suppresses only those above. The JAX function
+    is fed the planted matrix in place of its rotated IoU."""
+    import jax.numpy as jnp
+    from triton_client_tpu.ops import boxes3d as jax_boxes3d
+    from triton_client_tpu.ops.pallas_decode import fused_suppress_pack_3d as jax_pack
+
+    k, max_det = 96, 48  # a shape no other test traces, so the patch is what jit sees
+    iou, rows = kernel_cases.planted_iou(k, seed=14)
+    monkeypatch.setattr(jax_boxes3d, "rotated_iou_bev", lambda a, b: jnp.asarray(iou))
+    want_rows, want_keep = jax_pack(
+        jnp.asarray(rows[:, :7]), jnp.asarray(rows[:, 7]), jnp.asarray(rows[:, 8]),
+        iou_thresh=0.01, max_det=max_det, interpret=True,
+    )
+    got_rows, got_keep = gpu_suppress3d.suppress_pack_3d_reference(
+        torch.from_numpy(iou)[None], torch.from_numpy(rows)[None], 0.01, max_det
+    )
+    np.testing.assert_array_equal(got_keep[0].numpy(), np.asarray(want_keep))
+    np.testing.assert_array_equal(got_rows[0].numpy(), np.asarray(want_rows))
+    assert 1 < int(got_keep.sum()) < max_det
+
+
+def test_3d_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    gpu_decode3d.launches.reset()
+    gpu_suppress3d.launches.reset()
+    d, a, b = (torch.from_numpy(x) for x in kernel_cases.decode3d_inputs("random", 32))
+    assert torch.equal(gpu_decode3d.fused_residual_decode(d, a, b),
+                       gpu_decode3d.residual_decode_reference(d, a, b))
+    boxes, scores, labels = (torch.from_numpy(x)[None]
+                             for x in kernel_cases.suppress3d_inputs("random", 32))
+    rows, keep = gpu_suppress3d.fused_suppress_pack_3d(boxes, scores, labels, 0.01, 16)
+    iou, srows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+    want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, 16)
+    assert torch.equal(rows, want_rows) and torch.equal(keep, want_keep)
+    assert rows.shape == (1, 16, 9) and bool(keep.any())
+    assert gpu_decode3d.launches.count == 0 and gpu_suppress3d.launches.count == 0
+
+
+def test_suppress_pack_3d_smem_limit():
+    # K = 256 at 9 columns takes 10 KB; past the 227 KB a block may use,
+    # the wrapper raises on CUDA tensors
+    assert gpu_suppress3d.smem_bytes(256, 9) == 10240
+    assert gpu_suppress3d.smem_fits(256, 9) and gpu_suppress3d.smem_fits(4096, 9)
+    assert not gpu_suppress3d.smem_fits(8192, 9)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -174,3 +327,53 @@ def test_pallas_route_past_shared_memory_raises_on_card(cuda_device, monkeypatch
     with pytest.raises(ValueError, match="shared memory"):
         tnms.nms(boxes, scores, 0.45, 300)
     assert gpu_nms.launches.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.DECODE3D_KINDS)
+def test_residual_decode_kernel_matches_plain_on_card(cuda_device, kind):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in kernel_cases.decode3d_inputs(kind, 256, seed=22)]
+    args = [t.reshape(1, 256, *t.shape[1:]) for t in args]
+    before = gpu_decode3d.launches.count
+    got = gpu_decode3d.fused_residual_decode(*args)
+    want = gpu_decode3d.residual_decode_reference(*args)
+    torch.cuda.synchronize()
+    assert gpu_decode3d.launches.count == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # -0.0 too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.SUPPRESS3D_KINDS)
+def test_suppress_pack_3d_kernel_matches_plain_on_card(cuda_device, kind):
+    parts = [kernel_cases.suppress3d_inputs(kind, 256, seed=32 + i) for i in range(2)]
+    boxes, scores, labels = (torch.from_numpy(np.stack(p)).to(cuda_device) for p in zip(*parts))
+    iou, rows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+    before = gpu_suppress3d.launches.count
+    got_rows, got_keep = gpu_suppress3d.suppress_pack_3d(iou, rows, 0.01, 128)
+    want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(iou, rows, 0.01, 128)
+    torch.cuda.synchronize()
+    assert gpu_suppress3d.launches.count == before + 1
+    assert torch.equal(got_keep, want_keep)
+    assert torch.equal(got_rows.view(torch.int32), want_rows.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_suppress_pack_3d_kernel_at_the_threshold_on_card(cuda_device):
+    iou, rows = kernel_cases.planted_iou(256, seed=15)
+    iou, rows = (torch.from_numpy(a)[None].to(cuda_device) for a in (iou, rows))
+    got = gpu_suppress3d.suppress_pack_3d(iou, rows, 0.01, 128)
+    want = gpu_suppress3d.suppress_pack_3d_reference(iou, rows, 0.01, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_suppress_pack_3d_past_shared_memory_raises_on_card(cuda_device):
+    k = 8192
+    rows = torch.zeros((1, k, 9), device=cuda_device)
+    before = gpu_suppress3d.launches.count
+    with pytest.raises(ValueError, match="shared memory"):
+        gpu_suppress3d.suppress_pack_3d(torch.zeros((1, k, k), device=cuda_device), rows)
+    assert gpu_suppress3d.launches.count == before

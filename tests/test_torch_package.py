@@ -51,6 +51,12 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.ops.gpu_nms",
         "triton_client_tpu_torch.cli.detect2d",
         "triton_client_tpu_torch.__main__",
+        "triton_client_tpu_torch.pipelines.detect3d",
+        "triton_client_tpu_torch.models.pointpillars",
+        "triton_client_tpu_torch.ops.gpu_decode3d",
+        "triton_client_tpu_torch.ops.gpu_suppress3d",
+        "triton_client_tpu_torch.drivers.driver",
+        "triton_client_tpu_torch.cli.detect3d",
     ):
         assert must in names
 
@@ -64,18 +70,22 @@ def no_cuda():
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
     from triton_client_tpu_torch.pipelines.detect2d import build_yolov5_pipeline
+    from triton_client_tpu_torch.pipelines.detect3d import build_pointpillars_pipeline
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_yolov5_pipeline(num_classes=2, input_hw=(64, 64))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CUDAChannel(ModelRepository())
-    out = subprocess.run(
-        [sys.executable, "-m", "triton_client_tpu_torch", "detect2d", "-i", "synthetic:1",
-         "--input-size", "64"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_pointpillars_pipeline()
+    for argv in (["detect2d", "-i", "synthetic:1", "--input-size", "64"],
+                 ["detect3d", "-i", "synthetic:1"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "triton_client_tpu_torch", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, argv
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
@@ -92,6 +102,24 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         gpu_nms.nms_greedy(torch.zeros(1, 8, 4), scores)
 
 
+def test_3d_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d
+
+    d7, bins = torch.zeros(1, 8, 7, device="meta"), torch.zeros(1, 8, dtype=torch.int64,
+                                                                device="meta")
+    with pytest.raises(ValueError, match="fused_residual_decode"):
+        gpu_decode3d.fused_residual_decode(d7, d7, bins)
+    with pytest.raises(ValueError, match="fused_residual_decode"):  # mixed devices
+        gpu_decode3d.fused_residual_decode(torch.zeros(1, 8, 7), d7, bins)
+    iou, rows = torch.zeros(1, 8, 8, device="meta"), torch.zeros(1, 8, 9, device="meta")
+    with pytest.raises(ValueError, match="suppress_pack_3d"):
+        gpu_suppress3d.suppress_pack_3d(iou, rows)
+    with pytest.raises(ValueError, match="suppress_pack_3d"):
+        gpu_suppress3d.fused_suppress_pack_3d(d7, bins.float(), bins)
+    with pytest.raises(ValueError, match="suppress_pack_3d"):  # mixed devices
+        gpu_suppress3d.suppress_pack_3d(torch.zeros(1, 8, 8), rows)
+
+
 def test_build_command_targets_hopper_with_exact_float_rules():
     cmd = cuda_build.build_command("greedy_nms.cu", pathlib.Path("/tmp/x.so"))
     joined = " ".join(cmd)
@@ -101,4 +129,4 @@ def test_build_command_targets_hopper_with_exact_float_rules():
     assert "-shared" in cmd and "-fPIC" in cmd
     assert set(cuda_build.SOURCES) == {
         p.name for p in (ROOT / "triton_client_tpu_torch" / "csrc").glob("*.cu")
-    }
+    } == {"decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu"}

@@ -2,13 +2,14 @@
 
 Commands ported so far:
   detect2d   — in-process 2D detection over synthetic frames
+  detect3d   — in-process 3D detection (PointPillars) over point clouds
 """
 
 from __future__ import annotations
 
 import sys
 
-COMMANDS = ("detect2d",)
+COMMANDS = ("detect2d", "detect3d")
 
 
 def main() -> None:
@@ -18,6 +19,8 @@ def main() -> None:
     cmd, argv = sys.argv[1], sys.argv[2:]
     if cmd == "detect2d":
         from triton_client_tpu_torch.cli.detect2d import main as run
+    elif cmd == "detect3d":
+        from triton_client_tpu_torch.cli.detect3d import main as run
     else:
         print(f"unknown command '{cmd}'; commands: {', '.join(COMMANDS)}")
         raise SystemExit(2)

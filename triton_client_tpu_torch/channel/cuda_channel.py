@@ -70,7 +70,9 @@ class CUDAChannel(BaseChannel):
             t.validate(np.asarray(request.inputs[t.name]))
         staged = {}
         for name, arr in request.inputs.items():
-            arr = np.ascontiguousarray(cast_wire_input(spec, name, np.asarray(arr)))
+            # np.require, not np.ascontiguousarray: that one turns a 0-d
+            # array (num_points) into shape (1,)
+            arr = np.require(cast_wire_input(spec, name, np.asarray(arr)), requirements="C")
             host = torch.from_numpy(arr)
             if self.device.type == "cuda":
                 host = host.pin_memory()

@@ -96,9 +96,8 @@ decode_nms_2d_kernel(const float* __restrict__ boxes,    // (B, K, 4)
   // Phase 2: greedy suppression; thread 0 writes one row a step.
   float* out = dets + (size_t)b * max_det * 6;
   bool* kp = keep + (size_t)b * max_det;
-  const greedy::Cands c{ox1, oy1, ox2, oy2, area, live, k};
   greedy::suppress_loop(
-      c, thresh, max_det, red_v, red_i,
+      greedy::Boxes{ox1, oy1, ox2, oy2, area}, live, k, thresh, max_det, red_v, red_i,
       [&](int s, int best) {
         float* row = out + 6 * s;
         row[0] = x1[best] + 0.0f;

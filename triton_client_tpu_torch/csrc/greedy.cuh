@@ -1,14 +1,17 @@
-// Greedy suppression loop shared by the decode+NMS and greedy-NMS kernels.
+// Greedy suppression loop shared by the decode+NMS, greedy-NMS and 3D
+// suppress+pack kernels.
 //
-// One thread block owns one image. Candidates live in shared memory as
-// structure-of-arrays rows (offset coordinates, areas, live scores). Each
+// One thread block owns one image. Live scores sit in shared memory. Each
 // step takes the block argmax over live scores (ties to the lowest index,
 // as jnp.argmax), emits it, and kills every live candidate whose IoU with
-// it exceeds the threshold. The suppression pass also computes each
-// thread's argmax for the next step, so a step costs one pass over the
-// thread's candidates plus one block reduction (two __syncthreads).
+// it exceeds the threshold. Where the IoU comes from is the caller's: the
+// 2D kernels compute it from boxes in shared memory (Boxes), the 3D
+// kernel reads a row of a precomputed matrix (IouMatrix). The suppression
+// pass also computes each thread's argmax for the next step, so a step
+// costs one pass over the thread's candidates plus one block reduction
+// (two __syncthreads).
 //
-// Arithmetic follows ops/pallas_decode.py:128-131 and ops/pallas_nms.py:
+// The 2D IoU follows ops/pallas_decode.py:128-131 and ops/pallas_nms.py:
 // 96-99 of the JAX package operation for operation. The build passes
 // --fmad=false so `area + barea - inter` is two rounded operations, as in
 // the plain PyTorch version, and no fast-math flag, so `/` is IEEE.
@@ -80,26 +83,64 @@ __device__ __forceinline__ float block_max(float v, float* red_v) {
   return out;
 }
 
-struct Cands {
+// IoU of every candidate with the chosen one, computed from boxes in
+// shared memory (the 2D kernels). row(best) reads the chosen box once;
+// the returned functor gives the IoU of candidate j.
+struct BoxIou {
   const float* x1;
   const float* y1;
   const float* x2;
   const float* y2;
   const float* area;
-  float* live;  // -inf once suppressed or invalid
-  int n;
+  float bx1, by1, bx2, by2, barea;
+  __device__ __forceinline__ float operator()(int j) const {
+    const float iw = fmaxf(fminf(x2[j], bx2) - fmaxf(x1[j], bx1), 0.0f);
+    const float ih = fmaxf(fminf(y2[j], by2) - fmaxf(y1[j], by1), 0.0f);
+    const float inter = iw * ih;
+    return inter / fmaxf(area[j] + barea - inter, 1e-9f);
+  }
 };
 
-// Runs max_det steps. emit(step, best) is called by thread 0 for each kept
-// candidate; emit_empty(step) by thread 0 for every step after the live
-// set ran out (the loop stops there: the remaining steps would all pick an
-// invalid candidate and change nothing).
-template <typename Emit, typename EmitEmpty>
-__device__ void suppress_loop(const Cands& c, float thresh, int max_det, float* red_v,
-                              int* red_i, Emit emit, EmitEmpty emit_empty) {
+struct Boxes {
+  const float* x1;
+  const float* y1;
+  const float* x2;
+  const float* y2;
+  const float* area;
+  // "+ 0.0f": the TPU kernels pick the chosen box with a masked sum,
+  // which turns -0.0 into +0.0
+  __device__ __forceinline__ BoxIou row(int best) const {
+    return {x1, y1, x2, y2, area, x1[best] + 0.0f, y1[best] + 0.0f,
+            x2[best] + 0.0f, y2[best] + 0.0f, area[best] + 0.0f};
+  }
+};
+
+// IoU rows of a precomputed (n, n) matrix in device memory (the 3D
+// kernel): row(best) is the chosen candidate's row, read coalesced.
+struct IouRow {
+  const float* r;
+  __device__ __forceinline__ float operator()(int j) const { return r[j]; }
+};
+
+struct IouMatrix {
+  const float* iou;
+  int n;
+  __device__ __forceinline__ IouRow row(int best) const { return {iou + (size_t)best * n}; }
+};
+
+// Runs max_det steps over the n candidates whose live scores are in
+// `live` (-inf once suppressed or invalid; live[j] belongs to thread
+// j % kThreads). Each step kills the chosen candidate and every live one
+// whose IoU with it, src.row(best)(j), exceeds thresh. emit(step, best) is
+// called by thread 0 for each kept candidate; emit_empty(step) by thread 0
+// for every step after the live set ran out (the loop stops there: the
+// remaining steps would all pick an invalid candidate and change nothing).
+template <typename Src, typename Emit, typename EmitEmpty>
+__device__ void suppress_loop(const Src& src, float* live, int n, float thresh, int max_det,
+                              float* red_v, int* red_i, Emit emit, EmitEmpty emit_empty) {
   float bv = -CUDART_INF_F;
   int bi = INT_MAX;
-  for (int j = threadIdx.x; j < c.n; j += kThreads) arg_better(c.live[j], j, bv, bi);
+  for (int j = threadIdx.x; j < n; j += kThreads) arg_better(live[j], j, bv, bi);
 
   for (int step = 0; step < max_det; ++step) {
     float best_v;
@@ -111,28 +152,20 @@ __device__ void suppress_loop(const Cands& c, float thresh, int max_det, float* 
       return;
     }
     if (threadIdx.x == 0) emit(step, best);
-    // "+ 0.0f": the TPU kernel picks the chosen box with a masked sum,
-    // which turns -0.0 into +0.0
-    const float bx1 = c.x1[best] + 0.0f, by1 = c.y1[best] + 0.0f;
-    const float bx2 = c.x2[best] + 0.0f, by2 = c.y2[best] + 0.0f;
-    const float barea = c.area[best] + 0.0f;
+    const auto iou = src.row(best);
     bv = -CUDART_INF_F;
     bi = INT_MAX;
-    for (int j = threadIdx.x; j < c.n; j += kThreads) {
-      const float lv = c.live[j];
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const float lv = live[j];
       if (lv == -CUDART_INF_F) continue;
-      const float iw = fmaxf(fminf(c.x2[j], bx2) - fmaxf(c.x1[j], bx1), 0.0f);
-      const float ih = fmaxf(fminf(c.y2[j], by2) - fmaxf(c.y1[j], by1), 0.0f);
-      const float inter = iw * ih;
-      const float iou = inter / fmaxf(c.area[j] + barea - inter, 1e-9f);
-      if (iou > thresh || j == best) {
-        c.live[j] = -CUDART_INF_F;
+      if (iou(j) > thresh || j == best) {
+        live[j] = -CUDART_INF_F;
       } else {
         arg_better(lv, j, bv, bi);
       }
     }
     // live[j] is read and written only by its owning thread, and the
-    // coordinates are read-only here, so the reduction's barriers are the
+    // IoU sources are read-only here, so the reduction's barriers are the
     // only ones a step needs.
   }
 }

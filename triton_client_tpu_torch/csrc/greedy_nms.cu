@@ -50,9 +50,8 @@ greedy_nms_kernel(const float* __restrict__ boxes,   // (B, N, 4) xyxy
 
   int* idx = indices + (size_t)b * max_det;
   bool* val = valid + (size_t)b * max_det;
-  const greedy::Cands c{x1, y1, x2, y2, area, live, n};
   greedy::suppress_loop(
-      c, thresh, max_det, red_v, red_i,
+      greedy::Boxes{x1, y1, x2, y2, area}, live, n, thresh, max_det, red_v, red_i,
       [&](int s, int best) {
         idx[s] = best;
         val[s] = true;

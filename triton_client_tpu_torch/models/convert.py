@@ -1,22 +1,26 @@
-"""Carry the JAX package's YOLOv5 weights across to the port.
+"""Carry the JAX package's flax weights across to the port.
 
-``yolov5_state_dict_from_flax`` maps a flax variable tree (``params`` +
-``batch_stats``, leaves as numpy arrays or anything ``np.asarray``
-takes) onto ``YoloV5``'s ``state_dict``:
+A flax variable tree (``params`` + ``batch_stats``, leaves as numpy
+arrays or anything ``np.asarray`` takes) maps onto a model's
+``state_dict`` by path; the kind of the receiving module decides how a
+``kernel`` is laid out:
 
-  * conv ``kernel`` (kh, kw, cin, cout) -> ``weight`` (cout, cin, kh, kw)
+  * ``Dense`` kernel (in, out) -> ``Linear.weight`` (out, in)
+  * ``Conv`` kernel (kh, kw, cin, cout) -> ``weight`` (cout, cin, kh, kw)
+  * ``ConvTranspose`` kernel (kh, kw, cin, cout) -> flipped in both
+    spatial axes, then ``weight`` (cin, cout, kh, kw): flax's transposed
+    convolution does not flip its kernel, PyTorch's does
   * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-    ``running_mean``/``running_var``
-  * detect conv ``bias`` -> ``bias``
+    ``running_mean``/``running_var``; conv and dense ``bias`` -> ``bias``
 
-It is strict: every leaf is used exactly once and every tensor of the
-model is filled, with matching shapes, or it raises.
+Conversion is strict: every leaf is used exactly once and every tensor
+of the model is filled, with matching shapes, or it raises.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -41,15 +45,22 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield path, value
 
 
-def _module_path(names: tuple[str, ...]) -> str:
-    # flax names a C3's bottlenecks m0, m1, ...; the port keeps them in
-    # an nn.Sequential called m
-    return ".".join(re.sub(r"^m(\d+)$", r"m.\1", n) for n in names)
+def _kernel_to_torch(module: nn.Module, arr: np.ndarray) -> np.ndarray:
+    if isinstance(module, nn.Linear):
+        return arr.T
+    if isinstance(module, nn.ConvTranspose2d):
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
+    return arr.transpose(3, 2, 0, 1)
 
 
-def yolov5_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(
+    variables: Mapping,
+    model: nn.Module,
+    module_path: Callable[[tuple[str, ...]], str] = ".".join,
+) -> dict[str, torch.Tensor]:
     """flax ``{"params": ..., "batch_stats": ...}`` -> a ``state_dict``
-    for ``model`` (a ``YoloV5`` of the same variant and classes)."""
+    for ``model``; ``module_path`` maps a flax module path to the
+    port's dotted submodule name."""
     want = model.state_dict()
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
@@ -60,14 +71,15 @@ def yolov5_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[st
             suffix = _LEAF.get((collection, path[-1]))
             if suffix is None:
                 raise KeyError(f"unexpected flax leaf {collection}/{'/'.join(path)}")
-            key = f"{_module_path(path[:-1])}.{suffix}"
-            arr = np.asarray(leaf, dtype=np.float32)
-            if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
+            mod_path = module_path(path[:-1])
+            key = f"{mod_path}.{suffix}"
             if key not in want:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} -> {key}: no such tensor")
             if key in out:
                 raise KeyError(f"two flax leaves map onto {key}")
+            arr = np.asarray(leaf, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = _kernel_to_torch(model.get_submodule(mod_path), arr)
             if tuple(arr.shape) != tuple(want[key].shape):
                 raise ValueError(
                     f"{key}: flax shape {arr.shape} != model shape {tuple(want[key].shape)}"
@@ -80,3 +92,26 @@ def yolov5_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[st
     if missing:
         raise KeyError(f"flax variables leave {len(missing)} tensors unfilled: {missing[:5]}")
     return out
+
+
+def _yolov5_module_path(names: tuple[str, ...]) -> str:
+    # flax names a C3's bottlenecks m0, m1, ...; the port keeps them in
+    # an nn.Sequential called m
+    return ".".join(re.sub(r"^m(\d+)$", r"m.\1", n) for n in names)
+
+
+def yolov5_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``YoloV5`` tree -> a ``state_dict`` for the port's
+    ``YoloV5`` of the same variant and classes."""
+    return state_dict_from_flax(variables, model, _yolov5_module_path)
+
+
+def pointpillars_state_dict_from_flax(
+    variables: Mapping, model: nn.Module
+) -> dict[str, torch.Tensor]:
+    """The JAX ``PointPillars`` tree (``init_pointpillars``: ``vfe/linear``,
+    ``vfe/bn``, ``backbone/block{i}_down[_bn]``, ``block{i}_conv{j}``/
+    ``block{i}_bn{j}``, ``up{i}[_bn]``, ``cls_head``, ``box_head``,
+    ``dir_head``) -> a ``state_dict`` for the port's ``PointPillars`` of
+    the same config; the submodules carry the flax names."""
+    return state_dict_from_flax(variables, model)

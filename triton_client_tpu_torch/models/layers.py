@@ -110,3 +110,25 @@ def make_divisible(v: float, divisor: int = 8) -> int:
 
 def scale_depth(n: int, depth_multiple: float) -> int:
     return max(1, round(n * depth_multiple))
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random weights, drawn as flax initialises the JAX models:
+    conv and dense kernels from N(0, 1/fan_in), biases 0, BatchNorm
+    scale 1, bias 0, running mean 0, running var 1. The numbers differ
+    from the JAX package's (another generator); the statistics match.
+    A transposed conv's fan-in is cin * kh * kw, as flax counts it."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            if isinstance(mod, nn.ConvTranspose2d):  # weight (cin, cout, kh, kw)
+                fan_in = w.shape[0] * w[0, 0].numel()
+            w.copy_(torch.randn(w.shape, generator=gen) / fan_in**0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.reset_parameters()
+    return model

@@ -141,23 +141,3 @@ def num_predictions(input_hw: tuple[int, int], num_anchors: int = 3) -> int:
     """Total prediction slots for an input size (e.g. 512 -> 16128)."""
     h, w = input_hw
     return sum((h // s) * (w // s) * num_anchors for s in STRIDES)
-
-
-@torch.no_grad()
-def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random weights, drawn as flax initialises the JAX model:
-    conv kernels from N(0, 1/fan_in), conv biases 0, BatchNorm scale 1,
-    bias 0, running mean 0, running var 1. The numbers differ from the
-    JAX package's (another generator); the statistics match, so
-    random-init confidences sit near obj * cls = 0.25 on both."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
-            w = torch.randn(mod.weight.shape, generator=gen) / fan_in**0.5
-            mod.weight.copy_(w)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-    return model

@@ -1,13 +1,15 @@
-"""Seeded candidate sets for holding the greedy-suppression kernels
-against their plain versions and the JAX package's TPU kernels.
+"""Seeded inputs for holding the port's kernels against their plain
+versions and the JAX package's TPU kernels.
 
 numpy only, so the CPU tests and ``chip_smoke.py`` build the same
-inputs from the same seeds. Each kind aims at one hazard of the greedy
-loop: ``random`` (ordinary), ``ties`` (equal scores: argmax must take
-the lowest index), ``all_invalid`` (no live candidate: rows stay zero,
-indices 0), ``chain`` (each box suppresses only its neighbour, so the
-result depends on the order of suppression) and ``large`` (coordinates
-near 1e5, where the class-offset stride and the IoU round coarsely).
+inputs from the same seeds. For the 2D greedy kernels each kind aims at
+one hazard of the loop: ``random`` (ordinary), ``ties`` (equal scores:
+argmax must take the lowest index), ``all_invalid`` (no live candidate:
+rows stay zero, indices 0), ``chain`` (each box suppresses only its
+neighbour, so the result depends on the order of suppression) and
+``large`` (coordinates near 1e5, where the class-offset stride and the
+IoU round coarsely). The 3D kinds are described at ``decode3d_inputs``
+and ``suppress3d_inputs``.
 """
 
 from __future__ import annotations
@@ -63,3 +65,104 @@ def nms_inputs(kind: str, n: int, seed: int = 0):
     scores (n,) with -inf where invalid."""
     boxes, scores, _, valid = candidates(kind, n, seed=seed, box_format="xyxy")
     return boxes, np.where(valid, scores, -np.inf).astype(np.float32)
+
+
+# -- 3D: the residual decode (kernel 3) and rotated suppress+pack (kernel 4) --
+
+DECODE3D_KINDS = ("random", "clip", "period", "negzero")
+
+
+def decode3d_inputs(kind: str, k: int, seed: int = 0):
+    """Kernel 3's inputs for ``k`` candidates: deltas (k, 7) and anchors
+    (k, 7) float32, dir_bin (k,) int64 with both bins present. ``clip``
+    puts the size deltas at and beyond the +-10 clamp; ``period`` puts the
+    headings on both sides of a period boundary (PointPillars' two bins:
+    dir_offset 0.78539, period pi); ``negzero`` carries -0.0 in every
+    column."""
+    rng = np.random.default_rng(seed)
+    deltas = rng.normal(0.0, 1.0, (k, 7))
+    anchors = np.column_stack(
+        [
+            rng.uniform(0, 70, k), rng.uniform(-40, 40, k), rng.uniform(-2, 0, k),
+            rng.choice([3.9, 0.8, 1.76], k), rng.choice([1.6, 0.6], k),
+            rng.choice([1.56, 1.73], k), rng.choice([0.0, np.pi / 2], k),
+        ]
+    )
+    if kind == "clip":
+        edge = np.array([-12.0, -10.0, -9.999, 9.999, 10.0, 12.0, 87.0, -87.0])
+        deltas[:, 3:6] = rng.choice(edge, (k, 3))
+    elif kind == "period":
+        m = rng.integers(-2, 3, k)
+        boundary = (np.float32(0.78539) + m * np.float32(np.pi)).astype(np.float32)
+        side = rng.choice([-np.inf, 0.0, np.inf], k)  # below, on, above
+        rot = np.where(side == 0, boundary, np.nextafter(boundary, side.astype(np.float32)))
+        anchors[:, 6] = 0.0
+        deltas[:, 6] = rot
+    elif kind == "negzero":
+        deltas[rng.uniform(size=(k, 7)) < 0.5] = -0.0
+        anchors[rng.uniform(size=(k, 7)) < 0.2] = -0.0
+    return (
+        deltas.astype(np.float32),
+        anchors.astype(np.float32),
+        rng.integers(0, 2, k).astype(np.int64),
+    )
+
+
+SUPPRESS3D_KINDS = ("random", "all_gated", "ties", "identical", "disjoint", "few")
+
+
+def suppress3d_inputs(kind: str, k: int, seed: int = 0):
+    """Kernel 4's candidates: boxes (k, 7) [x, y, z, dx, dy, dz, heading]
+    float32, scores (k,) float32 with -inf where gated, labels (k,) int64
+    1-indexed. ``random`` clusters rotated boxes so that many overlap;
+    ``all_gated`` has no live candidate; ``ties`` has four score values;
+    ``identical`` repeats each box four times (IoU 1); ``disjoint`` puts
+    every box on its own grid cell (IoU 0: more are kept than max_det);
+    ``few`` leaves 10 live candidates (fewer than max_det)."""
+    rng = np.random.default_rng(seed)
+    if kind == "disjoint":
+        side = int(np.ceil(np.sqrt(k)))
+        cell = np.arange(k)
+        xy = np.column_stack([cell % side, cell // side]) * 10.0
+    else:
+        centers = rng.uniform([0, -30], [60, 30], (max(1, k // 8), 2))
+        xy = centers[rng.integers(0, len(centers), k)] + rng.normal(0, 1.5, (k, 2))
+    boxes = np.column_stack(
+        [
+            xy, rng.uniform(-2, 0, k), rng.uniform(1, 5, k), rng.uniform(0.5, 2.5, k),
+            rng.uniform(1, 2, k), rng.uniform(-np.pi, np.pi, k),
+        ]
+    )
+    scores = rng.uniform(0.1, 1.0, k)
+    if kind == "identical":
+        boxes = np.repeat(boxes[: (k + 3) // 4], 4, axis=0)[:k]
+    if kind == "ties":
+        scores = np.round(scores * 4) / 4
+    scores[rng.uniform(size=k) < 0.2] = -np.inf
+    if kind == "all_gated":
+        scores[:] = -np.inf
+    elif kind == "few":
+        scores[10:] = -np.inf
+    return (
+        boxes.astype(np.float32),
+        scores.astype(np.float32),
+        rng.integers(1, 4, k).astype(np.int64),
+    )
+
+
+def planted_iou(k: int, thresh: float = 0.01, seed: int = 0):
+    """A symmetric (k, k) float32 IoU matrix (ones on the diagonal) whose
+    entries are the float32 threshold itself or its neighbours above and
+    below, with score-sorted rows of width 9: the ``iou > thresh`` edge.
+    Returns (iou, rows)."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(thresh)
+    values = np.array([t, np.nextafter(t, np.float32(1)), np.nextafter(t, np.float32(0)), 0.0],
+                      np.float32)
+    iou = values[rng.integers(0, 4, (k, k))]
+    iou = np.triu(iou, 1)
+    iou = iou + iou.T + np.eye(k, dtype=np.float32)
+    rows = rng.normal(0, 5, (k, 9)).astype(np.float32)
+    rows[:, 7] = np.sort(rng.uniform(0.1, 1.0, k))[::-1]
+    rows[:, 8] = rng.integers(1, 4, k)
+    return iou.astype(np.float32), rows

@@ -19,7 +19,8 @@ import torch
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.device import resolve_device, strict_fp32
 from triton_client_tpu_torch.models.convert import yolov5_state_dict_from_flax
-from triton_client_tpu_torch.models.yolov5 import YoloV5, init_random_, num_predictions
+from triton_client_tpu_torch.models.layers import init_random_
+from triton_client_tpu_torch.models.yolov5 import YoloV5, num_predictions
 from triton_client_tpu_torch.ops.boxes import scale_boxes
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes
 from triton_client_tpu_torch.ops.fused import resolve_fused_stages

@@ -1,0 +1,255 @@
+"""3D detection pipeline: raw point cloud in, packed 3D boxes out (port
+of ``pipelines/detect3d.py``, PointPillars).
+
+padded cloud -> pillar features (the sort-free scatter VFE, or the
+grouped voxelizer) -> backbone -> anchor head -> gate + top-k on the raw
+logits -> residual decode of the K survivors -> rotated-BEV NMS + pack.
+With the ``decode_nms`` stage fused, the decode and the suppress+pack are
+the two hand-written kernels (``ops/gpu_decode3d``, ``ops/gpu_suppress3d``).
+The host only pads the raw cloud to a point bucket (``prepare_points``)
+and reads back (max_det, 9) rows.
+
+The defaults are the reference's ``examples/pointpillar_kitti``
+(``data/kitti_pointpillars.yaml``): the config comes from code, since the
+port reads no YAML.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from triton_client_tpu_torch.config import ModelSpec, TensorSpec
+from triton_client_tpu_torch.device import resolve_device, strict_fp32
+from triton_client_tpu_torch.models.convert import pointpillars_state_dict_from_flax
+from triton_client_tpu_torch.models.layers import init_random_
+from triton_client_tpu_torch.models.pointpillars import (
+    PointPillars,
+    PointPillarsConfig,
+    decode_candidates,
+)
+from triton_client_tpu_torch.ops.detect3d_postprocess import nms_pack_3d
+from triton_client_tpu_torch.ops.fused import resolve_fused_stages
+from triton_client_tpu_torch.ops.gpu_decode3d import fused_residual_decode
+from triton_client_tpu_torch.ops.voxelize import pad_points, voxelize
+
+log = logging.getLogger(__name__)
+
+# The ops the JAX package keeps in float32 under any precision policy
+# (runtime/precision.py KEEP_F32_3D); the port serves float32 only.
+KEEP_F32_3D = ("voxelize_coords", "box_decode", "nms_scores")
+
+
+@dataclasses.dataclass(frozen=True)
+class Detect3DConfig:
+    model_name: str = "pointpillars"
+    score_thresh: float = 0.1
+    iou_thresh: float = 0.01
+    max_det: int = 128
+    # NMS candidate width: top-k on the raw logits before any box decode
+    pre_max: int = 256
+    point_buckets: tuple[int, ...] = (32768, 65536, 131072)
+    # sensor-height z correction added to incoming points
+    z_offset: float = 0.0
+    class_names: tuple[str, ...] = ("Car", "Pedestrian", "Cyclist")
+    # "auto": the sort-free scatter VFE on pillar grids (nz == 1), which
+    # keeps every point and pillar; "grouped": the (V, K) voxelizer with
+    # the max_voxels / max_points_per_voxel caps of OpenPCDet
+    vfe: str = "auto"
+    # decode_nms routing (ops/fused): "auto" fuses on CUDA (the kernels),
+    # "on" everywhere (their plain versions on the CPU), "off" never
+    fused: str = "auto"
+
+
+def prepare_points(
+    points: np.ndarray, point_features: int, buckets, z_offset: float = 0.0
+) -> tuple[np.ndarray, int]:
+    """Host prep of one raw (M, F) cloud: keep ``point_features`` columns
+    (zero-filling missing ones), add the z offset, pad to the smallest
+    bucket that fits (the tail past the largest is dropped). Returns
+    (padded (bucket, point_features) float32, real count)."""
+    buckets = sorted(buckets)
+    budget = buckets[min(bisect.bisect_left(buckets, points.shape[0]), len(buckets) - 1)]
+    if points.shape[0] > budget:
+        log.warning(
+            "point cloud (%d pts) exceeds the largest bucket (%d); tail points dropped",
+            points.shape[0], budget,
+        )
+    points = points[:, :point_features].astype(np.float32)  # a copy
+    if points.shape[1] < point_features:
+        points = np.pad(points, ((0, 0), (0, point_features - points.shape[1])))
+    if z_offset:
+        points[:, 2] += z_offset
+    return pad_points(points, budget)
+
+
+def unpack_rows(dets: np.ndarray, valid: np.ndarray) -> dict[str, np.ndarray]:
+    """Packed (max_det, 9+e) rows [box7, extras..., score, label] -> the
+    reference 3D client contract over the live rows: pred_boxes (n, 7),
+    pred_scores (n,), pred_labels (n,) int32."""
+    live = dets[valid]
+    w = dets.shape[-1]
+    return {
+        "pred_boxes": live[:, :7],
+        "pred_scores": live[:, w - 2],
+        "pred_labels": live[:, w - 1].astype(np.int32),
+    }
+
+
+class Detect3DPipeline:
+    """Wraps a 3D detector into the padded cloud -> packed rows path."""
+
+    def __init__(
+        self, config: Detect3DConfig, model: PointPillars, device: str | torch.device | None = None
+    ) -> None:
+        self.config = config
+        self.model = model
+        self.device = resolve_device(device)
+        if config.vfe not in ("auto", "grouped"):
+            raise ValueError(f"unknown vfe mode {config.vfe!r} (auto|grouped)")
+        # the pillar scatter VFE merges z cells, so auto takes it only on
+        # nz == 1 grids
+        self.use_scatter = config.vfe == "auto" and model.cfg.voxel.grid_size[2] == 1
+        if self.use_scatter:
+            log.info(
+                "vfe=auto routes %s to the scatter VFE: every point and pillar is kept, so "
+                "outputs differ from the grouped max_voxels/max_points_per_voxel caps "
+                "whenever a scan exceeds them; vfe='grouped' keeps the caps",
+                config.model_name,
+            )
+        self.fused_stages = resolve_fused_stages(config.fused, ("decode_nms",), self.device)
+
+    @torch.no_grad()
+    def run(self, points: torch.Tensor, count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(N, F) padded cloud and () real count on the pipeline's device ->
+        ((max_det, 9) float32 rows, (max_det,) bool valid) on the device."""
+        cfg, model = self.config, self.model
+        points = points.to(torch.float32)
+        if self.use_scatter:
+            heads = model.from_points(points, count)
+        else:
+            vox = voxelize(points, count, model.cfg.voxel)
+            heads = model(
+                vox["voxels"][None], vox["num_points_per_voxel"][None], vox["coords"][None]
+            )
+        fused = "decode_nms" in self.fused_stages
+        mc = model.cfg
+        cand = model.topk_candidates(heads, pre_max=cfg.pre_max, score_thresh=cfg.score_thresh)
+        if fused:  # the residual decode as one launch, then suppress + pack as another
+            boxes = fused_residual_decode(
+                cand["deltas"], cand["anchors"], cand["dir_bin"], mc.num_dir_bins, mc.dir_offset
+            )
+        else:
+            boxes = decode_candidates(cand, mc.num_dir_bins, mc.dir_offset)["boxes"]
+        dets, valid = nms_pack_3d(
+            boxes, cand["scores"], cand["labels"],
+            iou_thresh=cfg.iou_thresh, max_det=cfg.max_det, fused=fused,
+        )
+        return dets[0], valid[0]
+
+    def infer(self, points: np.ndarray) -> dict[str, np.ndarray]:
+        """points: (M, 4+) raw cloud [x, y, z, intensity, ...] -> pred_boxes
+        (n, 7), pred_scores (n,), pred_labels (n,) over the n live rows."""
+        cfg = self.config
+        padded, m = prepare_points(
+            points, self.model.cfg.voxel.point_features, cfg.point_buckets, cfg.z_offset
+        )
+        dets, valid = self.run(
+            torch.from_numpy(padded).to(self.device),
+            torch.tensor(m, dtype=torch.int32, device=self.device),
+        )
+        return unpack_rows(dets.cpu().numpy(), valid.cpu().numpy())
+
+    def infer_fn(self):
+        """Repository-facing adapter over the padded contract (points,
+        num_points); the channel reads the outputs back."""
+
+        def fn(inputs):
+            dets, valid = self.run(inputs["points"], inputs["num_points"])
+            return {"detections": dets, "valid": valid}
+
+        return fn
+
+
+def _detect3d_spec(cfg: Detect3DConfig, model_cfg: PointPillarsConfig) -> ModelSpec:
+    """Serving spec of the 3D pipelines (the analogue of
+    examples/pointpillar_kitti/config.pbtxt). Clients configure their host
+    prep from ``extra`` (buckets, z offset)."""
+    pf = model_cfg.voxel.point_features
+    return ModelSpec(
+        name=cfg.model_name,
+        version="1",
+        platform="torch",
+        inputs=(
+            TensorSpec("points", (-1, pf), "FP32"),
+            TensorSpec("num_points", (), "INT32"),
+        ),
+        outputs=(
+            TensorSpec("detections", (cfg.max_det, 9), "FP32"),
+            TensorSpec("valid", (cfg.max_det,), "BOOL"),
+        ),
+        extra={
+            "score_thresh": cfg.score_thresh,
+            "iou_thresh": cfg.iou_thresh,
+            "with_velocity": False,
+            "class_names": list(cfg.class_names),
+            "max_voxels": model_cfg.voxel.max_voxels,
+            "point_buckets": list(cfg.point_buckets),
+            "z_offset": cfg.z_offset,
+        },
+    )
+
+
+def build_pointpillars_pipeline(
+    model_cfg: PointPillarsConfig | None = None,
+    config: Detect3DConfig | None = None,
+    variables=None,
+    device: str | torch.device | None = None,
+    seed: int = 0,
+) -> tuple[Detect3DPipeline, ModelSpec, PointPillars]:
+    """Model + pipeline + serving spec in one call.
+
+    ``variables=None`` draws seeded random weights (``seed``); a flax
+    variable tree from the JAX package is carried across through
+    ``models/convert.pointpillars_state_dict_from_flax``. Runs on ``cuda``
+    unless ``device="cpu"``, in float32 with TF32 off."""
+    dev = resolve_device(device)
+    strict_fp32()
+    model_cfg = model_cfg or PointPillarsConfig()
+    model = PointPillars(model_cfg)
+    if variables is None:
+        init_random_(model, seed)
+    else:
+        model.load_state_dict(pointpillars_state_dict_from_flax(variables, model))
+    model = model.to(dev).eval()
+    cfg = config or Detect3DConfig()
+    pipeline = Detect3DPipeline(cfg, model, device=dev)
+    spec = _detect3d_spec(cfg, model_cfg)
+    spec.extra["fused_stages"] = list(pipeline.fused_stages)
+    spec.extra.update(
+        {
+            "precision": "f32",
+            "precision_keep_f32": list(KEEP_F32_3D),
+            "param_bytes": sum(
+                t.numel() * t.element_size()
+                for k, t in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")
+            ),
+        }
+    )
+    return pipeline, spec, model
+
+
+def default_detect3d_config(model_name: str) -> Detect3DConfig:
+    """Per-family pipeline defaults (the JAX table also holds CenterPoint's
+    higher IoU gate; CenterPoint is not ported yet)."""
+    return Detect3DConfig(model_name=model_name)
+
+
+# family name -> builder (the JAX table also holds second_iou and
+# centerpoint; those are not ported yet)
+BUILDERS_3D = {"pointpillars": build_pointpillars_pipeline}
