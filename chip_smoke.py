@@ -6,11 +6,12 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``triton_client_tpu_torch/
-csrc/`` and drives the port's two main paths, each served in-process
+csrc/`` and drives the port's three main paths, each served in-process
 through ``ModelRepository`` and ``CUDAChannel`` with random weights from
-a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``)
-and PointPillars at the full KITTI width (``examples/pointpillar_kitti``).
-One JSON line per phase:
+a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``),
+PointPillars at the full KITTI width (``examples/pointpillar_kitti``) and
+SECOND-IoU with the dense middle at the full KITTI width
+(``examples/second_iou``, the 352 x 400 x 10 grid). One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -37,6 +38,17 @@ One JSON line per phase:
  10. times_3d  — the 3D kernels' and plain versions' times, scans/s and
                  p50 latency at 20k and 120k points
  11. profile_3d — phase 6 for a 120k-point scan
+ 12. kernels_vs_plain_second — the sorted-segment mean against its plain
+                 version, bitwise, at N = 131,072 rows and 40,000 slots over
+                 edge cases (ops/kernel_cases.py SEGMENT_KINDS)
+ 13. main_path_second — 20,000- and 120,000-point scans through the channel,
+                 fused (voxel stage + 3D tail) and unfused routes; launch
+                 counts read around this phase only; occupied and kept cells
+ 14. check_second — the three kernels on the main path's own inputs, and the
+                 card against the CPU path at a tiny grid
+ 15. times_second — the segment mean's times, bound and library yardstick,
+                 scans/s and p50 latency at 20k and 120k points
+ 16. profile_second — phase 6 for a 120k-point SECOND scan
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -76,6 +88,9 @@ PEAK_BYTES_S = 3.35e12
 # greedy loop: 2 min, 2 max, 2 sub, 2 clamp, 1 mul, 1 add, 1 sub,
 # 1 max, 1 div, 1 compare
 IOU_OPS = 14
+# SECOND's voxel stage: the KITTI cap of occupied cells; the scan size at
+# which the card is compared with the CPU below the cap
+SECOND_SLOTS = 40000
 
 
 def fail(msg: str) -> None:
@@ -132,6 +147,89 @@ def kernel_device_ms(fn, counter, reps: int = 50) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 4
     fail(f"the card reached the first event before {reps} launches were queued")
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bit patterns, so that a comparison sees -0.0."""
+    return t.contiguous().view(torch.int32)
+
+
+def roofline(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least ms the card could take: the larger of ``nbytes`` over the
+    memory rate and ``ops`` over the fp32 rate, and which of the two."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def serve(call, inputs, reps: int, unit: str = "scans_per_s", size=lambda x: 1) -> dict:
+    """``reps`` closed-loop calls of ``call``, one caller, cycling over
+    ``inputs``: ``unit`` (the inputs' ``size`` summed, over the wall) and
+    p50 latency, on the host's clock."""
+    lat = []
+    t0 = time.perf_counter()
+    for r in range(reps):
+        t = time.perf_counter()
+        call(inputs[r % len(inputs)])
+        lat.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    n = sum(size(inputs[r % len(inputs)]) for r in range(reps))
+    return {unit: n / wall, "p50_ms": float(np.median(lat)) * 1e3, "requests": reps}
+
+
+def uniform_clouds(seed: int, pc_range, points: int, count: int = 2) -> list[np.ndarray]:
+    """``count`` (points, 4) float32 clouds drawn uniformly over ``pc_range``."""
+    rng = np.random.default_rng(seed)
+    r = pc_range
+    return [
+        np.column_stack([rng.uniform(r[0], r[3], points), rng.uniform(r[1], r[4], points),
+                         rng.uniform(r[2], r[5], points), rng.uniform(0, 1, points)]
+                        ).astype(np.float32)
+        for _ in range(count)
+    ]
+
+
+def card_vs_cpu(card_pipe, cpu_pipe, clouds) -> tuple[float, int]:
+    """The same clouds through a 3D pipeline on the card and its twin on
+    the CPU (same seed, same weights): equal kept counts and labels, rows
+    within 1e-5, the bar at which the CPU tests hold the port to the JAX
+    package. Returns the largest row difference and the rows kept."""
+    err_max, kept = 0.0, 0
+    for pc in clouds:
+        g, c = card_pipe.infer(pc), cpu_pipe.infer(pc)
+        check(len(g["pred_scores"]) == len(c["pred_scores"]) > 0, "card and CPU keep other counts")
+        check(np.array_equal(g["pred_labels"], c["pred_labels"]), "card and CPU labels differ")
+        err = max(float(np.abs(g[k] - c[k]).max()) for k in ("pred_boxes", "pred_scores"))
+        check(err <= 1e-5, f"card and CPU rows differ by {err}")
+        err_max, kept = max(err_max, err), kept + len(g["pred_scores"])
+    return err_max, kept
+
+
+def device_profile(run, requests: int) -> dict:
+    """Where a request's time goes: ``run`` called ``requests`` times under
+    torch.profiler (the wall includes the profiler's cost). Device ms and
+    busy share per request, device ops per request, the device ops that
+    took the most time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(requests):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    check(len(device_ops) > 0, "torch.profiler saw no device op")
+    device_s = sum(e.device_time_total for e in device_ops) / 1e6
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":  # names cut to 80 characters can collide: sum them
+            key = e.key[:80]
+            by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / requests / 1e3
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:PROFILE_TOP]
+    return dict(requests=requests, wall_ms_per_request=wall / requests * 1e3,
+                device_ms_per_request=device_s / requests * 1e3,
+                device_busy_share=device_s / wall, device_idle_share=1.0 - device_s / wall,
+                device_ops_per_request=len(device_ops) / requests,
+                top_device_ops_ms_per_request=dict(top))
 
 
 def live_counts(boxes, live, thresh, max_det):
@@ -193,6 +291,7 @@ def main() -> int:
         gpu_decode3d,
         gpu_nms,
         gpu_suppress3d,
+        gpu_voxel,
         kernel_cases,
     )
     from triton_client_tpu_torch.ops import nms as tnms
@@ -209,7 +308,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,
-                gpu_suppress3d.launches)
+                gpu_suppress3d.launches, gpu_voxel.launches)
 
     # -- 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -396,26 +495,14 @@ def main() -> int:
     k1_bytes = B_MAIN * K_MAIN * (16 + 4 + 4 + 1) + B_MAIN * MAX_DET * (24 + 1)
     k2_bytes = B_MAIN * K_MAIN * (16 + 4) + B_MAIN * MAX_DET * (4 + 1)
     ops = iou_tests * IOU_OPS
+    k1_bound, k1_by = roofline(k1_bytes, ops)
+    k2_bound, k2_by = roofline(k2_bytes, ops)
 
-    def bound(nbytes):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    def serve2d(batches, reps):
+        return serve(lambda b: ask("yolov5n", b), batches, reps, "frames_per_s",
+                     lambda b: b.shape[0])
 
-    k1_bound, k1_by = bound(k1_bytes)
-    k2_bound, k2_by = bound(k2_bytes)
-
-    def serve(batches, reps):
-        lat = []
-        t0 = time.perf_counter()
-        for r in range(reps):
-            t = time.perf_counter()
-            ask("yolov5n", batches[r % len(batches)])
-            lat.append(time.perf_counter() - t)
-        wall = time.perf_counter() - t0
-        n = sum(batches[r % len(batches)].shape[0] for r in range(reps))
-        return {"frames_per_s": n / wall, "p50_ms": float(np.median(lat)) * 1e3, "requests": reps}
-
-    e2e = {"batch1": serve(b1, 40), "batch8": serve(b8, 20)}
+    e2e = {"batch1": serve2d(b1, 40), "batch8": serve2d(b8, 20)}
     emit("times", card, kernel_ms={"decode_nms_2d": k1_ms, "greedy_nms": k2_ms},
          call_ms={"decode_nms_2d": k1_call_ms, "greedy_nms": k2_call_ms},
          plain_ms={"decode_nms_2d": k1_plain_ms, "greedy_nms": k2_plain_ms},
@@ -423,30 +510,14 @@ def main() -> int:
 
     # -- 6. where a request's time goes (the wall includes the profiler's cost) ---
     for batch in (b1[0], b8[0]):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_REQUESTS):
-                ask("yolov5n", batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        device_ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        check(len(device_ops) > 0, "torch.profiler saw no device op")
-        device_s = sum(e.device_time_total for e in device_ops) / 1e6
-        by_name: dict[str, float] = {}
-        for e in prof.key_averages():
-            if e.device_type.name == "CUDA":  # names cut to 80 characters can collide: sum them
-                key = e.key[:80]
-                by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / PROFILE_REQUESTS / 1e3
-        top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:PROFILE_TOP]
-        emit("profile", card, batch=batch.shape[0], requests=PROFILE_REQUESTS,
-             wall_ms_per_request=wall / PROFILE_REQUESTS * 1e3,
-             device_ms_per_request=device_s / PROFILE_REQUESTS * 1e3,
-             device_busy_share=device_s / wall, device_idle_share=1.0 - device_s / wall,
-             device_ops_per_request=len(device_ops) / PROFILE_REQUESTS,
-             top_device_ops_ms_per_request=dict(top))
+        emit("profile", card, batch=batch.shape[0],
+             **device_profile(lambda: ask("yolov5n", batch), PROFILE_REQUESTS))
 
     record_3d = run_3d(card, dev, counters)
+    record_second, second_launches = run_second(card, dev, counters)
+    for row in record_3d:  # kernels 3-4 run on both 3D paths
+        row["launches_by_path"] = {"pointpillars": row["launches"],
+                                   "second_iou": second_launches[row["name"]]}
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -464,6 +535,7 @@ def main() -> int:
          "bound_by": k2_by,
          "library_ms": None, "card": card},
         *record_3d,
+        *record_second,
     ]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -494,9 +566,6 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev) for a in arrays]
-
-    def bits(t):
-        return t.contiguous().view(torch.int32)
 
     def decode_match(got, want, label):
         """Bitwise in every column, -0.0 included: the kernel's expf,
@@ -631,9 +700,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
     check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
           "suppress_pack_3d differs on the main path's candidates")
-    # the tiny grid of tests/test_pointpillars.py, same seed on both devices:
-    # equal kept counts and labels, rows within 1e-5, the bar at which the
-    # CPU tests hold the port to the JAX package
+    # the tiny grid of tests/test_pointpillars.py, same seed on both devices
     tiny = PointPillarsConfig(
         voxel=VoxelConfig(point_cloud_range=(0.0, -6.4, -3.0, 12.8, 6.4, 1.0),
                           voxel_size=(0.2, 0.2, 4.0), max_voxels=512, max_points_per_voxel=8),
@@ -643,18 +710,9 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     card_pipe, _, _ = build_pointpillars_pipeline(tiny, tiny_cfg, device="cuda", seed=0)
     cpu_pipe, _, _ = build_pointpillars_pipeline(tiny, dc.replace(tiny_cfg, fused="on"),
                                                  device="cpu", seed=0)
-    rng = np.random.default_rng(9)
-    r = tiny.voxel.point_cloud_range
-    tiny_err, tiny_kept = 0.0, 0
-    for _ in range(2):
-        pc = np.column_stack([rng.uniform(r[0], r[3], 500), rng.uniform(r[1], r[4], 500),
-                              rng.uniform(r[2], r[5], 500), rng.uniform(0, 1, 500)])
-        g, c = card_pipe.infer(pc.astype(np.float32)), cpu_pipe.infer(pc.astype(np.float32))
-        check(len(g["pred_scores"]) == len(c["pred_scores"]) > 0, "card and CPU keep other counts")
-        check(np.array_equal(g["pred_labels"], c["pred_labels"]), "card and CPU labels differ")
-        err = max(float(np.abs(g[k] - c[k]).max()) for k in ("pred_boxes", "pred_scores"))
-        check(err <= 1e-5, f"card and CPU rows differ by {err}")
-        tiny_err, tiny_kept = max(tiny_err, err), tiny_kept + len(g["pred_scores"])
+    tiny_err, tiny_kept = card_vs_cpu(
+        card_pipe, cpu_pipe, uniform_clouds(9, tiny.voxel.point_cloud_range, 500)
+    )
     emit("check_3d", card, kernels_equal_plain_on_main_path=True, candidates=int(
         torch.isfinite(cand["scores"]).sum()), kept=int(got[1].sum()),
         cpu_vs_card_kept=tiny_kept, cpu_vs_card_max_abs_err=tiny_err)
@@ -678,26 +736,11 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     k3_bytes = n_cand * (7 * 4 + 7 * 4 + 8 + 7 * 4)
     # the IoU rows of the kept steps, the sorted rows, the packed output
     k4_bytes = kept_steps * K_3D * 4 + K_3D * COLS_3D * 4 + MAX_DET_3D * (COLS_3D * 4 + 1)
+    k3_bound, k3_by = roofline(k3_bytes, n_cand * DECODE_OPS)
+    k4_bound, k4_by = roofline(k4_bytes, tests)  # one compare per live candidate a step
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-    k3_bound, k3_by = bound(k3_bytes, n_cand * DECODE_OPS)
-    k4_bound, k4_by = bound(k4_bytes, tests)  # one compare per live candidate a step
-
-    def serve(points, reps):
-        lat = []
-        t0 = time.perf_counter()
-        for r_ in range(reps):
-            t = time.perf_counter()
-            infer["pointpillars"](scans[points][r_ % len(scans[points])])
-            lat.append(time.perf_counter() - t)
-        wall = time.perf_counter() - t0
-        return {"scans_per_s": reps / wall, "p50_ms": float(np.median(lat)) * 1e3,
-                "requests": reps}
-
-    e2e = {f"points{n}": serve(n, SERVE_REQUESTS_3D) for n in SCAN_POINTS}
+    e2e = {f"points{n}": serve(infer["pointpillars"], scans[n], SERVE_REQUESTS_3D)
+           for n in SCAN_POINTS}
     emit("times_3d", card,
          kernel_ms={"residual_decode_3d": k3_ms, "suppress_pack_3d": k4_ms},
          call_ms={"residual_decode_3d": k3_call_ms, "suppress_pack_3d": k4_call_ms},
@@ -707,28 +750,8 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
 
     # -- 11. where a 120k-point request's time goes -------------------------------
     pc = scans[SCAN_POINTS[1]][0]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_REQUESTS):
-            infer["pointpillars"](pc)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    check(len(device_ops) > 0, "torch.profiler saw no device op")
-    device_s = sum(e.device_time_total for e in device_ops) / 1e6
-    by_name: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            key = e.key[:80]
-            by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / PROFILE_REQUESTS / 1e3
-    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:PROFILE_TOP]
-    emit("profile_3d", card, points=SCAN_POINTS[1], requests=PROFILE_REQUESTS,
-         wall_ms_per_request=wall / PROFILE_REQUESTS * 1e3,
-         device_ms_per_request=device_s / PROFILE_REQUESTS * 1e3,
-         device_busy_share=device_s / wall, device_idle_share=1.0 - device_s / wall,
-         device_ops_per_request=len(device_ops) / PROFILE_REQUESTS,
-         top_device_ops_ms_per_request=dict(top))
+    emit("profile_3d", card, points=SCAN_POINTS[1],
+         **device_profile(lambda: infer["pointpillars"](pc), PROFILE_REQUESTS))
 
     return [
         {"name": "residual_decode_3d", "route": "cuda",
@@ -746,6 +769,250 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
          "bound_by": k4_by,
          "library_ms": None, "card": card},
     ]
+
+
+def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict]:
+    """Phases 12-16: the SECOND-IoU path (dense middle), kernel 5 new and
+    kernels 3-4 on its tail. ``counters`` are every kernel's launch
+    counters, all set to 0 just before the main path. Returns the segment
+    mean's row of the ``{"kernels": [...]}`` record and the main path's
+    launch counts of every 3D kernel."""
+    import dataclasses as dc
+
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, gpu_voxel, kernel_cases
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells, linearize_zyx
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        Detect3DConfig,
+        build_second_pipeline,
+        prepare_points,
+    )
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    k5_err = 0.0  # the largest |kernel - plain| over every comparison below
+
+    def segment_match(valsT, slots, label):
+        nonlocal k5_err
+        got = gpu_voxel.sorted_segment_mean(valsT, slots, SECOND_SLOTS)
+        want = gpu_voxel.sorted_segment_mean_reference(valsT, slots, SECOND_SLOTS)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)), f"segment_mean differs ({label})")
+        k5_err = max(k5_err, float((got - want).abs().max()))
+
+    # -- 12. the segment mean against its plain version, on the card ------------
+    n_main = Detect3DConfig().point_buckets[-1]  # the 120k-point scan's bucket
+    for i, kind in enumerate(kernel_cases.SEGMENT_KINDS):
+        n = 4096 if kind == "one_slot" else n_main  # the plain version loops over the slot
+        valsT, slots = (torch.from_numpy(a).to(dev)
+                        for a in kernel_cases.segment_inputs(kind, n, SECOND_SLOTS, seed=80 + i))
+        segment_match(valsT, slots, kind)
+    before = gpu_voxel.launches.count
+    try:  # a strided view is refused, launching nothing
+        gpu_voxel.sorted_segment_mean(torch.zeros((n_main, 8), device=dev).T,
+                                      torch.zeros(n_main, dtype=torch.int32, device=dev), 4)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and gpu_voxel.launches.count == before, "a strided valsT did not raise")
+    emit("kernels_vs_plain_second", card, kernels=[
+        {"name": "segment_mean", "cases": len(kernel_cases.SEGMENT_KINDS),
+         "shape": [8, n_main, SECOND_SLOTS], "match": True, "max_abs_err": k5_err},
+    ])
+
+    # -- 13. the main path: full-width KITTI SECOND-IoU through the channel -----
+    repo = ModelRepository()
+    pipes = {}
+    for name, fused in (("second_iou", "auto"), ("second_iou_unfused", "off")):
+        pipe, spec, model = build_second_pipeline(
+            config=Detect3DConfig(model_name=name, fused=fused), device="cuda", seed=0
+        )  # one seed: both hold the same weights
+        repo.register(spec, pipe.infer_fn())
+        pipes[name] = (pipe, spec, model)
+    check(pipes["second_iou"][1].extra["fused_stages"] == ["voxelize_scatter", "decode_nms"],
+          "auto did not fuse both SECOND stages")
+    check(pipes["second_iou_unfused"][1].extra["fused_stages"] == [], "off still fused")
+    pipe, spec, model = pipes["second_iou"]
+    voxel = model.cfg.voxel
+    check(voxel.grid_size == (352, 400, 10) and voxel.max_voxels == SECOND_SLOTS
+          and pipe.use_scatter, "not the KITTI SECOND grid")
+    channel = CUDAChannel(repo)
+    channel.register_channel()
+    infer = {name: channel_infer3d(channel, name) for name in pipes}
+    scans = {
+        n: [f.data for f in SyntheticPointCloudSource(3, points=n, seed=20 + i)]
+        for i, n in enumerate(SCAN_POINTS)
+    }
+    for name in pipes:  # warm-up, not counted
+        for n in SCAN_POINTS:
+            infer[name](scans[n][0])
+    torch.cuda.synchronize()
+    for counter in counters:
+        counter.reset()
+    out = {n: [infer["second_iou"](pc) for pc in scans[n]] for n in SCAN_POINTS}
+    repeat = infer["second_iou"](scans[SCAN_POINTS[1]][0])
+    fused_requests = sum(len(v) for v in scans.values()) + 1
+    kernels_3d = (("segment_mean", gpu_voxel.launches),
+                  ("residual_decode_3d", gpu_decode3d.launches),
+                  ("suppress_pack_3d", gpu_suppress3d.launches))
+    before = [c.count for _, c in kernels_3d]
+    unfused = {n: infer["second_iou_unfused"](scans[n][0]) for n in SCAN_POINTS}
+    launches = {k_name: c.count for k_name, c in kernels_3d}
+    all_launches = [c.count for c in counters]
+    check(before == list(launches.values()), "the unfused route launched a kernel")
+    for k_name, count in launches.items():
+        check(count == fused_requests,
+              f"{k_name} launched {count} times for {fused_requests} fused requests")
+    check(sum(all_launches) == 3 * fused_requests, "a 2D kernel launched on the SECOND path")
+
+    kept = {}
+    for n in SCAN_POINTS:
+        for o in out[n]:
+            check(o["pred_boxes"].shape[1] == 7 and bool(np.isfinite(o["pred_boxes"]).all()),
+                  "non-finite or misshapen boxes")
+            check(len(o["pred_scores"]) <= MAX_DET_3D and o["pred_labels"].min() >= 1, "rows")
+        kept[n] = [len(o["pred_scores"]) for o in out[n]]
+        check(min(kept[n]) > 0, f"no detection kept at {n} points")
+    for key in repeat:
+        check(repeat[key].tobytes() == out[SCAN_POINTS[1]][0][key].tobytes(),
+              f"the same scan twice gave other {key}")
+    # below the cap, fused rows equal the unfused ones within 1e-5
+    small = SCAN_POINTS[0]
+    f0, u0 = out[small][0], unfused[small]
+    check(len(f0["pred_scores"]) == len(u0["pred_scores"]), "fused and unfused keep other counts")
+    check(np.array_equal(f0["pred_labels"], u0["pred_labels"]), "fused and unfused labels differ")
+    fu_err = max(float(np.abs(f0[k] - u0[k]).max(initial=0.0))
+                 for k in ("pred_boxes", "pred_scores"))
+    check(fu_err <= 1e-5, f"fused and unfused rows differ by {fu_err} at {small} points")
+    fu_bitwise = all(f0[k].tobytes() == u0[k].tobytes() for k in f0)
+    big = SCAN_POINTS[1]
+    big_differs = any(out[big][0][k].tobytes() != unfused[big][k].tobytes() for k in unfused[big])
+
+    # occupied and kept cells, the live candidates (launches here are not counted)
+    cells, live = {}, {}
+    with torch.no_grad():
+        for n in SCAN_POINTS:
+            padded, m = prepare_points(scans[n][0], 4, Detect3DConfig().point_buckets)
+            pts = torch.from_numpy(padded).to(dev)
+            cnt = torch.tensor(m, dtype=torch.int32, device=dev)
+            vid, n_cells = linearize_zyx(*assign_cells(pts, cnt, voxel), voxel)
+            occupied = int(torch.unique(vid[vid < n_cells]).numel())
+            volume = gpu_voxel.fused_mean_volume(pts, cnt, voxel)
+            kept_cells = int((volume != 0).any(-1).sum())
+            check(kept_cells == min(occupied, SECOND_SLOTS),
+                  f"{n} points: {occupied} occupied cells, the fused route kept {kept_cells}")
+            cells[n] = {"occupied": occupied, "kept": kept_cells, "bucket": int(padded.shape[0])}
+            cand = model.topk_candidates(model.from_volume(volume), K_3D,
+                                         Detect3DConfig().score_thresh)
+            live[n] = int(torch.isfinite(cand["scores"]).sum())
+            check(live[n] > 0, f"no live candidate at {n} points")
+    check(cells[SCAN_POINTS[0]]["occupied"] < SECOND_SLOTS, "the small scan does not fit the cap")
+    check(cells[big]["kept"] == SECOND_SLOTS, "the 120k scan did not fill the cap")
+    emit("main_path_second", card, model="second_iou", grid=list(voxel.grid_size),
+         max_voxels=voxel.max_voxels, anchors=int(model.anchors.shape[0]),
+         points=list(SCAN_POINTS), requests={"fused": fused_requests, "unfused": len(unfused)},
+         cells=cells, live_candidates=live, kept=kept,
+         fused_equals_unfused={str(small): True, "max_abs_err": fu_err, "bitwise": fu_bitwise,
+                               f"differs_at_{big}": big_differs},
+         repeat_bitwise=True, launches=launches,
+         deterministic_sum_route="index_put_(accumulate=True), models/pointpillars.pillar_sums")
+
+    # -- 14. kernels on the main path's own inputs; the card against the CPU -----
+    with torch.no_grad():
+        padded, m = prepare_points(scans[big][1], 4, Detect3DConfig().point_buckets)
+        pts = torch.from_numpy(padded).to(dev)
+        cnt = torch.tensor(m, dtype=torch.int32, device=dev)
+        valsT, slots, _ = gpu_voxel.slot_rows(pts, cnt, voxel)
+        segment_match(valsT, slots, "main path")
+        cand = model.topk_candidates(
+            model.from_volume(gpu_voxel.fused_mean_volume(pts, cnt, voxel)), K_3D,
+            Detect3DConfig().score_thresh,
+        )
+    dec_args = (cand["deltas"], cand["anchors"], cand["dir_bin"])
+    boxes = gpu_decode3d.fused_residual_decode(*dec_args)
+    check(torch.equal(bits(boxes), bits(gpu_decode3d.residual_decode_reference(*dec_args))),
+          "residual_decode_3d differs on SECOND's candidates")
+    iou, srows = gpu_suppress3d.sorted_candidates(boxes, cand["scores"], cand["labels"])
+    got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
+    want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
+    check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
+          "suppress_pack_3d differs on SECOND's candidates")
+    # the tiny grid of tests/test_torch_second.py, same seed on both devices
+    tiny = SECONDConfig(
+        voxel=VoxelConfig(point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+                          voxel_size=(0.5, 0.5, 0.5), max_voxels=1024, max_points_per_voxel=5),
+        middle_filters=(8, 16), backbone_layers=(1, 1), backbone_filters=(16, 32),
+        upsample_filters=(16, 16),
+    )
+    tiny_cfg = Detect3DConfig(model_name="second_iou", point_buckets=(1024,), max_det=16,
+                              pre_max=64)
+    card_pipe, _, _ = build_second_pipeline(tiny, tiny_cfg, device="cuda", seed=0)
+    cpu_pipe, _, _ = build_second_pipeline(tiny, dc.replace(tiny_cfg, fused="on"),
+                                           device="cpu", seed=0)
+    check(card_pipe.fused_stages == cpu_pipe.fused_stages, "card and CPU route differently")
+    tiny_err, tiny_kept = card_vs_cpu(
+        card_pipe, cpu_pipe, uniform_clouds(11, tiny.voxel.point_cloud_range, 600)
+    )
+    emit("check_second", card, kernels_equal_plain_on_main_path=True,
+         segment_rows=int(slots.numel()), live_rows=int((slots < SECOND_SLOTS).sum()),
+         candidates=int(torch.isfinite(cand["scores"]).sum()), kept=int(got[1].sum()),
+         cpu_vs_card_kept=tiny_kept, cpu_vs_card_max_abs_err=tiny_err)
+
+    # -- 15. times on the card's clock ---------------------------------------------
+    def k5():
+        return gpu_voxel.sorted_segment_mean(valsT, slots, SECOND_SLOTS)
+
+    k5_call_ms = cuda_ms(k5, reps=200)
+    k5_ms = kernel_device_ms(k5, gpu_voxel.launches)
+    k5_plain_ms = cuda_ms(
+        lambda: gpu_voxel.sorted_segment_mean_reference(valsT, slots, SECOND_SLOTS), reps=20
+    )
+    # the library yardstick: one index_reduce_ "mean" over the live rows
+    # (a prefix: the dump rows sort last), as (rows, 8) with int64 ids
+    n_live = int((slots < SECOND_SLOTS).sum())
+    rows_aos = valsT[:, :n_live].T.contiguous()
+    ids = slots[:n_live].long()
+    lib_out = torch.zeros((SECOND_SLOTS, 8), device=dev)
+
+    def library():
+        return lib_out.index_reduce_(0, ids, rows_aos, "mean", include_self=False)
+
+    library_ms = cuda_ms(library, reps=200)
+    # index_reduce_ divides by the row count; the weights here are all 1
+    check(torch.allclose(library().T, k5(), rtol=1e-5, atol=0), "index_reduce_ disagrees")
+    n_rows = valsT.shape[1]
+    # what this run's rows need: the live rows' 8 values and slot id, each
+    # read once, and 8 means a slot written; the dump rows are never read
+    # (the binary searches re-read slot ids of the live rows, not counted)
+    k5_bytes = 9 * n_live * 4 + 8 * SECOND_SLOTS * 4
+    k5_ops = 8 * n_live + 8 * SECOND_SLOTS  # the adds this run's rows need, one division a mean
+    k5_bound, k5_by = roofline(k5_bytes, k5_ops)
+
+    e2e = {name: {f"points{n}": serve(infer[name], scans[n], SERVE_REQUESTS_3D)
+                  for n in SCAN_POINTS}
+           for name in pipes}
+    emit("times_second", card, kernel_ms={"segment_mean": k5_ms},
+         call_ms={"segment_mean": k5_call_ms}, plain_ms={"segment_mean": k5_plain_ms},
+         library_ms={"segment_mean": library_ms},
+         library_call="Tensor.index_reduce_(0, ids, rows, 'mean', include_self=False)",
+         bound_ms={"segment_mean": k5_bound}, bound_by={"segment_mean": k5_by},
+         bytes=k5_bytes, ops=k5_ops, rows=n_rows, live_rows=n_live, in_process=e2e)
+
+    # -- 16. where a 120k-point SECOND request's time goes -------------------------
+    pc = scans[big][0]
+    emit("profile_second", card, points=big,
+         **device_profile(lambda: infer["second_iou"](pc), PROFILE_REQUESTS))
+
+    return [
+        {"name": "segment_mean", "route": "cuda",
+         "source": "triton_client_tpu_torch/csrc/segment_mean.cu",
+         "replaces": "triton_client_tpu/ops/pallas_voxel.py:194",
+         "launches": launches["segment_mean"], "max_abs_err": k5_err, "match": True,
+         "ms": k5_ms, "call_ms": k5_call_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": library_ms, "card": card},
+    ], launches
 
 
 if __name__ == "__main__":

@@ -212,4 +212,6 @@ def test_cli_runs_on_cpu_and_prints_its_summary():
     assert summary["scans"] == 2 and summary["device"] == "cpu"
     assert summary["grid"] == [64, 64, 1] and summary["vfe"] == "scatter"
     assert summary["detections"] > 0
-    assert summary["kernel_launches"] == {"residual_decode_3d": 0, "suppress_pack_3d": 0}
+    assert summary["kernel_launches"] == {
+        "segment_mean": 0, "residual_decode_3d": 0, "suppress_pack_3d": 0,
+    }

@@ -8,8 +8,9 @@ same IoU matrix. The 3D residual decode is the exception: XLA's CPU code
 contracts a product and a sum into an FMA where the port (and the CUDA
 kernel, built with ``--fmad=false``) rounds twice, and its ``exp`` is
 another polynomial, so the plain version is held to 4 ulps of the
-operands' magnitude there. The CUDA kernels themselves are held against the
-plain versions on the card (``cuda``-marked tests here, and
+operands' magnitude there. The sorted-segment mean of SECOND's voxel
+stage is held to its Pallas kernel in tests/test_torch_second.py. The CUDA
+kernels themselves are held against the plain versions on the card (``cuda``-marked tests here, and
 ``chip_smoke.py``). The JAX package is imported inside the tests that
 use it, so the card's machine, which has no JAX, runs the ``cuda`` tests
 with ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -25,6 +26,7 @@ from triton_client_tpu_torch.ops import (
     gpu_decode3d,
     gpu_nms,
     gpu_suppress3d,
+    gpu_voxel,
     kernel_cases,
 )
 
@@ -377,3 +379,55 @@ def test_suppress_pack_3d_past_shared_memory_raises_on_card(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         gpu_suppress3d.suppress_pack_3d(torch.zeros((1, k, k), device=cuda_device), rows)
     assert gpu_suppress3d.launches.count == before
+
+
+# -- SECOND's sorted-segment mean (kernel 5), at the main path's shapes --
+
+SEGMENT_N, SEGMENT_SLOTS = 131072, 40000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.SEGMENT_KINDS)
+def test_segment_mean_kernel_matches_plain_on_card(cuda_device, kind):
+    """Bitwise: both sum each slot's rows serially in row order from +0.0."""
+    n = 4096 if kind == "one_slot" else SEGMENT_N  # the plain version loops over the slot
+    valsT, slots = (torch.from_numpy(a).to(cuda_device)
+                    for a in kernel_cases.segment_inputs(kind, n, SEGMENT_SLOTS, seed=23))
+    before = gpu_voxel.launches.count
+    got = gpu_voxel.sorted_segment_mean(valsT, slots, SEGMENT_SLOTS)
+    want = gpu_voxel.sorted_segment_mean_reference(valsT, slots, SEGMENT_SLOTS)
+    torch.cuda.synchronize()
+    assert gpu_voxel.launches.count == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_mean_volume_on_card_equals_the_cpu(cuda_device):
+    """The whole fused stage at the KITTI SECOND grid on a 20k-point scan:
+    the card's volume equals the CPU's bit for bit (one stable sort, serial
+    sums, unique-index scatters)."""
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    voxel = SECONDConfig().voxel
+    pc = next(iter(SyntheticPointCloudSource(1, points=20000, seed=5))).data
+    padded, m = prepare_points(pc, 4, (32768,))
+    pts, cnt = torch.from_numpy(padded), torch.tensor(m, dtype=torch.int32)
+    before = gpu_voxel.launches.count
+    got = gpu_voxel.fused_mean_volume(pts.to(cuda_device), cnt.to(cuda_device), voxel)
+    torch.cuda.synchronize()
+    assert gpu_voxel.launches.count == before + 1
+    assert torch.equal(got.cpu(), gpu_voxel.fused_mean_volume(pts, cnt, voxel))
+
+
+@pytest.mark.cuda
+def test_segment_mean_wrapper_raises_on_card(cuda_device):
+    valsT = torch.zeros((8, 64), device=cuda_device)
+    slots = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    before = gpu_voxel.launches.count
+    with pytest.raises(ValueError, match="contiguous"):
+        gpu_voxel.sorted_segment_mean(torch.zeros((64, 8), device=cuda_device).T, slots, 4)
+    with pytest.raises(ValueError, match="sorted_segment_mean"):  # mixed devices
+        gpu_voxel.sorted_segment_mean(valsT, slots.cpu(), 4)
+    assert gpu_voxel.launches.count == before

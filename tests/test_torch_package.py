@@ -57,6 +57,8 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.ops.gpu_suppress3d",
         "triton_client_tpu_torch.drivers.driver",
         "triton_client_tpu_torch.cli.detect3d",
+        "triton_client_tpu_torch.models.second",
+        "triton_client_tpu_torch.ops.gpu_voxel",
     ):
         assert must in names
 
@@ -70,7 +72,10 @@ def no_cuda():
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
     from triton_client_tpu_torch.pipelines.detect2d import build_yolov5_pipeline
-    from triton_client_tpu_torch.pipelines.detect3d import build_pointpillars_pipeline
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        build_pointpillars_pipeline,
+        build_second_pipeline,
+    )
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -79,8 +84,11 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         CUDAChannel(ModelRepository())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_pointpillars_pipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_second_pipeline()
     for argv in (["detect2d", "-i", "synthetic:1", "--input-size", "64"],
-                 ["detect3d", "-i", "synthetic:1"]):
+                 ["detect3d", "-i", "synthetic:1"],
+                 ["detect3d", "-m", "second_iou", "-i", "synthetic:1"]):
         out = subprocess.run(
             [sys.executable, "-m", "triton_client_tpu_torch", *argv],
             cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -129,4 +137,7 @@ def test_build_command_targets_hopper_with_exact_float_rules():
     assert "-shared" in cmd and "-fPIC" in cmd
     assert set(cuda_build.SOURCES) == {
         p.name for p in (ROOT / "triton_client_tpu_torch" / "csrc").glob("*.cu")
-    } == {"decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu"}
+    } == {
+        "decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu",
+        "segment_mean.cu",
+    }

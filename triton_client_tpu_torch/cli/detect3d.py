@@ -1,13 +1,16 @@
 """3D detection entry point (port of the in-process path of
-``cli/detect3d.py``): build PointPillars, register it, and send each
-point cloud through ``CUDAChannel`` with ``drivers.channel_infer3d``.
-Prints one JSON summary.
+``cli/detect3d.py``): build PointPillars or SECOND-IoU, register it, and
+send each point cloud through ``CUDAChannel`` with
+``drivers.channel_infer3d``. Prints one JSON summary.
 
 Usage:
   python -m triton_client_tpu_torch detect3d -i synthetic:16
+  python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:16
   python -m triton_client_tpu_torch detect3d -i ./clouds --score 0.3
   python -m triton_client_tpu_torch detect3d -i synthetic:2 --device cpu \
       --pc-range 0,-6.4,-3,12.8,6.4,1 --voxel-size 0.2,0.2,4
+  python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:2 --device cpu \
+      --pc-range 0,-6.4,-3,12.8,6.4,1 --voxel-size 0.4,0.4,0.5
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ def _floats(n: int):
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("-m", "--model-name", default="pointpillars", help="pointpillars")
+    parser.add_argument(
+        "-m", "--model-name", default="pointpillars", help="pointpillars | second_iou"
+    )
     parser.add_argument(
         "-i", "--input", default="synthetic:16", help="synthetic[:N] or a directory of .npy clouds"
     )
@@ -45,11 +50,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--pc-range", type=_floats(6), default=None,
-        help="point-cloud range x0,y0,z0,x1,y1,z1 in m (default KITTI 0,-39.68,-3,69.12,39.68,1)",
+        help="point-cloud range x0,y0,z0,x1,y1,z1 in m (default the model's KITTI range: "
+        "0,-39.68,-3,69.12,39.68,1 for pointpillars, 0,-40,-3,70.4,40,1 for second_iou)",
     )
     parser.add_argument(
         "--voxel-size", type=_floats(3), default=None,
-        help="pillar size dx,dy,dz in m (default 0.16,0.16,4)",
+        help="voxel size dx,dy,dz in m (default 0.16,0.16,4 for pointpillars, 0.2,0.2,0.4 "
+        "for second_iou)",
     )
     parser.add_argument(
         "--device", default=None, choices=("cuda", "cpu"),
@@ -64,7 +71,8 @@ def main(argv=None) -> None:
     from triton_client_tpu_torch.drivers.driver import channel_infer3d
     from triton_client_tpu_torch.io.sources import open_source
     from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
-    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, gpu_voxel
     from triton_client_tpu_torch.pipelines.detect3d import BUILDERS_3D, default_detect3d_config
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
@@ -77,7 +85,7 @@ def main(argv=None) -> None:
                          ("vfe", args.vfe)):
         if value is not None:
             cfg = dataclasses.replace(cfg, **{field: value})
-    model_cfg = PointPillarsConfig()
+    model_cfg = SECONDConfig() if name == "second_iou" else PointPillarsConfig()
     voxel = model_cfg.voxel
     if args.pc_range is not None:
         voxel = dataclasses.replace(voxel, point_cloud_range=args.pc_range)
@@ -94,8 +102,13 @@ def main(argv=None) -> None:
     scans = list(open_source(args.input, args.limit, kind="pointcloud"))
     for scan in scans[: args.warmup]:
         infer(scan.data)
-    gpu_decode3d.launches.reset()
-    gpu_suppress3d.launches.reset()
+    counters = {
+        "segment_mean": gpu_voxel.launches,
+        "residual_decode_3d": gpu_decode3d.launches,
+        "suppress_pack_3d": gpu_suppress3d.launches,
+    }
+    for counter in counters.values():
+        counter.reset()
     detections = 0
     latencies = []
     t0 = time.perf_counter()
@@ -118,10 +131,7 @@ def main(argv=None) -> None:
                 "wall_s": wall,
                 "scans_per_s": len(scans) / wall if wall > 0 else None,
                 "p50_ms": float(np.median(latencies)) * 1e3 if latencies else None,
-                "kernel_launches": {
-                    "residual_decode_3d": gpu_decode3d.launches.count,
-                    "suppress_pack_3d": gpu_suppress3d.launches.count,
-                },
+                "kernel_launches": {k: c.count for k, c in counters.items()},
             }
         )
     )

@@ -7,6 +7,8 @@ arrays or anything ``np.asarray`` takes) maps onto a model's
 
   * ``Dense`` kernel (in, out) -> ``Linear.weight`` (out, in)
   * ``Conv`` kernel (kh, kw, cin, cout) -> ``weight`` (cout, cin, kh, kw)
+  * 3D ``Conv`` kernel (kd, kh, kw, cin, cout) -> ``Conv3d.weight``
+    (cout, cin, kd, kh, kw)
   * ``ConvTranspose`` kernel (kh, kw, cin, cout) -> flipped in both
     spatial axes, then ``weight`` (cin, cout, kh, kw): flax's transposed
     convolution does not flip its kernel, PyTorch's does
@@ -50,6 +52,8 @@ def _kernel_to_torch(module: nn.Module, arr: np.ndarray) -> np.ndarray:
         return arr.T
     if isinstance(module, nn.ConvTranspose2d):
         return arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
+    if isinstance(module, nn.Conv3d):
+        return arr.transpose(4, 3, 0, 1, 2)
     return arr.transpose(3, 2, 0, 1)
 
 
@@ -114,4 +118,13 @@ def pointpillars_state_dict_from_flax(
     ``block{i}_bn{j}``, ``up{i}[_bn]``, ``cls_head``, ``box_head``,
     ``dir_head``) -> a ``state_dict`` for the port's ``PointPillars`` of
     the same config; the submodules carry the flax names."""
+    return state_dict_from_flax(variables, model)
+
+
+def second_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``SECONDIoU`` tree with the dense middle (``init_second``:
+    ``middle/conv{i}`` 3D kernels, ``middle/bn{i}``, ``backbone/...`` as
+    PointPillars', ``cls_head``, ``box_head``, ``dir_head``, ``iou_head``;
+    the mean VFE has no parameters) -> a ``state_dict`` for the port's
+    ``SECONDIoU`` of the same config; the submodules carry the flax names."""
     return state_dict_from_flax(variables, model)

@@ -121,7 +121,7 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     A transposed conv's fan-in is cin * kh * kw, as flax counts it."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear, nn.ConvTranspose2d)):
             w = mod.weight
             fan_in = w[0].numel()
             if isinstance(mod, nn.ConvTranspose2d):  # weight (cin, cout, kh, kw)

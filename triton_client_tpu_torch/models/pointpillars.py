@@ -314,13 +314,15 @@ def scatter_to_bev(
 
 
 class BEVBackbone(nn.Module):
-    """Multi-scale 2D CNN over the pillar canvas, each scale up-sampled by
-    a transposed conv and concatenated (NCHW in, NCHW out)."""
+    """Multi-scale 2D CNN over the BEV canvas, each scale up-sampled by a
+    transposed conv and concatenated (NCHW in, NCHW out). Duck-typed on
+    the config's backbone fields, so SECOND shares it; ``in_channels`` is
+    the canvas width (PointPillars' VFE filters, SECOND's folded z)."""
 
-    def __init__(self, cfg: PointPillarsConfig) -> None:
+    def __init__(self, cfg: PointPillarsConfig, in_channels: int) -> None:
         super().__init__()
         self.cfg = cfg
-        cin = cfg.vfe_filters
+        cin = in_channels
         for bi, (n_layers, stride, filters, up_stride, up_filters) in enumerate(
             zip(
                 cfg.backbone_layers,
@@ -367,7 +369,7 @@ class PointPillars(nn.Module):
         cfg.validate()
         self.cfg = cfg
         self.vfe = PillarVFE(cfg.vfe_filters, cfg.voxel)
-        self.backbone = BEVBackbone(cfg)
+        self.backbone = BEVBackbone(cfg, cfg.vfe_filters)
         a, c = cfg.anchors_per_loc, sum(cfg.upsample_filters)
         self.cls_head = nn.Conv2d(c, a * cfg.num_classes, 1)
         self.box_head = nn.Conv2d(c, a * 7, 1)

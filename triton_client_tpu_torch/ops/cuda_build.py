@@ -24,7 +24,10 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent / "_build"
-SOURCES = ("decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu")
+SOURCES = (
+    "decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu",
+    "segment_mean.cu",
+)
 
 # sm_90a: Hopper. --fmad=false: no mul+add contraction, so products and
 # sums round as the plain PyTorch versions round them. No fast-math

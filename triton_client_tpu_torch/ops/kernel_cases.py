@@ -166,3 +166,52 @@ def planted_iou(k: int, thresh: float = 0.01, seed: int = 0):
     rows[:, 7] = np.sort(rng.uniform(0.1, 1.0, k))[::-1]
     rows[:, 8] = rng.integers(1, 4, k)
     return iou.astype(np.float32), rows
+
+
+# -- 3D: the sorted-segment mean of SECOND's voxel stage (kernel 5) --
+
+SEGMENT_KINDS = (
+    "random", "singletons", "one_slot", "weights", "gaps", "dump_tail", "all_dump", "overflow",
+)
+
+
+def segment_inputs(kind: str, n: int, num_slots: int, seed: int = 0):
+    """Kernel 5's inputs: valsT (8, n) float32 and slots (n,) int32,
+    non-decreasing, ``num_slots`` the dump id. Slots are dense ranks of
+    sorted random cell ids, as ``fused_mean_volume`` makes them, so within
+    any 1024 rows the live ids advance by far less than 1024 (the TPU
+    kernel's slot window needs that). Feature rows 0-6 lie in [3, 5], so a
+    sum never cancels and a relative tolerance means what it says; row 7
+    is the weight, 1 on live rows. Dump rows carry values too: the kernel
+    must not read them.
+
+    ``random`` about 1.6 rows a slot; ``singletons`` every row its own
+    slot; ``one_slot`` every row in slot ``num_slots // 2`` (keep ``n`` to
+    a few thousand: the plain version loops over the longest slot);
+    ``weights`` non-unit weights in row 7, a tenth of them 0; ``gaps``
+    every third slot used, 8 rows each on average; ``dump_tail`` the last
+    quarter of the rows at the dump id, as padding; ``all_dump`` every row
+    there; ``overflow`` more distinct cells than ``num_slots`` (the cap of
+    ``max_voxels``): the rows past it go to the dump id."""
+    rng = np.random.default_rng(seed)
+    cells = {"gaps": max(1, n // 8), "overflow": 4 * n}.get(kind, n)
+    ids = np.sort(rng.integers(0, cells, n))
+    rank = np.concatenate([[0], np.cumsum(ids[1:] != ids[:-1])])
+    if kind == "singletons":
+        rank = np.arange(n)
+    elif kind == "one_slot":
+        rank = np.full(n, num_slots // 2)
+    elif kind == "gaps":
+        rank = 3 * rank
+    slots = np.minimum(rank, num_slots)
+    if kind == "dump_tail":
+        slots[n - n // 4:] = num_slots
+    elif kind == "all_dump":
+        slots[:] = num_slots
+    vals = rng.uniform(3.0, 5.0, (8, n))
+    vals[7] = 1.0
+    if kind == "weights":
+        vals[7] = rng.uniform(0.5, 2.0, n)
+        vals[7, rng.uniform(size=n) < 0.1] = 0.0
+    vals[7, slots == num_slots] = rng.uniform(0.5, 2.0, int((slots == num_slots).sum()))
+    return vals.astype(np.float32), slots.astype(np.int32)

@@ -1,17 +1,19 @@
 """3D detection pipeline: raw point cloud in, packed 3D boxes out (port
-of ``pipelines/detect3d.py``, PointPillars).
+of ``pipelines/detect3d.py``: PointPillars and SECOND-IoU's dense middle).
 
-padded cloud -> pillar features (the sort-free scatter VFE, or the
-grouped voxelizer) -> backbone -> anchor head -> gate + top-k on the raw
-logits -> residual decode of the K survivors -> rotated-BEV NMS + pack.
-With the ``decode_nms`` stage fused, the decode and the suppress+pack are
-the two hand-written kernels (``ops/gpu_decode3d``, ``ops/gpu_suppress3d``).
-The host only pads the raw cloud to a point bucket (``prepare_points``)
-and reads back (max_det, 9) rows.
+padded cloud -> voxel features (the sort-free scatter VFE, the fused
+voxelize->scatter stage, or the grouped voxelizer) -> backbone -> anchor
+heads -> gate + top-k -> residual decode of the K survivors -> rotated-BEV
+NMS + pack. Three stages are hand-written kernels: SECOND's per-cell mean
+(``ops/gpu_voxel``, with the ``voxelize_scatter`` stage fused), and the
+decode and the suppress+pack (``ops/gpu_decode3d``, ``ops/gpu_suppress3d``,
+with ``decode_nms`` fused). The host only pads the raw cloud to a point
+bucket (``prepare_points``) and reads back (max_det, 9) rows.
 
 The defaults are the reference's ``examples/pointpillar_kitti``
-(``data/kitti_pointpillars.yaml``): the config comes from code, since the
-port reads no YAML.
+(``data/kitti_pointpillars.yaml``) and ``examples/second_iou``
+(``data/kitti_second.yaml``): the configs come from code, since the port
+reads no YAML.
 """
 
 from __future__ import annotations
@@ -25,16 +27,21 @@ import torch
 
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.device import resolve_device, strict_fp32
-from triton_client_tpu_torch.models.convert import pointpillars_state_dict_from_flax
+from triton_client_tpu_torch.models.convert import (
+    pointpillars_state_dict_from_flax,
+    second_state_dict_from_flax,
+)
 from triton_client_tpu_torch.models.layers import init_random_
 from triton_client_tpu_torch.models.pointpillars import (
     PointPillars,
     PointPillarsConfig,
     decode_candidates,
 )
+from triton_client_tpu_torch.models.second import SECONDConfig, SECONDIoU
 from triton_client_tpu_torch.ops.detect3d_postprocess import nms_pack_3d
 from triton_client_tpu_torch.ops.fused import resolve_fused_stages
 from triton_client_tpu_torch.ops.gpu_decode3d import fused_residual_decode
+from triton_client_tpu_torch.ops.gpu_voxel import fused_mean_volume
 from triton_client_tpu_torch.ops.voxelize import pad_points, voxelize
 
 log = logging.getLogger(__name__)
@@ -56,11 +63,12 @@ class Detect3DConfig:
     # sensor-height z correction added to incoming points
     z_offset: float = 0.0
     class_names: tuple[str, ...] = ("Car", "Pedestrian", "Cyclist")
-    # "auto": the sort-free scatter VFE on pillar grids (nz == 1), which
-    # keeps every point and pillar; "grouped": the (V, K) voxelizer with
-    # the max_voxels / max_points_per_voxel caps of OpenPCDet
+    # "auto": the sort-free scatter VFE on pillar grids (nz == 1) and for
+    # models that declare scatter_any_nz (SECOND's mean VFE), which keeps
+    # every point and cell; "grouped": the (V, K) voxelizer with the
+    # max_voxels / max_points_per_voxel caps of OpenPCDet
     vfe: str = "auto"
-    # decode_nms routing (ops/fused): "auto" fuses on CUDA (the kernels),
+    # fused-stage routing (ops/fused): "auto" fuses on CUDA (the kernels),
     # "on" everywhere (their plain versions on the CPU), "off" never
     fused: str = "auto"
 
@@ -104,7 +112,10 @@ class Detect3DPipeline:
     """Wraps a 3D detector into the padded cloud -> packed rows path."""
 
     def __init__(
-        self, config: Detect3DConfig, model: PointPillars, device: str | torch.device | None = None
+        self,
+        config: Detect3DConfig,
+        model: PointPillars | SECONDIoU,
+        device: str | torch.device | None = None,
     ) -> None:
         self.config = config
         self.model = model
@@ -112,16 +123,32 @@ class Detect3DPipeline:
         if config.vfe not in ("auto", "grouped"):
             raise ValueError(f"unknown vfe mode {config.vfe!r} (auto|grouped)")
         # the pillar scatter VFE merges z cells, so auto takes it only on
-        # nz == 1 grids
-        self.use_scatter = config.vfe == "auto" and model.cfg.voxel.grid_size[2] == 1
+        # nz == 1 grids; models whose scatter keys on the full 3D cell
+        # (SECOND's mean VFE) declare scatter_any_nz
+        self.use_scatter = config.vfe == "auto" and (
+            model.cfg.voxel.grid_size[2] == 1 or getattr(model, "scatter_any_nz", False)
+        )
         if self.use_scatter:
             log.info(
-                "vfe=auto routes %s to the scatter VFE: every point and pillar is kept, so "
+                "vfe=auto routes %s to the scatter VFE: every point and cell is kept, so "
                 "outputs differ from the grouped max_voxels/max_points_per_voxel caps "
                 "whenever a scan exceeds them; vfe='grouped' keeps the caps",
                 config.model_name,
             )
-        self.fused_stages = resolve_fused_stages(config.fused, ("decode_nms",), self.device)
+        # voxelize_scatter replaces the scatter VFE of a model that takes a
+        # mean volume (SECOND's dense middle; its config refuses any other),
+        # as the JAX package routes it; decode_nms fits every tail
+        candidates = ("decode_nms",)
+        if self.use_scatter and hasattr(model, "from_volume"):
+            candidates = ("voxelize_scatter",) + candidates
+        self.fused_stages = resolve_fused_stages(config.fused, candidates, self.device)
+        if "voxelize_scatter" in self.fused_stages:
+            log.info(
+                "fused voxelize->scatter caps occupied cells at max_voxels (%d), the grouped "
+                "budget; the unfused scatter it replaces keeps every occupied cell, so "
+                "outputs differ once a scan exceeds the budget",
+                model.cfg.voxel.max_voxels,
+            )
 
     @torch.no_grad()
     def run(self, points: torch.Tensor, count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,7 +156,9 @@ class Detect3DPipeline:
         ((max_det, 9) float32 rows, (max_det,) bool valid) on the device."""
         cfg, model = self.config, self.model
         points = points.to(torch.float32)
-        if self.use_scatter:
+        if "voxelize_scatter" in self.fused_stages:
+            heads = model.from_volume(fused_mean_volume(points, count, model.cfg.voxel))
+        elif self.use_scatter:
             heads = model.from_points(points, count)
         else:
             vox = voxelize(points, count, model.cfg.voxel)
@@ -175,10 +204,12 @@ class Detect3DPipeline:
         return fn
 
 
-def _detect3d_spec(cfg: Detect3DConfig, model_cfg: PointPillarsConfig) -> ModelSpec:
+def _detect3d_spec(
+    cfg: Detect3DConfig, model_cfg: PointPillarsConfig | SECONDConfig, extra: dict | None = None
+) -> ModelSpec:
     """Serving spec of the 3D pipelines (the analogue of
-    examples/pointpillar_kitti/config.pbtxt). Clients configure their host
-    prep from ``extra`` (buckets, z offset)."""
+    examples/pointpillar_kitti/config.pbtxt and examples/second_iou).
+    Clients configure their host prep from ``extra`` (buckets, z offset)."""
     pf = model_cfg.voxel.point_features
     return ModelSpec(
         name=cfg.model_name,
@@ -200,8 +231,34 @@ def _detect3d_spec(cfg: Detect3DConfig, model_cfg: PointPillarsConfig) -> ModelS
             "max_voxels": model_cfg.voxel.max_voxels,
             "point_buckets": list(cfg.point_buckets),
             "z_offset": cfg.z_offset,
+            **(extra or {}),
         },
     )
+
+
+def _serve(
+    model: PointPillars | SECONDIoU,
+    dev: torch.device,
+    cfg: Detect3DConfig,
+    extra: dict | None = None,
+) -> tuple[Detect3DPipeline, ModelSpec, PointPillars | SECONDIoU]:
+    """The shared tail of the builders: model to the device, pipeline, spec."""
+    model = model.to(dev).eval()
+    pipeline = Detect3DPipeline(cfg, model, device=dev)
+    spec = _detect3d_spec(cfg, model.cfg, extra)
+    spec.extra["fused_stages"] = list(pipeline.fused_stages)
+    spec.extra.update(
+        {
+            "precision": "f32",
+            "precision_keep_f32": list(KEEP_F32_3D),
+            "param_bytes": sum(
+                t.numel() * t.element_size()
+                for k, t in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")
+            ),
+        }
+    )
+    return pipeline, spec, model
 
 
 def build_pointpillars_pipeline(
@@ -219,29 +276,35 @@ def build_pointpillars_pipeline(
     unless ``device="cpu"``, in float32 with TF32 off."""
     dev = resolve_device(device)
     strict_fp32()
-    model_cfg = model_cfg or PointPillarsConfig()
-    model = PointPillars(model_cfg)
+    model = PointPillars(model_cfg or PointPillarsConfig())
     if variables is None:
         init_random_(model, seed)
     else:
         model.load_state_dict(pointpillars_state_dict_from_flax(variables, model))
-    model = model.to(dev).eval()
-    cfg = config or Detect3DConfig()
-    pipeline = Detect3DPipeline(cfg, model, device=dev)
-    spec = _detect3d_spec(cfg, model_cfg)
-    spec.extra["fused_stages"] = list(pipeline.fused_stages)
-    spec.extra.update(
-        {
-            "precision": "f32",
-            "precision_keep_f32": list(KEEP_F32_3D),
-            "param_bytes": sum(
-                t.numel() * t.element_size()
-                for k, t in model.state_dict().items()
-                if not k.endswith("num_batches_tracked")
-            ),
-        }
-    )
-    return pipeline, spec, model
+    return _serve(model, dev, config or Detect3DConfig())
+
+
+def build_second_pipeline(
+    model_cfg: SECONDConfig | None = None,
+    config: Detect3DConfig | None = None,
+    variables=None,
+    device: str | torch.device | None = None,
+    seed: int = 0,
+) -> tuple[Detect3DPipeline, ModelSpec, SECONDIoU]:
+    """SECOND-IoU (dense middle) over the same seam as PointPillars, with
+    the same arguments; flax variables carry across through
+    ``models/convert.second_state_dict_from_flax``. The spec's extra
+    carries ``iou_alpha``."""
+    dev = resolve_device(device)
+    strict_fp32()
+    model_cfg = model_cfg or SECONDConfig()
+    model = SECONDIoU(model_cfg)
+    if variables is None:
+        init_random_(model, seed)
+    else:
+        model.load_state_dict(second_state_dict_from_flax(variables, model))
+    cfg = config or Detect3DConfig(model_name="second_iou")
+    return _serve(model, dev, cfg, {"iou_alpha": model_cfg.iou_alpha})
 
 
 def default_detect3d_config(model_name: str) -> Detect3DConfig:
@@ -250,6 +313,9 @@ def default_detect3d_config(model_name: str) -> Detect3DConfig:
     return Detect3DConfig(model_name=model_name)
 
 
-# family name -> builder (the JAX table also holds second_iou and
-# centerpoint; those are not ported yet)
-BUILDERS_3D = {"pointpillars": build_pointpillars_pipeline}
+# family name -> builder (the JAX table also holds centerpoint, which is
+# not ported yet)
+BUILDERS_3D = {
+    "pointpillars": build_pointpillars_pipeline,
+    "second_iou": build_second_pipeline,
+}
