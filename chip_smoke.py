@@ -6,12 +6,15 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``triton_client_tpu_torch/
-csrc/`` and drives the port's three main paths, each served in-process
+csrc/`` and drives the port's four main paths, each served in-process
 through ``ModelRepository`` and ``CUDAChannel`` with random weights from
 a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``),
-PointPillars at the full KITTI width (``examples/pointpillar_kitti``) and
+PointPillars at the full KITTI width (``examples/pointpillar_kitti``),
 SECOND-IoU with the dense middle at the full KITTI width
-(``examples/second_iou``, the 352 x 400 x 10 grid). One JSON line per phase:
+(``examples/second_iou``, the 352 x 400 x 10 grid), and the continuous
+batcher in front of the channel: packed ragged batches of KITTI-sized
+clouds through the pool model (``models/pool.py``), and YOLOv5n through its
+dense merged path. One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -49,6 +52,26 @@ SECOND-IoU with the dense middle at the full KITTI width
  15. times_second — the segment mean's times, bound and library yardstick,
                  scans/s and p50 latency at 20k and 120k points
  16. profile_second — phase 6 for a 120k-point SECOND scan
+ 17. kernels_vs_plain_ragged — the segment sum (kernel 6) against its plain
+                 version, bitwise, over edge cases (ops/kernel_cases.py
+                 SEGSUM_CASES: sorted layout ids with the pad id, unsorted,
+                 out-of-range, empty segments, one segment; F up to 130, S up
+                 to 64, R from 1 to 560,000), and segment_reduce's four ops
+                 on the card against the same call on CPU copies
+ 18. main_path_ragged — 8 seeded KITTI-sized clouds (20,000-120,000 points)
+                 through ContinuousBatchingChannel(CUDAChannel(repo)) as one
+                 packed group and as a threaded burst of 8 callers; launch
+                 counts read around this phase only, the ragged_* stats, the
+                 pool model's solo infer_fn calls (0 in the packed group: no
+                 silent fallback)
+ 19. check_ragged — kernel 6 on the main path's own packed rows, each
+                 member against a float64 sum, packed and solo, and the card
+                 against the CPU port on the same group
+ 20. times_ragged — kernel 6's times, bound and index_add_ yardstick;
+                 clouds/s and p50 through the batcher beside solo requests
+ 21. dense_batched_2d — YOLOv5n 512^2 frames through the same scheduler's
+                 dense merged path: a group of 8 one-frame requests equals one
+                 direct call on the 8 frames stacked, bit for bit
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -91,6 +114,9 @@ IOU_OPS = 14
 # SECOND's voxel stage: the KITTI cap of occupied cells; the scan size at
 # which the card is compared with the CPU below the cap
 SECOND_SLOTS = 40000
+# the ragged path: 8 clouds a pack, each 20k (the synthetic source's
+# default) to 120k points (a full HDL-64 scan); bursts timed in phase 20
+RAGGED_CLOUDS, RAGGED_POINTS, RAGGED_ROUNDS = 8, (20000, 120000), 5
 
 
 def fail(msg: str) -> None:
@@ -307,8 +333,10 @@ def main() -> int:
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     dev = torch.device("cuda")
+    from triton_client_tpu_torch.ops import gpu_segment
+
     counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,
-                gpu_suppress3d.launches, gpu_voxel.launches)
+                gpu_suppress3d.launches, gpu_voxel.launches, gpu_segment.launches)
 
     # -- 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -518,6 +546,8 @@ def main() -> int:
     for row in record_3d:  # kernels 3-4 run on both 3D paths
         row["launches_by_path"] = {"pointpillars": row["launches"],
                                    "second_iou": second_launches[row["name"]]}
+    record_ragged = run_ragged(card, dev, counters)
+    run_dense_batched(card, counters, repo, channel, frames)
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -536,6 +566,7 @@ def main() -> int:
          "library_ms": None, "card": card},
         *record_3d,
         *record_second,
+        *record_ragged,
     ]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1013,6 +1044,360 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
          "ms": k5_ms, "call_ms": k5_call_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by, "library_ms": library_ms, "card": card},
     ], launches
+
+
+def burst(chan, requests) -> tuple[list, list[float], float]:
+    """``requests`` sent at once, one caller thread each, released by a
+    barrier: the responses, each request's latency and the burst's wall
+    (host clock). A caller's error fails the script."""
+    import threading
+
+    n = len(requests)
+    out, lat, errors = [None] * n, [0.0] * n, []
+    gate = threading.Barrier(n + 1)
+
+    def call(i):
+        try:
+            gate.wait(timeout=60.0)
+            t = time.perf_counter()
+            out[i] = chan.do_inference(requests[i])
+            lat[i] = time.perf_counter() - t
+        except Exception as e:  # reported below, not swallowed
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=call, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    gate.wait(timeout=60.0)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=120.0)
+    wall = time.perf_counter() - t0
+    check(not errors and all(not t.is_alive() for t in threads), f"burst failed: {errors[:3]}")
+    return out, lat, wall
+
+
+def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
+    """Phases 17-20: packed ragged batches through the continuous batcher,
+    kernel 6 new. ``counters`` are every kernel's launch counters, all set
+    to 0 just before the main path. Returns the segment sum's row of the
+    ``{"kernels": [...]}`` record."""
+    import concurrent.futures
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.models.pool import POOL_W, PoolModel, pool_spec
+    from triton_client_tpu_torch.ops import gpu_segment, kernel_cases
+    from triton_client_tpu_torch.parallel.ragged_kernels import (
+        RaggedLayout,
+        pack_rows,
+        segment_reduce,
+    )
+    from triton_client_tpu_torch.runtime.continuous import ContinuousBatchingChannel
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    k6_err = 0.0  # the largest |kernel - plain| over every comparison below
+
+    def segsum_match(v, ids, s, label):
+        nonlocal k6_err
+        got = gpu_segment.segment_sum(v, ids, s)
+        want = gpu_segment.segment_sum_reference(v, ids, s)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)), f"segment_sum differs ({label})")
+        k6_err = max(k6_err, float((got - want).abs().max()) if got.numel() else 0.0)
+
+    # -- 17. the segment sum against its plain version, on the card -------------
+    for i, (kind, r, f, s) in enumerate(kernel_cases.SEGSUM_CASES):
+        v, ids = (torch.from_numpy(a).to(dev)
+                  for a in kernel_cases.segsum_inputs(kind, r, f, s, seed=90 + i))
+        segsum_match(v, ids, s, f"{kind} R={r} F={f} S={s}")
+    empty = gpu_segment.segment_sum(torch.ones((0, 4), device=dev),
+                                    torch.zeros(0, dtype=torch.int32, device=dev), 8)
+    check(empty.shape == (8, 4) and not bool(empty.any()), "R = 0 did not give zeros")
+    check(gpu_segment.segment_sum(torch.ones((5, 4), device=dev),
+                                  torch.zeros(5, dtype=torch.int32, device=dev), 0).shape == (0, 4),
+          "S = 0")
+    before = gpu_segment.launches.count
+    try:  # mixed devices are refused, launching nothing
+        gpu_segment.segment_sum(torch.ones((5, 4), device=dev),
+                                torch.zeros(5, dtype=torch.int32), 2)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and gpu_segment.launches.count == before, "mixed devices did not raise")
+    v, ids = kernel_cases.segsum_inputs("out_of_range", kernel_cases.SEGSUM_MAIN_ROWS, 4, 8,
+                                        seed=99)
+    reduce_ops = {}
+    for op in ("sum", "mean", "max", "min"):
+        got = segment_reduce(torch.from_numpy(v).to(dev), torch.from_numpy(ids).to(dev), 8, op)
+        want = segment_reduce(torch.from_numpy(v), torch.from_numpy(ids), 8, op)
+        check(torch.equal(bits(got.cpu()), bits(want)), f"segment_reduce {op}: card != plain route")
+        reduce_ops[op] = True
+    emit("kernels_vs_plain_ragged", card, kernels=[
+        {"name": "segment_sum", "cases": len(kernel_cases.SEGSUM_CASES), "match": True,
+         "max_abs_err": k6_err, "shapes": [list(c[1:]) for c in kernel_cases.SEGSUM_CASES]},
+    ], segment_reduce_equals_plain_route=reduce_ops)
+
+    # -- 18. the main path: packed ragged batches through the continuous batcher --
+    rng = np.random.default_rng(17)
+    sizes = [int(n) for n in rng.integers(RAGGED_POINTS[0], RAGGED_POINTS[1] + 1, RAGGED_CLOUDS)]
+    clouds = [next(iter(SyntheticPointCloudSource(1, points=n, seed=40 + i))).data
+              for i, n in enumerate(sizes)]
+    biases = [rng.standard_normal((1, 4)).astype(np.float32) for _ in sizes]
+    model = PoolModel("cuda")
+    solo_calls = [0]
+
+    def counted_infer_fn(inputs):
+        solo_calls[0] += 1
+        return model.infer_fn(inputs)
+
+    repo = ModelRepository()
+    repo.register(pool_spec(), counted_infer_fn, ragged_fn=model.ragged_fn)
+    inner = CUDAChannel(repo)
+    inner.register_channel()
+    cont = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS)
+    burst_chan = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS, pipeline_depth=1)
+
+    def requests():
+        return [InferRequest("pool", {"points": c, "bias": b}, request_id=str(i))
+                for i, (c, b) in enumerate(zip(clouds, biases))]
+
+    def packed_group():
+        reqs = requests()
+        futs = [concurrent.futures.Future() for _ in reqs]
+        cont._run_ragged_group([(None, r, f) for r, f in zip(reqs, futs)])
+        return [f.result(timeout=120.0).outputs["pooled"] for f in futs]
+
+    try:
+        packed_group()  # warm-up, not counted
+        inner.do_inference(requests()[0])
+        burst(burst_chan, requests())
+        torch.cuda.synchronize()
+        base_cont, base_burst = cont.stats(), burst_chan.stats()
+        for counter in counters:
+            counter.reset()
+        solo_calls[0] = 0
+        packed = packed_group()
+        group_solo_calls = solo_calls[0]
+        group_launches = gpu_segment.launches.count
+        burst_out, _, _ = burst(burst_chan, requests())
+        launches = {"segment_sum": gpu_segment.launches.count}
+        all_launches = [c.count for c in counters]
+        burst_solo_calls = solo_calls[0] - group_solo_calls
+        s_cont, s_burst = cont.stats(), burst_chan.stats()
+    finally:
+        cont.close()
+        burst_chan.close()
+    keys = ("ragged_batches", "ragged_segments", "ragged_rows", "ragged_pad_rows",
+            "ragged_fallbacks", "merge_fallbacks", "kernel_failures")
+    group_stats = {k: s_cont[k] - base_cont[k] for k in keys}
+    burst_stats = {k: s_burst[k] - base_burst[k] for k in keys}
+    occ = {k: v - base_burst["merge_occupancy"].get(k, 0)
+           for k, v in s_burst["merge_occupancy"].items()
+           if v > base_burst["merge_occupancy"].get(k, 0)}
+    lone, packs = occ.get(1, 0), sum(v for k, v in occ.items() if k > 1)
+    layout = RaggedLayout(tuple(sizes))
+    check(group_stats["ragged_batches"] == 1, f"the packed group counted {group_stats}")
+    check(group_stats["ragged_rows"] == layout.total and group_stats["ragged_segments"] == 8,
+          f"the packed group's stats {group_stats}")
+    check(group_solo_calls == 0, f"infer_fn ran {group_solo_calls} times in the packed group")
+    for label, st in (("packed group", group_stats), ("burst", burst_stats)):
+        fell = {k: st[k] for k in ("ragged_fallbacks", "merge_fallbacks", "kernel_failures")}
+        check(not any(fell.values()), f"the {label} fell back or failed: {fell}")
+    check(group_launches == 1, f"segment_sum launched {group_launches} times for 1 packed group")
+    check(burst_stats["ragged_batches"] >= 1, f"the burst never packed: {burst_stats}")
+    # no silent fallback: lone groups ran solo, every larger group packed
+    check(burst_stats["ragged_batches"] == packs and burst_solo_calls == lone,
+          f"burst groups {occ}: {burst_stats['ragged_batches']} packed, {burst_solo_calls} solo")
+    check(launches["segment_sum"] == group_stats["ragged_batches"] + burst_stats["ragged_batches"],
+          f"segment_sum launched {launches['segment_sum']} times for "
+          f"{group_stats['ragged_batches'] + burst_stats['ragged_batches']} packed batches")
+    check(sum(all_launches) == launches["segment_sum"],
+          "another kernel launched on the ragged path")
+    for o in packed + [r.outputs["pooled"] for r in burst_out]:
+        check(o.shape == (4,) and bool(np.isfinite(o).all()), "non-finite or misshapen pooled")
+    emit("main_path_ragged", card, model="pool", clouds=RAGGED_CLOUDS, points=sizes,
+         packed_rows=layout.padded_rows, live_rows=layout.total, seg_bucket=layout.seg_bucket,
+         requests={"packed_group": RAGGED_CLOUDS, "burst": RAGGED_CLOUDS},
+         launches=launches, packed_group_stats=group_stats, burst_stats=burst_stats,
+         burst_merge_occupancy=occ, infer_fn_calls={"packed_group": group_solo_calls,
+                                                    "burst": burst_solo_calls},
+         pad_fraction={"packed_group": s_cont["pad_fraction"], "burst": s_burst["pad_fraction"]})
+
+    # -- 19. kernel 6 on the main path's own rows; members against float64 -------
+    ids = torch.from_numpy(layout.segment_ids).to(dev)
+    with torch.no_grad():
+        feat = torch.tanh(torch.from_numpy(pack_rows(clouds, layout)).to(dev)
+                          @ torch.from_numpy(POOL_W).to(dev))
+    segsum_match(feat, ids, layout.launch_segments, "main path")
+    w64 = POOL_W.astype(np.float64)
+    solo = [inner.do_inference(r).outputs["pooled"] for r in requests()]
+    cpu_repo = ModelRepository()
+    cpu_model = PoolModel("cpu")
+    cpu_repo.register(pool_spec(), cpu_model.infer_fn, ragged_fn=cpu_model.ragged_fn)
+    cpu_cont = ContinuousBatchingChannel(CUDAChannel(cpu_repo, "cpu"))
+    try:
+        reqs = requests()
+        futs = [concurrent.futures.Future() for _ in reqs]
+        cpu_cont._run_ragged_group([(None, r, f) for r, f in zip(reqs, futs)])
+        cpu_packed = [f.result(timeout=300.0).outputs["pooled"] for f in futs]
+    finally:
+        cpu_cont.close()
+    worst = {"packed": 0.0, "solo": 0.0, "card_vs_cpu": 0.0}
+    for i, (c, b) in enumerate(zip(clouds, biases)):
+        terms = np.tanh(c.astype(np.float64) @ w64)
+        want, bound = terms.sum(0) + b[0], 1e-6 * np.abs(terms).sum(0)
+        for name, got in (("packed", packed[i]), ("solo", solo[i]),
+                          ("card_vs_cpu", cpu_packed[i] - packed[i] + want)):
+            ratio = float((np.abs(got - want) / bound).max())
+            check(ratio <= 1.0, f"cloud {i} ({name}) is {ratio} x the float64 bound off")
+            worst[name] = max(worst[name], ratio)
+    emit("check_ragged", card, kernel_equals_plain_on_main_path=True,
+         packed_rows=int(feat.shape[0]), bound="1e-6 x sum|tanh(points @ W)| per column",
+         worst_error_over_bound=worst)
+
+    # -- 20. times on the card's clock ---------------------------------------------
+    s = layout.launch_segments
+
+    def k6():
+        return gpu_segment.segment_sum(feat, ids, s)
+
+    k6_call_ms = cuda_ms(k6, reps=200)
+    k6_ms = kernel_device_ms(k6, gpu_segment.launches)
+    k6_plain_ms = cuda_ms(lambda: gpu_segment.segment_sum_reference(feat, ids, s), reps=3,
+                          warmup=1)
+    # the two passes' device times, as torch.profiler reports them (it has
+    # dropped records of µs-long kernels before: reported, not checked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            k6()
+        torch.cuda.synchronize()
+    passes_us = {e.key.split("::")[-1].split("(")[0]: e.self_device_time_total / e.count
+                 for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and ("chunk" in e.key)}
+    total = layout.total  # index_add_ refuses the pad id: the pad rows are sliced off
+    lib_ids, lib_v = ids[:total], feat[:total]
+
+    def library():
+        return torch.zeros((s, feat.shape[1]), device=dev).index_add_(0, lib_ids, lib_v)
+
+    library_ms = cuda_ms(library, reps=200)
+    # index_add_ adds with atomics in any order: held to the bound of a
+    # sum of n terms in any order, (n - 1) x 2^-24 x sum|v|, n the rows
+    lib_bound = (total * 2.0**-24) * torch.zeros((s, 4), device=dev).index_add_(
+        0, lib_ids, lib_v.abs())
+    check(bool(((library() - k6()).abs() <= lib_bound).all()), "index_add_ disagrees")
+    # every row's id read once, the kept rows' values read once, the sums
+    # written once; the pad rows' values are never needed
+    k6_bytes = feat.shape[0] * 4 + total * feat.shape[1] * 4 + s * feat.shape[1] * 4
+    k6_ops = total * feat.shape[1]  # one add a kept value
+    k6_bound, k6_by = roofline(k6_bytes, k6_ops)
+
+    burst_chan = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS, pipeline_depth=1)
+    try:
+        burst(burst_chan, requests())  # warm-up
+        lat, wall = [], 0.0
+        for _ in range(RAGGED_ROUNDS):
+            _, ls, w = burst(burst_chan, requests())
+            lat += ls
+            wall += w
+        bs = burst_chan.stats()
+    finally:
+        burst_chan.close()
+    check(bs["ragged_fallbacks"] == 0 and bs["kernel_failures"] == 0,
+          f"a timed burst fell back or failed: {bs['ragged_fallbacks']} fallbacks, "
+          f"{bs['kernel_failures']} kernel failures")
+    batched = {"clouds_per_s": len(lat) / wall, "p50_ms": float(np.median(lat)) * 1e3,
+               "requests": len(lat), "ragged_batches": bs["ragged_batches"],
+               "ragged_fallbacks": bs["ragged_fallbacks"],
+               "merge_occupancy": bs["merge_occupancy"]}
+    solo_e2e = serve(inner.do_inference, requests(), RAGGED_ROUNDS * RAGGED_CLOUDS,
+                     "clouds_per_s")
+    emit("times_ragged", card, kernel_ms={"segment_sum": k6_ms},
+         call_ms={"segment_sum": k6_call_ms}, plain_ms={"segment_sum": k6_plain_ms},
+         library_ms={"segment_sum": library_ms},
+         library_call="torch.zeros(S, F).index_add_(0, ids[:total], v[:total])",
+         bound_ms={"segment_sum": k6_bound}, bound_by={"segment_sum": k6_by},
+         profiler_us_by_pass=passes_us,
+         bytes=k6_bytes, ops=k6_ops, rows=int(feat.shape[0]), live_rows=total, segments=s,
+         features=int(feat.shape[1]),
+         in_process={"batcher_burst_of_8": batched, "solo_channel_one_caller": solo_e2e})
+
+    return [
+        {"name": "segment_sum", "route": "cuda",
+         "source": "triton_client_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "triton_client_tpu/parallel/ragged_kernels.py:220",
+         "launches": launches["segment_sum"], "max_abs_err": k6_err, "match": True,
+         "ms": k6_ms, "call_ms": k6_call_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
+         "bound_by": k6_by, "library_ms": library_ms, "card": card},
+    ]
+
+
+def run_dense_batched(card: str, counters, repo, channel, frames: np.ndarray) -> None:
+    """Phase 21: YOLOv5n 512^2 through the continuous batcher's dense merged
+    path (``repo`` and ``channel`` serve phase 3's models, ``frames`` are
+    its frames). No kernel-6 launch may happen here."""
+    import concurrent.futures
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.ops import gpu_decode, gpu_segment
+    from triton_client_tpu_torch.runtime.continuous import ContinuousBatchingChannel
+
+    name = "yolov5n_c005"  # conf 0.05: every frame keeps detections, kernel 1 runs
+    singles = [frames[i:i + 1] for i in range(B_MAIN)]
+    stacked = np.concatenate(singles)
+    direct = channel.do_inference(InferRequest(name, {"images": stacked})).outputs
+    cont = ContinuousBatchingChannel(CUDAChannel(repo), max_batch=B_MAIN)
+    try:
+        for counter in counters:
+            counter.reset()
+        futs = [concurrent.futures.Future() for _ in singles]
+        cont._run_group([(None, InferRequest(name, {"images": f}), fut)
+                         for f, fut in zip(singles, futs)])
+        merged = [fut.result(timeout=120.0).outputs for fut in futs]
+        white_box = cont.stats()
+        # one caller at a time: each frame is a group of one (batch 1)
+        solo = [cont.do_inference(InferRequest(name, {"images": f})).outputs for f in singles]
+        # 8 callers at once: the dispatcher merges what has queued
+        burst_out, _, _ = burst(cont, [InferRequest(name, {"images": f}) for f in singles])
+        stats = cont.stats()
+        launches = {"decode_nms_2d": gpu_decode.launches.count,
+                    "segment_sum": gpu_segment.launches.count}
+    finally:
+        cont.close()
+    check(white_box["padded_frames"] == 0, "the white-box group of 8 was padded")
+    fell = {k: stats[k] for k in ("merge_fallbacks", "kernel_failures")}
+    check(not any(fell.values()), f"a merged YOLOv5n group fell back or failed: {fell}")
+    check(launches["segment_sum"] == 0, "segment_sum launched on the dense path")
+    check(launches["decode_nms_2d"] == 1 + stats["merges"],
+          f"decode_nms_2d launched {launches['decode_nms_2d']} times for {1 + stats['merges']} "
+          f"device calls")
+    occ = stats["merge_occupancy"]
+    check(sum(k * v for k, v in occ.items()) == 2 * B_MAIN, f"merge occupancy {occ}")
+    kept = []
+    top_err = 0.0
+    for i, m in enumerate(merged):
+        for key in ("detections", "valid"):
+            check(m[key].tobytes() == direct[key][i:i + 1].tobytes(),
+                  f"frame {i}: merged {key} differ from the direct stacked call")
+        kept.append(int(m["valid"].sum()))
+        # other batch sizes may take other cuDNN algorithms: phase 4's bar
+        for o in (solo[i], burst_out[i].outputs):
+            check(int(o["valid"].sum()) == kept[-1], f"frame {i}: kept count differs at batch "
+                  f"{o['valid'].shape[0]}")
+            err = float(np.abs(o["detections"][0, :5] - direct["detections"][i, :5]).max())
+            top_err = max(top_err, err)
+            check(np.allclose(o["detections"][0, :5], direct["detections"][i, :5], rtol=1e-2,
+                              atol=1e-2), f"frame {i}: top rows differ by {err}")
+    check(min(kept) > 0, "a frame kept no detection")
+    emit("dense_batched_2d", card, model=name, input_hw=[512, 512], frames=B_MAIN,
+         merged_equals_direct_bitwise=True, kept=kept, solo_and_burst_top5_max_abs_err=top_err,
+         merge_occupancy=occ, padded_frames=stats["padded_frames"],
+         pad_fraction=stats["pad_fraction"], live_bucket_table=stats["live_bucket_table"],
+         launches=launches, **fell)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ contracts a product and a sum into an FMA where the port (and the CUDA
 kernel, built with ``--fmad=false``) rounds twice, and its ``exp`` is
 another polynomial, so the plain version is held to 4 ulps of the
 operands' magnitude there. The sorted-segment mean of SECOND's voxel
-stage is held to its Pallas kernel in tests/test_torch_second.py. The CUDA
+stage is held to its Pallas kernel in tests/test_torch_second.py, the
+segment sum of packed ragged batches in tests/test_torch_ragged.py. The CUDA
 kernels themselves are held against the plain versions on the card (``cuda``-marked tests here, and
 ``chip_smoke.py``). The JAX package is imported inside the tests that
 use it, so the card's machine, which has no JAX, runs the ``cuda`` tests
@@ -25,6 +26,7 @@ from triton_client_tpu_torch.ops import (
     gpu_decode,
     gpu_decode3d,
     gpu_nms,
+    gpu_segment,
     gpu_suppress3d,
     gpu_voxel,
     kernel_cases,
@@ -431,3 +433,47 @@ def test_segment_mean_wrapper_raises_on_card(cuda_device):
     with pytest.raises(ValueError, match="sorted_segment_mean"):  # mixed devices
         gpu_voxel.sorted_segment_mean(valsT, slots.cpu(), 4)
     assert gpu_voxel.launches.count == before
+
+
+# -- the segment sum of packed ragged batches (kernel 6) --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r,f,s", kernel_cases.SEGSUM_CASES)
+def test_segment_sum_kernel_matches_plain_on_card(cuda_device, kind, r, f, s):
+    """Bitwise: both sum each chunk's rows in row order, then the chunks
+    in chunk order, from +0.0."""
+    v, ids = (torch.from_numpy(a).to(cuda_device)
+              for a in kernel_cases.segsum_inputs(kind, r, f, s, seed=31))
+    before = gpu_segment.launches.count
+    got = gpu_segment.segment_sum(v, ids, s)
+    want = gpu_segment.segment_sum_reference(v, ids, s)
+    torch.cuda.synchronize()
+    assert gpu_segment.launches.count == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.cpu(), gpu_segment.segment_sum_reference(v.cpu(), ids.cpu(), s))
+
+
+@pytest.mark.cuda
+def test_segment_sum_edge_sizes_on_card(cuda_device):
+    v = torch.ones((0, 4), device=cuda_device)
+    got = gpu_segment.segment_sum(v, torch.zeros(0, dtype=torch.int32, device=cuda_device), 8)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 4) and not got.any()
+    none = gpu_segment.segment_sum(torch.ones((5, 3), device=cuda_device),
+                                   torch.zeros(5, dtype=torch.int32, device=cuda_device), 0)
+    assert none.shape == (0, 3)
+    with pytest.raises(ValueError, match="segment_sum"):  # mixed devices
+        gpu_segment.segment_sum(torch.ones((5, 3), device=cuda_device),
+                                torch.zeros(5, dtype=torch.int32), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min"])
+def test_segment_reduce_on_card_equals_the_cpu(cuda_device, op):
+    from triton_client_tpu_torch.parallel.ragged_kernels import segment_reduce
+
+    v, ids = kernel_cases.segsum_inputs("out_of_range", 5000, 4, 8, seed=12)
+    v, ids = torch.from_numpy(v), torch.from_numpy(ids)
+    got = segment_reduce(v.to(cuda_device), ids.to(cuda_device), 8, op)
+    assert torch.equal(got.cpu(), segment_reduce(v, ids, 8, op))

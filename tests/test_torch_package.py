@@ -59,6 +59,15 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.cli.detect3d",
         "triton_client_tpu_torch.models.second",
         "triton_client_tpu_torch.ops.gpu_voxel",
+        "triton_client_tpu_torch.ops.gpu_segment",
+        "triton_client_tpu_torch.parallel.ragged_kernels",
+        "triton_client_tpu_torch.runtime.padding",
+        "triton_client_tpu_torch.runtime.admission",
+        "triton_client_tpu_torch.runtime.faults",
+        "triton_client_tpu_torch.runtime.batching",
+        "triton_client_tpu_torch.runtime.continuous",
+        "triton_client_tpu_torch.obs.trace",
+        "triton_client_tpu_torch.models.pool",
     ):
         assert must in names
 
@@ -71,6 +80,7 @@ def no_cuda():
 
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.models.pool import PoolModel
     from triton_client_tpu_torch.pipelines.detect2d import build_yolov5_pipeline
     from triton_client_tpu_torch.pipelines.detect3d import (
         build_pointpillars_pipeline,
@@ -86,6 +96,8 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         build_pointpillars_pipeline()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_second_pipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PoolModel()
     for argv in (["detect2d", "-i", "synthetic:1", "--input-size", "64"],
                  ["detect3d", "-i", "synthetic:1"],
                  ["detect3d", "-m", "second_iou", "-i", "synthetic:1"]):
@@ -139,5 +151,19 @@ def test_build_command_targets_hopper_with_exact_float_rules():
         p.name for p in (ROOT / "triton_client_tpu_torch" / "csrc").glob("*.cu")
     } == {
         "decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu",
-        "segment_mean.cu",
+        "segment_mean.cu", "segment_sum.cu",
     }
+
+
+def test_build_and_launch_failures_are_kernel_errors(monkeypatch, tmp_path):
+    """The batchers let a KernelError fail its group instead of falling
+    back, so every build, load and launch failure must be one."""
+    cuda_build.check_launch("segment_sum", 0)
+    with pytest.raises(cuda_build.KernelError, match="error 9"):
+        cuda_build.check_launch("segment_sum", 9)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "false")  # a compiler that always fails
+    monkeypatch.setattr(cuda_build, "library_path", lambda src: tmp_path / f"lib{src}.so")
+    with pytest.raises(cuda_build.KernelError, match="nvcc segment_sum.cu failed"):
+        cuda_build.build_all(("segment_sum.cu",))
+    assert issubclass(cuda_build.KernelError, RuntimeError)
+    assert not list(tmp_path.iterdir())  # no half-built library is left

@@ -21,6 +21,25 @@ class InferRequest:
     inputs: Mapping[str, np.ndarray]
     model_version: str = ""
     request_id: str = ""
+    # request-scoped spans (obs.trace.RequestTrace / MultiTrace); None on
+    # the untraced path, where call sites pay one attribute read
+    trace: object | None = dataclasses.field(default=None, repr=False, compare=False)
+    # absolute time.perf_counter() deadline; a merged group takes the
+    # earliest of its members'. None = no deadline
+    deadline_s: float | None = dataclasses.field(default=None, repr=False, compare=False)
+    # scheduling class: the continuous batcher breaks deadline ties on
+    # it. Higher = more important
+    priority: int = dataclasses.field(default=0, repr=False, compare=False)
+    # packed-ragged marker (parallel.ragged_kernels.RaggedLayout): set by
+    # the continuous batcher when the inputs are several members' rows
+    # packed together. None on every dense request
+    ragged: object | None = dataclasses.field(default=None, repr=False, compare=False)
+    # streaming-session identity: frames of one stream share a
+    # sequence_id, start/end bracket the stream. Empty = stateless; the
+    # batchers never merge a session frame
+    sequence_id: str = dataclasses.field(default="", repr=False, compare=False)
+    sequence_start: bool = dataclasses.field(default=False, repr=False, compare=False)
+    sequence_end: bool = dataclasses.field(default=False, repr=False, compare=False)
 
 
 @dataclasses.dataclass

@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent / "_build"
 SOURCES = (
     "decode_nms_2d.cu", "greedy_nms.cu", "residual_decode_3d.cu", "suppress_pack_3d.cu",
-    "segment_mean.cu",
+    "segment_mean.cu", "segment_sum.cu",
 )
 
 # sm_90a: Hopper. --fmad=false: no mul+add contraction, so products and
@@ -40,6 +40,12 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch. The
+    batchers never fall back to a plain path on it: the requests of the
+    group fail with it."""
 
 
 def nvcc() -> str:
@@ -66,7 +72,8 @@ def library_path(source: str) -> pathlib.Path:
 
 def build_all(sources: tuple[str, ...] = SOURCES) -> float:
     """Compile every library not built yet, one ``nvcc`` per source, all
-    started together. Returns the wall seconds; raises on a failure."""
+    started together. Returns the wall seconds; raises
+    :class:`KernelError` on a failure."""
     t0 = time.perf_counter()
     pending = []
     for src in sources:
@@ -88,7 +95,7 @@ def build_all(sources: tuple[str, ...] = SOURCES) -> float:
         else:
             os.replace(tmp, out)  # atomic: a reader never sees half a file
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -101,7 +108,10 @@ def load(source: str, argtypes: dict[str, list]) -> ctypes.CDLL:
         lib = _libs.get(source)
         if lib is None:
             build_all((source,))
-            lib = ctypes.CDLL(str(library_path(source)))
+            try:
+                lib = ctypes.CDLL(str(library_path(source)))
+            except OSError as e:
+                raise KernelError(f"{source}: cannot load {library_path(source)}: {e}") from e
             for name, types in argtypes.items():
                 fn = getattr(lib, name)
                 fn.argtypes = types
@@ -112,7 +122,7 @@ def load(source: str, argtypes: dict[str, list]) -> ctypes.CDLL:
 
 def check_launch(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        raise KernelError(f"{name}: CUDA launch failed with error {err}")
 
 
 class LaunchCounter:

@@ -9,7 +9,8 @@ rows stay zero, indices 0), ``chain`` (each box suppresses only its
 neighbour, so the result depends on the order of suppression) and
 ``large`` (coordinates near 1e5, where the class-offset stride and the
 IoU round coarsely). The 3D kinds are described at ``decode3d_inputs``
-and ``suppress3d_inputs``.
+and ``suppress3d_inputs``, the segment kinds at ``segment_inputs`` and
+``segsum_inputs``.
 """
 
 from __future__ import annotations
@@ -215,3 +216,59 @@ def segment_inputs(kind: str, n: int, num_slots: int, seed: int = 0):
         vals[7, rng.uniform(size=n) < 0.1] = 0.0
     vals[7, slots == num_slots] = rng.uniform(0.5, 2.0, int((slots == num_slots).sum()))
     return vals.astype(np.float32), slots.astype(np.int32)
+
+
+# -- the segment sum of packed ragged batches (kernel 6) --
+
+SEGSUM_KINDS = ("layout", "unsorted", "out_of_range", "empty_segments", "one_segment")
+# the main path's packed rows: 8 clouds of ~70k points
+SEGSUM_MAIN_ROWS = 560_000
+
+
+def segsum_inputs(kind: str, r: int, f: int, num_segments: int, seed: int = 0):
+    """Kernel 6's inputs: values (r, f) float32 in [-2, 2] (finite: the
+    TPU kernel's one-hot product spreads a non-finite value to every
+    segment, a per-segment sum does not) and segment ids (r,) int32.
+
+    ``layout`` the ragged layout's ids: sorted, the segments' sizes drawn
+    at random, the last tenth of the rows at the pad id ``num_segments``
+    with values that replicate the last real row; ``unsorted`` ids drawn
+    uniformly in [0, num_segments); ``out_of_range`` a third of the ids
+    negative or >= num_segments (-1, the pad id, the TPU's 8-aligned
+    segment count and beyond); ``empty_segments`` only even segments
+    used; ``one_segment`` every row in segment ``num_segments // 2``."""
+    rng = np.random.default_rng(seed)
+    s = num_segments
+    vals = rng.uniform(-2.0, 2.0, (r, f))
+    if kind == "layout":
+        live = r - r // 10
+        cuts = np.sort(rng.integers(0, live + 1, max(0, s - 1)))
+        sizes = np.diff(np.concatenate([[0], cuts, [live]]))
+        ids = np.full(r, s)
+        ids[:live] = np.repeat(np.arange(s), sizes)
+        if 0 < live < r:
+            vals[live:] = vals[live - 1]
+    elif kind == "unsorted":
+        ids = rng.integers(0, s, r)
+    elif kind == "out_of_range":
+        ids = rng.integers(0, s, r)
+        bad = rng.uniform(size=r) < 1 / 3
+        s_pad = -(-s // 8) * 8
+        ids[bad] = rng.choice([-1, -7, s, s_pad, s_pad + 1, 2**31 - 1], int(bad.sum()))
+    elif kind == "empty_segments":
+        ids = 2 * rng.integers(0, (s + 1) // 2, r)
+    elif kind == "one_segment":
+        ids = np.full(r, s // 2)
+    else:
+        raise ValueError(f"unknown segment-sum kind {kind!r}")
+    return vals.astype(np.float32), ids.astype(np.int32)
+
+
+# (kind, R, F, S): every kind at the main path's shape, then F in
+# {1, 4, 64, 130}, S in {1, 8, 64} and R in {1, 7, 131,072, ~560k}
+SEGSUM_CASES = (
+    *((kind, SEGSUM_MAIN_ROWS, 4, 8) for kind in SEGSUM_KINDS),
+    ("unsorted", 131072, 1, 8), ("layout", 131072, 64, 64), ("out_of_range", 131072, 130, 64),
+    ("empty_segments", 131072, 130, 1), ("layout", 1, 4, 8), ("unsorted", 7, 130, 64),
+    ("out_of_range", 7, 1, 1), ("one_segment", 131072, 64, 8), ("layout", SEGSUM_MAIN_ROWS, 4, 64),
+)

@@ -29,6 +29,15 @@ class RegisteredModel:
     # them as they are, and the pipeline widens them on the device.
     spec: ModelSpec
     infer_fn: InferFn
+    # Optional segment-aware form of the model for packed ragged batches
+    # (runtime/continuous.py): ``ragged_fn(inputs, segment_ids,
+    # num_segments) -> outputs``, where each input named in
+    # ``spec.extra["ragged_inputs"]`` is a packed (R, ...) row
+    # concatenation, the other inputs are stacked per segment,
+    # ``segment_ids`` is the (R,) int32 row -> request table (pad rows
+    # carry an out-of-range id), and every per-request output has leading
+    # dim ``num_segments``. None: the model only runs dense.
+    ragged_fn: Callable | None = None
 
 
 class ModelRepository:
@@ -38,9 +47,13 @@ class ModelRepository:
         self._models: dict[str, dict[str, RegisteredModel]] = {}
         self._lock = threading.Lock()
 
-    def register(self, spec: ModelSpec, infer_fn: InferFn) -> None:
+    def register(
+        self, spec: ModelSpec, infer_fn: InferFn, ragged_fn: Callable | None = None
+    ) -> None:
         with self._lock:
-            self._models.setdefault(spec.name, {})[spec.version] = RegisteredModel(spec, infer_fn)
+            self._models.setdefault(spec.name, {})[spec.version] = RegisteredModel(
+                spec, infer_fn, ragged_fn
+            )
 
     def get(self, name: str, version: str = "") -> RegisteredModel:
         with self._lock:
