@@ -18,28 +18,36 @@ dense merged path. One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
-                 at the main path's shapes, over edge-case candidate sets:
-                 bitwise equal or the script fails
+                 at the main path's shapes, over edge-case candidate sets
+                 (live NaN scores included), in and out of score order (the
+                 two branches of kernel 1's order pass, read back from its
+                 workspace and counted), and up to the largest K the
+                 wrapper takes: bitwise equal or the script fails
   3. main_path — requests at batch 1 and 8 through the channel, fused and
                  unfused routes; launch counts read around this phase only
   4. check     — the card's output against the plain tail and the CPU path
   5. times     — each kernel's device time (CUDA events around launches
                  queued behind a sleep kernel), its wrapper's call time
                  and its plain version's (CUDA events), frames/s
-                 and p50 latency at batch 1 and 8
+                 and p50 latency at batch 1 and 8; on the line before it,
+                 kernel 1's time by pass (torch.profiler) and the bytes of
+                 the workspace its call allocated
   6. profile   — where a request's time goes, under torch.profiler: device
                  ms and busy share per request, device ops per request,
                  the device ops that took the most time, at batch 1 and 8
   7. kernels_vs_plain_3d — the 3D decode and suppress+pack kernels against
                  their plain versions at B = 1, K = 256, max_det 128, over
-                 edge cases (ops/kernel_cases.py)
+                 edge cases (ops/kernel_cases.py), sorted and shuffled (the
+                 order path read back as in phase 2), and kernel 4 up to
+                 the largest K the wrapper takes
   8. main_path_3d — scans of 20,000 and 120,000 points through the channel,
                  fused and unfused routes; launch counts read around this
                  phase only
   9. check_3d  — the kernels on the main path's own candidates, and the
                  card against the CPU path at a tiny grid
  10. times_3d  — the 3D kernels' and plain versions' times, scans/s and
-                 p50 latency at 20k and 120k points
+                 p50 latency at 20k and 120k points; on the line before it,
+                 kernel 4's time by pass and its workspace
  11. profile_3d — phase 6 for a 120k-point scan
  12. kernels_vs_plain_second — the sorted-segment mean against its plain
                  version, bitwise, at N = 131,072 rows and 40,000 slots over
@@ -100,6 +108,9 @@ PROFILE_REQUESTS, PROFILE_TOP = 10, 12
 K_3D, MAX_DET_3D, COLS_3D = 256, 128, 9
 SCAN_POINTS = (20000, 120000)  # the source's default; a full HDL-64 scan
 SERVE_REQUESTS_3D = 30
+# the largest K kernels 1 and 4 take: their order pass's sort of 16,384
+# (score, index) keys fills a block's shared memory
+K_LARGEST = 16384
 # float operations of kernel 3 per candidate: diag 4, centres 6, sizes
 # 3 x (2 clamp, exp, mul), heading 9
 DECODE_OPS = 31
@@ -258,6 +269,65 @@ def device_profile(run, requests: int) -> dict:
                 top_device_ops_ms_per_request=dict(top))
 
 
+def pass_split(fn, kernel: str, passes=("order", "mask", "scan"), reps: int = 20) -> dict:
+    """Each pass of a mask-scan kernel (``<kernel>_<pass>``): its mean
+    device µs over the records torch.profiler kept of ``reps`` calls of
+    ``fn``, and how many it kept (it has dropped records of µs-long
+    kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = {}, {}
+    for e in prof.key_averages():
+        for name in passes:
+            if e.device_type.name == "CUDA" and f"{kernel}_{name}" in e.key:
+                us[name] = e.self_device_time_total / e.count
+                seen[name] = e.count
+    check(set(us) == set(passes), f"{kernel}: the profiler saw passes {sorted(us)}")
+    return {"us": us, "records_seen": seen, "calls": reps}
+
+
+def with_workspace(run):
+    """``run()``, which makes one call of a mask-scan kernel's wrapper
+    (kernels 1 and 4), then the workspace buffer that call allocated and
+    its arrays' sizes, for reading back what the kernel wrote there."""
+    from triton_client_tpu_torch.ops import mask_scan
+
+    seen, allocate = [], mask_scan.workspace
+
+    def record(device, sizes):
+        ws, ptrs = allocate(device, sizes)
+        seen.append((ws, sizes))
+        return ws, ptrs
+
+    mask_scan.workspace = record
+    try:
+        out = run()
+    finally:
+        mask_scan.workspace = allocate
+    torch.cuda.synchronize()
+    check(len(seen) == 1, f"one kernel call allocated {len(seen)} workspaces")
+    return out, *seen[0]
+
+
+def count_order_paths(ws, sizes, live, paths: dict, label: str) -> None:
+    """Reads back which order the order pass took for each image (its own,
+    or a sort), holds it to what the live scores call for (their own when
+    already in visiting order or with a live NaN) and adds the images to
+    ``paths``."""
+    from triton_client_tpu_torch.ops import mask_scan
+
+    took = mask_scan.took_own_order(ws, sizes).cpu()
+    want = (mask_scan.in_visiting_order(live) | torch.isnan(live).any(1)).cpu()
+    check(torch.equal(took, want),
+          f"{label}: the order pass took its own order {took.tolist()}, not {want.tolist()}")
+    paths["input_order"] += int(took.sum())
+    paths["sorted"] += int((~took).sum())
+
+
 def live_counts(boxes, live, thresh, max_det):
     """Live candidates at each step of the greedy loop, summed over the
     batch: the IoU tests this run's data needs (the kernel skips the
@@ -319,6 +389,7 @@ def main() -> int:
         gpu_suppress3d,
         gpu_voxel,
         kernel_cases,
+        mask_scan,
     )
     from triton_client_tpu_torch.ops import nms as tnms
     from triton_client_tpu_torch.ops.boxes import xywh2xyxy
@@ -353,21 +424,43 @@ def main() -> int:
     def to_dev(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
+    # every kind as drawn (not in score order: the order pass sorts) and as
+    # topk_candidates hands candidates over (in order: taken as it stands),
+    # then K past one group of 32 mask words, up to the largest K taken
     decode_cases = [
-        (kind, seed, fmt, agnostic)
+        (kind, seed, fmt, agnostic, K_MAIN, MAX_DET, sort)
         for kind in kernel_cases.KINDS
         for seed, fmt, agnostic in ((0, "xywh", False), (1, "xyxy", True))
-    ] + [("random", 2, "xywh", True), ("ties", 3, "xyxy", False)]
+        for sort in (False, True)
+    ] + [("random", 2, "xywh", True, K_MAIN, MAX_DET, False),
+         ("ties", 3, "xyxy", False, K_MAIN, MAX_DET, False)] + [
+        ("random", 4, "xywh", False, k, max_det, sort)
+        for k, max_det in ((1025, 1025), (K_LARGEST, MAX_DET), (K_LARGEST, K_LARGEST))
+        for sort in (False, True)
+    ]
+    check(gpu_decode.smem_fits(K_LARGEST) and not gpu_decode.smem_fits(K_LARGEST + 1),
+          f"decode_nms_2d does not take K up to {K_LARGEST} exactly")
     k1_err = 0.0
-    for kind, seed, fmt, agnostic in decode_cases:
-        args = to_dev(kernel_cases.batch(kind, B_MAIN, K_MAIN, NC, seed, fmt))
-        kw = dict(iou_thresh=0.45, max_det=MAX_DET, box_format=fmt, class_agnostic=agnostic)
-        rows, keep = gpu_decode.fused_decode_nms_2d(*args, **kw)
+    k1_order_paths = {"input_order": 0, "sorted": 0}
+    for kind, seed, fmt, agnostic, k, max_det, sort in decode_cases:
+        arrays = kernel_cases.batch(kind, B_MAIN, k, NC, seed, fmt)
+        if sort:
+            arrays = kernel_cases.score_sorted(*arrays)
+        args = to_dev(arrays)
+        kw = dict(iou_thresh=0.45, max_det=max_det, box_format=fmt, class_agnostic=agnostic)
+        label = f"{kind}, K {k}, max_det {max_det}, {fmt}, sorted {sort}"
+        (rows, keep), ws, sizes = with_workspace(
+            lambda: gpu_decode.fused_decode_nms_2d(*args, **kw))
+        live = torch.where(args[3], args[1], float("-inf"))
+        count_order_paths(ws, sizes, live, k1_order_paths, f"decode_nms_2d ({label})")
+        del ws
         want_rows, want_keep = gpu_decode.decode_nms_2d_reference(*args, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(keep, want_keep), f"decode_nms_2d keep differs ({kind}, {fmt})")
-        check(torch.equal(rows, want_rows), f"decode_nms_2d rows differ ({kind}, {fmt})")
+        check(torch.equal(keep, want_keep), f"decode_nms_2d keep differs ({label})")
+        check(torch.equal(bits(rows), bits(want_rows)), f"decode_nms_2d rows differ ({label})")
+        check(kind != "nan" or not keep.any(), "decode_nms_2d kept a box beside a live NaN")
         k1_err = max(k1_err, float((rows - want_rows).abs().max()))
+    check(min(k1_order_paths.values()) > 0, f"an order path was not taken: {k1_order_paths}")
     k2_err = 0
     for kind in kernel_cases.KINDS:
         parts = [kernel_cases.nms_inputs(kind, K_MAIN, seed=40 + i) for i in range(B_MAIN)]
@@ -377,6 +470,10 @@ def main() -> int:
         torch.cuda.synchronize()
         check(torch.equal(valid, want_valid), f"greedy_nms valid differs ({kind})")
         check(torch.equal(idx, want_idx), f"greedy_nms indices differ ({kind})")
+        if kind == "nan":  # every slot invalid, at the first NaN's index
+            first_nan = torch.isnan(scores).to(torch.int8).argmax(1, keepdim=True).to(torch.int32)
+            check(not valid.any() and torch.equal(idx, first_nan.expand_as(idx)),
+                  "greedy_nms: a live NaN did not empty every slot at its index")
         k2_err = max(k2_err, int((idx - want_idx).abs().max()))
     # the pallas route past a block's shared memory raises, launching nothing
     n_big = 10000
@@ -393,6 +490,7 @@ def main() -> int:
           "TRITON_CLIENT_TPU_NMS=pallas past shared memory did not raise on the card")
     emit("kernels_vs_plain", card, kernels=[
         {"name": "decode_nms_2d", "cases": len(decode_cases), "shape": [B_MAIN, K_MAIN, MAX_DET],
+         "largest_k": K_LARGEST, "images_by_order_path": k1_order_paths,
          "match": True, "max_abs_err": k1_err},
         {"name": "greedy_nms", "cases": len(kernel_cases.KINDS), "shape": [B_MAIN, K_MAIN, MAX_DET],
          "match": True, "max_abs_err": k2_err},
@@ -480,8 +578,13 @@ def main() -> int:
     cands = topk_candidates(pred[..., :4], cls_conf.amax(-1), cls_conf.argmax(-1), 0.05, K_MAIN)
     n_valid = int(cands[3].sum())
     check(n_valid == B_MAIN * K_MAIN, f"conf 0.05 fills {n_valid} of {B_MAIN * K_MAIN} slots")
+    # topk_candidates hands them over in score order: the order pass takes it as it stands
     kw1 = dict(iou_thresh=0.45, max_det=MAX_DET, box_format="xywh")
-    rows, keep = gpu_decode.fused_decode_nms_2d(*cands, **kw1)
+    (rows, keep), ws, sizes = with_workspace(lambda: gpu_decode.fused_decode_nms_2d(*cands, **kw1))
+    check(bool(mask_scan.took_own_order(ws, sizes).all()),
+          "the order pass sorted the main path's candidates")
+    k1_workspace_bytes = ws.numel()
+    del ws
     want_rows, want_keep = gpu_decode.decode_nms_2d_reference(*cands, **kw1)
     check(torch.equal(rows, want_rows) and torch.equal(keep, want_keep),
           "kernel differs from the plain tail on the main path's predictions")
@@ -531,6 +634,10 @@ def main() -> int:
                      lambda b: b.shape[0])
 
     e2e = {"batch1": serve2d(b1, 40), "batch8": serve2d(b8, 20)}
+    k1_passes = pass_split(lambda: gpu_decode.fused_decode_nms_2d(*k1_args, **kw1),
+                           "decode_nms_2d")
+    emit("passes", card, kernel="decode_nms_2d", shape=[B_MAIN, K_MAIN, MAX_DET],
+         kept=int(keep.sum()), workspace_bytes=k1_workspace_bytes, **k1_passes)
     emit("times", card, kernel_ms={"decode_nms_2d": k1_ms, "greedy_nms": k2_ms},
          call_ms={"decode_nms_2d": k1_call_ms, "greedy_nms": k2_call_ms},
          plain_ms={"decode_nms_2d": k1_plain_ms, "greedy_nms": k2_plain_ms},
@@ -555,7 +662,8 @@ def main() -> int:
          "replaces": "triton_client_tpu/ops/pallas_decode.py:155",
          "launches": launches["decode_nms_2d"], "max_abs_err": k1_err, "match": True,
          "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by,
+         "bound_by": k1_by, "passes_us": k1_passes["us"],
+         "workspace_bytes": k1_workspace_bytes,
          "library_ms": None, "card": card},
         {"name": "greedy_nms", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/greedy_nms.cu",
@@ -586,7 +694,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     from triton_client_tpu_torch.drivers.driver import channel_infer3d
     from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
     from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
-    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, kernel_cases
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, kernel_cases, mask_scan
     from triton_client_tpu_torch.ops.voxelize import VoxelConfig
     from triton_client_tpu_torch.pipelines.detect3d import (
         Detect3DConfig,
@@ -612,10 +720,29 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         torch.cuda.synchronize()
         decode_match(got, want, kind)
     k4_cases = 0
+    k4_order_paths = {"input_order": 0, "sorted": 0}
+
+    def k4_call(run, srows, label):
+        """``run()``, one kernel-4 call over ``srows``, with its order
+        path read back and counted."""
+        out, ws, sizes = with_workspace(run)
+        count_order_paths(ws, sizes, srows[..., COLS_3D - 2], k4_order_paths,
+                          f"suppress_pack_3d ({label})")
+        return out
+
+    def k4_match(iou, srows, max_det, label):
+        got = k4_call(lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, max_det), srows,
+                      label)
+        want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, max_det)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
+              f"suppress_pack_3d differs ({label})")
+
     for i, kind in enumerate(kernel_cases.SUPPRESS3D_KINDS):
         boxes, scores, labels = on_card(*kernel_cases.suppress3d_inputs(kind, K_3D, seed=60 + i))
-        rows, keep = gpu_suppress3d.fused_suppress_pack_3d(boxes, scores, labels, 0.01, MAX_DET_3D)
         iou, srows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+        rows, keep = k4_call(lambda: gpu_suppress3d.fused_suppress_pack_3d(
+            boxes, scores, labels, 0.01, MAX_DET_3D), srows, kind)
         want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(
             iou, srows, 0.01, MAX_DET_3D
         )
@@ -623,17 +750,34 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         check(torch.equal(keep, want_keep), f"suppress_pack_3d keep differs ({kind})")
         check(torch.equal(bits(rows), bits(want_rows)), f"suppress_pack_3d rows differ ({kind})")
         k4_cases += 1
+        # the same candidates shuffled: the order pass sorts them
+        perm = torch.from_numpy(np.random.default_rng(61 + i).permutation(K_3D)).to(dev)
+        k4_match(iou[:, perm][:, :, perm].contiguous(), srows[:, perm].contiguous(),
+                 MAX_DET_3D, f"{kind}, shuffled")
+        k4_cases += 1
+        if kind == "nan":
+            check(not keep.any(), "suppress_pack_3d kept a row beside a live NaN")
     iou, srows = on_card(*kernel_cases.planted_iou(K_3D, seed=70))  # IoU == the threshold
-    got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
-    want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
-    check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
-          "suppress_pack_3d differs at the threshold")
+    k4_match(iou, srows, MAX_DET_3D, "at the threshold")
     k4_cases += 1
-    n_big = 8192  # past a block's shared memory: raises, launches nothing
-    check(not gpu_suppress3d.smem_fits(n_big, COLS_3D), f"{n_big} candidates fit shared memory")
+    # K past one group of 32 mask words, up to the largest K taken
+    check(gpu_suppress3d.smem_fits(K_LARGEST, COLS_3D)
+          and not gpu_suppress3d.smem_fits(K_LARGEST + 1, COLS_3D),
+          f"suppress_pack_3d does not take K up to {K_LARGEST} exactly")
+    for k, max_dets in ((1300, (1300,)), (K_LARGEST, (MAX_DET_3D, K_LARGEST))):
+        iou, srows = on_card(*kernel_cases.sparse_iou(k, 4.0 / k, seed=71))
+        perm = torch.from_numpy(np.random.default_rng(72).permutation(k)).to(dev)
+        shuffled = iou[:, perm][:, :, perm].contiguous(), srows[:, perm].contiguous()
+        for max_det in max_dets:
+            k4_match(iou, srows, max_det, f"sparse, K {k}, max_det {max_det}")
+            k4_match(*shuffled, max_det, f"sparse, K {k}, max_det {max_det}, shuffled")
+            k4_cases += 2
+        del iou, srows, shuffled
+    check(min(k4_order_paths.values()) > 0, f"an order path was not taken: {k4_order_paths}")
+    n_big = K_LARGEST + 1  # past the largest K the wrapper takes: raises, launches nothing
     before = gpu_suppress3d.launches.count
     try:
-        gpu_suppress3d.suppress_pack_3d(torch.zeros((1, n_big, n_big), device=dev),
+        gpu_suppress3d.suppress_pack_3d(torch.zeros((1, 1, 1), device=dev).expand(1, n_big, n_big),
                                         torch.zeros((1, n_big, COLS_3D), device=dev))
         raised = False
     except ValueError:
@@ -644,6 +788,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         {"name": "residual_decode_3d", "cases": len(kernel_cases.DECODE3D_KINDS),
          "shape": [1, K_3D, 7], "match": True, "max_abs_err": 0.0},
         {"name": "suppress_pack_3d", "cases": k4_cases, "shape": [1, K_3D, MAX_DET_3D, COLS_3D],
+         "largest_k": K_LARGEST, "images_by_order_path": k4_order_paths,
          "match": True, "max_abs_err": 0.0},
     ])
 
@@ -727,7 +872,13 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     boxes = gpu_decode3d.fused_residual_decode(*dec_args)
     decode_match(boxes, gpu_decode3d.residual_decode_reference(*dec_args), "main path")
     iou, srows = gpu_suppress3d.sorted_candidates(boxes, cand["scores"], cand["labels"])
-    got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
+    # sorted_candidates hands them over in score order: taken as it stands
+    got, ws, sizes = with_workspace(
+        lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D))
+    check(bool(mask_scan.took_own_order(ws, sizes).all()),
+          "the order pass sorted the main path's 3D candidates")
+    k4_workspace_bytes = ws.numel()
+    del ws
     want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
     check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
           "suppress_pack_3d differs on the main path's candidates")
@@ -772,6 +923,12 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
 
     e2e = {f"points{n}": serve(infer["pointpillars"], scans[n], SERVE_REQUESTS_3D)
            for n in SCAN_POINTS}
+    k4_passes = pass_split(
+        lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D), "suppress_pack_3d"
+    )
+    emit("passes_3d", card, kernel="suppress_pack_3d", shape=[1, K_3D, MAX_DET_3D, COLS_3D],
+         kept=int(got[1].sum()), workspace_bytes=k4_workspace_bytes,
+         **k4_passes)
     emit("times_3d", card,
          kernel_ms={"residual_decode_3d": k3_ms, "suppress_pack_3d": k4_ms},
          call_ms={"residual_decode_3d": k3_call_ms, "suppress_pack_3d": k4_call_ms},
@@ -797,7 +954,8 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
          "replaces": "triton_client_tpu/ops/pallas_decode.py:321",
          "launches": launches["suppress_pack_3d"], "max_abs_err": 0.0, "match": True,
          "ms": k4_ms, "call_ms": k4_call_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by,
+         "bound_by": k4_by, "passes_us": k4_passes["us"],
+         "workspace_bytes": k4_workspace_bytes,
          "library_ms": None, "card": card},
     ]
 

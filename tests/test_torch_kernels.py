@@ -43,6 +43,8 @@ DECODE_CASES = [
     ("all_invalid", 100, 32, "xywh", False),
     ("chain", 100, 300, "xyxy", False),
     ("large", 1024, 32, "xywh", False),
+    ("nan", 100, 32, "xywh", False),
+    ("nan", 1024, 300, "xyxy", True),
 ]
 
 
@@ -73,7 +75,7 @@ def test_decode_nms_2d_plain_matches_tpu_kernel_bitwise(kind, k, max_det, fmt, a
     )
     np.testing.assert_array_equal(keep.numpy(), want_keep)
     np.testing.assert_array_equal(rows.numpy(), want_rows)
-    if kind == "all_invalid":
+    if kind in ("all_invalid", "nan"):  # a live NaN is the first pick, an invalid one
         assert not want_keep.any()
     elif kind == "chain":
         # greedy keeps every second box of the chain
@@ -86,6 +88,7 @@ NMS_CASES = [
     ("random", 100, 32),
     ("all_invalid", 100, 32),
     ("chain", 100, 300),
+    ("nan", 100, 32),
 ]
 
 
@@ -108,6 +111,9 @@ def test_nms_greedy_plain_matches_tpu_kernel(kind, n, max_det):
         # identical sequences, invalid slots (index 0) included
         np.testing.assert_array_equal(idx[i].numpy(), np.asarray(want_idx))
         np.testing.assert_array_equal(valid[i].numpy(), np.asarray(want_valid))
+        if kind == "nan":  # every slot invalid, at the first NaN's index
+            assert not valid[i].any()
+            assert (idx[i] == int(np.flatnonzero(np.isnan(scores[i]))[0])).all()
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -130,10 +136,13 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 def test_smem_limits():
     # the main path's K = 1024 fits with room to spare; past the 227 KB
-    # a block may use, the wrappers raise on CUDA tensors
-    assert gpu_decode.smem_bytes(1024) == 40960 and gpu_nms.smem_bytes(1024) == 24576
+    # a block may use (for kernel 1: past K = 16,384, where the order
+    # pass's sort fills it), the wrappers raise on CUDA tensors
+    assert gpu_decode.smem_bytes(1024) == 70656 and gpu_nms.smem_bytes(1024) == 24576
     assert gpu_decode.smem_fits(1024) and gpu_nms.smem_fits(1024)
-    assert not gpu_decode.smem_fits(8192) and not gpu_nms.smem_fits(16128)
+    assert gpu_decode.smem_fits(8192) and gpu_decode.smem_bytes(16384) == 196608
+    assert gpu_decode.smem_fits(16384) and not gpu_decode.smem_fits(16385)
+    assert not gpu_decode.smem_fits(32768) and not gpu_nms.smem_fits(16128)
 
 
 # -- 3D: residual decode (kernel 3) and rotated suppress+pack (kernel 4) --
@@ -221,7 +230,7 @@ def test_suppress_pack_3d_plain_matches_tpu_kernel_bitwise(kind):
     np.testing.assert_array_equal(got_rows[0].numpy(), np.asarray(want_rows))
     kept = int(got_keep.sum())
     live = int(np.isfinite(scores).sum())
-    if kind == "all_gated":
+    if kind in ("all_gated", "nan"):  # a live NaN is the first pick, an invalid one
         assert kept == 0 and not got_rows.any()
     elif kind == "few":
         assert 0 < kept <= live < max_det
@@ -271,11 +280,13 @@ def test_3d_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 
 def test_suppress_pack_3d_smem_limit():
-    # K = 256 at 9 columns takes 10 KB; past the 227 KB a block may use,
-    # the wrapper raises on CUDA tensors
-    assert gpu_suppress3d.smem_bytes(256, 9) == 10240
+    # K = 256 takes 66 KB of the scan pass's shared memory; past K = 16,384,
+    # where the order pass's sort fills the 227 KB a block may use, the
+    # wrapper raises on CUDA tensors
+    assert gpu_suppress3d.smem_bytes(256, 9) == 67584
     assert gpu_suppress3d.smem_fits(256, 9) and gpu_suppress3d.smem_fits(4096, 9)
-    assert not gpu_suppress3d.smem_fits(8192, 9)
+    assert gpu_suppress3d.smem_fits(8192, 9) and gpu_suppress3d.smem_fits(16384, 9)
+    assert not gpu_suppress3d.smem_fits(16385, 9) and not gpu_suppress3d.smem_fits(32768, 9)
 
 
 @pytest.fixture
@@ -302,6 +313,54 @@ def test_decode_nms_2d_kernel_matches_plain_on_card(cuda_device, kind, k, max_de
     assert gpu_decode.launches.count == before + 1
     assert torch.equal(keep, want_keep)
     assert torch.equal(rows, want_rows)
+
+
+def _decode_on_card(arrays, device, max_det=300, **kw):
+    """Kernel 1 against its plain version on the card, bitwise, with one
+    launch count per call."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+    before = gpu_decode.launches.count
+    rows, keep = gpu_decode.fused_decode_nms_2d(*args, iou_thresh=0.45, max_det=max_det, **kw)
+    want_rows, want_keep = gpu_decode.decode_nms_2d_reference(
+        *args, iou_thresh=0.45, max_det=max_det, **kw
+    )
+    torch.cuda.synchronize()
+    assert gpu_decode.launches.count == before + 1
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.KINDS)
+def test_decode_nms_2d_kernel_on_sorted_candidates_on_card(cuda_device, kind):
+    """The order pass's other branch: candidates already in score order, as
+    topk_candidates hands them over, are taken as they stand."""
+    arrays = kernel_cases.score_sorted(*kernel_cases.batch(kind, 8, 1024, seed=26))
+    _decode_on_card(arrays, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,max_det", [(1025, 1025), (16384, 300), (16384, 16384)])
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_decode_nms_2d_kernel_past_one_word_group_on_card(cuda_device, k, max_det, sort):
+    """K past 1024 (the scan's removed set spans several groups of 32
+    words), up to the largest K the wrapper takes."""
+    arrays = kernel_cases.batch("random", 2, k, seed=27)
+    if sort:
+        arrays = kernel_cases.score_sorted(*arrays)
+    _decode_on_card(arrays, cuda_device, max_det=max_det)
+
+
+@pytest.mark.cuda
+def test_decode_nms_2d_past_shared_memory_raises_on_card(cuda_device):
+    k = 16385  # one past the largest K the order pass's sort fits
+    boxes = torch.zeros((1, k, 4), device=cuda_device)
+    scores = torch.zeros((1, k), device=cuda_device)
+    before = gpu_decode.launches.count
+    with pytest.raises(ValueError, match="shared memory"):
+        gpu_decode.fused_decode_nms_2d(boxes, scores, scores, scores > 0)
+    assert gpu_decode.launches.count == before
 
 
 @pytest.mark.cuda
@@ -363,6 +422,49 @@ def test_suppress_pack_3d_kernel_matches_plain_on_card(cuda_device, kind):
     assert torch.equal(got_rows.view(torch.int32), want_rows.view(torch.int32))
 
 
+def _suppress3d_on_card(iou, rows, max_det=128):
+    before = gpu_suppress3d.launches.count
+    got_rows, got_keep = gpu_suppress3d.suppress_pack_3d(iou, rows, 0.01, max_det)
+    want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(iou, rows, 0.01, max_det)
+    torch.cuda.synchronize()
+    assert gpu_suppress3d.launches.count == before + 1
+    assert torch.equal(got_keep, want_keep)
+    assert torch.equal(got_rows.view(torch.int32), want_rows.view(torch.int32))
+    return got_keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.SUPPRESS3D_KINDS)
+def test_suppress_pack_3d_kernel_on_unsorted_rows_on_card(cuda_device, kind):
+    """The order pass's sort: the sorted candidates shuffled, rows and the
+    IoU matrix alike."""
+    parts = [kernel_cases.suppress3d_inputs(kind, 256, seed=34 + i) for i in range(2)]
+    boxes, scores, labels = (torch.from_numpy(np.stack(p)).to(cuda_device) for p in zip(*parts))
+    iou, rows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+    perm = torch.from_numpy(np.random.default_rng(35).permutation(256)).to(cuda_device)
+    _suppress3d_on_card(iou[:, perm][:, :, perm].contiguous(), rows[:, perm].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,max_det,walks_all", [
+    (1300, 1300, True), (16384, 128, False), (16384, 16384, True),
+])
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_suppress_pack_3d_kernel_past_one_word_group_on_card(cuda_device, k, max_det, walks_all,
+                                                            sort):
+    """K past 1024 up to the largest the wrapper takes at 9 columns, on a
+    sparse planted IoU matrix: with few suppressions the scan walks all
+    1,040 (13,108) live positions, past the first group of 32 words, unless
+    max_det stops it."""
+    iou, rows = (torch.from_numpy(a)[None].to(cuda_device)
+                 for a in kernel_cases.sparse_iou(k, 4.0 / k, seed=36))
+    if not sort:
+        perm = torch.from_numpy(np.random.default_rng(37).permutation(k)).to(cuda_device)
+        iou, rows = iou[:, perm][:, :, perm].contiguous(), rows[:, perm].contiguous()
+    keep = _suppress3d_on_card(iou, rows, max_det)
+    assert (int(keep.sum()) < max_det) == walks_all
+
+
 @pytest.mark.cuda
 def test_suppress_pack_3d_kernel_at_the_threshold_on_card(cuda_device):
     iou, rows = kernel_cases.planted_iou(256, seed=15)
@@ -375,11 +477,12 @@ def test_suppress_pack_3d_kernel_at_the_threshold_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_suppress_pack_3d_past_shared_memory_raises_on_card(cuda_device):
-    k = 8192
+    k = 16385  # one past the largest K the order pass's sort fits
     rows = torch.zeros((1, k, 9), device=cuda_device)
+    iou = torch.zeros((1, 1, 1), device=cuda_device).expand(1, k, k)
     before = gpu_suppress3d.launches.count
     with pytest.raises(ValueError, match="shared memory"):
-        gpu_suppress3d.suppress_pack_3d(torch.zeros((1, k, k), device=cuda_device), rows)
+        gpu_suppress3d.suppress_pack_3d(iou, rows)
     assert gpu_suppress3d.launches.count == before
 
 

@@ -68,6 +68,7 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.runtime.continuous",
         "triton_client_tpu_torch.obs.trace",
         "triton_client_tpu_torch.models.pool",
+        "triton_client_tpu_torch.ops.mask_scan",
     ):
         assert must in names
 

@@ -1,31 +1,31 @@
-// Greedy suppression loop shared by the decode+NMS, greedy-NMS and 3D
-// suppress+pack kernels.
+// Greedy suppression loop of the greedy-NMS kernel (greedy_nms.cu,
+// kernel 2). The decode+NMS and 3D suppress+pack kernels run a
+// suppression bitmask and a one-warp scan instead (mask_scan.cuh).
 //
 // One thread block owns one image. Live scores sit in shared memory. Each
 // step takes the block argmax over live scores (ties to the lowest index,
 // as jnp.argmax), emits it, and kills every live candidate whose IoU with
-// it exceeds the threshold. Where the IoU comes from is the caller's: the
-// 2D kernels compute it from boxes in shared memory (Boxes), the 3D
-// kernel reads a row of a precomputed matrix (IouMatrix). The suppression
-// pass also computes each thread's argmax for the next step, so a step
-// costs one pass over the thread's candidates plus one block reduction
-// (two __syncthreads).
-//
-// The 2D IoU follows ops/pallas_decode.py:128-131 and ops/pallas_nms.py:
-// 96-99 of the JAX package operation for operation. The build passes
-// --fmad=false so `area + barea - inter` is two rounded operations, as in
-// the plain PyTorch version, and no fast-math flag, so `/` is IEEE.
+// it exceeds the threshold. A live NaN empties every step, as jnp.argmax
+// and torch.argmax rank a NaN above every number (see suppress_loop). The
+// suppression pass also computes each thread's argmax for the next step,
+// so a step costs one pass over the thread's candidates plus one block
+// reduction (two __syncthreads). The IoU test is box_iou.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <climits>
 
+#include "box_iou.cuh"
+
 namespace greedy {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// Takes (v, i) into (bv, bi) when it ranks higher: the larger value, then
+// the lower index. No NaN reaches it (suppress_loop settles a live NaN
+// first).
 __device__ __forceinline__ void arg_better(float v, int i, float& bv, int& bi) {
   if (v > bv || (v == bv && i < bi)) {
     bv = v;
@@ -66,26 +66,24 @@ __device__ __forceinline__ void block_argmax(float v, int i, float* red_v, int* 
   out_i = red_i[kWarps];
 }
 
-// Block-wide max of non-negative values (the class-offset stride).
-__device__ __forceinline__ float block_max(float v, float* red_v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red_v[warp] = v;
+// The lowest index whose live score is NaN, INT_MAX when none; every
+// thread gets it. red_i holds kWarps slots.
+__device__ __forceinline__ int first_nan(const float* live, int n, int* red_i) {
+  int at = INT_MAX;
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    if (isnan(live[j])) at = min(at, j);
+  for (int off = 16; off > 0; off >>= 1) at = min(at, __shfl_down_sync(0xffffffffu, at, off));
+  if ((threadIdx.x & 31) == 0) red_i[threadIdx.x >> 5] = at;
   __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? red_v[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) red_v[kWarps] = v;
-  }
-  __syncthreads();
-  float out = red_v[kWarps];
-  __syncthreads();  // red_v is reused by the next reduction
-  return out;
+  at = INT_MAX;
+  for (int w = 0; w < kWarps; ++w) at = min(at, red_i[w]);
+  __syncthreads();  // red_i is the loop's reduction scratch next
+  return at;
 }
 
 // IoU of every candidate with the chosen one, computed from boxes in
-// shared memory (the 2D kernels). row(best) reads the chosen box once;
-// the returned functor gives the IoU of candidate j.
+// shared memory. Boxes::row(best) reads the chosen box once; the returned
+// functor gives the IoU of candidate j.
 struct BoxIou {
   const float* x1;
   const float* y1;
@@ -94,10 +92,7 @@ struct BoxIou {
   const float* area;
   float bx1, by1, bx2, by2, barea;
   __device__ __forceinline__ float operator()(int j) const {
-    const float iw = fmaxf(fminf(x2[j], bx2) - fmaxf(x1[j], bx1), 0.0f);
-    const float ih = fmaxf(fminf(y2[j], by2) - fmaxf(y1[j], by1), 0.0f);
-    const float inter = iw * ih;
-    return inter / fmaxf(area[j] + barea - inter, 1e-9f);
+    return boxiou::iou(x1[j], y1[j], x2[j], y2[j], area[j], bx1, by1, bx2, by2, barea);
   }
 };
 
@@ -107,37 +102,37 @@ struct Boxes {
   const float* x2;
   const float* y2;
   const float* area;
-  // "+ 0.0f": the TPU kernels pick the chosen box with a masked sum,
-  // which turns -0.0 into +0.0
   __device__ __forceinline__ BoxIou row(int best) const {
     return {x1, y1, x2, y2, area, x1[best] + 0.0f, y1[best] + 0.0f,
             x2[best] + 0.0f, y2[best] + 0.0f, area[best] + 0.0f};
   }
 };
 
-// IoU rows of a precomputed (n, n) matrix in device memory (the 3D
-// kernel): row(best) is the chosen candidate's row, read coalesced.
-struct IouRow {
-  const float* r;
-  __device__ __forceinline__ float operator()(int j) const { return r[j]; }
-};
-
-struct IouMatrix {
-  const float* iou;
-  int n;
-  __device__ __forceinline__ IouRow row(int best) const { return {iou + (size_t)best * n}; }
-};
-
 // Runs max_det steps over the n candidates whose live scores are in
 // `live` (-inf once suppressed or invalid; live[j] belongs to thread
 // j % kThreads). Each step kills the chosen candidate and every live one
 // whose IoU with it, src.row(best)(j), exceeds thresh. emit(step, best) is
-// called by thread 0 for each kept candidate; emit_empty(step) by thread 0
-// for every step after the live set ran out (the loop stops there: the
-// remaining steps would all pick an invalid candidate and change nothing).
+// called by thread 0 for each kept candidate; emit_empty(step, index) by
+// thread 0 for every step after the live set ran out, with the index
+// jnp.argmax gives there: 0 over an all -inf row. The loop stops there:
+// the remaining steps would all pick the same invalid candidate and change
+// nothing.
+//
+// jnp.argmax ranks a NaN above every number and takes the first, so a
+// live NaN is the loop's first pick, an invalid one, and so is every pick
+// after it: every step is empty, at the first NaN's index. A search for
+// that NaN before the loop settles it and leaves the steps' reduction the
+// plain compare (ranking NaNs inside the reduction made each step some
+// 13% slower on an H100).
 template <typename Src, typename Emit, typename EmitEmpty>
 __device__ void suppress_loop(const Src& src, float* live, int n, float thresh, int max_det,
                               float* red_v, int* red_i, Emit emit, EmitEmpty emit_empty) {
+  const int nan_at = first_nan(live, n, red_i);
+  if (nan_at != INT_MAX) {
+    if (threadIdx.x == 0)
+      for (int s = 0; s < max_det; ++s) emit_empty(s, nan_at);
+    return;
+  }
   float bv = -CUDART_INF_F;
   int bi = INT_MAX;
   for (int j = threadIdx.x; j < n; j += kThreads) arg_better(live[j], j, bv, bi);
@@ -148,7 +143,7 @@ __device__ void suppress_loop(const Src& src, float* live, int n, float thresh, 
     block_argmax(bv, bi, red_v, red_i, best_v, best);
     if (!(best_v > -CUDART_INF_F)) {
       if (threadIdx.x == 0)
-        for (int s = step; s < max_det; ++s) emit_empty(s);
+        for (int s = step; s < max_det; ++s) emit_empty(s, 0);
       return;
     }
     if (threadIdx.x == 0) emit(step, best);
@@ -165,8 +160,8 @@ __device__ void suppress_loop(const Src& src, float* live, int n, float thresh, 
       }
     }
     // live[j] is read and written only by its owning thread, and the
-    // IoU sources are read-only here, so the reduction's barriers are the
-    // only ones a step needs.
+    // boxes are read-only here, so the reduction's barriers are the only
+    // ones a step needs.
   }
 }
 

@@ -1,7 +1,8 @@
 // Greedy NMS over xyxy boxes, one thread block per image, the whole batch
 // in one launch. Returns each image's kept indices in selection order and
-// a valid mask; invalid slots hold index 0, which is what jnp.argmax of an
-// all -inf row gives in the TPU kernel, so index sequences stay identical.
+// a valid mask; invalid slots hold the index jnp.argmax gives there in the
+// TPU kernel (0 over an all -inf row, the first NaN when a score is NaN),
+// so index sequences stay identical.
 //
 // Replaces the TPU kernel triton_client_tpu/ops/pallas_nms.py::nms_pallas
 // (body _nms_kernel).
@@ -56,8 +57,8 @@ greedy_nms_kernel(const float* __restrict__ boxes,   // (B, N, 4) xyxy
         idx[s] = best;
         val[s] = true;
       },
-      [&](int s) {
-        idx[s] = 0;
+      [&](int s, int index) {
+        idx[s] = index;
         val[s] = false;
       });
 }

@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel ``triton_client_tpu/ops/pallas_nms.py::nms_pallas``
 (body ``_nms_kernel``). Source: ``csrc/greedy_nms.cu`` over the loop in
-``csrc/greedy.cuh``, shared with ``ops/gpu_decode.py``.
+``csrc/greedy.cuh``.
 
 What bounds it on an H100: latency, not bytes or operations. Each of up
 to ``max_det`` steps is a block-wide argmax that depends on the step
@@ -59,9 +59,11 @@ def greedy_steps(x1, y1, x2, y2, area, live, iou_thresh, max_det: int):
     coordinates, areas and live scores (-inf = dead). Each step takes
     the argmax live score (ties to the lowest index, as ``jnp.argmax``)
     and kills it and every candidate with IoU > thresh against it.
-    Returns the (B, max_det) chosen indices and whether each was live;
-    a step with nothing live chooses index 0, as ``jnp.argmax`` of an
-    all -inf row does."""
+    Returns the (B, max_det) chosen indices and whether each was live.
+    ``argmax`` ranks a NaN above every number, so a live NaN is the first
+    pick and an invalid one, and every step after it picks it again; a
+    step with nothing live chooses index 0, as ``jnp.argmax`` of an all
+    -inf row does."""
     b, n = live.shape
     dev = live.device
     thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
@@ -94,7 +96,8 @@ def nms_greedy_reference(
 
     boxes (B, N, 4) xyxy, scores (B, N) with -inf as padding ->
     ((B, max_det) int32 indices, (B, max_det) bool valid). Invalid slots
-    hold index 0."""
+    hold the index ``jnp.argmax`` gives there: 0, or the first NaN when a
+    score is NaN."""
     x1, y1, x2, y2 = boxes.to(torch.float32).unbind(-1)
     area = (x2 - x1) * (y2 - y1)  # unclipped, as pallas_nms.py:129
     chosen, valid = greedy_steps(

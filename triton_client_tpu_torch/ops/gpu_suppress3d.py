@@ -6,7 +6,7 @@ fused_suppress_pack_3d`` (body ``_suppress_pack_3d_kernel``). Two
 wrappers, split where the TPU function's kernel begins:
 
   * ``suppress_pack_3d(iou_sorted, rows_sorted, thresh, max_det)`` is the
-    launch of ``csrc/suppress_pack_3d.cu``: the greedy loop over a
+    call of ``csrc/suppress_pack_3d.cu``: greedy suppression over a
     precomputed (K, K) IoU matrix of score-sorted candidates, and the
     packed rows;
   * ``fused_suppress_pack_3d(boxes, scores, labels, iou_thresh, max_det)``
@@ -15,16 +15,23 @@ wrappers, split where the TPU function's kernel begins:
     plain PyTorch (the JAX package leaves that matrix to XLA, outside any
     Pallas kernel), then calls ``suppress_pack_3d``.
 
-What bounds it on an H100: latency. max_det dependent steps, each a
-block-wide argmax (kernel 1's loop, ``csrc/greedy.cuh``); the bytes the
-kernel must read (the 256 KB matrix and 9 KB of rows at K = 256) take
-about 0.08 us at 3.35 TB/s. The design keeps live scores and sorted rows
-in shared memory, reads the chosen candidate's IoU row from device memory
-each step (1 KB, coalesced), and stops at the first step with no live
-candidate.
+What bounds it on an H100: latency. The bytes the kernel must read (the
+256 KB matrix and 9 KB of rows at K = 256) take about 0.08 us at
+3.35 TB/s; the greedy loop's ``max_det`` dependent block-wide argmax
+steps were the time. So the kernel keeps the same candidates by another
+route (``ops/mask_scan.py`` states the equivalence), in three launches
+on one stream counted as one call: an order pass (one block an image;
+the rows' own order when the scores are already sorted, as
+``sorted_candidates`` leaves them, else a bitonic sort), a mask pass
+(``iou[chosen][j] > thresh`` thresholded 32 columns a ballot, one warp a
+row, across the card) and a one-warp scan. The workspace (the mask and
+the order) comes from ``torch.empty`` in the wrapper.
 
 CUDA tensors launch the kernel; CPU tensors run the plain
-``suppress_pack_3d_reference``; nothing falls back.
+``suppress_pack_3d_reference`` (the greedy loop, step for step); nothing
+falls back. ``suppress_pack_3d_mask_scan_reference`` is the kernel's own
+algorithm in plain PyTorch, held equal to it on the CPU by
+``tests/test_torch_nms_scan.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import ctypes
 
 import torch
 
-from triton_client_tpu_torch.ops import cuda_build
+from triton_client_tpu_torch.ops import cuda_build, mask_scan
 from triton_client_tpu_torch.ops.boxes3d import boxes7_to_bev, rotated_iou_bev
 from triton_client_tpu_torch.ops.gpu_nms import SMEM_LIMIT, SMEM_STATIC
 
@@ -41,21 +48,37 @@ SOURCE = "suppress_pack_3d.cu"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # suppress_pack_3d_launch(iou, rows, batch, k, cols, thresh, max_det, dets,
-#                         keep, smem_bytes, stream)
-_ARGTYPES = {"suppress_pack_3d_launch": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _P]}
+#                         keep, mask, order, live_n, order_smem_bytes, stream); the
+#                         launch sizes the scan pass's shared memory itself
+_ARGTYPES = {"suppress_pack_3d_launch": [_P, _P, _I, _I, _I, _F, _I, *[_P] * 5, _I, _P]}
 
 launches = cuda_build.LaunchCounter()
 
 
 def smem_bytes(k: int, cols: int) -> int:
-    """Dynamic shared memory of one block: the live scores and the sorted
-    rows of ``k`` candidates, ``cols`` floats each."""
-    return 4 * k * (cols + 1)
+    """Dynamic shared memory of the larger one-block pass over ``k``
+    candidates (``ops/mask_scan.smem_bytes``; the rows stay in device
+    memory, so ``cols`` does not enter)."""
+    return mask_scan.smem_bytes(k)
 
 
 def smem_fits(k: int, cols: int) -> bool:
-    """Whether ``k`` candidates fit one block's shared memory."""
+    """Whether the passes' shared memory over ``k`` candidates of ``cols``
+    columns fits a block: up to K = 16,384, where the order pass's sort
+    fills it."""
     return smem_bytes(k, cols) + SMEM_STATIC <= SMEM_LIMIT
+
+
+def _workspace_sizes(b: int, k: int) -> tuple[int, ...]:
+    """int32 elements of the mask rows, the order, and the live counts and
+    own-order flags (``mask_scan.took_own_order``)."""
+    return (b * k * mask_scan.row_stride(k), b * k, 2 * b)
+
+
+def workspace_bytes(b: int, k: int) -> int:
+    """Device memory a call over (B, K) candidates takes beside its
+    inputs and outputs (9 KB at B = 1, K = 256)."""
+    return mask_scan.workspace_bytes(_workspace_sizes(b, k))
 
 
 def suppress_pack_3d_reference(
@@ -87,14 +110,33 @@ def suppress_pack_3d_reference(
     return torch.where(keep[..., None], out, 0.0), keep
 
 
+def suppress_pack_3d_mask_scan_reference(
+    iou: torch.Tensor, rows: torch.Tensor, iou_thresh=0.01, max_det: int = 128
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's algorithm in plain PyTorch, with the contract of
+    :func:`suppress_pack_3d_reference`: the visiting order of the score
+    column, the bitmask ``iou[order[p], order[q]] > thresh`` (row p the
+    chosen candidate, as the loop reads its row), then the scan."""
+    live = rows[..., rows.shape[-1] - 2].to(torch.float32)
+    order, live_n = mask_scan.visiting_order(live)
+    rows_in_order = torch.take_along_dim(iou, order[:, :, None], 1)
+    sup = torch.take_along_dim(rows_in_order, order[:, None, :], 2)
+    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=rows.device)
+    kept, keep = mask_scan.scan(mask_scan.pack_bits(sup > thresh), live_n, max_det)
+    chosen = order.gather(1, kept)
+    # "+ 0.0": the TPU kernel's masked sum turns -0.0 into +0.0
+    out = torch.take_along_dim(rows.to(torch.float32), chosen[..., None], dim=1) + 0.0
+    return torch.where(keep[..., None], out, 0.0), keep
+
+
 def suppress_pack_3d(
     iou: torch.Tensor, rows: torch.Tensor, iou_thresh=0.01, max_det: int = 128
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's launch over score-sorted candidates (see
     :func:`suppress_pack_3d_reference` for the contract).
 
-    CUDA tensors launch ``csrc/suppress_pack_3d.cu`` (one block per
-    image); CPU tensors run :func:`suppress_pack_3d_reference`."""
+    CUDA tensors launch ``csrc/suppress_pack_3d.cu`` (three passes, one
+    count); CPU tensors run :func:`suppress_pack_3d_reference`."""
     if iou.device.type == "cpu" and rows.device.type == "cpu":
         return suppress_pack_3d_reference(iou, rows, iou_thresh, max_det)
     if rows.device.type != "cuda" or iou.device != rows.device:
@@ -106,18 +148,23 @@ def suppress_pack_3d(
         )
     b, k, cols = rows.shape
     if not smem_fits(k, cols):
-        raise ValueError(f"suppress_pack_3d: {k} candidates exceed one block's shared memory")
+        raise ValueError(
+            f"suppress_pack_3d: {k} candidates need {smem_bytes(k, cols)} B of a block's "
+            "shared memory (the order pass's sort), more than it has"
+        )
     iou = iou.to(torch.float32).contiguous()
     rows = rows.to(torch.float32).contiguous()
     dets = torch.empty((b, max_det, cols), dtype=torch.float32, device=rows.device)
     keep = torch.empty((b, max_det), dtype=torch.bool, device=rows.device)
     if b == 0 or max_det == 0:
         return dets, keep
+    _ws, ptrs = mask_scan.workspace(rows.device, _workspace_sizes(b, k))
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
         err = cuda_build.load(SOURCE, _ARGTYPES).suppress_pack_3d_launch(
             iou.data_ptr(), rows.data_ptr(), b, k, cols, float(iou_thresh), max_det,
-            dets.data_ptr(), keep.data_ptr(), smem_bytes(k, cols), stream,
+            dets.data_ptr(), keep.data_ptr(), *ptrs,
+            mask_scan.order_smem_bytes(k), stream,
         )
     cuda_build.check_launch("suppress_pack_3d", err)
     launches.add()
@@ -150,6 +197,6 @@ def fused_suppress_pack_3d(
     """(B, K, 7+e) candidates + (B, K) -inf-gated scores + (B, K) 1-indexed
     labels -> packed ((B, max_det, 9+e) rows [box7, extras..., score,
     label], (B, max_det) keep): the ``_nms_pack_one`` contract. Sort and
-    IoU matrix in PyTorch, suppression and packing in one launch."""
+    IoU matrix in PyTorch, suppression and packing in one kernel call."""
     iou, rows = sorted_candidates(boxes, scores, labels)
     return suppress_pack_3d(iou, rows, iou_thresh, max_det)

@@ -6,9 +6,13 @@ inputs from the same seeds. For the 2D greedy kernels each kind aims at
 one hazard of the loop: ``random`` (ordinary), ``ties`` (equal scores:
 argmax must take the lowest index), ``all_invalid`` (no live candidate:
 rows stay zero, indices 0), ``chain`` (each box suppresses only its
-neighbour, so the result depends on the order of suppression) and
+neighbour, so the result depends on the order of suppression),
 ``large`` (coordinates near 1e5, where the class-offset stride and the
-IoU round coarsely). The 3D kinds are described at ``decode3d_inputs``
+IoU round coarsely) and ``nan`` (three live NaN scores among ordinary
+ones: the loop's argmax ranks a NaN first and takes it as an invalid
+pick, so nothing is kept and greedy NMS's indices are the first NaN's).
+The random kinds are not in score order; the main paths hand the kernels
+sorted candidates. The 3D kinds are described at ``decode3d_inputs``
 and ``suppress3d_inputs``, the segment kinds at ``segment_inputs`` and
 ``segsum_inputs``.
 """
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-KINDS = ("random", "ties", "all_invalid", "chain", "large")
+KINDS = ("random", "ties", "all_invalid", "chain", "large", "nan")
 
 
 def candidates(kind: str, k: int, nc: int = 2, seed: int = 0, box_format: str = "xywh"):
@@ -46,6 +50,10 @@ def candidates(kind: str, k: int, nc: int = 2, seed: int = 0, box_format: str = 
         valid[:] = True
     if kind == "all_invalid":
         valid[:] = False
+    if kind == "nan":
+        bad = rng.choice(k, size=min(3, k), replace=False)
+        scores[bad] = np.nan
+        valid[bad] = True
     boxes = xywh.astype(np.float32)
     if box_format == "xyxy":
         c, h = boxes[:, :2], boxes[:, 2:] * np.float32(0.5)
@@ -59,6 +67,33 @@ def batch(kind: str, b: int, k: int, nc: int = 2, seed: int = 0, box_format: str
     stacked on a leading batch axis."""
     parts = [candidates(kind, k, nc, seed + i, box_format) for i in range(b)]
     return tuple(np.stack(p) for p in zip(*parts))
+
+
+def score_sorted(boxes, scores, classes, valid):
+    """A ``batch`` re-ordered as ``topk_candidates`` hands candidates to
+    the fused tail: live scores descending, ties by index, invalid slots
+    last (NaN scores sort last here; the kernel ranks them first, and any
+    order of a set with a live NaN keeps nothing)."""
+    order = np.argsort(-np.where(valid, scores, -np.inf), axis=1, kind="stable")
+    return tuple(np.take_along_axis(a, order[..., None] if a.ndim == 3 else order, 1)
+                 for a in (boxes, scores, classes, valid))
+
+
+def sparse_iou(k: int, density: float, thresh: float = 0.01, seed: int = 0):
+    """Kernel 4's inputs at large K without a rotated IoU matrix: a (k, k)
+    float32 matrix, not symmetric, with one entry in ``1 / density`` one
+    ulp above the threshold and the rest at the threshold or 0, and
+    score-sorted rows of width 9 (a fifth gated to -inf at the end).
+    Returns (iou, rows)."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(thresh)
+    iou = np.where(rng.uniform(size=(k, k)) < 0.5, t, np.float32(0)).astype(np.float32)
+    iou[rng.uniform(size=(k, k)) < density] = np.nextafter(t, np.float32(1))
+    rows = rng.normal(0, 5, (k, 9)).astype(np.float32)
+    rows[:, 7] = np.sort(rng.uniform(0.1, 1.0, k))[::-1]
+    rows[k - k // 5:, 7] = -np.inf
+    rows[:, 8] = rng.integers(1, 4, k)
+    return iou, rows
 
 
 def nms_inputs(kind: str, n: int, seed: int = 0):
@@ -109,7 +144,7 @@ def decode3d_inputs(kind: str, k: int, seed: int = 0):
     )
 
 
-SUPPRESS3D_KINDS = ("random", "all_gated", "ties", "identical", "disjoint", "few")
+SUPPRESS3D_KINDS = ("random", "all_gated", "ties", "identical", "disjoint", "few", "nan")
 
 
 def suppress3d_inputs(kind: str, k: int, seed: int = 0):
@@ -119,7 +154,8 @@ def suppress3d_inputs(kind: str, k: int, seed: int = 0):
     ``all_gated`` has no live candidate; ``ties`` has four score values;
     ``identical`` repeats each box four times (IoU 1); ``disjoint`` puts
     every box on its own grid cell (IoU 0: more are kept than max_det);
-    ``few`` leaves 10 live candidates (fewer than max_det)."""
+    ``few`` leaves 10 live candidates (fewer than max_det); ``nan`` puts a
+    NaN score on three candidates (nothing is kept)."""
     rng = np.random.default_rng(seed)
     if kind == "disjoint":
         side = int(np.ceil(np.sqrt(k)))
@@ -144,6 +180,8 @@ def suppress3d_inputs(kind: str, k: int, seed: int = 0):
         scores[:] = -np.inf
     elif kind == "few":
         scores[10:] = -np.inf
+    elif kind == "nan":
+        scores[rng.choice(k, size=min(3, k), replace=False)] = np.nan
     return (
         boxes.astype(np.float32),
         scores.astype(np.float32),
