@@ -43,8 +43,10 @@ dense merged path. One JSON line per phase:
   8. main_path_3d — scans of 20,000 and 120,000 points through the channel,
                  fused and unfused routes; launch counts read around this
                  phase only
-  9. check_3d  — the kernels on the main path's own candidates, and the
-                 card against the CPU path at a tiny grid
+  9. check_3d  — the kernels on the main path's own candidates, the card
+                 against the CPU path at a tiny grid, the cells of NaN,
+                 +-inf, +-1e10 and +-2^31 coordinates on the card against
+                 the CPU, and a NaN point keeping no detection on either
  10. times_3d  — the 3D kernels' and plain versions' times, scans/s and
                  p50 latency at 20k and 120k points; on the line before it,
                  kernel 4's time by pass and its workspace
@@ -58,7 +60,8 @@ dense merged path. One JSON line per phase:
  14. check_second — the three kernels on the main path's own inputs, and the
                  card against the CPU path at a tiny grid
  15. times_second — the segment mean's times, bound and library yardstick,
-                 scans/s and p50 latency at 20k and 120k points
+                 scans/s and p50 latency at 20k and 120k points; on the
+                 line before it, its two launches' times (zero, walk)
  16. profile_second — phase 6 for a 120k-point SECOND scan
  17. kernels_vs_plain_ragged — the segment sum (kernel 6) against its plain
                  version, bitwise, over edge cases (ops/kernel_cases.py
@@ -75,8 +78,9 @@ dense merged path. One JSON line per phase:
  19. check_ragged — kernel 6 on the main path's own packed rows, each
                  member against a float64 sum, packed and solo, and the card
                  against the CPU port on the same group
- 20. times_ragged — kernel 6's times, bound and index_add_ yardstick;
-                 clouds/s and p50 through the batcher beside solo requests
+ 20. times_ragged — kernel 6's times, its one launch's profiler time,
+                 bound and index_add_ yardstick; clouds/s and p50 through
+                 the batcher beside solo requests
  21. dense_batched_2d — YOLOv5n 512^2 frames through the same scheduler's
                  dense merged path: a group of 8 one-frame requests equals one
                  direct call on the 8 frames stacked, bit for bit
@@ -241,6 +245,30 @@ def card_vs_cpu(card_pipe, cpu_pipe, clouds) -> tuple[float, int]:
     return err_max, kept
 
 
+def nan_cells_card_vs_cpu(dev: torch.device) -> dict:
+    """Cell assignment of NaN, +-inf, +-1e10 and +-2^31 coordinates on the
+    card against the CPU, at the KITTI PointPillars grid: equal cells and
+    valid rows, the NaN x row in cell x = 0 and kept (XLA's cast rule,
+    ``ops/voxelize.xla_f32_to_i32``). Returns what was compared."""
+    from triton_client_tpu_torch.ops import kernel_cases
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells, xla_f32_to_i32
+
+    pts = kernel_cases.special_cloud(200, VoxelConfig().point_cloud_range, seed=3)
+    x = torch.from_numpy(np.concatenate([kernel_cases.SPECIAL_COORDS, pts[:, :3].ravel()]))
+    check(torch.equal(xla_f32_to_i32(x.to(dev)).cpu(), xla_f32_to_i32(x)),
+          "the card's float -> int32 cast differs from the CPU's")
+    p, n = torch.from_numpy(pts), torch.tensor(190)
+    ijk, valid = assign_cells(p.to(dev), n.to(dev), VoxelConfig())
+    want_ijk, want_valid = assign_cells(p, n, VoxelConfig())
+    check(torch.equal(ijk.cpu(), want_ijk) and torch.equal(valid.cpu(), want_valid),
+          "the card's cells of special coordinates differ from the CPU's")
+    check(int(want_ijk[0, 0]) == 0 and bool(want_valid[0]), "a NaN x did not land in cell 0")
+    # whether PyTorch's own CUDA cast already follows the rule (reported)
+    plain_cast = torch.equal(x.to(dev).to(torch.int32).cpu(), xla_f32_to_i32(x))
+    return {"values": int(x.numel()), "points": int(pts.shape[0]), "equal": True,
+            "torch_cast_on_card_follows_xla": plain_cast}
+
+
 def device_profile(run, requests: int) -> dict:
     """Where a request's time goes: ``run`` called ``requests`` times under
     torch.profiler (the wall includes the profiler's cost). Device ms and
@@ -270,10 +298,10 @@ def device_profile(run, requests: int) -> dict:
 
 
 def pass_split(fn, kernel: str, passes=("order", "mask", "scan"), reps: int = 20) -> dict:
-    """Each pass of a mask-scan kernel (``<kernel>_<pass>``): its mean
+    """Each pass (launch) of a kernel, named ``<kernel>_<pass>``: its mean
     device µs over the records torch.profiler kept of ``reps`` calls of
     ``fn``, and how many it kept (it has dropped records of µs-long
-    kernels)."""
+    kernels). Fails unless the profiler saw every pass by its name."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -895,9 +923,16 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     tiny_err, tiny_kept = card_vs_cpu(
         card_pipe, cpu_pipe, uniform_clouds(9, tiny.voxel.point_cloud_range, 500)
     )
+    nan_cells = nan_cells_card_vs_cpu(dev)
+    # one NaN x wipes every score on both devices, as in the JAX package
+    nan_pc = uniform_clouds(9, tiny.voxel.point_cloud_range, 500)[0]
+    nan_pc[7, 0] = np.nan
+    nan_kept = [len(p.infer(nan_pc)["pred_scores"]) for p in (card_pipe, cpu_pipe)]
+    check(nan_kept == [0, 0], f"a NaN point kept {nan_kept} detections (card, CPU), want 0")
     emit("check_3d", card, kernels_equal_plain_on_main_path=True, candidates=int(
         torch.isfinite(cand["scores"]).sum()), kept=int(got[1].sum()),
-        cpu_vs_card_kept=tiny_kept, cpu_vs_card_max_abs_err=tiny_err)
+        cpu_vs_card_kept=tiny_kept, cpu_vs_card_max_abs_err=tiny_err,
+        nan_cells_card_equals_cpu=nan_cells, nan_point_kept_card_cpu=nan_kept)
 
     # -- 10. times on the card's clock ---------------------------------------------
     k3_call_ms = cuda_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args), reps=500)
@@ -1174,7 +1209,8 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
     n_rows = valsT.shape[1]
     # what this run's rows need: the live rows' 8 values and slot id, each
     # read once, and 8 means a slot written; the dump rows are never read
-    # (the binary searches re-read slot ids of the live rows, not counted)
+    # (the zero launch's 8 x slots writes and the dump rows' ids, which the
+    # row-parallel pass reads, are the design's cost, not counted)
     k5_bytes = 9 * n_live * 4 + 8 * SECOND_SLOTS * 4
     k5_ops = 8 * n_live + 8 * SECOND_SLOTS  # the adds this run's rows need, one division a mean
     k5_bound, k5_by = roofline(k5_bytes, k5_ops)
@@ -1182,6 +1218,9 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
     e2e = {name: {f"points{n}": serve(infer[name], scans[n], SERVE_REQUESTS_3D)
                   for n in SCAN_POINTS}
            for name in pipes}
+    k5_passes = pass_split(k5, "segment_mean", passes=("zero", "walk"))
+    emit("passes_second", card, kernel="segment_mean", shape=[8, n_rows, SECOND_SLOTS],
+         live_rows=n_live, **k5_passes)
     emit("times_second", card, kernel_ms={"segment_mean": k5_ms},
          call_ms={"segment_mean": k5_call_ms}, plain_ms={"segment_mean": k5_plain_ms},
          library_ms={"segment_mean": library_ms},
@@ -1200,7 +1239,8 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
          "replaces": "triton_client_tpu/ops/pallas_voxel.py:194",
          "launches": launches["segment_mean"], "max_abs_err": k5_err, "match": True,
          "ms": k5_ms, "call_ms": k5_call_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-         "bound_by": k5_by, "library_ms": library_ms, "card": card},
+         "bound_by": k5_by, "passes_us": k5_passes["us"], "library_ms": library_ms,
+         "card": card},
     ], launches
 
 
@@ -1425,16 +1465,9 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
     k6_ms = kernel_device_ms(k6, gpu_segment.launches)
     k6_plain_ms = cuda_ms(lambda: gpu_segment.segment_sum_reference(feat, ids, s), reps=3,
                           warmup=1)
-    # the two passes' device times, as torch.profiler reports them (it has
-    # dropped records of µs-long kernels before: reported, not checked)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            k6()
-        torch.cuda.synchronize()
-    passes_us = {e.key.split("::")[-1].split("(")[0]: e.self_device_time_total / e.count
-                 for e in prof.key_averages()
-                 if e.device_type.name == "CUDA" and ("chunk" in e.key)}
+    # its one launch's device time, as torch.profiler reports it; fails if
+    # the profiler does not see the kernel by its name
+    k6_passes = pass_split(k6, "segment_sum", passes=("chunks_fold",))
     total = layout.total  # index_add_ refuses the pad id: the pad rows are sliced off
     lib_ids, lib_v = ids[:total], feat[:total]
 
@@ -1478,7 +1511,7 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
          library_ms={"segment_sum": library_ms},
          library_call="torch.zeros(S, F).index_add_(0, ids[:total], v[:total])",
          bound_ms={"segment_sum": k6_bound}, bound_by={"segment_sum": k6_by},
-         profiler_us_by_pass=passes_us,
+         passes=k6_passes,
          bytes=k6_bytes, ops=k6_ops, rows=int(feat.shape[0]), live_rows=total, segments=s,
          features=int(feat.shape[1]),
          in_process={"batcher_burst_of_8": batched, "solo_channel_one_caller": solo_e2e})
@@ -1489,7 +1522,8 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
          "replaces": "triton_client_tpu/parallel/ragged_kernels.py:220",
          "launches": launches["segment_sum"], "max_abs_err": k6_err, "match": True,
          "ms": k6_ms, "call_ms": k6_call_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
-         "bound_by": k6_by, "library_ms": library_ms, "card": card},
+         "bound_by": k6_by, "passes_us": k6_passes["us"], "library_ms": library_ms,
+         "card": card},
     ]
 
 

@@ -17,6 +17,8 @@ use it, so the card's machine, which has no JAX, runs the ``cuda`` tests
 with ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -486,6 +488,26 @@ def test_suppress_pack_3d_past_shared_memory_raises_on_card(cuda_device):
     assert gpu_suppress3d.launches.count == before
 
 
+# -- cell assignment: the float -> int32 cast of every 3D path --
+
+
+@pytest.mark.cuda
+def test_assign_cells_on_card_equals_the_cpu(cuda_device):
+    """NaN, +-inf, +-1e10 and +-2^31 coordinates convert by XLA's rule on
+    both devices, so the card's cells and valid rows equal the CPU's."""
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells, xla_f32_to_i32
+
+    cfg = VoxelConfig()
+    pts = kernel_cases.special_cloud(200, cfg.point_cloud_range, seed=5)
+    x = torch.from_numpy(np.concatenate([kernel_cases.SPECIAL_COORDS, pts[:, :3].ravel()]))
+    assert torch.equal(xla_f32_to_i32(x.to(cuda_device)).cpu(), xla_f32_to_i32(x))
+    p, n = torch.from_numpy(pts), torch.tensor(190)
+    ijk, valid = assign_cells(p.to(cuda_device), n.to(cuda_device), cfg)
+    want_ijk, want_valid = assign_cells(p, n, cfg)
+    assert torch.equal(ijk.cpu(), want_ijk) and torch.equal(valid.cpu(), want_valid)
+    assert int(want_ijk[0, 0]) == 0 and bool(want_valid[0])  # the NaN x row stays in
+
+
 # -- SECOND's sorted-segment mean (kernel 5), at the main path's shapes --
 
 SEGMENT_N, SEGMENT_SLOTS = 131072, 40000
@@ -544,8 +566,9 @@ def test_segment_mean_wrapper_raises_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,r,f,s", kernel_cases.SEGSUM_CASES)
 def test_segment_sum_kernel_matches_plain_on_card(cuda_device, kind, r, f, s):
-    """Bitwise: both sum each chunk's rows in row order, then the chunks
-    in chunk order, from +0.0."""
+    """Bitwise: both sum each lane's 4 rows of a 128-row sub-chunk, the 32
+    lane sums by the butterfly, each chunk's 8 sub-chunk sums, the chunk
+    sums in 8 groups, then the group sums, each from +0.0."""
     v, ids = (torch.from_numpy(a).to(cuda_device)
               for a in kernel_cases.segsum_inputs(kind, r, f, s, seed=31))
     before = gpu_segment.launches.count
@@ -555,6 +578,142 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, kind, r, f, s):
     assert gpu_segment.launches.count == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got.cpu(), gpu_segment.segment_sum_reference(v.cpu(), ids.cpu(), s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,f,s", kernel_cases.SEGSUM_BOUNDARY_SHAPES)
+def test_segment_sum_kernel_at_order_boundaries_on_card(cuda_device, r, f, s):
+    """Bitwise at R around every boundary of the summation order, on values
+    where another grouping changes the bits."""
+    v, ids = (torch.from_numpy(a).to(cuda_device)
+              for a in kernel_cases.segsum_inputs("decades", r, f, s, seed=32))
+    got = gpu_segment.segment_sum(v, ids, s)
+    want = gpu_segment.segment_sum_reference(v, ids, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_segment_sum_tickets_reset_between_calls_and_streams(cuda_device):
+    """The last block of each tile resets its ticket: calls of other chunk
+    and tile counts in a row, and on a second stream, each equal the plain
+    version bit for bit, and every ticket is 0 afterwards."""
+    shapes = [(560_000, 4, 8), (1000, 4, 8), (131072, 130, 64), (7, 1, 1), (560_000, 4, 8)]
+    side = torch.cuda.Stream(cuda_device)
+    for stream in (torch.cuda.current_stream(cuda_device), side):
+        with torch.cuda.stream(stream):
+            for i, (r, f, s) in enumerate(shapes):
+                v, ids = (torch.from_numpy(a).to(cuda_device)
+                          for a in kernel_cases.segsum_inputs("unsorted", r, f, s, seed=40 + i))
+                got = gpu_segment.segment_sum(v, ids, s)
+                want = gpu_segment.segment_sum_reference(v, ids, s)
+                stream.synchronize()
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (r, f, s)
+            tickets = gpu_segment._tickets(v.device, stream.cuda_stream, 1)
+            stream.synchronize()
+            assert not tickets.any()
+
+
+class _EndOfMapping:
+    """A float32 or int32 array on the card whose last byte is the last
+    byte of mapped device memory: the pages after it are reserved but not
+    mapped, so a kernel that reads past its end faults (an illegal address
+    at the next synchronize) instead of reading a neighbour's bytes, which
+    the caching allocator's rounding would hide. Built with the driver's
+    virtual memory calls through ctypes; ``tensor`` views it through
+    ``__cuda_array_interface__``."""
+
+    class _Location(ctypes.Structure):
+        _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+    class _Prop(ctypes.Structure):
+        pass
+
+    class _Access(ctypes.Structure):
+        pass
+
+    _Prop._fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                      ("location", _Location), ("win32", ctypes.c_void_p),
+                      ("compression", ctypes.c_ubyte), ("rdma", ctypes.c_ubyte),
+                      ("usage", ctypes.c_ushort), ("reserved", ctypes.c_ubyte * 4)]
+    _Access._fields_ = [("location", _Location), ("flags", ctypes.c_int)]
+
+    def __init__(self, array: np.ndarray, device: torch.device):
+        cu = ctypes.CDLL("libcuda.so.1")
+        self._cu = cu
+        ull = ctypes.c_ulonglong
+        loc = self._Location(1, device.index or 0)  # CU_MEM_LOCATION_TYPE_DEVICE
+        prop = self._Prop(1, 0, loc, None, 0, 0, 0)  # CU_MEM_ALLOCATION_TYPE_PINNED
+        gran = ctypes.c_size_t()
+        self._ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0))
+        nbytes = array.nbytes
+        self.mapped = -(-max(nbytes, 1) // gran.value) * gran.value
+        self.base = ull()
+        self._ok(cu.cuMemAddressReserve(ctypes.byref(self.base), ctypes.c_size_t(2 * self.mapped),
+                                        ctypes.c_size_t(0), ull(0), ull(0)))
+        self.handle = ull()
+        self._ok(cu.cuMemCreate(ctypes.byref(self.handle), ctypes.c_size_t(self.mapped),
+                                ctypes.byref(prop), ull(0)))
+        self._ok(cu.cuMemMap(self.base, ctypes.c_size_t(self.mapped), ctypes.c_size_t(0),
+                             self.handle, ull(0)))
+        access = self._Access(loc, 3)  # CU_MEM_ACCESS_FLAGS_PROT_READWRITE
+        self._ok(cu.cuMemSetAccess(self.base, ctypes.c_size_t(self.mapped), ctypes.byref(access),
+                                   ctypes.c_size_t(1)))
+        self.__cuda_array_interface__ = {
+            "shape": array.shape, "typestr": array.dtype.str, "strides": None, "version": 2,
+            "data": (self.base.value + self.mapped - nbytes, False),
+        }
+        self.tensor = torch.as_tensor(self, device=device)
+        self.tensor.copy_(torch.from_numpy(array))
+        torch.cuda.synchronize()
+
+    @staticmethod
+    def _ok(err: int):
+        assert err == 0, f"CUDA driver error {err}"
+
+    def close(self):
+        torch.cuda.synchronize()
+        del self.tensor
+        ull = ctypes.c_ulonglong
+        self._ok(self._cu.cuMemUnmap(self.base, ctypes.c_size_t(self.mapped)))
+        self._ok(self._cu.cuMemRelease(self.handle))
+        self._ok(self._cu.cuMemAddressFree(self.base, ctypes.c_size_t(2 * self.mapped)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,f,s", [(1025, 12, 8), (1025, 20, 3), (1025, 40, 3), (1025, 4, 8),
+                                   (4099, 130, 64), (7, 1, 1)])
+def test_segment_sum_reads_nothing_past_its_rows(cuda_device, r, f, s):
+    """Values and ids that end where mapped memory ends: the kernel's loads,
+    16 bytes wide where F allows, stop at the last row's last column."""
+    v, ids = kernel_cases.segsum_inputs("unsorted", r, f, s, seed=90)
+    gv, gi = _EndOfMapping(v, cuda_device), _EndOfMapping(ids, cuda_device)
+    try:
+        got = gpu_segment.segment_sum(gv.tensor, gi.tensor, s)
+        torch.cuda.synchronize()  # a read past the end faults here
+        want = gpu_segment.segment_sum_reference(torch.from_numpy(v), torch.from_numpy(ids), s)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    finally:
+        gv.close()
+        gi.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "one_slot", "long_slot", "single_row"])
+def test_segment_mean_reads_nothing_past_its_rows(cuda_device, kind):
+    """Value rows and slot ids that end where mapped memory ends: the
+    walks, the warp's loads a step ahead among them, stop at the last row."""
+    valsT, slots = kernel_cases.segment_inputs(kind, 4096, 3000, seed=91)
+    gv, gs = _EndOfMapping(valsT, cuda_device), _EndOfMapping(slots, cuda_device)
+    try:
+        got = gpu_voxel.sorted_segment_mean(gv.tensor, gs.tensor, 3000)
+        torch.cuda.synchronize()  # a read past the end faults here
+        want = gpu_voxel.sorted_segment_mean_reference(torch.from_numpy(valsT),
+                                                       torch.from_numpy(slots), 3000)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    finally:
+        gv.close()
+        gs.close()
 
 
 @pytest.mark.cuda

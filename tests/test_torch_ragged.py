@@ -132,15 +132,76 @@ def test_segment_sum_plain_matches_tpu_kernel_and_xla(kind, r, f, s):
         assert not got[1::2].any()
 
 
+def _sum_in_kernel_order(v, ids, s):
+    """The kernel's documented summation order (``csrc/segment_sum.cu``),
+    as a float32 loop over rows in numpy, written apart from the plain
+    version: each sum from +0.0; in every 128-row sub-chunk, lane l's rows
+    l, l + 32, l + 64, l + 96 in order; the 32 lane sums by halving (lane i
+    with i + 16, then i + 8, 4, 2, 1); each 1024-row chunk's 8 sub-chunk
+    sums in order; the chunk sums in 8 contiguous groups of ceil(C / 8) in
+    order; then the 8 group sums."""
+    r, f = v.shape
+    lanes, sub, chunk, groups = 32, 128, 1024, 8
+    chunks = max(1, -(-r // chunk))
+    chunk_sums = np.zeros((chunks, s, f), np.float32)
+    for c in range(chunks):
+        for k in range(groups):
+            lane_sums = np.zeros((lanes, s, f), np.float32)
+            for lane in range(lanes):
+                for j in range(sub // lanes):
+                    row = c * chunk + k * sub + lane + lanes * j
+                    if row < r and 0 <= ids[row] < s:
+                        lane_sums[lane, ids[row]] = lane_sums[lane, ids[row]] + v[row]
+            width = lanes
+            while width > 1:
+                width //= 2
+                lane_sums = lane_sums[:width] + lane_sums[width:2 * width]
+            chunk_sums[c] = chunk_sums[c] + lane_sums[0]
+    g = -(-chunks // groups)
+    out = np.zeros((s, f), np.float32)
+    for w in range(groups):
+        acc = np.zeros((s, f), np.float32)
+        for c in range(w * g, min(chunks, (w + 1) * g)):
+            acc = acc + chunk_sums[c]
+        out = out + acc
+    return out
+
+
+def _row_order_sum(v, ids, s):
+    out = np.zeros((s, v.shape[1]), np.float32)
+    for row in range(v.shape[0]):
+        if 0 <= ids[row] < s:
+            out[ids[row]] = out[ids[row]] + v[row]
+    return out
+
+
+@pytest.mark.parametrize("r,f,s", kernel_cases.SEGSUM_BOUNDARY_SHAPES)
+def test_segment_sum_reference_follows_the_kernel_order_bitwise(r, f, s):
+    """On the ``decades`` kind, where another grouping changes the bits, at
+    R around every boundary of the order: the plain version equals the
+    numpy loop in the documented order bit for bit, and past two
+    sub-chunks it differs from a plain row-order sum somewhere."""
+    v, ids = kernel_cases.segsum_inputs("decades", r, f, s, seed=r + f + s)
+    got = gpu_segment.segment_sum_reference(torch.from_numpy(v), torch.from_numpy(ids), s)
+    want = _sum_in_kernel_order(v, ids, s)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    if r > 2 * 128:
+        assert (want.view(np.int32) != _row_order_sum(v, ids, s).view(np.int32)).any()
+
+
 def test_segment_sum_spans_chunks_in_order():
-    """Past one chunk the plain version sums chunk by chunk; held to a
-    float64 sum and to XLA, with the sums at every segment nonzero."""
+    """Past one chunk the plain version sums lane by lane, sub-chunk by
+    sub-chunk, chunk by chunk and group by group, as the kernel does: equal
+    to that order bit for bit, and held to a float64 sum and to XLA, with the sums at
+    every segment nonzero."""
     r = 3 * gpu_segment.CHUNK + 17
     v, ids = kernel_cases.segsum_inputs("layout", r, 4, 8, seed=5)
     got = gpu_segment.segment_sum_reference(torch.from_numpy(v), torch.from_numpy(ids), 8)
+    np.testing.assert_array_equal(got.numpy(), _sum_in_kernel_order(v, ids, 8))
     want = np.zeros((8, 4))
     live = ids < 8
     np.add.at(want, ids[live], v[live].astype(np.float64))
+    assert (want != 0).all()
     np.testing.assert_allclose(got.numpy(), want, **_tol(v))
     xla = np.asarray(jax.ops.segment_sum(jnp.asarray(v), jnp.asarray(ids), num_segments=8))
     np.testing.assert_allclose(got.numpy(), xla, **_tol(v))

@@ -14,11 +14,14 @@ reduces that slot as well and its caller slices it off).
 What bounds it on an H100: bytes. It must read each live row's 8 values
 and slot id and write 8 means a slot: at a 120k-point scan's ~41,700 live
 rows (of 131,072) and 40,000 slots, about 2.8 MB (9 x 41,700 x 4 in,
-8 x 40,000 x 4 out), 0.83 us at 3.35 TB/s. The design is one thread per slot: two binary
-searches for the slot's rows, then a serial walk over them, so the sums
-are the same on every run and equal the plain version's bit for bit. A
-single huge slot runs serially in one thread; that worst case is known
-and accepted for now.
+8 x 40,000 x 4 out), 0.83 us at 3.35 TB/s. The design is two launches,
+counted as one call: one zeroes the whole output (every empty slot's 0,
+written across the card), then one thread a row finds where a slot begins
+(its id differs from the previous row's, one coalesced pass, no search)
+and walks that slot's rows in row order, its warp taking over 32 rows a
+step past the first 32, so the sums are the same on every run and equal
+the plain version's bit for bit. The second launch starts while the
+first runs and waits for it before its first store.
 
 ``sorted_segment_mean`` launches the kernel for CUDA tensors and runs the
 plain ``sorted_segment_mean_reference`` for CPU tensors; nothing falls
@@ -93,7 +96,7 @@ def sorted_segment_mean(valsT: torch.Tensor, slots: torch.Tensor, num_slots: int
             f"sorted_segment_mean: valsT ({ROWS}, N) with slots (N,), got "
             f"{tuple(valsT.shape)}, {tuple(slots.shape)}"
         )
-    if num_slots < 0 or valsT.shape[1] >= 2**31:
+    if num_slots < 0 or num_slots >= 2**30 or valsT.shape[1] >= 2**31:
         raise ValueError(f"sorted_segment_mean: num_slots {num_slots}, N {valsT.shape[1]}")
     if valsT.device.type == "cpu" and slots.device.type == "cpu":
         return sorted_segment_mean_reference(valsT, slots, num_slots)

@@ -207,10 +207,38 @@ def planted_iou(k: int, thresh: float = 0.01, seed: int = 0):
     return iou.astype(np.float32), rows
 
 
+# -- 3D: cell assignment of coordinates the int32 cast must convert by rule --
+
+# NaN, +-inf, +-1e10, +-2^31 and the float32 neighbours of the int32 limits,
+# and in-range values either side of 0
+SPECIAL_COORDS = np.array(
+    [np.nan, -np.nan, np.inf, -np.inf, 1e10, -1e10, 2.0**31, -(2.0**31),
+     np.nextafter(np.float32(2.0**31), np.float32(0)), -(2.0**31) - 256, 2147483520.0,
+     -2147483520.0, 3.7, -3.7, 0.5, -0.5, -0.0, 0.0],
+    np.float32,
+)
+
+
+def special_cloud(n: int, pc_range, seed: int = 0) -> np.ndarray:
+    """(n, 4) float32 points drawn uniformly over ``pc_range`` (n >= 55),
+    with rows 0-17 carrying one ``SPECIAL_COORDS`` value each in x, rows
+    18-35 in y, rows 36-53 in z, and row 54 NaN in x, y and z."""
+    rng = np.random.default_rng(seed)
+    r = pc_range
+    pts = np.column_stack([rng.uniform(r[0], r[3], n), rng.uniform(r[1], r[4], n),
+                           rng.uniform(r[2], r[5], n), rng.uniform(0, 1, n)]).astype(np.float32)
+    k = len(SPECIAL_COORDS)
+    for axis in range(3):
+        pts[axis * k:(axis + 1) * k, axis] = SPECIAL_COORDS
+    pts[3 * k, :3] = np.nan
+    return pts
+
+
 # -- 3D: the sorted-segment mean of SECOND's voxel stage (kernel 5) --
 
 SEGMENT_KINDS = (
     "random", "singletons", "one_slot", "weights", "gaps", "dump_tail", "all_dump", "overflow",
+    "late_start", "gap_before_dump", "single_row", "long_slot",
 )
 
 
@@ -231,7 +259,15 @@ def segment_inputs(kind: str, n: int, num_slots: int, seed: int = 0):
     every third slot used, 8 rows each on average; ``dump_tail`` the last
     quarter of the rows at the dump id, as padding; ``all_dump`` every row
     there; ``overflow`` more distinct cells than ``num_slots`` (the cap of
-    ``max_voxels``): the rows past it go to the dump id."""
+    ``max_voxels``): the rows past it go to the dump id.
+
+    Four more aim at where a slot begins and ends: ``late_start`` the first
+    live slot is ``num_slots // 4``, not 0; ``gap_before_dump`` the last
+    ``num_slots // 16`` slots are empty and the dump rows follow the last
+    live slot at once; ``single_row`` one live row (row 0, slot
+    ``num_slots // 3``), the rest at the dump id; ``long_slot`` the ``n //
+    8`` rows (at most 512) from row ``n // 3`` share one slot among short
+    ones."""
     rng = np.random.default_rng(seed)
     cells = {"gaps": max(1, n // 8), "overflow": 4 * n}.get(kind, n)
     ids = np.sort(rng.integers(0, cells, n))
@@ -242,6 +278,16 @@ def segment_inputs(kind: str, n: int, num_slots: int, seed: int = 0):
         rank = np.full(n, num_slots // 2)
     elif kind == "gaps":
         rank = 3 * rank
+    elif kind == "late_start":
+        rank = rank + num_slots // 4
+    elif kind == "gap_before_dump":
+        rank = np.where(rank < num_slots - max(1, num_slots // 16), rank, num_slots)
+    elif kind == "single_row":
+        rank = np.full(n, num_slots)
+        rank[0] = num_slots // 3
+    elif kind == "long_slot":
+        a = n // 3
+        rank[a:a + min(n // 8, 512)] = rank[a]
     slots = np.minimum(rank, num_slots)
     if kind == "dump_tail":
         slots[n - n // 4:] = num_slots
@@ -258,7 +304,7 @@ def segment_inputs(kind: str, n: int, num_slots: int, seed: int = 0):
 
 # -- the segment sum of packed ragged batches (kernel 6) --
 
-SEGSUM_KINDS = ("layout", "unsorted", "out_of_range", "empty_segments", "one_segment")
+SEGSUM_KINDS = ("layout", "unsorted", "out_of_range", "empty_segments", "one_segment", "decades")
 # the main path's packed rows: 8 clouds of ~70k points
 SEGSUM_MAIN_ROWS = 560_000
 
@@ -274,7 +320,10 @@ def segsum_inputs(kind: str, r: int, f: int, num_segments: int, seed: int = 0):
     uniformly in [0, num_segments); ``out_of_range`` a third of the ids
     negative or >= num_segments (-1, the pad id, the TPU's 8-aligned
     segment count and beyond); ``empty_segments`` only even segments
-    used; ``one_segment`` every row in segment ``num_segments // 2``."""
+    used; ``one_segment`` every row in segment ``num_segments // 2``;
+    ``decades`` values spread over six decades (|v| from 1e-3 to 100) and a
+    fifth of the ids out of range (-1, the pad id, beyond), so that
+    another summation order changes the bits."""
     rng = np.random.default_rng(seed)
     s = num_segments
     vals = rng.uniform(-2.0, 2.0, (r, f))
@@ -297,16 +346,34 @@ def segsum_inputs(kind: str, r: int, f: int, num_segments: int, seed: int = 0):
         ids = 2 * rng.integers(0, (s + 1) // 2, r)
     elif kind == "one_segment":
         ids = np.full(r, s // 2)
+    elif kind == "decades":
+        vals = vals / 2.0 * 10.0 ** rng.integers(-3, 3, (r, f))
+        ids = rng.integers(0, s, r)
+        bad = rng.uniform(size=r) < 0.2
+        ids[bad] = rng.choice([-1, s, s + 7], int(bad.sum()))
     else:
         raise ValueError(f"unknown segment-sum kind {kind!r}")
     return vals.astype(np.float32), ids.astype(np.int32)
 
 
+# (R, F, S) at and around every boundary of kernel 6's summation order: one
+# row, a sub-chunk of 128, a chunk of 1024, several chunks, and C = 8, 9
+# and 17 chunks, where the fold's groups grow from one chunk to two and
+# three; F = 40 spans two feature tiles of 32 and 8; F = 12 and 20 fill
+# a tile of 16 and of 32 only in part
+SEGSUM_BOUNDARY_SHAPES = (
+    (1, 4, 8), (127, 4, 8), (128, 4, 8), (129, 4, 8), (1023, 4, 8), (1025, 4, 8),
+    (3 * 1024 + 17, 4, 8), (8 * 1024, 4, 8), (8 * 1024 + 1, 4, 8), (16 * 1024 + 1, 3, 5),
+    (1025, 40, 3), (1025, 12, 8), (1025, 20, 3),
+)
+
 # (kind, R, F, S): every kind at the main path's shape, then F in
-# {1, 4, 64, 130}, S in {1, 8, 64} and R in {1, 7, 131,072, ~560k}
+# {1, 4, 12, 20, 64, 130}, S in {1, 3, 8, 64} and R in {1, 7, 131,072,
+# ~560k}; F = 12 and 20 leave part of a tile's columns past F
 SEGSUM_CASES = (
     *((kind, SEGSUM_MAIN_ROWS, 4, 8) for kind in SEGSUM_KINDS),
     ("unsorted", 131072, 1, 8), ("layout", 131072, 64, 64), ("out_of_range", 131072, 130, 64),
     ("empty_segments", 131072, 130, 1), ("layout", 1, 4, 8), ("unsorted", 7, 130, 64),
     ("out_of_range", 7, 1, 1), ("one_segment", 131072, 64, 8), ("layout", SEGSUM_MAIN_ROWS, 4, 64),
+    ("layout", 131072, 12, 8), ("unsorted", 131072, 20, 3),
 )

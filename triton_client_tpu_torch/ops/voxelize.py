@@ -51,17 +51,36 @@ def _f32(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def xla_f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 by XLA's rule (``jnp.astype(jnp.int32)``), the same
+    on every device: truncation toward zero, NaN to 0, values at or past
+    2^31 to 2147483647 and below -2^31 to -2147483648. PyTorch's own cast
+    leaves those cases to the hardware (-2147483648 for all of them on an
+    x86 CPU). 2147483647 is not a float32, so the saturated cases are
+    chosen on the float comparison and only values in range are cast."""
+    hi, lo = x >= 2.0**31, x < -(2.0**31)
+    inside = torch.where(hi | lo | torch.isnan(x), torch.zeros_like(x), x)
+    out = inside.to(torch.int32)
+    out = torch.where(hi, torch.full_like(out, _I32_MAX), out)
+    return torch.where(lo, torch.full_like(out, _I32_MIN), out)
+
+
 def assign_cells(
     points: torch.Tensor, num_points: torch.Tensor, config: VoxelConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(N, F>=3) padded cloud -> (ijk (N, 3) int32 [x, y, z] cell, valid
     (N,) bool). The one source of the grid-boundary rule for the grouped
-    voxelizer and the scatter VFE."""
+    voxelizer and the scatter VFE. The cell index converts as JAX converts
+    it (:func:`xla_f32_to_i32`): a NaN coordinate lands in cell 0 of its
+    axis and stays in, as in the reference."""
     n = points.shape[0]
     dev = points.device
     r = _f32(config.point_cloud_range, dev)
     vs = _f32(config.voxel_size, dev)
-    ijk = torch.floor((points[:, :3] - r[:3]) / vs).to(torch.int32)
+    ijk = xla_f32_to_i32(torch.floor((points[:, :3] - r[:3]) / vs))
     hi = torch.tensor(config.grid_size, dtype=torch.int32, device=dev)
     valid = ((ijk >= 0) & (ijk < hi)).all(dim=1)
     valid &= torch.arange(n, device=dev) < num_points
