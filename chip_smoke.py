@@ -20,44 +20,56 @@ dense merged path. One JSON line per phase:
   2. kernels   — each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, over edge-case candidate sets
                  (live NaN scores included), in and out of score order (the
-                 two branches of kernel 1's order pass, read back from its
-                 workspace and counted), and up to the largest K the
-                 wrapper takes: bitwise equal or the script fails
+                 two branches of kernels 1 and 2's order passes, read back
+                 from their workspaces and counted), and up to the largest
+                 K the wrappers take (kernel 2 also at the reference's
+                 16,128-box YOLO head): bitwise equal or the script fails
   3. main_path — requests at batch 1 and 8 through the channel, fused and
                  unfused routes; launch counts read around this phase only
   4. check     — the card's output against the plain tail and the CPU path
   5. times     — each kernel's device time (CUDA events around launches
                  queued behind a sleep kernel), its wrapper's call time
                  and its plain version's (CUDA events), frames/s
-                 and p50 latency at batch 1 and 8; on the line before it,
-                 kernel 1's time by pass (torch.profiler) and the bytes of
-                 the workspace its call allocated
+                 and p50 latency at batch 1 and 8, and of the unfused
+                 conf-0.05 route at batch 8 with and without
+                 TRITON_CLIENT_TPU_NMS=pallas; on the lines before it,
+                 kernels 1 and 2's time by pass (torch.profiler) and the
+                 bytes of the workspace a call allocated
   6. profile   — where a request's time goes, under torch.profiler: device
                  ms and busy share per request, device ops per request,
                  the device ops that took the most time, at batch 1 and 8
   7. kernels_vs_plain_3d — the 3D decode and suppress+pack kernels against
                  their plain versions at B = 1, K = 256, max_det 128, over
-                 edge cases (ops/kernel_cases.py), sorted and shuffled (the
-                 order path read back as in phase 2), and kernel 4 up to
-                 the largest K the wrapper takes
+                 edge cases (ops/kernel_cases.py; the decode in both forms,
+                 the gathered one reading 256 of the KITTI head's 321,408
+                 anchors, with tied and NaN direction logits), sorted and
+                 shuffled (the order path read back as in phase 2), and
+                 kernel 4 up to the largest K the wrapper takes
   8. main_path_3d — scans of 20,000 and 120,000 points through the channel,
                  fused and unfused routes; launch counts read around this
-                 phase only
-  9. check_3d  — the kernels on the main path's own candidates, the card
+                 phase only (kernel 3 in its gathered form on every fused
+                 request)
+  9. check_3d  — the kernels on the main path's own candidates (kernel 3
+                 in both forms, on the head and top-k indices), the card
                  against the CPU path at a tiny grid, the cells of NaN,
                  +-inf, +-1e10 and +-2^31 coordinates on the card against
                  the CPU, and a NaN point keeping no detection on either
- 10. times_3d  — the 3D kernels' and plain versions' times, scans/s and
-                 p50 latency at 20k and 120k points; on the line before it,
-                 kernel 4's time by pass and its workspace
- 11. profile_3d — phase 6 for a 120k-point scan
+ 10. times_3d  — the 3D kernels' and plain versions' times (kernel 3 in
+                 both forms), scans/s and p50 latency at 20k and 120k
+                 points; on the line before it, kernel 4's time by pass and
+                 its workspace
+ 11. profile_3d — phase 6 for a 120k-point scan, and the fused route's
+                 stage from the top-k indices to the boxes as it runs (one
+                 gathered launch) and as it ran (four gathers, then the
+                 kernel): device ops, device ms and host ms a call
  12. kernels_vs_plain_second — the sorted-segment mean against its plain
                  version, bitwise, at N = 131,072 rows and 40,000 slots over
                  edge cases (ops/kernel_cases.py SEGMENT_KINDS)
  13. main_path_second — 20,000- and 120,000-point scans through the channel,
                  fused (voxel stage + 3D tail) and unfused routes; launch
                  counts read around this phase only; occupied and kept cells
- 14. check_second — the three kernels on the main path's own inputs, and the
+ 14. check_second — the three kernels on the main path's own inputs (kernel
+                 3 in both forms), and the
                  card against the CPU path at a tiny grid
  15. times_second — the segment mean's times, bound and library yardstick,
                  scans/s and p50 latency at 20k and 120k points; on the
@@ -108,13 +120,19 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 B_MAIN, K_MAIN, MAX_DET, NC = 8, 1024, 300, 2
 PROFILE_REQUESTS, PROFILE_TOP = 10, 12
-# the 3D path: PointPillars' pre_max candidates, max_det rows of 9 columns
+# the 3D path: PointPillars' pre_max candidates, max_det rows of 9 columns;
+# the anchors of its KITTI head (216 x 248 cells x 6), which kernel 3's
+# gathered form reads through the top-k indices
 K_3D, MAX_DET_3D, COLS_3D = 256, 128, 9
+N_ANCHORS_3D = 321408
 SCAN_POINTS = (20000, 120000)  # the source's default; a full HDL-64 scan
 SERVE_REQUESTS_3D = 30
-# the largest K kernels 1 and 4 take: their order pass's sort of 16,384
+# the largest K kernels 1, 2 and 4 take: their order pass's sort of 16,384
 # (score, index) keys fills a block's shared memory
 K_LARGEST = 16384
+# the boxes of a YOLO head at 512 x 512 before any top-k: 3 anchors on
+# 64^2 + 32^2 + 16^2 cells (the reference's 16,128-box heads)
+K_YOLO_HEAD = 16128
 # float operations of kernel 3 per candidate: diag 4, centres 6, sizes
 # 3 x (2 clamp, exp, mul), heading 9
 DECODE_OPS = 31
@@ -297,25 +315,30 @@ def device_profile(run, requests: int) -> dict:
                 top_device_ops_ms_per_request=dict(top))
 
 
-def pass_split(fn, kernel: str, passes=("order", "mask", "scan"), reps: int = 20) -> dict:
+def pass_split(fn, kernel: str, passes=("order", "mask", "scan"), reps: int = 20,
+               sessions: int = 3) -> dict:
     """Each pass (launch) of a kernel, named ``<kernel>_<pass>``: its mean
     device µs over the records torch.profiler kept of ``reps`` calls of
     ``fn``, and how many it kept (it has dropped records of µs-long
-    kernels). Fails unless the profiler saw every pass by its name."""
+    kernels, and once every record of a session). Fails unless one of
+    ``sessions`` profiler sessions saw every pass by its name; returns that
+    session's numbers and how many sessions it took."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, seen = {}, {}
-    for e in prof.key_averages():
-        for name in passes:
-            if e.device_type.name == "CUDA" and f"{kernel}_{name}" in e.key:
-                us[name] = e.self_device_time_total / e.count
-                seen[name] = e.count
-    check(set(us) == set(passes), f"{kernel}: the profiler saw passes {sorted(us)}")
-    return {"us": us, "records_seen": seen, "calls": reps}
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = {}, {}
+        for e in prof.key_averages():
+            for name in passes:
+                if e.device_type.name == "CUDA" and f"{kernel}_{name}" in e.key:
+                    us[name] = e.self_device_time_total / e.count
+                    seen[name] = e.count
+        if set(us) == set(passes):
+            return {"us": us, "records_seen": seen, "calls": reps, "sessions": session}
+    fail(f"{kernel}: in {sessions} profiler sessions the last saw passes {sorted(us)}")
 
 
 def with_workspace(run):
@@ -401,6 +424,60 @@ def live_counts_3d(iou, live, thresh, max_det):
     return tests, kept
 
 
+def candidate_stage(model, heads, top_idx, reps: int = 200) -> dict:
+    """The fused 3D route from the top-k's output to the decoded boxes, as
+    it runs (kernel 3 reading its rows through ``top_idx``) and as it ran
+    (the gathers of ``topk_candidates``, then kernel 3 on their rows): the
+    device ops of one call (torch.profiler, 20 calls), the stage's device
+    ms (``kernel_device_ms``: every op of ``reps`` calls queued behind a
+    sleep kernel) and its host ms a call (perf_counter over ``reps`` calls
+    issued without a wait). torch.profiler may drop records of µs-long
+    kernels (phase 10), so a count below the true one is possible, never
+    one above it."""
+    from triton_client_tpu_torch.models.pointpillars import gather_candidates
+    from triton_client_tpu_torch.ops import gpu_decode3d
+    from triton_client_tpu_torch.pipelines.detect3d import gathered_decode_args
+
+    args = gathered_decode_args(model, heads, top_idx)
+    sel = {"top_idx": top_idx, "scores": None, "labels": None}
+
+    def gathers_then_kernel():
+        cand = gather_candidates(heads, model.anchors, sel)
+        return gpu_decode3d.fused_residual_decode(cand["deltas"], cand["anchors"],
+                                                  cand["dir_bin"], *args[4:])
+
+    def gathered():
+        return gpu_decode3d.gather_residual_decode(*args)
+
+    # both stages in one profiler session: every device op that is not the
+    # gathered kernel belongs to the gathers-then-kernel stage
+    gathered()
+    gathers_then_kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            gathered()
+            gathers_then_kernel()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    ops = {"gathered_kernel": [n for n in names if "residual_decode_3d_kernel<true>" in n]}
+    ops["gathers_then_kernel"] = [n for n in names if "residual_decode_3d_kernel<true>" not in n]
+    out = {}
+    for name, fn in (("gathered_kernel", gathered), ("gathers_then_kernel", gathers_then_kernel)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        out[name] = {"device_ops_per_call": len(ops[name]) / 20,
+                     "ops": sorted(set(n[:60] for n in ops[name])),
+                     "device_ms": kernel_device_ms(fn, gpu_decode3d.launches, reps=50),
+                     "host_ms": host_ms}
+    check(torch.equal(bits(gpu_decode3d.gather_residual_decode(*args)),
+                      bits(gathers_then_kernel())), "the two stages' boxes differ")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -434,8 +511,11 @@ def main() -> int:
     dev = torch.device("cuda")
     from triton_client_tpu_torch.ops import gpu_segment
 
+    # each kernel's launches, then kernel 3's in its gathered form (also
+    # counted in gpu_decode3d.launches)
     counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,
-                gpu_suppress3d.launches, gpu_voxel.launches, gpu_segment.launches)
+                gpu_suppress3d.launches, gpu_voxel.launches, gpu_segment.launches,
+                gpu_decode3d.gathered_launches)
 
     # -- 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -489,22 +569,41 @@ def main() -> int:
         check(kind != "nan" or not keep.any(), "decode_nms_2d kept a box beside a live NaN")
         k1_err = max(k1_err, float((rows - want_rows).abs().max()))
     check(min(k1_order_paths.values()) > 0, f"an order path was not taken: {k1_order_paths}")
+    # kernel 2: every kind as drawn (the order pass sorts) and in score
+    # order (taken as it stands, as the unfused route's top-k hands them
+    # over), then the reference's 16,128-box heads and the largest N taken
     k2_err = 0
-    for kind in kernel_cases.KINDS:
-        parts = [kernel_cases.nms_inputs(kind, K_MAIN, seed=40 + i) for i in range(B_MAIN)]
-        boxes, scores = to_dev([np.stack([p[0] for p in parts]), np.stack([p[1] for p in parts])])
-        idx, valid = gpu_nms.nms_greedy(boxes, scores, 0.45, MAX_DET)
-        want_idx, want_valid = gpu_nms.nms_greedy_reference(boxes, scores, 0.45, MAX_DET)
+    k2_order_paths = {"input_order": 0, "sorted": 0}
+    nms_cases = [(kind, K_MAIN, MAX_DET, sort) for kind in kernel_cases.KINDS
+                 for sort in (False, True)] + [
+        ("random", n, max_det, sort)
+        for n, max_det in ((K_YOLO_HEAD, MAX_DET), (K_LARGEST, MAX_DET), (K_LARGEST, K_LARGEST))
+        for sort in (False, True)
+    ]
+    check(gpu_nms.smem_fits(K_YOLO_HEAD) and gpu_nms.smem_fits(K_LARGEST)
+          and not gpu_nms.smem_fits(K_LARGEST + 1),
+          f"greedy_nms does not take N up to {K_LARGEST} exactly")
+    for i, (kind, n, max_det, sort) in enumerate(nms_cases):
+        boxes, scores = kernel_cases.nms_batch(kind, B_MAIN if n == K_MAIN else 2, n, 40 + 8 * i,
+                                               sort)
+        boxes, scores = to_dev([boxes, scores])
+        label = f"{kind}, N {n}, max_det {max_det}, sorted {sort}"
+        (idx, valid), ws, sizes = with_workspace(
+            lambda: gpu_nms.nms_greedy(boxes, scores, 0.45, max_det))
+        count_order_paths(ws, sizes, scores, k2_order_paths, f"greedy_nms ({label})")
+        del ws
+        want_idx, want_valid = gpu_nms.nms_greedy_reference(boxes, scores, 0.45, max_det)
         torch.cuda.synchronize()
-        check(torch.equal(valid, want_valid), f"greedy_nms valid differs ({kind})")
-        check(torch.equal(idx, want_idx), f"greedy_nms indices differ ({kind})")
+        check(torch.equal(valid, want_valid), f"greedy_nms valid differs ({label})")
+        check(torch.equal(idx, want_idx), f"greedy_nms indices differ ({label})")
         if kind == "nan":  # every slot invalid, at the first NaN's index
             first_nan = torch.isnan(scores).to(torch.int8).argmax(1, keepdim=True).to(torch.int32)
             check(not valid.any() and torch.equal(idx, first_nan.expand_as(idx)),
                   "greedy_nms: a live NaN did not empty every slot at its index")
         k2_err = max(k2_err, int((idx - want_idx).abs().max()))
+    check(min(k2_order_paths.values()) > 0, f"an order path was not taken: {k2_order_paths}")
     # the pallas route past a block's shared memory raises, launching nothing
-    n_big = 10000
+    n_big = K_LARGEST + 1
     check(not gpu_nms.smem_fits(n_big), f"{n_big} candidates fit shared memory")
     os.environ["TRITON_CLIENT_TPU_NMS"] = "pallas"
     before = gpu_nms.launches.count
@@ -520,8 +619,9 @@ def main() -> int:
         {"name": "decode_nms_2d", "cases": len(decode_cases), "shape": [B_MAIN, K_MAIN, MAX_DET],
          "largest_k": K_LARGEST, "images_by_order_path": k1_order_paths,
          "match": True, "max_abs_err": k1_err},
-        {"name": "greedy_nms", "cases": len(kernel_cases.KINDS), "shape": [B_MAIN, K_MAIN, MAX_DET],
-         "match": True, "max_abs_err": k2_err},
+        {"name": "greedy_nms", "cases": len(nms_cases), "shape": [B_MAIN, K_MAIN, MAX_DET],
+         "largest_k": K_LARGEST, "yolo_head_k": K_YOLO_HEAD,
+         "images_by_order_path": k2_order_paths, "match": True, "max_abs_err": k2_err},
     ])
 
     # -- 3. the main path --------------------------------------------------------
@@ -662,13 +762,38 @@ def main() -> int:
                      lambda b: b.shape[0])
 
     e2e = {"batch1": serve2d(b1, 40), "batch8": serve2d(b8, 20)}
+    # the unfused conf-0.05 route at batch 8 (300 kept an image), through
+    # the sequential loop as deployed by default and through kernel 2
+    # under the override; recorded, not claimed (host-bound)
+    e2e["c005_unfused_batch8"] = serve(lambda b: ask("yolov5n_c005_unfused", b), b8, 20,
+                                       "frames_per_s", lambda b: b.shape[0])
+    os.environ["TRITON_CLIENT_TPU_NMS"] = "pallas"
+    before = gpu_nms.launches.count
+    e2e["c005_unfused_batch8_pallas"] = serve(lambda b: ask("yolov5n_c005_unfused", b), b8, 20,
+                                              "frames_per_s", lambda b: b.shape[0])
+    del os.environ["TRITON_CLIENT_TPU_NMS"]
+    check(gpu_nms.launches.count - before == 20, "the override's requests did not launch kernel 2")
     k1_passes = pass_split(lambda: gpu_decode.fused_decode_nms_2d(*k1_args, **kw1),
                            "decode_nms_2d")
     emit("passes", card, kernel="decode_nms_2d", shape=[B_MAIN, K_MAIN, MAX_DET],
          kept=int(keep.sum()), workspace_bytes=k1_workspace_bytes, **k1_passes)
+    (k2_idx, k2_valid), ws, sizes = with_workspace(
+        lambda: gpu_nms.nms_greedy(offset, masked, 0.45, MAX_DET))
+    check(bool(mask_scan.took_own_order(ws, sizes).all()),
+          "the order pass sorted the main path's candidates (kernel 2)")
+    k2_workspace_bytes = ws.numel()
+    del ws
+    want_idx, want_valid = gpu_nms.nms_greedy_reference(offset, masked, 0.45, MAX_DET)
+    check(torch.equal(k2_idx, want_idx) and torch.equal(k2_valid, want_valid),
+          "greedy_nms differs on the main path's candidates")
+    k2_passes = pass_split(lambda: gpu_nms.nms_greedy(offset, masked, 0.45, MAX_DET),
+                           "greedy_nms")
+    emit("passes", card, kernel="greedy_nms", shape=[B_MAIN, K_MAIN, MAX_DET],
+         kept=int(k2_valid.sum()), workspace_bytes=k2_workspace_bytes, **k2_passes)
     emit("times", card, kernel_ms={"decode_nms_2d": k1_ms, "greedy_nms": k2_ms},
          call_ms={"decode_nms_2d": k1_call_ms, "greedy_nms": k2_call_ms},
          plain_ms={"decode_nms_2d": k1_plain_ms, "greedy_nms": k2_plain_ms},
+         bound_ms={"decode_nms_2d": k1_bound, "greedy_nms": k2_bound},
          iou_tests=iou_tests, in_process=e2e)
 
     # -- 6. where a request's time goes (the wall includes the profiler's cost) ---
@@ -698,7 +823,8 @@ def main() -> int:
          "replaces": "triton_client_tpu/ops/pallas_nms.py:111",
          "launches": launches["greedy_nms"], "max_abs_err": k2_err, "match": True,
          "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by,
+         "bound_by": k2_by, "passes_us": k2_passes["us"],
+         "workspace_bytes": k2_workspace_bytes,
          "library_ms": None, "card": card},
         *record_3d,
         *record_second,
@@ -727,6 +853,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     from triton_client_tpu_torch.pipelines.detect3d import (
         Detect3DConfig,
         build_pointpillars_pipeline,
+        gathered_decode_args,
         prepare_points,
     )
     from triton_client_tpu_torch.runtime.repository import ModelRepository
@@ -747,6 +874,15 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         want = gpu_decode3d.residual_decode_reference(*args)
         torch.cuda.synchronize()
         decode_match(got, want, kind)
+        # the gathered form at the KITTI PointPillars head: K_3D of its
+        # anchors, direction logits as drawn, tied and with NaNs
+        for j, dir_kind in enumerate(kernel_cases.DIR_KINDS):
+            gargs = [torch.from_numpy(a).to(dev) for a in kernel_cases.gather_decode3d_inputs(
+                kind, 1, N_ANCHORS_3D, K_3D, dir_kind, seed=55 + 3 * i + j)]
+            got = gpu_decode3d.gather_residual_decode(*gargs)
+            want = gpu_decode3d.gather_residual_decode_reference(*gargs)
+            torch.cuda.synchronize()
+            decode_match(got, want, f"{kind}, gathered, direction logits {dir_kind}")
     k4_cases = 0
     k4_order_paths = {"input_order": 0, "sorted": 0}
 
@@ -814,7 +950,9 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
           "suppress_pack_3d past shared memory did not raise on the card")
     emit("kernels_vs_plain_3d", card, kernels=[
         {"name": "residual_decode_3d", "cases": len(kernel_cases.DECODE3D_KINDS),
-         "shape": [1, K_3D, 7], "match": True, "max_abs_err": 0.0},
+         "gathered_cases": len(kernel_cases.DECODE3D_KINDS) * len(kernel_cases.DIR_KINDS),
+         "shape": [1, K_3D, 7], "gathered_from": [1, N_ANCHORS_3D, 7], "match": True,
+         "max_abs_err": 0.0},
         {"name": "suppress_pack_3d", "cases": k4_cases, "shape": [1, K_3D, MAX_DET_3D, COLS_3D],
          "largest_k": K_LARGEST, "images_by_order_path": k4_order_paths,
          "match": True, "max_abs_err": 0.0},
@@ -855,10 +993,13 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     launches = {c_name: c.count for c_name, c in
                 (("residual_decode_3d", gpu_decode3d.launches),
                  ("suppress_pack_3d", gpu_suppress3d.launches))}
+    gathered = gpu_decode3d.gathered_launches.count
     check(before == after, "the unfused route launched a 3D kernel")
     for k_name, count in launches.items():
         check(count == fused_requests,
               f"{k_name} launched {count} times for {fused_requests} fused requests")
+    check(gathered == fused_requests,
+          f"kernel 3's gathered form launched {gathered} times for {fused_requests} requests")
     kept = {}
     for n in SCAN_POINTS:
         for o in out[n]:
@@ -888,6 +1029,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
          requests={"fused": fused_requests, "unfused": len(unfused)},
          live_candidates=live, kept=kept, fused_equals_unfused=True,
          repeat_equal=True, repeat_bitwise=bitwise_repeat, launches=launches,
+         launches_gathered_form=gathered,
          deterministic_sum_route="index_put_(accumulate=True), models/pointpillars.pillar_sums")
 
     # -- 9. kernels on the main path's own candidates; the card against the CPU --
@@ -896,9 +1038,17 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         heads = model.from_points(torch.from_numpy(padded).to(dev),
                                   torch.tensor(m, dtype=torch.int32, device=dev))
         cand = model.topk_candidates(heads, K_3D, Detect3DConfig().score_thresh)
+        sel = model.topk_indices(heads, K_3D, Detect3DConfig().score_thresh)
     dec_args = (cand["deltas"], cand["anchors"], cand["dir_bin"])
-    boxes = gpu_decode3d.fused_residual_decode(*dec_args)
-    decode_match(boxes, gpu_decode3d.residual_decode_reference(*dec_args), "main path")
+    gather_args = gathered_decode_args(model, heads, sel["top_idx"])
+    check(gather_args[0].shape[1] == N_ANCHORS_3D, "not the KITTI head's anchors")
+    boxes = gpu_decode3d.gather_residual_decode(*gather_args)
+    decode_match(boxes, gpu_decode3d.gather_residual_decode_reference(*gather_args),
+                 "main path, gathered")
+    decode_match(gpu_decode3d.fused_residual_decode(*dec_args),
+                 gpu_decode3d.residual_decode_reference(*dec_args), "main path")
+    check(torch.equal(bits(boxes), bits(gpu_decode3d.residual_decode_reference(*dec_args))),
+          "the gathered form differs from the ungathered chain on the main path")
     iou, srows = gpu_suppress3d.sorted_candidates(boxes, cand["scores"], cand["labels"])
     # sorted_candidates hands them over in score order: taken as it stands
     got, ws, sizes = with_workspace(
@@ -935,10 +1085,15 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         nan_cells_card_equals_cpu=nan_cells, nan_point_kept_card_cpu=nan_kept)
 
     # -- 10. times on the card's clock ---------------------------------------------
-    k3_call_ms = cuda_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args), reps=500)
-    k3_ms = kernel_device_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args),
+    # kernel 3 as the main path launches it (gathered) and in the TPU
+    # kernel's form on the rows topk_candidates gathers
+    k3_call_ms = cuda_ms(lambda: gpu_decode3d.gather_residual_decode(*gather_args), reps=500)
+    k3_ms = kernel_device_ms(lambda: gpu_decode3d.gather_residual_decode(*gather_args),
                              gpu_decode3d.launches)
-    k3_plain_ms = cuda_ms(lambda: gpu_decode3d.residual_decode_reference(*dec_args), reps=100)
+    k3_plain_ms = cuda_ms(lambda: gpu_decode3d.gather_residual_decode_reference(*gather_args),
+                          reps=100)
+    k3_rows_ms = kernel_device_ms(lambda: gpu_decode3d.fused_residual_decode(*dec_args),
+                                  gpu_decode3d.launches)
     k4_call_ms = cuda_ms(lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D),
                          reps=200)
     k4_ms = kernel_device_ms(lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D),
@@ -950,10 +1105,13 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     tests, kept_steps = live_counts_3d(iou, srows[..., COLS_3D - 2].clone(),
                                        torch.tensor(0.01, device=dev), MAX_DET_3D)
     n_cand = K_3D  # B = 1
-    k3_bytes = n_cand * (7 * 4 + 7 * 4 + 8 + 7 * 4)
+    nb = model.cfg.num_dir_bins
+    # each candidate's box-head row, anchor and direction logits, its
+    # index, its box written
+    k3_bytes = n_cand * (7 * 4 + 7 * 4 + 4 * nb + 8 + 7 * 4)
     # the IoU rows of the kept steps, the sorted rows, the packed output
     k4_bytes = kept_steps * K_3D * 4 + K_3D * COLS_3D * 4 + MAX_DET_3D * (COLS_3D * 4 + 1)
-    k3_bound, k3_by = roofline(k3_bytes, n_cand * DECODE_OPS)
+    k3_bound, k3_by = roofline(k3_bytes, n_cand * (DECODE_OPS + nb - 1))  # and the argmax
     k4_bound, k4_by = roofline(k4_bytes, tests)  # one compare per live candidate a step
 
     e2e = {f"points{n}": serve(infer["pointpillars"], scans[n], SERVE_REQUESTS_3D)
@@ -966,6 +1124,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
          **k4_passes)
     emit("times_3d", card,
          kernel_ms={"residual_decode_3d": k3_ms, "suppress_pack_3d": k4_ms},
+         kernel_ms_ungathered_form={"residual_decode_3d": k3_rows_ms},
          call_ms={"residual_decode_3d": k3_call_ms, "suppress_pack_3d": k4_call_ms},
          plain_ms={"residual_decode_3d": k3_plain_ms, "suppress_pack_3d": k4_plain_ms},
          bound_ms={"residual_decode_3d": k3_bound, "suppress_pack_3d": k4_bound},
@@ -974,7 +1133,8 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
     # -- 11. where a 120k-point request's time goes -------------------------------
     pc = scans[SCAN_POINTS[1]][0]
     emit("profile_3d", card, points=SCAN_POINTS[1],
-         **device_profile(lambda: infer["pointpillars"](pc), PROFILE_REQUESTS))
+         **device_profile(lambda: infer["pointpillars"](pc), PROFILE_REQUESTS),
+         candidate_stage=candidate_stage(model, heads, sel["top_idx"]))
 
     return [
         {"name": "residual_decode_3d", "route": "cuda",
@@ -982,7 +1142,8 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
          "replaces": "triton_client_tpu/ops/pallas_decode.py:233",
          "launches": launches["residual_decode_3d"], "max_abs_err": 0.0, "match": True,
          "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by,
+         "bound_by": k3_by, "form": "gathered", "ms_ungathered_form": k3_rows_ms,
+         "launches_gathered_form": gathered,
          "library_ms": None, "card": card},
         {"name": "suppress_pack_3d", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/suppress_pack_3d.cu",
@@ -1012,6 +1173,7 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
     from triton_client_tpu_torch.pipelines.detect3d import (
         Detect3DConfig,
         build_second_pipeline,
+        gathered_decode_args,
         prepare_points,
     )
     from triton_client_tpu_torch.runtime.repository import ModelRepository
@@ -1084,12 +1246,15 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
     before = [c.count for _, c in kernels_3d]
     unfused = {n: infer["second_iou_unfused"](scans[n][0]) for n in SCAN_POINTS}
     launches = {k_name: c.count for k_name, c in kernels_3d}
-    all_launches = [c.count for c in counters]
+    all_launches = [c.count for c in counters[:-1]]  # each kernel once
     check(before == list(launches.values()), "the unfused route launched a kernel")
     for k_name, count in launches.items():
         check(count == fused_requests,
               f"{k_name} launched {count} times for {fused_requests} fused requests")
     check(sum(all_launches) == 3 * fused_requests, "a 2D kernel launched on the SECOND path")
+    gathered = gpu_decode3d.gathered_launches.count
+    check(gathered == fused_requests,
+          f"kernel 3's gathered form launched {gathered} times for {fused_requests} requests")
 
     kept = {}
     for n in SCAN_POINTS:
@@ -1140,7 +1305,7 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
          cells=cells, live_candidates=live, kept=kept,
          fused_equals_unfused={str(small): True, "max_abs_err": fu_err, "bitwise": fu_bitwise,
                                f"differs_at_{big}": big_differs},
-         repeat_bitwise=True, launches=launches,
+         repeat_bitwise=True, launches=launches, launches_gathered_form=gathered,
          deterministic_sum_route="index_put_(accumulate=True), models/pointpillars.pillar_sums")
 
     # -- 14. kernels on the main path's own inputs; the card against the CPU -----
@@ -1150,14 +1315,22 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
         cnt = torch.tensor(m, dtype=torch.int32, device=dev)
         valsT, slots, _ = gpu_voxel.slot_rows(pts, cnt, voxel)
         segment_match(valsT, slots, "main path")
-        cand = model.topk_candidates(
-            model.from_volume(gpu_voxel.fused_mean_volume(pts, cnt, voxel)), K_3D,
-            Detect3DConfig().score_thresh,
-        )
+        heads = model.from_volume(gpu_voxel.fused_mean_volume(pts, cnt, voxel))
+        cand = model.topk_candidates(heads, K_3D, Detect3DConfig().score_thresh)
+        sel = model.topk_indices(heads, K_3D, Detect3DConfig().score_thresh)
     dec_args = (cand["deltas"], cand["anchors"], cand["dir_bin"])
-    boxes = gpu_decode3d.fused_residual_decode(*dec_args)
-    check(torch.equal(bits(boxes), bits(gpu_decode3d.residual_decode_reference(*dec_args))),
+    gather_args = gathered_decode_args(model, heads, sel["top_idx"])
+    boxes = gpu_decode3d.gather_residual_decode(*gather_args)
+    check(torch.equal(bits(boxes),
+                      bits(gpu_decode3d.gather_residual_decode_reference(*gather_args))),
+          "residual_decode_3d's gathered form differs on SECOND's candidates")
+    check(torch.equal(bits(gpu_decode3d.fused_residual_decode(*dec_args)),
+                      bits(gpu_decode3d.residual_decode_reference(*dec_args))),
           "residual_decode_3d differs on SECOND's candidates")
+    check(torch.equal(bits(boxes), bits(gpu_decode3d.residual_decode_reference(*dec_args))),
+          "the gathered form differs from the ungathered chain on SECOND's candidates")
+    check(torch.equal(sel["scores"], cand["scores"]) and torch.equal(sel["labels"], cand["labels"]),
+          "topk_indices and topk_candidates select differently")
     iou, srows = gpu_suppress3d.sorted_candidates(boxes, cand["scores"], cand["labels"])
     got = gpu_suppress3d.suppress_pack_3d(iou, srows, 0.01, MAX_DET_3D)
     want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, 0.01, MAX_DET_3D)
@@ -1381,7 +1554,7 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
         group_launches = gpu_segment.launches.count
         burst_out, _, _ = burst(burst_chan, requests())
         launches = {"segment_sum": gpu_segment.launches.count}
-        all_launches = [c.count for c in counters]
+        all_launches = [c.count for c in counters[:-1]]  # each kernel once
         burst_solo_calls = solo_calls[0] - group_solo_calls
         s_cont, s_burst = cont.stats(), burst_chan.stats()
     finally:

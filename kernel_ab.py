@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the port's kernels 1, 2, 4, 5 and 6 of several checkouts on one card,
-in turns, so that two versions are compared on the same card in one run.
+"""Times the port's kernels 1 to 6 of several checkouts on one card, in turns,
+so that two versions are compared on the same card in one run.
 
     python3 kernel_ab.py PARENT . . PARENT
 
@@ -8,13 +8,19 @@ Each argument is the root of a checkout of this repository; each runs in a
 process of its own, in the order given, and builds its own kernels. One JSON
 line per run: the checkout, the card's name and power limit, and the device
 ms of one call of kernels 1 (``fused_decode_nms_2d``), 2 (``nms_greedy``),
-4 (``suppress_pack_3d``), 5 (``sorted_segment_mean``) and 6
+3 (``fused_residual_decode`` on gathered rows, ``residual_decode_3d``; and
+the fused 3D route's stage from the top-k indices to the boxes,
+``residual_decode_3d_stage``: ``gather_residual_decode`` where the checkout
+has it, else the gathers of ``topk_candidates`` and the kernel), 4
+(``suppress_pack_3d``), 5 (``sorted_segment_mean``) and 6
 (``segment_sum``), timed by ``chip_smoke.kernel_device_ms`` of this
 script's own checkout, whichever checkout is timed. The inputs are the main
 paths': for kernels 1, 2 and 4 seeded ``ops/kernel_cases.py`` candidates,
 every slot valid and in score order, as the main paths hand them over
 (kernels 1 and 2 at B = 8, K = 1024, max_det 300; kernel 4 at B = 1,
 K = 256, max_det 128 on the IoU matrix of random rotated boxes); for kernel
+3 this script's ``kernel_cases.gather_decode3d_inputs``: 256 of the KITTI
+PointPillars head's 321,408 anchors, B = 1; for kernel
 5 the slot rows of ``chip_smoke.py`` phase 14's 120,000-point scan at the
 KITTI SECOND grid (N = 131,072, 40,000 slots); for kernel 6 phase 19's
 packed rows of 8 clouds of 20k-120k points (R = 655,360, F = 4, S = 8).
@@ -40,11 +46,13 @@ import torch
 
 
 def measure() -> dict:
-    """The five kernels' device ms, for the checkout in the working
+    """The six kernels' device ms, for the checkout in the working
     directory."""
     import numpy as np
 
     from chip_smoke import (  # this script's own checkout
+        K_3D,
+        N_ANCHORS_3D,
         RAGGED_CLOUDS,
         RAGGED_POINTS,
         SCAN_POINTS,
@@ -67,6 +75,7 @@ def measure() -> dict:
     from triton_client_tpu_torch.ops import (
         cuda_build,
         gpu_decode,
+        gpu_decode3d,
         gpu_nms,
         gpu_segment,
         gpu_suppress3d,
@@ -107,6 +116,21 @@ def measure() -> dict:
     ids = torch.from_numpy(layout.segment_ids).to(dev)
     feat = torch.tanh(torch.from_numpy(pack_rows(clouds, layout)).to(dev)
                       @ torch.from_numpy(POOL_W).to(dev))
+    # kernel 3: the top-k indices into the KITTI head, the gathered rows
+    head, anchors, logits, top_idx = (
+        torch.from_numpy(a).to(dev)
+        for a in cases.gather_decode3d_inputs("random", 1, N_ANCHORS_3D, K_3D, seed=50))
+    sel = top_idx[..., None]
+    rows3 = (torch.take_along_dim(head, sel, dim=1), anchors[top_idx],
+             torch.take_along_dim(logits, sel, dim=1).argmax(-1))
+    if hasattr(gpu_decode3d, "gather_residual_decode"):
+        def k3_stage():
+            return gpu_decode3d.gather_residual_decode(head, anchors, logits, top_idx)
+    else:
+        def k3_stage():
+            return gpu_decode3d.fused_residual_decode(
+                torch.take_along_dim(head, sel, dim=1), anchors[top_idx],
+                torch.take_along_dim(logits, sel, dim=1).argmax(-1))
     # off the main paths: kernel 5's long slots, kernel 6's wide rows
     k5_off = {kind: [torch.from_numpy(a).to(dev)
                      for a in cases.segment_inputs(kind, 131072, SECOND_SLOTS, seed=5)]
@@ -128,6 +152,9 @@ def measure() -> dict:
                                           gpu_decode.launches),
         "greedy_nms": kernel_device_ms(lambda: gpu_nms.nms_greedy(*k2, 0.45, 300),
                                        gpu_nms.launches),
+        "residual_decode_3d": kernel_device_ms(
+            lambda: gpu_decode3d.fused_residual_decode(*rows3), gpu_decode3d.launches),
+        "residual_decode_3d_stage": kernel_device_ms(k3_stage, gpu_decode3d.launches),
         "suppress_pack_3d": kernel_device_ms(
             lambda: gpu_suppress3d.suppress_pack_3d(iou, rows, 0.01, 128),
             gpu_suppress3d.launches),

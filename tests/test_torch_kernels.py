@@ -138,13 +138,16 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 def test_smem_limits():
     # the main path's K = 1024 fits with room to spare; past the 227 KB
-    # a block may use (for kernel 1: past K = 16,384, where the order
-    # pass's sort fills it), the wrappers raise on CUDA tensors
-    assert gpu_decode.smem_bytes(1024) == 70656 and gpu_nms.smem_bytes(1024) == 24576
+    # a block may use (for kernels 1 and 2: past K = 16,384, where the
+    # order pass's sort fills it), the wrappers raise on CUDA tensors.
+    # Kernel 2 takes the reference's 16,128-box YOLO heads.
+    assert gpu_decode.smem_bytes(1024) == 70656 and gpu_nms.smem_bytes(1024) == 70656
     assert gpu_decode.smem_fits(1024) and gpu_nms.smem_fits(1024)
     assert gpu_decode.smem_fits(8192) and gpu_decode.smem_bytes(16384) == 196608
     assert gpu_decode.smem_fits(16384) and not gpu_decode.smem_fits(16385)
-    assert not gpu_decode.smem_fits(32768) and not gpu_nms.smem_fits(16128)
+    assert gpu_nms.smem_fits(16128) and gpu_nms.smem_fits(16384)
+    assert not gpu_nms.smem_fits(16385) and gpu_nms.smem_bytes(16384) == 196608
+    assert not gpu_decode.smem_fits(32768) and not gpu_nms.smem_fits(32768)
 
 
 # -- 3D: residual decode (kernel 3) and rotated suppress+pack (kernel 4) --
@@ -194,6 +197,45 @@ def test_residual_decode_plain_matches_tpu_kernel(kind):
         2, 0.78539,
     )["boxes"]
     assert torch.equal(chain, torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("dir_kind", kernel_cases.DIR_KINDS)
+@pytest.mark.parametrize("kind", kernel_cases.DECODE3D_KINDS)
+def test_gather_residual_decode_plain_matches_tpu_kernel(kind, dir_kind):
+    """The gathered form's plain version against the JAX package's fused
+    route: its gathers (``take_along_axis`` of the box head and direction
+    logits, ``anchors[top_idx]``, ``jnp.argmax``) and the Pallas kernel in
+    interpret mode, vmapped over the batch as ``pipelines/detect3d.py``
+    runs it. Equal direction bins (ties to the first maximum, a NaN above
+    every number); boxes within the 4 ulps of the ungathered test."""
+    import jax
+    import jax.numpy as jnp
+    from triton_client_tpu.ops.pallas_decode import fused_residual_decode as jax_decode
+
+    box_head, anchors, logits, top_idx = kernel_cases.gather_decode3d_inputs(
+        kind, 2, 300, 64, dir_kind, seed=13)
+    idx = jnp.asarray(top_idx)[..., None]
+    deltas = jnp.take_along_axis(jnp.asarray(box_head), idx, axis=1)
+    anchors_k = jnp.asarray(anchors)[jnp.asarray(top_idx)]
+    bins = jnp.argmax(jnp.take_along_axis(jnp.asarray(logits), idx, axis=1), axis=-1)
+    want = np.asarray(jax.vmap(
+        lambda d, a, db: jax_decode(d, a, db, num_dir_bins=2, dir_offset=0.78539, interpret=True)
+    )(deltas, anchors_k, bins))
+    t = [torch.from_numpy(x) for x in (box_head, anchors, logits, top_idx)]
+    got = gpu_decode3d.gather_residual_decode_reference(*t, 2, 0.78539).numpy()
+    port_bins = torch.take_along_dim(t[2], t[3][..., None], dim=1).argmax(-1)
+    np.testing.assert_array_equal(port_bins.numpy(), np.asarray(bins))
+    if dir_kind != "random":  # the rule was exercised: a tie or a NaN decided a bin
+        assert 0 < int(port_bins.sum()) < port_bins.numel()
+    d_np, a_np = np.asarray(deltas).reshape(-1, 7), np.asarray(anchors_k).reshape(-1, 7)
+    err = np.abs(got.reshape(-1, 7).astype(np.float64) - want.reshape(-1, 7))
+    tol = _decode_tolerance(d_np, a_np, want.reshape(-1, 7))
+    assert (err <= tol).all(), f"max excess {np.max(err - tol)} in columns {np.where(err > tol)[1]}"
+    # the gathered form's plain version is the topk_candidates chain, bit for bit
+    chain = gpu_decode3d.residual_decode_reference(
+        torch.from_numpy(np.array(deltas)), torch.from_numpy(np.array(anchors_k)),
+        torch.from_numpy(np.array(bins)), 2, 0.78539)
+    assert torch.equal(chain.view(torch.int32), torch.from_numpy(got).view(torch.int32))
 
 
 def _jax_sorted_matrix(boxes, scores, labels):
@@ -268,9 +310,13 @@ def test_suppress_pack_3d_plain_matches_tpu_kernel_at_the_threshold(monkeypatch)
 def test_3d_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     gpu_decode3d.launches.reset()
     gpu_suppress3d.launches.reset()
+    gpu_decode3d.gathered_launches.reset()
     d, a, b = (torch.from_numpy(x) for x in kernel_cases.decode3d_inputs("random", 32))
     assert torch.equal(gpu_decode3d.fused_residual_decode(d, a, b),
                        gpu_decode3d.residual_decode_reference(d, a, b))
+    g = [torch.from_numpy(x) for x in kernel_cases.gather_decode3d_inputs("random", 2, 64, 16)]
+    assert torch.equal(gpu_decode3d.gather_residual_decode(*g),
+                       gpu_decode3d.gather_residual_decode_reference(*g))
     boxes, scores, labels = (torch.from_numpy(x)[None]
                              for x in kernel_cases.suppress3d_inputs("random", 32))
     rows, keep = gpu_suppress3d.fused_suppress_pack_3d(boxes, scores, labels, 0.01, 16)
@@ -279,6 +325,7 @@ def test_3d_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(rows, want_rows) and torch.equal(keep, want_keep)
     assert rows.shape == (1, 16, 9) and bool(keep.any())
     assert gpu_decode3d.launches.count == 0 and gpu_suppress3d.launches.count == 0
+    assert gpu_decode3d.gathered_launches.count == 0
 
 
 def test_suppress_pack_3d_smem_limit():
@@ -377,13 +424,45 @@ def test_nms_greedy_kernel_matches_plain_on_card(cuda_device, kind, n, max_det):
     assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
 
 
+def _nms_on_card(boxes, scores, max_det, device):
+    """Kernel 2 against its plain version on the card, bitwise (indices of
+    the invalid slots included), with one launch count per call."""
+    boxes, scores = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (boxes, scores))
+    before = gpu_nms.launches.count
+    idx, valid = gpu_nms.nms_greedy(boxes, scores, 0.45, max_det)
+    want_idx, want_valid = gpu_nms.nms_greedy_reference(boxes, scores, 0.45, max_det)
+    torch.cuda.synchronize()
+    assert gpu_nms.launches.count == before + 1
+    assert torch.equal(valid, want_valid) and torch.equal(idx, want_idx)
+    return valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.KINDS)
+def test_nms_greedy_kernel_on_sorted_candidates_on_card(cuda_device, kind):
+    """The order pass's other branch: scores already in order are taken as
+    they stand."""
+    _nms_on_card(*kernel_cases.nms_batch(kind, 8, 1024, 36, sort=True), 300, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,max_det", [(1025, 1025), (16128, 300), (16384, 300), (16384, 16384)])
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_nms_greedy_kernel_past_one_word_group_on_card(cuda_device, n, max_det, sort):
+    """N past 1024 (the scan's removed set spans several groups of 32
+    words), the reference's 16,128-box YOLO heads, and the largest N the
+    wrapper takes."""
+    _nms_on_card(*kernel_cases.nms_batch("random", 2, n, 37, sort), max_det, cuda_device)
+
+
 @pytest.mark.cuda
 def test_pallas_route_past_shared_memory_raises_on_card(cuda_device, monkeypatch):
     """TRITON_CLIENT_TPU_NMS=pallas on a CUDA tensor launches the kernel
-    or raises: past a block's shared memory it raises, and nothing runs."""
+    or raises: past a block's shared memory (N = 16,384, where the order
+    pass's sort fills it) it raises, and nothing runs."""
     from triton_client_tpu_torch.ops import nms as tnms
 
-    n = 10000
+    n = 16385
     assert not gpu_nms.smem_fits(n)
     monkeypatch.setenv("TRITON_CLIENT_TPU_NMS", "pallas")
     boxes = torch.rand((1, n, 2), device=cuda_device).repeat(1, 1, 2)
@@ -407,6 +486,41 @@ def test_residual_decode_kernel_matches_plain_on_card(cuda_device, kind):
     assert gpu_decode3d.launches.count == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # -0.0 too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dir_kind", kernel_cases.DIR_KINDS)
+@pytest.mark.parametrize("kind", kernel_cases.DECODE3D_KINDS)
+def test_gather_residual_decode_kernel_matches_plain_on_card(cuda_device, kind, dir_kind):
+    """The gathered form at the PointPillars head's shape (B = 2 here, K =
+    256 of N = 321,408 anchors), bitwise, one launch of either count."""
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in kernel_cases.gather_decode3d_inputs(kind, 2, 321408, 256, dir_kind, seed=23)]
+    before = (gpu_decode3d.launches.count, gpu_decode3d.gathered_launches.count)
+    got = gpu_decode3d.gather_residual_decode(*args)
+    want = gpu_decode3d.gather_residual_decode_reference(*args)
+    torch.cuda.synchronize()
+    assert (gpu_decode3d.launches.count, gpu_decode3d.gathered_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (2, 256, 7)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gather_residual_decode_index_outside_the_head_on_card(cuda_device):
+    """An index outside [0, N) reads nothing past the head: its row is NaN,
+    the other rows as the plain version gives them."""
+    box_head, anchors, logits, top_idx = (
+        torch.from_numpy(x).to(cuda_device)
+        for x in kernel_cases.gather_decode3d_inputs("random", 1, 64, 8, seed=24))
+    bad = top_idx.clone()
+    bad[0, 3], bad[0, 5] = 64, -1
+    got = gpu_decode3d.gather_residual_decode(box_head, anchors, logits, bad)
+    want = gpu_decode3d.gather_residual_decode_reference(box_head, anchors, logits, top_idx)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0, [3, 5]]).all()
+    rest = [0, 1, 2, 4, 6, 7]
+    assert torch.equal(got[0, rest].view(torch.int32), want[0, rest].view(torch.int32))
 
 
 @pytest.mark.cuda

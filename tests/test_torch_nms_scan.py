@@ -1,5 +1,6 @@
-"""The suppression bitmask and one-warp scan of the decode+NMS (kernel 1)
-and 3D suppress+pack (kernel 4) kernels, rendered in plain PyTorch, against
+"""The suppression bitmask and one-warp scan of the decode+NMS (kernel 1),
+greedy NMS (kernel 2) and 3D suppress+pack (kernel 4) kernels, rendered in
+plain PyTorch, against
 the greedy-loop plain versions that the CPU path runs and that
 tests/test_torch_kernels.py holds to the JAX package's Pallas kernels.
 
@@ -20,7 +21,7 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from triton_client_tpu_torch.ops import gpu_decode, gpu_suppress3d, kernel_cases, mask_scan
+from triton_client_tpu_torch.ops import gpu_decode, gpu_nms, gpu_suppress3d, kernel_cases, mask_scan
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -131,6 +132,95 @@ def test_decode_mask_scan_property(data, thresh, max_det, fmt, agnostic):
     scores = np.where(valid, s, 0.0).astype(np.float32)
     _hold_2d((boxes, scores, c.astype(np.int32)[None], valid), iou_thresh=thresh,
              max_det=max_det, box_format=fmt, class_agnostic=agnostic)
+
+
+# -- kernel 2 --------------------------------------------------------------
+
+def _hold_nms(boxes, scores, max_det, thresh=0.45):
+    """Both renderings of kernel 2 on the same inputs: equal index
+    sequences (invalid slots included) and valid masks; returns valid."""
+    boxes, scores = (torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, scores))
+    want_idx, want_valid = gpu_nms.nms_greedy_reference(boxes, scores, thresh, max_det)
+    idx, valid = gpu_nms.nms_greedy_mask_scan_reference(boxes, scores, thresh, max_det)
+    assert idx.dtype == want_idx.dtype == torch.int32
+    assert torch.equal(valid, want_valid)
+    assert torch.equal(idx, want_idx)
+    return valid
+
+
+def _nms_batch(kind, k, order, seed):
+    """Two images of ``nms_inputs``: in score order (as the unfused 2D
+    route hands them over after its top-k), or shuffled."""
+    boxes, scores = kernel_cases.nms_batch(kind, 2, k, seed, sort=order == "sorted")
+    if order == "shuffled":
+        perm = np.stack([np.random.default_rng(seed + 10 + i).permutation(k) for i in range(2)])
+        boxes = np.take_along_axis(boxes, perm[..., None], 1)
+        scores = np.take_along_axis(scores, perm, 1)
+    return boxes, scores
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1024, 1025])
+@pytest.mark.parametrize("kind", kernel_cases.KINDS)
+def test_nms_mask_scan_equals_greedy_loop(kind, k, order, side):
+    """Every kind, K on both sides of a mask word and of one scan group,
+    with ``max_det`` below the kept count (``max_det`` ends the walk) and
+    above it (the live set does; the empty slots hold index 0)."""
+    boxes, scores = _nms_batch(kind, k, order, seed=k)
+    valid = _hold_nms(boxes, scores, max_det=k + 1)
+    kept = int(valid.sum(1).min())
+    if side == "below":
+        valid = _hold_nms(boxes, scores, max_det=max(1, kept - 1))
+        if kept > 1:
+            assert valid.all()
+    if kind in ("nan", "all_invalid"):
+        assert not valid.any()
+    elif k > 1:  # one candidate may be invalid (a fifth are)
+        assert kept > 0
+    if kind == "nan":  # every slot at the first NaN's index
+        idx, _ = gpu_nms.nms_greedy_mask_scan_reference(
+            torch.from_numpy(boxes), torch.from_numpy(scores), 0.45, 4)
+        first = np.isnan(scores).argmax(1)
+        assert (idx.numpy() == first[:, None]).all()
+
+
+def test_nms_mask_scan_iou_at_the_threshold():
+    """Kernel 1's boxes at IoU exactly 0.5, in and out of score order: at
+    threshold 0.5 none suppresses, one ulp below it every neighbour does."""
+    k = 40
+    x = 5.0 * np.arange(k, dtype=np.float32)
+    boxes = np.stack([x, np.zeros(k), x + 15.0, np.ones(k)], 1).astype(np.float32)[None]
+    scores = np.linspace(0.9, 0.1, k, dtype=np.float32)[None]
+    perm = np.random.default_rng(4).permutation(k)
+    for b, sc in ((boxes, scores), (boxes[:, perm], scores[:, perm])):
+        at = _hold_nms(b, sc, max_det=k, thresh=0.5)
+        below = _hold_nms(b, sc, max_det=k, thresh=float(np.nextafter(np.float32(0.5),
+                                                                       np.float32(0))))
+        assert int(at.sum()) > int(below.sum()) > 0
+
+
+_NMS_THRESH = [0.0, 0.25, float(np.nextafter(np.float32(0.25), np.float32(0))), 0.5,
+               float(np.nextafter(np.float32(0.5), np.float32(0))), 1.0]
+
+
+@settings(max_examples=60, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(
+    data=st.lists(st.tuples(_COORD, _COORD, _COORD, _COORD,
+                            st.sampled_from([0.9, 0.5, 0.5, 0.25, 0.0, -0.0, 1.0, float("inf"),
+                                             float("-inf"), float("nan")])),
+                  min_size=1, max_size=40),
+    thresh=st.sampled_from(_NMS_THRESH),
+    max_det=st.integers(1, 12),
+)
+def test_nms_mask_scan_property(data, thresh, max_det):
+    """xyxy coordinates on a small integer grid (touching, identical and
+    inverted boxes; IoUs exactly at 0.25 and 0.5, and thresholds one ulp
+    below them), equal, signed-zero, infinite, padded and NaN scores."""
+    x1, y1, x2, y2, s = (np.array(col) for col in zip(*data))
+    boxes = np.stack([x1, y1, x2, y2], 1).astype(np.float32)[None]
+    _hold_nms(boxes, s.astype(np.float32)[None], max_det, thresh)
 
 
 # -- kernel 4 --------------------------------------------------------------

@@ -146,7 +146,7 @@ def test_nms_pallas_past_shared_memory_runs_plain_on_cpu(monkeypatch, rng):
     """On CPU tensors ``pallas`` is the kernel's plain version, which has
     no shared-memory limit: past it, the indices equal the sequential
     loop's."""
-    n = 10000
+    n = 16385  # one past the largest N the kernel takes
     assert not gpu_nms.smem_fits(n)
     centers = rng.uniform(0, 2000, (n, 2))
     wh = rng.uniform(5, 80, (n, 2))

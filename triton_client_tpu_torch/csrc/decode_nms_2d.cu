@@ -19,9 +19,9 @@
 //       and areas written in visiting order;
 //   decode_nms_2d_mask   a (K/64, K/64, B) grid of 64 x 64 tiles, the
 //       tiles left of the diagonal and past the live count skipped: every
-//       IoU test at once, by box_iou.cuh with the row candidate as the
-//       chosen box, a lane a column, a ballot a word; the division only
-//       where a lane of the warp has an intersection;
+//       IoU test at once, by box_iou.cuh's mask tile with the row
+//       candidate as the chosen box, a lane a column, a ballot a word; the
+//       division only where a lane of the warp has an intersection;
 //   decode_nms_2d_scan   one block per image: the scan (mask_scan.cuh),
 //       then 256 threads write the packed rows from the original inputs.
 // A scan step covers 32 positions: a few ballots, and nothing more for a
@@ -34,12 +34,6 @@
 #include "mask_scan.cuh"
 
 namespace {
-
-// A mask tile: 64 rows x 64 columns (two words a row); a warp takes eight
-// of its rows, a lane one column of each word.
-constexpr int kRows = 64, kCols = 64, kWords = kCols / 32;
-constexpr int kMaskWarps = 8;
-constexpr int kMaskThreads = 32 * kMaskWarps;
 
 // xywh -> xyxy (ops/boxes.xywh2xyxy; * 0.5 is exact) or the box as given.
 __device__ __forceinline__ float4 decode(const float* bx, int j, int xywh) {
@@ -103,66 +97,11 @@ decode_nms_2d_order(const float* __restrict__ boxes,    // (B, K, 4)
   }
 }
 
-__global__ void __launch_bounds__(kMaskThreads)
+__global__ void __launch_bounds__(boxiou::kMaskThreads)
 decode_nms_2d_mask(const float4* __restrict__ obox, const float* __restrict__ oarea,
                    const int* __restrict__ live_n, int k, float thresh,
                    uint32_t* __restrict__ mask) {  // (B, K, row_stride(K))
-  const int ct = blockIdx.x, rt = blockIdx.y, b = blockIdx.z;
-  const int p0 = kRows * rt, q0 = kCols * ct;
-  if (q0 + kCols <= p0) return;  // every word left of the rows' diagonal words
-  const int n = live_n[b];
-  if (p0 >= n || q0 >= n) return;  // past the live ones
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __shared__ float4 rbox[kRows];
-  __shared__ float rarea[kRows];
-  if ((int)threadIdx.x < kRows && p0 + (int)threadIdx.x < n) {
-    // the row candidate is the chosen box: "+ 0.0f" as the loop picks it
-    const float4 r = obox[(size_t)b * k + p0 + threadIdx.x];
-    rbox[threadIdx.x] = make_float4(r.x + 0.0f, r.y + 0.0f, r.z + 0.0f, r.w + 0.0f);
-    rarea[threadIdx.x] = oarea[(size_t)b * k + p0 + threadIdx.x] + 0.0f;
-  }
-  float4 cbox[kWords];
-  float carea[kWords];
-#pragma unroll
-  for (int h = 0; h < kWords; ++h) {  // lane l: column q0 + 32 h + l
-    const int q = q0 + 32 * h + lane;
-    cbox[h] = q < n ? obox[(size_t)b * k + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    carea[h] = q < n ? oarea[(size_t)b * k + q] : 0.0f;
-  }
-  __syncthreads();
-  // every test of this warp's rows first, then one ballot a word. The
-  // division runs only where a lane of the warp has an intersection: with
-  // none, every IoU of the 32 pairs is +-0 (box_iou.cuh).
-  const bool zero_hit = 0.0f > thresh;
-  constexpr int kWarpRows = kRows / kMaskWarps;
-  uint32_t hit[kWarpRows] = {};
-#pragma unroll
-  for (int i = 0; i < kWarpRows; ++i) {
-    const int r = warp * kWarpRows + i;
-    const float4 rb = rbox[r];
-    const float ra = rarea[r];
-#pragma unroll
-    for (int h = 0; h < kWords; ++h) {
-      const float inter = boxiou::intersection(cbox[h].x, cbox[h].y, cbox[h].z, cbox[h].w, rb.x,
-                                               rb.y, rb.z, rb.w);
-      bool gt = zero_hit;
-      if (__any_sync(maskscan::kFull, inter != 0.0f))
-        gt = boxiou::iou_of(inter, carea[h], ra) > thresh;
-      hit[i] |= (uint32_t)(q0 + 32 * h + lane < n && gt) << h;
-    }
-  }
-  const int stride = maskscan::row_stride(k);
-#pragma unroll
-  for (int i = 0; i < kWarpRows; ++i) {
-    const int p = p0 + warp * kWarpRows + i;
-#pragma unroll
-    for (int h = 0; h < kWords; ++h) {
-      const uint32_t bits = __ballot_sync(maskscan::kFull, hit[i] >> h & 1u);
-      const int w = kWords * ct + h;
-      if (lane == kWords * i + h && p < n && q0 + 32 * h < n)
-        mask[((size_t)b * k + p) * stride + w] = bits;
-    }
-  }
+  boxiou::mask_tile(obox, oarea, live_n, k, thresh, mask);
 }
 
 __global__ void __launch_bounds__(maskscan::kScanThreads)
@@ -227,8 +166,7 @@ extern "C" int decode_nms_2d_launch(const void* boxes, const void* scores, const
       xywh, class_agnostic, (int*)order, (int*)live_n, (float4*)obox, (float*)oarea);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   if (k > 0) {
-    const dim3 tiles((k + kCols - 1) / kCols, (k + kRows - 1) / kRows, batch);
-    decode_nms_2d_mask<<<tiles, kMaskThreads, 0, st>>>(
+    decode_nms_2d_mask<<<boxiou::mask_tiles(k, batch), boxiou::kMaskThreads, 0, st>>>(
         (const float4*)obox, (const float*)oarea, (const int*)live_n, k, thresh,
         (uint32_t*)mask);
     if ((err = (int)cudaGetLastError()) != 0) return err;

@@ -1,6 +1,6 @@
 // Suppression bitmask and one-warp scan, shared by the decode+NMS kernel
-// (decode_nms_2d.cu, kernel 1) and the 3D suppress+pack kernel
-// (suppress_pack_3d.cu, kernel 4).
+// (decode_nms_2d.cu, kernel 1), greedy NMS (greedy_nms.cu, kernel 2) and
+// the 3D suppress+pack kernel (suppress_pack_3d.cu, kernel 4).
 //
 // The greedy loop -- take the live candidate of highest score, ties to the
 // lowest index; kill it and every live candidate whose IoU with it exceeds

@@ -173,6 +173,24 @@ def decode_residual(
     return torch.cat([decoded[..., :6], rot[..., None]], -1)
 
 
+def gather_candidates(
+    heads: dict[str, torch.Tensor], anchors: torch.Tensor, sel: dict[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """The decode's inputs of a ``topk_indices`` selection, gathered from
+    the (B, h, w, A, c) heads and the (N, 7) anchors: deltas/anchors
+    (B, K, 7) and dir_bin (B, K), with the selection's scores and labels."""
+    b = heads["box"].shape[0]
+    idx = sel["top_idx"][..., None]
+    dirs = heads["dir"].reshape(b, -1, heads["dir"].shape[-1])
+    return {
+        "deltas": torch.take_along_dim(heads["box"].reshape(b, -1, 7), idx, dim=1),
+        "anchors": anchors[sel["top_idx"]],
+        "dir_bin": torch.take_along_dim(dirs, idx, dim=1).argmax(-1),
+        "scores": sel["scores"],
+        "labels": sel["labels"],
+    }
+
+
 def decode_candidates(
     cand: dict[str, torch.Tensor], num_dir_bins: int, dir_offset: float
 ) -> dict[str, torch.Tensor]:
@@ -420,29 +438,38 @@ class PointPillars(nn.Module):
             "dir": head(self.dir_head, cfg.num_dir_bins),
         }
 
-    def topk_candidates(
+    def topk_indices(
         self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1
     ) -> dict[str, torch.Tensor]:
-        """Gate + top-k on the raw class logits, before any box decode:
-        deltas/anchors (B, K, 7), dir_bin (B, K), scores (B, K) -inf where
-        gated out, labels (B, K) 1-indexed. Top-k is a stable sort (ties
-        in ascending index order, as ``jax.lax.top_k``); class and bin
-        argmaxes take the first maximum."""
+        """Gate + top-k on the raw class logits, before any box decode and
+        without gathering the decode's inputs: top_idx (B, K) int64 anchor
+        indices, scores (B, K) -inf where gated out, labels (B, K)
+        1-indexed. Top-k is a stable sort (ties in ascending index order,
+        as ``jax.lax.top_k``); the class argmax takes the first maximum.
+        The fused route decodes through ``top_idx`` in one launch
+        (``ops/gpu_decode3d.gather_residual_decode``)."""
         b, h, w, a, nc = heads["cls"].shape
         n = h * w * a
         cls = heads["cls"].reshape(b, n, nc)
         top_logits, top_idx = stable_top_k(cls.amax(-1), min(pre_max, n))
-        idx = top_idx[..., None]
-        dirs = heads["dir"].reshape(b, n, self.cfg.num_dir_bins)
         scores = torch.sigmoid(top_logits)
         thresh = torch.tensor(score_thresh, dtype=torch.float32, device=scores.device)
         return {
-            "deltas": torch.take_along_dim(heads["box"].reshape(b, n, 7), idx, dim=1),
-            "anchors": self.anchors[top_idx],
-            "dir_bin": torch.take_along_dim(dirs, idx, dim=1).argmax(-1),
+            "top_idx": top_idx,
             "scores": torch.where(scores > thresh, scores, float("-inf")),
-            "labels": torch.take_along_dim(cls, idx, dim=1).argmax(-1) + 1,
+            "labels": torch.take_along_dim(cls, top_idx[..., None], dim=1).argmax(-1) + 1,
         }
+
+    def topk_candidates(
+        self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1
+    ) -> dict[str, torch.Tensor]:
+        """``topk_indices``, then the gathers of the decode's inputs:
+        deltas/anchors (B, K, 7), dir_bin (B, K) (the first maximum of the
+        direction logits), scores (B, K) -inf where gated out, labels
+        (B, K) 1-indexed."""
+        return gather_candidates(
+            heads, self.anchors, self.topk_indices(heads, pre_max, score_thresh)
+        )
 
     def decode_topk(
         self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1

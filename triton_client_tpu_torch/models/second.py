@@ -41,6 +41,7 @@ from triton_client_tpu_torch.models.pointpillars import (
     BEVBackbone,
     decode_candidates,
     decode_residual,
+    gather_candidates,
     generate_anchors,
     pillar_sums,
     validate_bev_divisible,
@@ -266,31 +267,38 @@ class SECONDIoU(nn.Module):
         al = self.cfg.iou_alpha
         return torch.sigmoid(heads["cls"]) ** (1.0 - al) * q[..., None] ** al
 
-    def topk_candidates(
+    def topk_indices(
         self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1
     ) -> dict[str, torch.Tensor]:
-        """Gate + top-k on the rectified score, before any box decode:
-        deltas/anchors (B, K, 7), dir_bin (B, K), scores (B, K) -inf where
-        gated out, labels (B, K) 1-indexed. The rectified score is not
-        monotonic in the class logit alone, so it is computed over every
-        anchor; only the box decode waits for the K survivors. Top-k is a
-        stable sort and the argmaxes take the first maximum, as in JAX."""
+        """Gate + top-k on the rectified score, before any box decode and
+        without gathering the decode's inputs: top_idx (B, K) int64 anchor
+        indices, scores (B, K) -inf where gated out, labels (B, K)
+        1-indexed. The rectified score is not monotonic in the class logit
+        alone, so it is computed over every anchor; only the box decode
+        waits for the K survivors. Top-k is a stable sort and the argmaxes
+        take the first maximum, as in JAX."""
         b, h, w, a, nc = heads["cls"].shape
         n = h * w * a
         score = self.rectified_scores(heads).reshape(b, n, nc)
         best = score.amax(-1)
         labels = score.argmax(-1) + 1
         top_scores, top_idx = stable_top_k(best, min(pre_max, n))
-        idx = top_idx[..., None]
-        dirs = heads["dir"].reshape(b, n, self.cfg.num_dir_bins)
         thresh = torch.tensor(score_thresh, dtype=torch.float32, device=best.device)
         return {
-            "deltas": torch.take_along_dim(heads["box"].reshape(b, n, 7), idx, dim=1),
-            "anchors": self.anchors[top_idx],
-            "dir_bin": torch.take_along_dim(dirs, idx, dim=1).argmax(-1),
+            "top_idx": top_idx,
             "scores": torch.where(top_scores > thresh, top_scores, float("-inf")),
             "labels": torch.take_along_dim(labels, top_idx, dim=1),
         }
+
+    def topk_candidates(
+        self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1
+    ) -> dict[str, torch.Tensor]:
+        """``topk_indices``, then the gathers of the decode's inputs:
+        deltas/anchors (B, K, 7), dir_bin (B, K), scores (B, K) -inf where
+        gated out, labels (B, K) 1-indexed."""
+        return gather_candidates(
+            heads, self.anchors, self.topk_indices(heads, pre_max, score_thresh)
+        )
 
     def decode_topk(
         self, heads: dict[str, torch.Tensor], pre_max: int = 512, score_thresh: float = 0.1

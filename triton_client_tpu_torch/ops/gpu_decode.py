@@ -152,22 +152,8 @@ def decode_nms_2d_mask_scan_reference(
     as the loop picks them), then the scan."""
     out_cols, offset, live = _tail_inputs(boxes, scores, classes, valid, box_format, class_agnostic)
     order, live_n = mask_scan.visiting_order(live)
-    x1, y1, x2, y2, area = (t.gather(1, order) for t in offset)
-
-    def chosen(t):  # row p: the suppressing candidate
-        return t[:, :, None] + 0.0
-
-    def other(t):  # column q
-        return t[:, None, :]
-
-    iw = torch.clamp(torch.minimum(other(x2), chosen(x2)) - torch.maximum(other(x1), chosen(x1)),
-                     min=0.0)
-    ih = torch.clamp(torch.minimum(other(y2), chosen(y2)) - torch.maximum(other(y1), chosen(y1)),
-                     min=0.0)
-    inter = iw * ih
-    iou = inter / torch.clamp(other(area) + chosen(area) - inter, min=1e-9)
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=live.device)
-    kept, keep = mask_scan.scan(mask_scan.pack_bits(iou > thresh), live_n, max_det)
+    mask = mask_scan.box_mask(*(t.gather(1, order) for t in offset), iou_thresh)
+    kept, keep = mask_scan.scan(mask, live_n, max_det)
     return _pack(out_cols, order.gather(1, kept), keep)
 
 

@@ -103,6 +103,20 @@ def nms_inputs(kind: str, n: int, seed: int = 0):
     return boxes, np.where(valid, scores, -np.inf).astype(np.float32)
 
 
+def nms_batch(kind: str, b: int, n: int, seed: int = 0, sort: bool = False):
+    """``nms_inputs`` for ``b`` images (seeds ``seed``..``seed+b-1``),
+    stacked; with ``sort``, in descending score order, ties by index, as
+    the unfused 2D route's top-k hands them to greedy NMS (NaN scores sort
+    last here; the kernel ranks them first)."""
+    parts = [nms_inputs(kind, n, seed + i) for i in range(b)]
+    boxes, scores = np.stack([p[0] for p in parts]), np.stack([p[1] for p in parts])
+    if sort:
+        order = np.argsort(-scores, axis=1, kind="stable")
+        boxes = np.take_along_axis(boxes, order[..., None], 1)
+        scores = np.take_along_axis(scores, order, 1)
+    return boxes, scores
+
+
 # -- 3D: the residual decode (kernel 3) and rotated suppress+pack (kernel 4) --
 
 DECODE3D_KINDS = ("random", "clip", "period", "negzero")
@@ -142,6 +156,32 @@ def decode3d_inputs(kind: str, k: int, seed: int = 0):
         anchors.astype(np.float32),
         rng.integers(0, 2, k).astype(np.int64),
     )
+
+
+DIR_KINDS = ("random", "ties", "nan")
+
+
+def gather_decode3d_inputs(kind: str, b: int, n: int, k: int, dir_kind: str = "random",
+                           nb: int = 2, seed: int = 0):
+    """The gathered form's inputs: a (b, n, 7) box head and (n, 7) anchors
+    drawn as ``decode3d_inputs`` draws them for ``kind``, (b, n, nb)
+    float32 direction logits and (b, k) int64 top-k indices (distinct
+    within an image, in no order). ``dir_kind``: ``random`` logits,
+    ``ties`` (every logit one of 0.0, -0.0 and 0.5: equal maxima, the
+    first taken), ``nan`` (a NaN on about a tenth of the logits: it ranks
+    above every number)."""
+    rng = np.random.default_rng(seed)
+    parts = [decode3d_inputs(kind, n, seed=seed + 1 + i) for i in range(b)]
+    box_head = np.stack([p[0] for p in parts])
+    anchors = parts[0][1]
+    if dir_kind == "ties":
+        logits = rng.choice(np.array([0.0, -0.0, 0.5], np.float32), (b, n, nb))
+    else:
+        logits = rng.normal(0.0, 1.0, (b, n, nb)).astype(np.float32)
+        if dir_kind == "nan":
+            logits[rng.uniform(size=(b, n, nb)) < 0.1] = np.nan
+    top_idx = np.stack([rng.permutation(n)[:k] for _ in range(b)]).astype(np.int64)
+    return box_head, anchors, logits.astype(np.float32), top_idx
 
 
 SUPPRESS3D_KINDS = ("random", "all_gated", "ties", "identical", "disjoint", "few", "nan")

@@ -1,8 +1,10 @@
-"""The suppression bitmask and one-warp scan of the decode+NMS (kernel 1)
-and 3D suppress+pack (kernel 4) kernels, in plain PyTorch: the pieces of
-``csrc/mask_scan.cuh`` that ``gpu_decode.decode_nms_2d_mask_scan_reference``
-and ``gpu_suppress3d.suppress_pack_3d_mask_scan_reference`` run, and the
-workspace both wrappers carve.
+"""The suppression bitmask and one-warp scan of the decode+NMS (kernel 1),
+greedy NMS (kernel 2) and 3D suppress+pack (kernel 4) kernels, in plain
+PyTorch: the pieces of ``csrc/mask_scan.cuh`` that
+``gpu_decode.decode_nms_2d_mask_scan_reference``,
+``gpu_nms.nms_greedy_mask_scan_reference`` and
+``gpu_suppress3d.suppress_pack_3d_mask_scan_reference`` run, and the
+workspace the three wrappers carve.
 
 The greedy loop (argmax over live scores, ties to the lowest index; kill
 the pick and every live candidate it suppresses; repeat) keeps exactly
@@ -80,6 +82,29 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return (packed - ((packed >> 31) << 32)).to(torch.int32)  # two's complement
 
 
+def box_mask(x1, y1, x2, y2, area, iou_thresh) -> torch.Tensor:
+    """The 2D kernels' suppression bitmask (``csrc/box_iou.cuh``'s mask
+    tile) over (B, K) xyxy coordinates and areas in visiting order: bit q
+    of row p is set when the box at position p, as the chosen box ("+ 0.0"
+    on its values, as the loop picks them), suppresses the one at position
+    q, by the loop's IoU test. Returns (B, K, words(K)) int32 words."""
+
+    def chosen(t):  # row p: the suppressing candidate
+        return t[:, :, None] + 0.0
+
+    def other(t):  # column q
+        return t[:, None, :]
+
+    iw = torch.clamp(torch.minimum(other(x2), chosen(x2)) - torch.maximum(other(x1), chosen(x1)),
+                     min=0.0)
+    ih = torch.clamp(torch.minimum(other(y2), chosen(y2)) - torch.maximum(other(y1), chosen(y1)),
+                     min=0.0)
+    inter = iw * ih
+    iou = inter / torch.clamp(other(area) + chosen(area) - inter, min=1e-9)
+    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=area.device)
+    return pack_bits(iou > thresh)
+
+
 def scan(mask: torch.Tensor, live_n: torch.Tensor, max_det: int):
     """The scan over (B, K, words(K)) int32 mask rows in visiting order, as
     the kernels run it: positions [0, live_n) 32 at a time (one removed
@@ -139,8 +164,8 @@ def took_own_order(ws: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
     """(B,) bool, read back from a kernel's workspace ``ws`` (allocated by
     :func:`workspace` for ``sizes``) after its launch: whether the order
     pass took each image's own order (live scores already in visiting
-    order, or a live NaN) rather than sorting it. Both kernels keep the
-    live counts, then these flags, in their third array."""
+    order, or a live NaN) rather than sorting it. The three kernels keep
+    the live counts, then these flags, in their third array."""
     offset, n = _offsets(sizes)[0][2], sizes[2]
     return ws[offset : offset + 4 * n].view(torch.int32)[n // 2 :].bool()
 

@@ -40,7 +40,7 @@ from triton_client_tpu_torch.models.pointpillars import (
 from triton_client_tpu_torch.models.second import SECONDConfig, SECONDIoU
 from triton_client_tpu_torch.ops.detect3d_postprocess import nms_pack_3d
 from triton_client_tpu_torch.ops.fused import resolve_fused_stages
-from triton_client_tpu_torch.ops.gpu_decode3d import fused_residual_decode
+from triton_client_tpu_torch.ops.gpu_decode3d import gather_residual_decode
 from triton_client_tpu_torch.ops.gpu_voxel import fused_mean_volume
 from triton_client_tpu_torch.ops.voxelize import pad_points, voxelize
 
@@ -167,12 +167,15 @@ class Detect3DPipeline:
             )
         fused = "decode_nms" in self.fused_stages
         mc = model.cfg
-        cand = model.topk_candidates(heads, pre_max=cfg.pre_max, score_thresh=cfg.score_thresh)
-        if fused:  # the residual decode as one launch, then suppress + pack as another
-            boxes = fused_residual_decode(
-                cand["deltas"], cand["anchors"], cand["dir_bin"], mc.num_dir_bins, mc.dir_offset
-            )
+        if fused:
+            # the residual decode as one launch that reads the candidates'
+            # rows through top_idx, then suppress + pack as another
+            cand = model.topk_indices(heads, pre_max=cfg.pre_max, score_thresh=cfg.score_thresh)
+            boxes = gather_residual_decode(*gathered_decode_args(model, heads, cand["top_idx"]))
         else:
+            cand = model.topk_candidates(
+                heads, pre_max=cfg.pre_max, score_thresh=cfg.score_thresh
+            )
             boxes = decode_candidates(cand, mc.num_dir_bins, mc.dir_offset)["boxes"]
         dets, valid = nms_pack_3d(
             boxes, cand["scores"], cand["labels"],
@@ -202,6 +205,16 @@ class Detect3DPipeline:
             return {"detections": dets, "valid": valid}
 
         return fn
+
+
+def gathered_decode_args(model, heads: dict[str, torch.Tensor], top_idx: torch.Tensor) -> tuple:
+    """The arguments of ``gather_residual_decode`` (kernel 3's gathered
+    form) for a 3D model's heads (B, h, w, A, c) and its (B, K) top-k
+    indices: the (B, N, 7) box head, the (N, 7) anchors, the (B, N, nb)
+    direction logits, the indices and the model's direction constants."""
+    b, nb = heads["box"].shape[0], model.cfg.num_dir_bins
+    return (heads["box"].reshape(b, -1, 7), model.anchors, heads["dir"].reshape(b, -1, nb),
+            top_idx, nb, model.cfg.dir_offset)
 
 
 def _detect3d_spec(
