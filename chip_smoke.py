@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``triton_client_tpu_torch/
 csrc/`` and drives the port's four main paths, each served in-process
-through ``ModelRepository`` and ``CUDAChannel`` with random weights from
-a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``),
+through ``ModelRepository`` and ``CUDAChannel`` (each pipeline captured as
+CUDA graphs at registration) with random weights from a seed: YOLOv5n at 512x512 (the settings of ``examples/yolov5_crop_base``),
 PointPillars at the full KITTI width (``examples/pointpillar_kitti``),
 SECOND-IoU with the dense middle at the full KITTI width
 (``examples/second_iou``, the 352 x 400 x 10 grid), and the continuous
@@ -96,6 +96,32 @@ dense merged path. One JSON line per phase:
  21. dense_batched_2d — YOLOv5n 512^2 frames through the same scheduler's
                  dense merged path: a group of 8 one-frame requests equals one
                  direct call on the 8 frames stacked, bit for bit
+ 22. graphs    — each served path as the CUDA graph its pipeline captured
+                 at registration (runtime/graphs, the port's jax.jit):
+                 YOLOv5n (conf 0.05) at batch 1 and 8, fused, unfused (the
+                 fixpoint NMS, a loop the capture cuts in three graphs) and
+                 unfused under TRITON_CLIENT_TPU_NMS=pallas, PointPillars and
+                 SECOND-IoU fused and unfused at 20k and 120k points. The
+                 captured call is bitwise equal to the eager body; each
+                 kernel's launches through 5 replays are 5 times one eager
+                 call's; a replay on a second input gives that input's
+                 result; two requests in flight at pipeline_depth 2, resolved
+                 in reverse order, each get their own; no request captures
+                 after the registration warmup. Captures, keys and pool bytes
+                 per model
+ 23. times_graphs — the same paths through CUDAChannel, the eager body
+                 (registered as the model's infer_fn) against the captured
+                 one on the same requests, eager / captured / eager /
+                 captured: p50 and frames/s or scans/s; at YOLOv5n batch 1 and
+                 PointPillars 120k also the device ops the host issued a
+                 request (torch.profiler: cudaGraphLaunch and the copies
+                 around it, or every kernel launch) and the busy share
+ 24. driver    — InferenceDriver over CUDAChannel: 64 seeded 512^2 frames
+                 (YOLOv5n conf 0.05) sync, with 2 futures in flight and at
+                 batch 8, and 16 seeded clouds (PointPillars) sync and with 2
+                 in flight: frames/s and p50 each, the async results bitwise
+                 equal to the sync ones frame by frame, batch 8 within 1e-5
+                 of batch 1 on every live row
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -106,6 +132,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -150,6 +177,19 @@ SECOND_SLOTS = 40000
 # the ragged path: 8 clouds a pack, each 20k (the synthetic source's
 # default) to 120k points (a full HDL-64 scan); bursts timed in phase 20
 RAGGED_CLOUDS, RAGGED_POINTS, RAGGED_ROUNDS = 8, (20000, 120000), 5
+# the 2D main path's camera frames
+FRAME_HW = (480, 640)
+# phases 22-24: replays a launch count is read over; requests a timed path;
+# the driver's frames and clouds
+GRAPH_REPLAYS, GRAPH_REQUESTS_2D, GRAPH_REQUESTS_3D = 5, 30, 20
+DRIVER_FRAMES, DRIVER_CLOUDS = 64, 16
+# the CUDA runtime calls by which the host issues device work: each is
+# one host-issued device op of a request (phase 23)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+# what the main paths serve, for phases 22-24: model -> pipelines, inputs,
+# repository and channel
+SERVED: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -646,14 +686,28 @@ def main() -> int:
         pipe, spec, model = build_yolov5_pipeline(
             variant="n", num_classes=NC, input_hw=(512, 512), config=cfg, device="cuda", seed=0
         )
-        repo.register(spec, pipe.infer_fn())
+        # each batch size this run sends the variant: 1 and 8, and every
+        # size the batcher may merge for yolov5n_c005 (phase 21)
+        sizes = range(1, B_MAIN + 1) if name == "yolov5n_c005" else (1, B_MAIN)
+        repo.register(spec, pipe.infer_fn(),
+                      warmup=functools.partial(pipe.warmup, FRAME_HW, batch_sizes=sizes))
         pipes[name] = (pipe, spec, model)
     check(pipes["yolov5n"][1].extra["fused_stages"] == ["decode_nms"], "auto did not fuse on CUDA")
     check(pipes["yolov5n_unfused"][1].extra["fused_stages"] == [], "off still fused")
     channel = CUDAChannel(repo)
     channel.register_channel()
+    # every graph before traffic (the registration warmup); the unfused
+    # routes also under TRITON_CLIENT_TPU_NMS=pallas, which phases 3, 5
+    # and 22 serve
+    for name in variants:
+        repo.get(name).warmup()
+    os.environ["TRITON_CLIENT_TPU_NMS"] = "pallas"
+    for name in ("yolov5n_unfused", "yolov5n_c005_unfused"):
+        repo.get(name).warmup()
+    del os.environ["TRITON_CLIENT_TPU_NMS"]
 
-    frames = np.stack([f.data for f in SyntheticImageSource(40, (480, 640), seed=0)])
+    frames = np.stack([f.data for f in SyntheticImageSource(40, FRAME_HW, seed=0)])
+    SERVED["yolov5n"] = {"pipes": pipes, "repo": repo, "channel": channel, "frames": frames}
     b1 = [frames[i:i + 1] for i in range(4)]
     b8 = [frames[8 + 8 * i: 16 + 8 * i] for i in range(4)]
 
@@ -808,6 +862,8 @@ def main() -> int:
                                    "second_iou": second_launches[row["name"]]}
     record_ragged = run_ragged(card, dev, counters)
     run_dense_batched(card, counters, repo, channel, frames)
+    run_graphs(card, dev, counters)
+    run_driver(card)
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -965,7 +1021,7 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         pipe, spec, model = build_pointpillars_pipeline(
             config=Detect3DConfig(model_name=name, fused=fused), device="cuda", seed=0
         )  # one seed: both hold the same weights
-        repo.register(spec, pipe.infer_fn())
+        repo.register(spec, pipe.infer_fn(), warmup=pipe.warmup)  # a graph a point bucket
         pipes[name] = (pipe, spec, model)
     check(pipes["pointpillars"][1].extra["fused_stages"] == ["decode_nms"], "auto did not fuse")
     check(pipes["pointpillars_unfused"][1].extra["fused_stages"] == [], "off still fused")
@@ -978,6 +1034,9 @@ def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
         n: [f.data for f in SyntheticPointCloudSource(3, points=n, seed=i)]
         for i, n in enumerate(SCAN_POINTS)
     }
+    for name in pipes:
+        repo.get(name).warmup()
+    SERVED["pointpillars"] = {"pipes": pipes, "repo": repo, "channel": channel, "scans": scans}
     for name in pipes:  # warm-up, not counted
         for n in SCAN_POINTS:
             infer[name](scans[n][0])
@@ -1215,7 +1274,7 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
         pipe, spec, model = build_second_pipeline(
             config=Detect3DConfig(model_name=name, fused=fused), device="cuda", seed=0
         )  # one seed: both hold the same weights
-        repo.register(spec, pipe.infer_fn())
+        repo.register(spec, pipe.infer_fn(), warmup=pipe.warmup)  # a graph a point bucket
         pipes[name] = (pipe, spec, model)
     check(pipes["second_iou"][1].extra["fused_stages"] == ["voxelize_scatter", "decode_nms"],
           "auto did not fuse both SECOND stages")
@@ -1231,6 +1290,9 @@ def run_second(card: str, dev: torch.device, counters) -> tuple[list[dict], dict
         n: [f.data for f in SyntheticPointCloudSource(3, points=n, seed=20 + i)]
         for i, n in enumerate(SCAN_POINTS)
     }
+    for name in pipes:
+        repo.get(name).warmup()
+    SERVED["second_iou"] = {"pipes": pipes, "repo": repo, "channel": channel, "scans": scans}
     for name in pipes:  # warm-up, not counted
         for n in SCAN_POINTS:
             infer[name](scans[n][0])
@@ -1763,6 +1825,257 @@ def run_dense_batched(card: str, counters, repo, channel, frames: np.ndarray) ->
          merge_occupancy=occ, padded_frames=stats["padded_frames"],
          pad_fraction=stats["pad_fraction"], live_bucket_table=stats["live_bucket_table"],
          launches=launches, **fell)
+
+
+def request_profile(run, requests: int) -> dict:
+    """``device_profile`` plus the device ops the host issued a request:
+    the CUDA runtime calls that launch device work (``LAUNCH_APIS``: a
+    captured request's ``cudaGraphLaunch`` and the copies around it, an
+    eager request's every kernel), counted by torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(requests):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device_ops = [e for e in events if e.device_type.name == "CUDA"]
+    check(len(device_ops) > 0, "torch.profiler saw no device op")
+    device_s = sum(e.device_time_total for e in device_ops) / 1e6
+    issued: dict[str, int] = {}
+    for e in events:
+        if e.device_type.name == "CPU" and e.name in LAUNCH_APIS:
+            issued[e.name] = issued.get(e.name, 0) + 1
+    return {"requests": requests, "wall_ms_per_request": wall / requests * 1e3,
+            "device_ms_per_request": device_s / requests * 1e3,
+            "device_busy_share": device_s / wall, "device_ops_per_request": len(device_ops) / requests,
+            "host_issued_ops_per_request": sum(issued.values()) / requests,
+            "host_issued_by_call": {k: v / requests for k, v in sorted(issued.items())}}
+
+
+def run_graphs(card: str, dev: torch.device, counters) -> None:
+    """Phases 22-23: each served path's CUDA graph against its eager body
+    (``runtime/graphs``), then eager against captured through
+    ``CUDAChannel`` on the same requests."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    def on_card_2d(batch):
+        return (torch.from_numpy(batch).to(dev),)
+
+    def on_card_3d(pc, pipe):
+        padded, m = prepare_points(pc, pipe.model.cfg.voxel.point_features,
+                                   pipe.config.point_buckets)
+        return (torch.from_numpy(padded).to(dev), torch.tensor(m, dtype=torch.int32).to(dev))
+
+    def request_3d(name, pc, pipe):
+        padded, m = prepare_points(pc, pipe.model.cfg.voxel.point_features,
+                                   pipe.config.point_buckets)
+        return InferRequest(name, {"points": padded, "num_points": np.asarray(m, np.int32)})
+
+    frames = SERVED["yolov5n"]["frames"]
+    paths = []  # (label, model, route override, (input a, input b), requests a, b)
+    for b in (1, B_MAIN):
+        pair = (frames[:b], frames[B_MAIN + B_MAIN: B_MAIN + B_MAIN + b])
+        # conf 0.05: 300 detections an image, so two inputs give two results;
+        # the unfused route as deployed (the fixpoint, a loop the capture
+        # cuts, runtime/graphs.fixed_point) and with kernel 2
+        for model_name, route in (("yolov5n_c005", None), ("yolov5n_c005_unfused", None),
+                                  ("yolov5n_c005_unfused", "pallas")):
+            pipe = SERVED["yolov5n"]["pipes"][model_name][0]
+            paths.append((f"{model_name}{'_pallas' if route else ''}_b{b}", "yolov5n", model_name,
+                          route, tuple(on_card_2d(x) for x in pair),
+                          tuple(InferRequest(model_name, {"images": x}) for x in pair)))
+    for family in ("pointpillars", "second_iou"):
+        served = SERVED[family]
+        for model_name, (pipe, _, _) in served["pipes"].items():
+            for n in SCAN_POINTS:
+                pair = served["scans"][n][:2]
+                paths.append((f"{model_name}_{n}", family, model_name, None,
+                              tuple(on_card_3d(pc, pipe) for pc in pair),
+                              tuple(request_3d(model_name, pc, pipe) for pc in pair)))
+
+    # -- 22. the captured graph against the eager body ---------------------------
+    rows = {}
+    for label, family, model_name, route, (a, b), (req_a, req_b) in paths:
+        served = SERVED[family]
+        pipe = served["pipes"][model_name][0]
+        if route:
+            os.environ["TRITON_CLIENT_TPU_NMS"] = route
+        try:
+            pipe._jit(*a)  # captured already at registration; a no-op capture check
+            torch.cuda.synchronize()
+            before = [c.count for c in counters]
+            eager_a = pipe.run(*a)
+            torch.cuda.synchronize()
+            per_call = [c.count - x for c, x in zip(counters, before)]
+            eager_b = pipe.run(*b)
+            captures_before = pipe.graph_stats()["captures"]
+            torch.cuda.synchronize()
+            before = [c.count for c in counters]
+            got = [pipe._jit(*a) for _ in range(GRAPH_REPLAYS)]
+            torch.cuda.synchronize()
+            replayed = [c.count - x for c, x in zip(counters, before)]
+            got_b = pipe._jit(*b)
+            check(pipe.graph_stats()["captures"] == captures_before,
+                  f"{label}: a request captured a graph after the registration warmup")
+            check(replayed == [GRAPH_REPLAYS * n for n in per_call],
+                  f"{label}: {GRAPH_REPLAYS} replays launched {replayed}, eager once {per_call}")
+            for out in got:
+                check(all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
+                                      bits(e) if e.dtype == torch.float32 else e)
+                          for g, e in zip(out, eager_a)),
+                      f"{label}: the captured call differs from the eager body")
+            check(all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
+                                  bits(e) if e.dtype == torch.float32 else e)
+                      for g, e in zip(got_b, eager_b)),
+                  f"{label}: a replay on a second input did not give that input's result")
+            check(not all(torch.equal(x, y) for x, y in zip(eager_a, eager_b)),
+                  f"{label}: the two inputs give the same result; the check shows nothing")
+            # two requests in flight at pipeline_depth 2, resolved in reverse
+            channel = served["channel"]
+            check(channel.pipeline_depth == 2, "the channel is not at pipeline_depth 2")
+            fut_a = channel.do_inference_async(req_a)
+            fut_b = channel.do_inference_async(req_b)
+            out_b, out_a = fut_b.result().outputs, fut_a.result().outputs
+            for out, eager, which in ((out_a, eager_a, "first"), (out_b, eager_b, "second")):
+                for key, want in zip(("detections", "valid"), eager):
+                    check(out[key].tobytes() == want.cpu().numpy().tobytes(),
+                          f"{label}: the {which} of two requests in flight got other {key}")
+        finally:
+            os.environ.pop("TRITON_CLIENT_TPU_NMS", None)
+        rows[label] = {"launches_per_call": {c_name: n for c_name, n in
+                                             zip(COUNTER_NAMES, per_call) if n},
+                       "replays": GRAPH_REPLAYS, "bitwise": True, "second_input": True,
+                       "two_in_flight_reversed": True}
+    models = {}
+    for family in ("yolov5n", "pointpillars", "second_iou"):
+        for model_name, (pipe, _, _) in SERVED[family]["pipes"].items():
+            models[model_name] = pipe.graph_stats()
+    emit("graphs", card, paths=rows, graphs_by_model=models,
+         pool_bytes_total=sum(m["pool_bytes"] for m in models.values()),
+         reserved_bytes=torch.cuda.memory_reserved(dev))
+
+    # -- 23. eager against captured through the channel, same requests ----------
+    times = {}
+    for label, family, model_name, route, _, (req_a, req_b) in paths:
+        served = SERVED[family]
+        pipe, spec, _ = served["pipes"][model_name]
+        eager_name = f"{model_name}_eager"
+        try:
+            served["repo"].get(eager_name)
+        except KeyError:  # the eager body served as the model's infer_fn
+            served["repo"].register(dataclasses.replace(spec, name=eager_name), pipe.device_fn())
+        if route:
+            os.environ["TRITON_CLIENT_TPU_NMS"] = route
+        try:
+            reps = GRAPH_REQUESTS_2D if family == "yolov5n" else GRAPH_REQUESTS_3D
+            unit = "frames_per_s" if family == "yolov5n" else "scans_per_s"
+            size = (lambda r: r.inputs["images"].shape[0]) if family == "yolov5n" else (lambda r: 1)
+            row = {}
+            for mode, name in (("eager", eager_name), ("captured", model_name), ("eager2", eager_name),
+                               ("captured2", model_name)):
+                reqs = [dataclasses.replace(r, model_name=name) for r in (req_a, req_b)]
+                row[mode] = serve(served["channel"].do_inference, reqs, reps, unit, size)
+            if label in ("yolov5n_c005_b1", f"pointpillars_{SCAN_POINTS[1]}"):
+                for mode, name in (("eager", eager_name), ("captured", model_name)):
+                    req = dataclasses.replace(req_a, model_name=name)
+                    row[f"profile_{mode}"] = request_profile(
+                        lambda: served["channel"].do_inference(req), PROFILE_REQUESTS)
+        finally:
+            os.environ.pop("TRITON_CLIENT_TPU_NMS", None)
+        times[label] = row
+    emit("times_graphs", card, requests_per_mode=[GRAPH_REQUESTS_2D, GRAPH_REQUESTS_3D],
+         paths=times)
+
+
+COUNTER_NAMES = ("decode_nms_2d", "greedy_nms", "residual_decode_3d", "suppress_pack_3d",
+                 "segment_mean", "segment_sum", "residual_decode_3d_gathered")
+
+
+def run_driver(card: str) -> None:
+    """Phase 24: ``InferenceDriver`` over ``CUDAChannel`` on seeded 512^2
+    frames (YOLOv5n) and seeded clouds (PointPillars): sync, ``--async``
+    with 2 in flight, and batch 8 (2D)."""
+    from triton_client_tpu_torch.drivers.driver import (
+        InferenceDriver,
+        channel_infer,
+        channel_infer3d,
+    )
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource, SyntheticPointCloudSource
+
+    class Recording:
+        def __init__(self):
+            self.rows = {}
+
+        def write(self, frame, result):
+            self.rows[frame.frame_id] = {k: np.asarray(v) for k, v in result.items()}
+
+        def close(self):
+            pass
+
+    def drive(infer, source, **kw):
+        sink = Recording()
+        stats = InferenceDriver(infer, source, sink=sink, warmup=1, **kw).run()
+        return stats, sink.rows
+
+    out = {}
+    channel = SERVED["yolov5n"]["channel"]
+    name = "yolov5n_c005"  # 300 detections an image
+    source = SyntheticImageSource(DRIVER_FRAMES, (512, 512), seed=24)
+    runs = {
+        "sync": drive(channel_infer(channel, name), source),
+        "async_inflight2": drive(channel_infer(channel, name, asynchronous=True), source,
+                                 inflight=2),
+        "batch8": drive(channel_infer(channel, name), source, batch_size=B_MAIN),
+    }
+    sync = runs["sync"][1]
+    check(len(sync) == DRIVER_FRAMES, f"the sync run delivered {len(sync)} frames")
+    for mode, (stats, rows) in runs.items():
+        check(stats.frames == DRIVER_FRAMES and sorted(rows) == sorted(sync),
+              f"{mode}: {stats.frames} frames, ids {sorted(rows)[:4]}...")
+    for i, row in runs["async_inflight2"][1].items():
+        for key in ("detections", "valid"):
+            check(row[key].tobytes() == sync[i][key].tobytes(),
+                  f"frame {i}: the async run's {key} differ from the sync run's")
+    b8_err, live, other_keep = 0.0, 0, []
+    for i, row in runs["batch8"][1].items():
+        if not np.array_equal(row["valid"], sync[i]["valid"]):
+            other_keep.append(i)
+            continue
+        rows_b8, rows_b1 = row["detections"][row["valid"]], sync[i]["detections"][sync[i]["valid"]]
+        live += len(rows_b1)
+        if len(rows_b1):
+            b8_err = max(b8_err, float(np.abs(rows_b8 - rows_b1).max()))
+    print(json.dumps({"batch8_vs_batch1": {"frames_keeping_other_rows": other_keep,
+                                           "max_abs_err": b8_err, "live_rows": live}}), flush=True)
+    check(not other_keep, f"frames {other_keep}: batch 8 keeps other rows than batch 1")
+    check(b8_err <= 1e-5, f"batch 8 differs from batch 1 by {b8_err} on a live row")
+    out[name] = {m: {**st.to_dict(), "detections": int(sum(r["valid"].sum() for r in rows.values()))}
+                      for m, (st, rows) in runs.items()}
+    out[name]["async_equals_sync_bitwise"] = True
+    out[name]["batch8_vs_batch1_max_abs_err"] = b8_err
+    out[name]["live_rows"] = live
+
+    channel = SERVED["pointpillars"]["channel"]
+    source = SyntheticPointCloudSource(DRIVER_CLOUDS, seed=24)
+    runs = {
+        "sync": drive(channel_infer3d(channel, "pointpillars"), source),
+        "async_inflight2": drive(channel_infer3d(channel, "pointpillars", asynchronous=True),
+                                 source, inflight=2),
+    }
+    sync = runs["sync"][1]
+    check(len(sync) == DRIVER_CLOUDS, f"the sync run delivered {len(sync)} clouds")
+    for i, row in runs["async_inflight2"][1].items():
+        for key in ("pred_boxes", "pred_scores", "pred_labels"):
+            check(row[key].tobytes() == sync[i][key].tobytes(),
+                  f"cloud {i}: the async run's {key} differ from the sync run's")
+    out["pointpillars"] = {m: {**st.to_dict(), "detections": int(sum(len(r["pred_scores"])
+                                                                    for r in rows.values()))}
+                           for m, (st, rows) in runs.items()}
+    out["pointpillars"]["async_equals_sync_bitwise"] = True
+    emit("driver", card, frames=DRIVER_FRAMES, frame_hw=[512, 512], clouds=DRIVER_CLOUDS, **out)
 
 
 if __name__ == "__main__":

@@ -90,6 +90,10 @@ class InferFuture:
             raise self._error
         return self._value
 
+    def map(self, fn) -> "InferFuture":
+        """A future whose result is ``fn(self.result())`` (lazy)."""
+        return InferFuture(lambda: fn(self.result()))
+
 
 class BaseChannel(abc.ABC):
     """Transport abstraction between drivers and models."""

@@ -1,160 +1,201 @@
-"""CUDAChannel: the in-process dispatch channel (port of
-``channel/tpu_channel.py`` and the in-process part of
-``channel/staged.py``).
+"""CUDAChannel: the in-process dispatch channel, the single-device
+placement policy of ``StagedChannel`` (port of ``channel/tpu_channel.py``).
 
-``do_inference`` is a function call: inputs are copied host -> device
-from pinned memory, the registered model runs on the card, and outputs
-come back as numpy only at the boundary. ``do_inference_async`` returns
-as soon as the work is enqueued on the device; the readback waits in
-``result()``.
+``do_inference`` is a function call: inputs go host -> device, the
+registered model runs on the card, and outputs come back as numpy only
+at the boundary, lazily (``channel/staged.py``).
 
-Dtype policy, as in the JAX channel: a narrower input (uint8 camera
-frames against an FP32 spec) uploads as it is and widens on the device,
-a quarter of the bytes; a stray wider one (float64) casts down to the
-wire contract on the host.
-
-Packed ragged requests (``request.ragged`` set by the continuous batcher,
-the port of ``channel/staged.py``'s ragged route): the packed inputs and
-the layout's (R,) int32 segment ids upload, the model's ``ragged_fn``
-runs at the layout's ``launch_segments``, and the dead segment slots are
-sliced off the outputs whose leading dim is the segment bucket. Their
-inputs skip the per-tensor spec check: packed rows and per-segment
-stacks have other shapes than one request (the batcher checked nothing
-either; each member was a request of its own). PyTorch runs eagerly, so
-there is nothing to cache. The staged slots, buffer donation and the
-mesh are not ported yet.
+- **Placement** (``_place_inputs``): the never-widen dtype policy
+  (``cast_wire_input``), then a copy into pinned host buffers owned by a
+  staging slot and reused across requests, then a host-to-device copy
+  with ``non_blocking=True``. A slot's pinned buffers are written again
+  only after an event shows its last copy done. On the CPU the request's
+  arrays are used as they are.
+- **Launcher** (``_make_launcher``): a model with a ``device_fn`` runs
+  through a ``runtime/graphs.CapturedFunction`` over it, one CUDA graph
+  per input signature; a model without one keeps its ``infer_fn`` (the
+  pipelines' ``infer_fn`` goes through their own captured body).
+- **Donation**: a ``donatable`` input (``TensorSpec.donatable``) of a
+  ``device_fn`` model stages into a device buffer of the slot, which goes
+  back to the slot as soon as the launch has consumed it (in stream
+  order: the next copy into it waits on an event behind the launch).
+  Such a launch counts under ``donated_launches``.
+- **Packed ragged requests** (``request.ragged`` set by the continuous
+  batcher): the packed inputs and the layout's (R,) int32 segment ids
+  upload, the model's ``ragged_fn`` runs eagerly at the layout's
+  ``launch_segments``, and the dead segment slots are sliced off the
+  outputs whose leading dim is the segment bucket. Their inputs skip the
+  per-tensor spec check.
 """
 
 from __future__ import annotations
 
-import time
+import threading
 
 import numpy as np
 import torch
 
-from triton_client_tpu_torch.channel.base import (
-    BaseChannel,
-    InferFuture,
-    InferRequest,
-    InferResponse,
+from triton_client_tpu_torch.channel.staged import (  # noqa: F401 (re-exported)
+    SEGMENT_IDS_KEY,
+    StagedChannel,
+    StagedRequest,
+    _wire_dtypes,
+    cast_wire_input,
 )
-from triton_client_tpu_torch.config import ModelSpec
 from triton_client_tpu_torch.device import resolve_device
+from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
-# the key under which a packed request's segment ids ride with its inputs
-SEGMENT_IDS_KEY = "__segment_ids__"
+
+class _StagingSlot:
+    """Pinned host buffers (and donated device buffers) reused across
+    requests, with the events that say when each may be written again."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.host: dict[str, torch.Tensor] = {}
+        self.dev: dict[str, torch.Tensor] = {}
+        self.copied = torch.cuda.Event()  # behind the last host -> device copy
+        self.consumed = torch.cuda.Event()  # behind the last launch that read .dev
+        self.used = False
+
+    def pinned(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` copied into this slot's pinned buffer for ``name``."""
+        buf = self.host.get(name)
+        if buf is None or buf.numel() < arr.nbytes:
+            buf = self.host[name] = torch.empty(
+                max(arr.nbytes, 1), dtype=torch.uint8, pin_memory=True
+            )
+        src = torch.from_numpy(arr)
+        view = buf[: arr.nbytes].view(src.dtype).view(src.shape)
+        view.copy_(src)
+        return view
+
+    def donated(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """This slot's device buffer for ``name``, shaped as ``like``."""
+        nbytes = like.numel() * like.element_size()
+        buf = self.dev.get(name)
+        if buf is None or buf.numel() < nbytes:
+            buf = self.dev[name] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                               device=self.device)
+        return buf[:nbytes].view(like.dtype).view(like.shape)
 
 
-def cast_wire_input(spec: ModelSpec, name: str, arr: np.ndarray) -> np.ndarray:
-    """Never widen on the host; cast a stray wider dtype down to the spec's."""
-    try:
-        want = spec.input_by_name(name).np_dtype()
-    except (KeyError, ValueError):
-        return arr  # undeclared or BF16 inputs pass through as they are
-    if arr.dtype != want and want.itemsize <= arr.dtype.itemsize:
-        arr = arr.astype(want)
-    return arr
-
-
-class CUDAChannel(BaseChannel):
+class CUDAChannel(StagedChannel):
     """Single-device in-process serving channel (see module docstring)."""
 
     def __init__(
-        self, repository: ModelRepository, device: str | torch.device | None = None
+        self,
+        repository: ModelRepository,
+        device: str | torch.device | None = None,
+        **kwargs,
     ) -> None:
-        self._repository = repository
-        self.device = resolve_device(device)
+        """``device``: ``cuda`` unless the caller passes ``cpu``. The other
+        arguments are ``StagedChannel``'s (``pipeline_depth``,
+        ``shed_expired``, ``breaker_threshold``, ``breaker_reset_s``)."""
+        self._free_slots: list[_StagingSlot] = []
+        self._slots_lock = threading.Lock()
+        super().__init__(repository, resolve_device(device), **kwargs)
 
-    def register_channel(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.init()
+    # -- placement --------------------------------------------------------------
 
-    def fetch_channel(self) -> torch.device:
-        return self.device
+    def _take_slot(self) -> _StagingSlot:
+        with self._slots_lock:
+            if self._free_slots:
+                return self._free_slots.pop()
+        return _StagingSlot(self.device)
 
-    def get_metadata(self, model_name: str, model_version: str = "") -> ModelSpec:
-        return self._repository.metadata(model_name, model_version)
+    def _give_slot(self, slot: _StagingSlot) -> None:
+        with self._slots_lock:
+            self._free_slots.append(slot)
 
-    @property
-    def batch_multiple(self) -> int:
-        """Preferred divisor of device batch sizes: 1 on one card (the
-        batcher sizes merge groups and pad buckets off it)."""
-        return 1
+    def _wire_arrays(self, model, request) -> dict[str, np.ndarray]:
+        # np.require, not np.ascontiguousarray: that one turns a 0-d array
+        # (num_points) into shape (1,)
+        return {
+            name: np.require(cast_wire_input(model.spec, name, np.asarray(arr)),
+                             requirements="C")
+            for name, arr in request.inputs.items()
+        }
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+    def _upload(self, arrays: dict[str, np.ndarray], donate_names=frozenset()):
+        """``arrays`` on the device (see module docstring); returns (device
+        inputs, the staging slot or None)."""
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v) for k, v in arrays.items()}, None
+        slot = self._take_slot()
+        try:
+            if slot.used:
+                slot.copied.synchronize()  # the pinned buffers are free again
+            stream = torch.cuda.current_stream(self.device)
+            staged = {}
+            for name, arr in arrays.items():
+                host = slot.pinned(name, arr)
+                if name in donate_names:
+                    if slot.used:
+                        stream.wait_event(slot.consumed)
+                    dev = slot.donated(name, host)
+                    dev.copy_(host, non_blocking=True)
+                else:
+                    dev = host.to(self.device, non_blocking=True)
+                staged[name] = dev
+            slot.copied.record(stream)
+            slot.used = True
+        except BaseException:
+            self._give_slot(slot)
+            raise
+        return staged, slot
 
-    def _stage(self, spec: ModelSpec, request: InferRequest) -> dict[str, torch.Tensor]:
-        for t in spec.inputs:
-            if t.name not in request.inputs:
-                raise KeyError(f"model '{spec.name}' needs input '{t.name}'")
-            if request.ragged is None:
-                t.validate(np.asarray(request.inputs[t.name]))
-        staged = {}
-        for name, arr in request.inputs.items():
-            # np.require, not np.ascontiguousarray: that one turns a 0-d
-            # array (num_points) into shape (1,)
-            arr = np.require(cast_wire_input(spec, name, np.asarray(arr)), requirements="C")
-            staged[name] = self._upload(arr)
-        return staged
+    def _place_inputs(self, model, request):
+        return self._upload(self._wire_arrays(model, request), self._donate_names(model))
 
-    def _place_ragged(self, spec: ModelSpec, request: InferRequest) -> dict[str, torch.Tensor]:
-        """A packed request's inputs on the device, with the layout's
-        segment ids under ``SEGMENT_IDS_KEY``."""
+    def _place_ragged(self, model, request):
         if SEGMENT_IDS_KEY in request.inputs:
             raise ValueError(f"input name {SEGMENT_IDS_KEY!r} is reserved")
-        staged = self._stage(spec, request)
-        staged[SEGMENT_IDS_KEY] = self._upload(
-            np.ascontiguousarray(request.ragged.segment_ids, dtype=np.int32)
-        )
-        return staged
+        for t in model.spec.inputs:
+            if t.name not in request.inputs:
+                raise KeyError(f"model '{model.spec.name}' needs input '{t.name}'")
+        arrays = self._wire_arrays(model, request)
+        arrays[SEGMENT_IDS_KEY] = np.ascontiguousarray(request.ragged.segment_ids, dtype=np.int32)
+        staged, slot = self._upload(arrays)
+        if slot is not None:
+            self._give_slot(slot)  # nothing donated: the copies' event guards reuse
+        return staged, request.ragged
 
-    def _launch(self, request: InferRequest):
-        """Stage and enqueue; returns the readback closure."""
-        model = self._repository.get(request.model_name, request.model_version)
-        t0 = time.perf_counter()
-        layout = request.ragged
-        if layout is None:
-            outputs = model.infer_fn(self._stage(model.spec, request))
-        else:
-            if model.ragged_fn is None:
-                raise ValueError(f"model '{model.spec.name}' has no ragged_fn for a packed request")
-            inputs = self._place_ragged(model.spec, request)
-            ids = inputs.pop(SEGMENT_IDS_KEY)
-            outputs = model.ragged_fn(inputs, ids, layout.launch_segments)
-            # drop the dead segment slots before the readback
-            outputs = {
-                k: v[: layout.n_segments]
-                if getattr(v, "ndim", 0) >= 1 and v.shape[0] == layout.seg_bucket else v
-                for k, v in outputs.items()
-            }
+    def _consumed(self, staged: StagedRequest) -> None:
+        slot = staged.meta
+        if isinstance(slot, _StagingSlot):
+            staged.meta = None
+            slot.consumed.record(torch.cuda.current_stream(self.device))
+            self._give_slot(slot)
 
-        def resolve() -> InferResponse:
-            host = {
-                k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-                for k, v in outputs.items()
-            }
-            return InferResponse(
-                model_name=model.spec.name,
-                outputs=host,
-                model_version=model.spec.version,
-                request_id=request.request_id,
-                latency_s=time.perf_counter() - t0,
-            )
+    def _record_done(self):
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
-        return resolve
+    # -- launcher ---------------------------------------------------------------
 
-    def do_inference(self, request: InferRequest) -> InferResponse:
-        return self._launch(request)()
+    def _donate_names(self, model) -> frozenset:
+        if model.device_fn is None:
+            return frozenset()
+        return frozenset(model.spec.donatable_inputs())
 
-    def do_inference_async(self, request: InferRequest) -> InferFuture:
-        """Errors at dispatch are deferred to ``result()``, so async
-        callers have one place where errors surface."""
-        try:
-            return InferFuture(self._launch(request))
-        except Exception as e:
-            return InferFuture.failed(e)
+    def _make_launcher(self, model):
+        """A ``CapturedFunction`` over the model's ``device_fn``, called
+        with the spec's inputs in the spec's order."""
+        device_fn = model.device_fn
+        names = tuple(t.name for t in model.spec.inputs)
+
+        def body(*tensors):
+            return device_fn(dict(zip(names, tensors)))
+
+        captured = CapturedFunction(body, f"{model.spec.name}:{model.spec.version}")
+
+        def launcher(device_inputs):
+            return captured(*(device_inputs[n] for n in names))
+
+        launcher.graphs = captured
+        return launcher, self._donate_names(model), _wire_dtypes(model.spec)

@@ -1,12 +1,15 @@
 """3D detection entry point (port of the in-process path of
-``cli/detect3d.py``): build PointPillars or SECOND-IoU, register it, and
-send each point cloud through ``CUDAChannel`` with
-``drivers.channel_infer3d``. Prints one JSON summary.
+``cli/detect3d.py``): build PointPillars or SECOND-IoU, register it with
+its warmup (a graph a point bucket), and run ``InferenceDriver`` over
+``CUDAChannel`` with ``drivers.channel_infer3d``. Prints one JSON
+summary: the driver's stats under ``driver``, then the run's detections
+and kernel launches (over the driver's run, its warmup calls included).
+As in the JAX CLI, a 3D dispatch takes one cloud: ``-b`` does not batch.
 
 Usage:
   python -m triton_client_tpu_torch detect3d -i synthetic:16
-  python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:16
-  python -m triton_client_tpu_torch detect3d -i ./clouds --score 0.3
+  python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:16 --async
+  python -m triton_client_tpu_torch detect3d -i ./clouds --score 0.3 --sink jsonl -o out
   python -m triton_client_tpu_torch detect3d -i synthetic:2 --device cpu \
       --pc-range 0,-6.4,-3,12.8,6.4,1 --voxel-size 0.2,0.2,4
   python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:2 --device cpu \
@@ -17,10 +20,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
-import time
 
-import numpy as np
+from triton_client_tpu_torch.cli.common import add_common_flags
 
 
 def _floats(n: int):
@@ -35,13 +36,13 @@ def _floats(n: int):
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__)
+    add_common_flags(parser)
     parser.add_argument(
         "-m", "--model-name", default="pointpillars", help="pointpillars | second_iou"
     )
     parser.add_argument(
         "-i", "--input", default="synthetic:16", help="synthetic[:N] or a directory of .npy clouds"
     )
-    parser.add_argument("--limit", type=int, default=0, help="max scans")
     parser.add_argument("--score", type=float, default=None, help="score gate, default 0.1")
     parser.add_argument("--z-offset", type=float, default=None, help="sensor z correction")
     parser.add_argument(
@@ -58,17 +59,18 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="voxel size dx,dy,dz in m (default 0.16,0.16,4 for pointpillars, 0.2,0.2,0.4 "
         "for second_iou)",
     )
-    parser.add_argument(
-        "--device", default=None, choices=("cuda", "cpu"),
-        help="default cuda; cpu runs the kernels' plain versions",
-    )
-    parser.add_argument("--warmup", type=int, default=1)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
     from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
-    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.cli.common import (
+        CountingSink,
+        _check_async_flags,
+        make_sink,
+        print_report,
+    )
+    from triton_client_tpu_torch.drivers.driver import InferenceDriver, channel_infer3d
     from triton_client_tpu_torch.io.sources import open_source
     from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
     from triton_client_tpu_torch.models.second import SECONDConfig
@@ -77,6 +79,8 @@ def main(argv=None) -> None:
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     args = parse_args(argv)
+    if args.async_set:
+        _check_async_flags(args)
     name = args.model_name
     if name not in BUILDERS_3D:
         raise SystemExit(f"unknown 3D model '{name}' (choose from {sorted(BUILDERS_3D)})")
@@ -94,14 +98,11 @@ def main(argv=None) -> None:
     model_cfg = dataclasses.replace(model_cfg, voxel=voxel)
     pipe, spec, _ = BUILDERS_3D[name](model_cfg=model_cfg, config=cfg, device=args.device)
     repo = ModelRepository()
-    repo.register(spec, pipe.infer_fn())
-    channel = CUDAChannel(repo, device=pipe.device)
-    channel.register_channel()
-    infer = channel_infer3d(channel, spec.name)
+    repo.register(spec, pipe.infer_fn(), warmup=pipe.warmup)  # a graph a point bucket
+    channel = CUDAChannel(repo, device=pipe.device, pipeline_depth=args.pipeline_depth)
+    repo.get(spec.name).warmup()
+    infer = channel_infer3d(channel, spec.name, asynchronous=args.async_set)
 
-    scans = list(open_source(args.input, args.limit, kind="pointcloud"))
-    for scan in scans[: args.warmup]:
-        infer(scan.data)
     counters = {
         "segment_mean": gpu_voxel.launches,
         "residual_decode_3d": gpu_decode3d.launches,
@@ -109,32 +110,28 @@ def main(argv=None) -> None:
     }
     for counter in counters.values():
         counter.reset()
-    detections = 0
-    latencies = []
-    t0 = time.perf_counter()
-    for scan in scans:
-        t = time.perf_counter()
-        out = infer(scan.data)
-        latencies.append(time.perf_counter() - t)
-        detections += len(out["pred_scores"])
-    wall = time.perf_counter() - t0
-    print(
-        json.dumps(
-            {
-                "model": spec.name,
-                "device": str(pipe.device),
-                "fused_stages": spec.extra["fused_stages"],
-                "vfe": "scatter" if pipe.use_scatter else "grouped",
-                "grid": list(model_cfg.voxel.grid_size),
-                "scans": len(scans),
-                "detections": detections,
-                "wall_s": wall,
-                "scans_per_s": len(scans) / wall if wall > 0 else None,
-                "p50_ms": float(np.median(latencies)) * 1e3 if latencies else None,
-                "kernel_launches": {k: c.count for k, c in counters.items()},
-            }
-        )
+    sink = CountingSink(make_sink(args), lambda result: len(result["pred_scores"]))
+    driver = InferenceDriver(
+        infer,
+        open_source(args.input, args.limit, kind="pointcloud"),
+        sink=sink,
+        prefetch=args.prefetch,
+        warmup=args.warmup,
+        inflight=args.inflight if args.async_set else 1,
     )
+    stats = driver.run(max_frames=args.limit)
+    print_report(stats, {
+        "model": spec.name,
+        "device": str(pipe.device),
+        "fused_stages": spec.extra["fused_stages"],
+        "vfe": "scatter" if pipe.use_scatter else "grouped",
+        "grid": list(model_cfg.voxel.grid_size),
+        "scans": stats.frames,
+        "detections": sink.detections,
+        "kernel_launches": {k: c.count for k, c in counters.items()},
+        "graphs": pipe.graph_stats(),
+        "channel": {k: v for k, v in channel.stats().items() if k != "breaker"},
+    })
 
 
 if __name__ == "__main__":

@@ -40,6 +40,12 @@ class TensorSpec:
     shape: tuple[int, ...]
     dtype: str = "FP32"
     layout: str = ""  # e.g. "NHWC" for image inputs
+    # Input-only: the serving channel may hand this tensor's staged device
+    # buffer back to its staging slot as soon as the launch has consumed it
+    # (channel/cuda_channel.py), so consecutive requests reuse it. Only
+    # safe when nothing re-reads the staged buffer after the launch; the
+    # request's host arrays are never reused.
+    donatable: bool = False
 
     def np_dtype(self) -> np.dtype:
         if _DTYPES.get(self.dtype) is None:
@@ -75,3 +81,8 @@ class ModelSpec:
             if t.name == name:
                 return t
         raise KeyError(f"model '{self.name}' has no input '{name}'")
+
+    def donatable_inputs(self) -> tuple[str, ...]:
+        """Input names whose staged device buffers the serving channel may
+        reuse once the launch has consumed them (channel/cuda_channel.py)."""
+        return tuple(t.name for t in self.inputs if t.donatable)

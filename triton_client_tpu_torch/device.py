@@ -39,3 +39,27 @@ def strict_fp32() -> None:
         log.info("fp32 path: turning TF32 off for cuDNN and matmul")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def values_on(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Config constants as a (len(values),) tensor on ``device``, each
+    rounded to ``dtype`` as ``torch.tensor`` rounds it.
+
+    On the card each value is one fill: ``torch.tensor(values,
+    device="cuda")`` copies from pageable host memory, which makes the
+    host wait for the card and cannot be captured into a CUDA graph
+    (``runtime/graphs``)."""
+    values = tuple(values)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.tensor(values, dtype=dtype, device=device)
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
+def scalar_on(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A () tensor of ``value`` rounded to ``dtype``, made on ``device``
+    without a host copy (see :func:`values_on`)."""
+    return torch.full((), value, dtype=dtype, device=device)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from triton_client_tpu_torch.device import scalar_on, values_on
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
 from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells
 
@@ -150,7 +151,7 @@ def rectify_direction(
     """Direction-bin heading rectification: fold the regressed angle into
     one period, then add the classified bin's half turn."""
     period, offset = (
-        torch.tensor(v, dtype=torch.float32, device=rot.device)
+        scalar_on(v, torch.float32, rot.device)
         for v in direction_constants(num_dir_bins, dir_offset)
     )
     out = rot - offset
@@ -232,8 +233,8 @@ class PillarVFE(nn.Module):
         xyz = voxels[..., :3]
         cnt = torch.clamp(num_points, min=1)[:, None, None]
         mean = (xyz * mask).sum(1, keepdim=True) / cnt
-        vs = torch.tensor(self.voxel.voxel_size, dtype=torch.float32, device=dev)
-        r0 = torch.tensor(self.voxel.point_cloud_range[:3], dtype=torch.float32, device=dev)
+        vs = values_on(self.voxel.voxel_size, torch.float32, dev)
+        r0 = values_on(self.voxel.point_cloud_range[:3], torch.float32, dev)
         centers = (coords.flip(1).to(torch.float32) + 0.5) * vs + r0  # (V, 3) xyz
         feats = torch.cat(
             [voxels[..., : self.voxel.point_features], xyz - mean, xyz - centers[:, None, :]], -1
@@ -277,8 +278,8 @@ def augment_points(
     (N,), cnt (ny*nx+1,) points per pillar)."""
     nx, ny, _ = voxel.grid_size
     dev = points.device
-    r = torch.tensor(voxel.point_cloud_range[:3], dtype=torch.float32, device=dev)
-    vs = torch.tensor(voxel.voxel_size, dtype=torch.float32, device=dev)
+    r = values_on(voxel.point_cloud_range[:3], torch.float32, dev)
+    vs = values_on(voxel.voxel_size, torch.float32, dev)
     xyz = points[:, :3]
     ijk, valid = assign_cells(points, count, voxel)
     dump = nx * ny
@@ -453,7 +454,7 @@ class PointPillars(nn.Module):
         cls = heads["cls"].reshape(b, n, nc)
         top_logits, top_idx = stable_top_k(cls.amax(-1), min(pre_max, n))
         scores = torch.sigmoid(top_logits)
-        thresh = torch.tensor(score_thresh, dtype=torch.float32, device=scores.device)
+        thresh = scalar_on(score_thresh, torch.float32, scores.device)
         return {
             "top_idx": top_idx,
             "scores": torch.where(scores > thresh, scores, float("-inf")),

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.models.pointpillars import (
     KITTI_ANCHORS,
     ROTATIONS,
@@ -283,7 +284,7 @@ class SECONDIoU(nn.Module):
         best = score.amax(-1)
         labels = score.argmax(-1) + 1
         top_scores, top_idx = stable_top_k(best, min(pre_max, n))
-        thresh = torch.tensor(score_thresh, dtype=torch.float32, device=best.device)
+        thresh = scalar_on(score_thresh, torch.float32, best.device)
         return {
             "top_idx": top_idx,
             "scores": torch.where(top_scores > thresh, top_scores, float("-inf")),

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from triton_client_tpu_torch.device import values_on
+
 
 def xywh2xyxy(boxes: torch.Tensor) -> torch.Tensor:
     """[cx, cy, w, h] -> [x1, y1, x2, y2]; boxes is (..., 4)."""
@@ -27,4 +29,4 @@ def scale_boxes(
     oh, ow = orig_hw
     sx = ow / mw
     sy = oh / mh
-    return boxes * torch.tensor([sx, sy, sx, sy], dtype=boxes.dtype, device=boxes.device)
+    return boxes * values_on((sx, sy, sx, sy), boxes.dtype, boxes.device)

@@ -125,16 +125,35 @@ def check_launch(name: str, err: int) -> None:
         raise KernelError(f"{name}: CUDA launch failed with error {err}")
 
 
+# every LaunchCounter made, in creation order (runtime/graphs reads them
+# around a capture)
+_counters: list["LaunchCounter"] = []
+# a thread's open capture records: while one is open, the thread's
+# launches are captured into a graph, not run, and add() counts them
+# there instead of in the counters
+_recording = threading.local()
+
+
 class LaunchCounter:
-    """Counts one kernel's launches; a wrapper adds one per launch."""
+    """Counts one kernel's launches; a wrapper adds one per launch.
+
+    A launch made while a CUDA graph is being captured on the same thread
+    (``recording``) does not run: it lands in the capture's record
+    instead, and each replay of the graph adds the recorded launches
+    (``runtime/graphs``)."""
 
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
+        _counters.append(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        record = getattr(_recording, "record", None)
+        if record is not None:
+            record[self] = record.get(self, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -143,3 +162,25 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+def all_counters() -> tuple[LaunchCounter, ...]:
+    return tuple(_counters)
+
+
+class recording:
+    """Context manager: the calling thread's ``LaunchCounter.add`` calls
+    land in ``self.record`` ({counter: launches}) instead of the counts,
+    for the span of a graph capture."""
+
+    def __init__(self) -> None:
+        self.record: dict[LaunchCounter, int] = {}
+
+    def __enter__(self) -> "recording":
+        if getattr(_recording, "record", None) is not None:
+            raise RuntimeError("launch recording is already open on this thread")
+        _recording.record = self.record
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _recording.record = None

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.ops.boxes3d import nms_bev
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
 from triton_client_tpu_torch.ops.gpu_suppress3d import fused_suppress_pack_3d
@@ -36,7 +37,7 @@ def extract_boxes_3d(
     the NMS geometry reads the first 7."""
     cls_score = scores.amax(-1)
     label = scores.argmax(-1) + 1
-    thresh = torch.tensor(score_thresh, dtype=torch.float32, device=scores.device)
+    thresh = scalar_on(score_thresh, torch.float32, scores.device)
     gated = torch.where(cls_score > thresh, cls_score, float("-inf"))
     top_scores, top_idx = stable_top_k(gated, min(pre_max, gated.shape[-1]))
     return nms_pack_3d(

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.ops.boxes import xywh2xyxy
 from triton_client_tpu_torch.ops.gpu_decode import fused_decode_nms_2d
 from triton_client_tpu_torch.ops.nms import nms_padded
@@ -50,7 +51,7 @@ def _packed_nms(
 
 
 def _gate(scores: torch.Tensor, conf_thresh) -> torch.Tensor:
-    thresh = torch.tensor(conf_thresh, dtype=torch.float32, device=scores.device)
+    thresh = scalar_on(conf_thresh, torch.float32, scores.device)
     return torch.where(scores > thresh, scores, float("-inf"))
 
 

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.ops import cuda_build, mask_scan
 
 SOURCE = "greedy_nms.cu"
@@ -91,8 +92,8 @@ def greedy_steps(x1, y1, x2, y2, area, live, iou_thresh, max_det: int):
     -inf row does."""
     b, n = live.shape
     dev = live.device
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    thresh = scalar_on(iou_thresh, torch.float32, dev)
+    neg_inf = scalar_on(float("-inf"), torch.float32, dev)
     lane = torch.arange(n, device=dev)
     chosen = torch.zeros((b, max_det), dtype=torch.int64, device=dev)
     valid = torch.zeros((b, max_det), dtype=torch.bool, device=dev)

@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.ops import cuda_build, mask_scan
 from triton_client_tpu_torch.ops.boxes3d import boxes7_to_bev, rotated_iou_bev
 from triton_client_tpu_torch.ops.gpu_nms import SMEM_LIMIT, SMEM_STATIC
@@ -92,7 +93,7 @@ def suppress_pack_3d_reference(
     bool keep)."""
     b, k, cols = rows.shape
     dev = rows.device
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
+    thresh = scalar_on(iou_thresh, torch.float32, dev)
     lane = torch.arange(k, device=dev)
     image = torch.arange(b, device=dev)
     live = rows[..., cols - 2].to(torch.float32)
@@ -121,7 +122,7 @@ def suppress_pack_3d_mask_scan_reference(
     order, live_n = mask_scan.visiting_order(live)
     rows_in_order = torch.take_along_dim(iou, order[:, :, None], 1)
     sup = torch.take_along_dim(rows_in_order, order[:, None, :], 2)
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=rows.device)
+    thresh = scalar_on(iou_thresh, torch.float32, rows.device)
     kept, keep = mask_scan.scan(mask_scan.pack_bits(sup > thresh), live_n, max_det)
     chosen = order.gather(1, kept)
     # "+ 0.0": the TPU kernel's masked sum turns -0.0 into +0.0

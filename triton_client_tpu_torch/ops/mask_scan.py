@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
+
 
 def words(k: int) -> int:
     """32-bit words of one mask row over ``k`` candidates."""
@@ -101,7 +103,7 @@ def box_mask(x1, y1, x2, y2, area, iou_thresh) -> torch.Tensor:
                      min=0.0)
     inter = iw * ih
     iou = inter / torch.clamp(other(area) + chosen(area) - inter, min=1e-9)
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=area.device)
+    thresh = scalar_on(iou_thresh, torch.float32, area.device)
     return pack_bits(iou > thresh)
 
 

@@ -22,19 +22,28 @@ import os
 
 import torch
 
+from triton_client_tpu_torch.device import scalar_on
 from triton_client_tpu_torch.ops.boxes import box_area
 from triton_client_tpu_torch.ops.gpu_nms import greedy_steps, nms_greedy
+from triton_client_tpu_torch.runtime.graphs import fixed_point
 
 # The (N, N) IoU matrix the fixpoint formulation materializes: 4 bytes
 # x N^2 per image, 64 MB at 4096, past which the sequential loop wins.
 _FIXPOINT_MAX_N = 4096
 
 
+def route_setting() -> str:
+    """The ``TRITON_CLIENT_TPU_NMS`` setting as it stands: a captured
+    graph keeps the route it was captured with, so the pipelines key their
+    graphs on it (``runtime/graphs``)."""
+    return os.environ.get("TRITON_CLIENT_TPU_NMS", "auto")
+
+
 def _nms_mode(n: int, max_det: int) -> str:
     """Route between the formulations (env override
     ``TRITON_CLIENT_TPU_NMS=fixpoint|pallas|xla``); auto takes the
     fixpoint form while its IoU matrix is affordable."""
-    mode = os.environ.get("TRITON_CLIENT_TPU_NMS", "auto")
+    mode = route_setting()
     if mode in ("xla", "fixpoint", "pallas"):
         return mode
     return "fixpoint" if n <= _FIXPOINT_MAX_N else "xla"
@@ -42,7 +51,7 @@ def _nms_mode(n: int, max_det: int) -> str:
 
 def _f32(value, device) -> torch.Tensor:
     """A threshold as a float32 scalar, compared as the JAX code compares it."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return scalar_on(value, torch.float32, device)
 
 
 def nms(
@@ -101,12 +110,10 @@ def fixpoint_keep_sorted(
         & (rank[:, None] < rank[None, :])
         & valid0[:, :, None]
     )
-    kept = valid0
-    for _ in range(n):
-        new = valid0 & ~torch.any(edge & kept[:, :, None], dim=1)
-        if torch.equal(new, kept):
-            break
-        kept = new
+    # sup[b, i, j] = edge[b, j, i], so each pass reduces over the innermost
+    # dim; valid0 > s is valid0 & ~s on bools, in one op
+    sup = edge.transpose(1, 2).contiguous()
+    kept = fixed_point(lambda k: valid0 > torch.any(sup & k[:, None, :], dim=2), valid0, n)
 
     # Pack the first max_det kept (already score-ordered) into the
     # sequential loop's (indices, valid) contract.

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from triton_client_tpu_torch.device import values_on
+
 
 def normalize_image(img: torch.Tensor, scaling: str = "yolo") -> torch.Tensor:
     """Pixel scaling modes; input (..., 3) RGB uint8/float, output float32."""
@@ -15,7 +17,7 @@ def normalize_image(img: torch.Tensor, scaling: str = "yolo") -> torch.Tensor:
     if scaling == "inception":
         return x / 127.5 - 1.0
     if scaling == "vgg":
-        return x - torch.tensor([123.0, 117.0, 104.0], dtype=torch.float32, device=x.device)
+        return x - values_on((123.0, 117.0, 104.0), torch.float32, x.device)
     if scaling == "none":
         return x
     raise ValueError(f"unknown scaling mode: {scaling}")

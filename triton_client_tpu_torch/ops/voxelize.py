@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from triton_client_tpu_torch.device import values_on
+
 
 @dataclasses.dataclass(frozen=True)
 class VoxelConfig:
@@ -48,7 +50,7 @@ class VoxelConfig:
 
 def _f32(values, device) -> torch.Tensor:
     """Config floats as a float32 tensor, as ``jnp.asarray`` rounds them."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    return values_on(values, torch.float32, device)
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
@@ -81,7 +83,7 @@ def assign_cells(
     r = _f32(config.point_cloud_range, dev)
     vs = _f32(config.voxel_size, dev)
     ijk = xla_f32_to_i32(torch.floor((points[:, :3] - r[:3]) / vs))
-    hi = torch.tensor(config.grid_size, dtype=torch.int32, device=dev)
+    hi = values_on(config.grid_size, torch.int32, dev)
     valid = ((ijk >= 0) & (ijk < hi)).all(dim=1)
     valid &= torch.arange(n, device=dev) < num_points
     return ijk, valid

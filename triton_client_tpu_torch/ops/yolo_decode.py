@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from triton_client_tpu_torch.device import values_on
+
 
 def _grid(h: int, w: int, device) -> torch.Tensor:
     """(h, w, 2) grid of (x, y) cell offsets."""
@@ -32,7 +34,8 @@ def decode_yolo_grid(
     b, h, w, a, no = raw.shape
     raw = raw.to(torch.float32)
     grid = _grid(h, w, raw.device)[None, :, :, None, :]
-    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=raw.device).reshape(1, 1, 1, a, 2)
+    anchors = values_on((v for pair in anchors for v in pair), torch.float32, raw.device)
+    anchors = anchors.reshape(1, 1, 1, a, 2)
 
     txy, twh, trest = raw[..., :2], raw[..., 2:4], raw[..., 4:]
     if variant == "v5":
@@ -48,6 +51,6 @@ def decode_yolo_grid(
     out = torch.cat([xy, wh, rest], dim=-1)
     if normalize_hw is not None:
         nh, nw = normalize_hw
-        scale = torch.tensor([nw, nh, nw, nh] + [1.0] * (no - 4), dtype=torch.float32, device=raw.device)
+        scale = values_on([nw, nh, nw, nh] + [1.0] * (no - 4), torch.float32, raw.device)
         out = out / scale
     return out.reshape(b, h * w * a, no)

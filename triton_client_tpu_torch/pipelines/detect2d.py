@@ -6,6 +6,13 @@ forward + decode -> confidence gate + top-k -> class-aware NMS (the
 fused CUDA tail, or the unfused op chain) -> rescale to original
 pixels. Output per image: (max_det, 6) rows [x1, y1, x2, y2, conf,
 class] plus a validity mask.
+
+``run`` is the eager body. ``infer`` and ``infer_fn`` go through
+``_jit``, the body captured as a CUDA graph per input shape and dtype
+(``runtime/graphs``, the counterpart of the JAX pipeline's ``jax.jit``):
+each camera resolution and batch size is one graph, as it is one trace
+in JAX. ``device_fn`` is the body over a dict of device tensors, for a
+channel that captures it itself.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from triton_client_tpu_torch.models.yolov5 import YoloV5, num_predictions
 from triton_client_tpu_torch.ops.boxes import scale_boxes
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes
 from triton_client_tpu_torch.ops.fused import resolve_fused_stages
+from triton_client_tpu_torch.ops.nms import route_setting
 from triton_client_tpu_torch.ops.preprocess import normalize_image, resize_bilinear
+from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 
 # The ops the JAX package keeps in float32 under any precision policy
 # (runtime/precision.py KEEP_F32_2D); the port serves float32 only.
@@ -67,6 +76,12 @@ class Detect2DPipeline:
         self.device = resolve_device(device)
         self._forward = forward
         self.fused_stages = resolve_fused_stages(config.fused, ("decode_nms",), self.device)
+        # the unfused tail routes its NMS on TRITON_CLIENT_TPU_NMS when it
+        # runs, so its graphs are captured per setting
+        unfused = "decode_nms" not in self.fused_stages
+        self._jit = CapturedFunction(
+            self.run, config.model_name, static_key=route_setting if unfused else None
+        )
 
     @torch.no_grad()
     def run(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -102,19 +117,40 @@ class Detect2DPipeline:
         squeeze = frames.ndim == 3
         if squeeze:
             frames = frames[None]
-        dets, valid = self.run(frames.to(self.device))
+        dets, valid = self._jit(frames.to(self.device))
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         return (dets[0], valid[0]) if squeeze else (dets, valid)
 
     def infer_fn(self):
         """Repository-facing dict -> dict adapter over tensors on the
-        pipeline's device; the channel reads the outputs back."""
+        pipeline's device, through the captured body; the channel reads
+        the outputs back."""
+
+        def fn(inputs):
+            dets, valid = self._jit(inputs["images"])
+            return {"detections": dets, "valid": valid}
+
+        return fn
+
+    def device_fn(self):
+        """The eager body over a dict of device tensors, with the wire
+        names (the JAX pipeline's ``device_fn``): a channel captures it
+        as a graph of its own. ``orig_hw`` comes off the frames' shape."""
 
         def fn(inputs):
             dets, valid = self.run(inputs["images"])
             return {"detections": dets, "valid": valid}
 
         return fn
+
+    def warmup(self, frame_hw: tuple[int, int], batch_sizes=(1,), dtype=torch.uint8) -> None:
+        """Capture the graph of every batch size for one camera
+        resolution, before traffic (``RegisteredModel.warmup``)."""
+        for b in batch_sizes:
+            self._jit(torch.zeros((b, *frame_hw, 3), dtype=dtype, device=self.device))
+
+    def graph_stats(self) -> dict:
+        return self._jit.stats()
 
 
 def load_class_names(path: str) -> tuple[str, ...]:

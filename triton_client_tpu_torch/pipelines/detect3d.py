@@ -10,6 +10,11 @@ decode and the suppress+pack (``ops/gpu_decode3d``, ``ops/gpu_suppress3d``,
 with ``decode_nms`` fused). The host only pads the raw cloud to a point
 bucket (``prepare_points``) and reads back (max_det, 9) rows.
 
+``run`` is the eager body; ``infer`` and ``infer_fn`` go through
+``_jit``, the body captured as a CUDA graph per point bucket
+(``runtime/graphs``, the counterpart of the JAX pipeline's ``jax.jit``).
+``device_fn`` is the body over a dict of device tensors.
+
 The defaults are the reference's ``examples/pointpillar_kitti``
 (``data/kitti_pointpillars.yaml``) and ``examples/second_iou``
 (``data/kitti_second.yaml``): the configs come from code, since the port
@@ -25,6 +30,7 @@ import logging
 import numpy as np
 import torch
 
+from triton_client_tpu_torch.channel.base import InferFuture
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.device import resolve_device, strict_fp32
 from triton_client_tpu_torch.models.convert import (
@@ -43,6 +49,7 @@ from triton_client_tpu_torch.ops.fused import resolve_fused_stages
 from triton_client_tpu_torch.ops.gpu_decode3d import gather_residual_decode
 from triton_client_tpu_torch.ops.gpu_voxel import fused_mean_volume
 from triton_client_tpu_torch.ops.voxelize import pad_points, voxelize
+from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 
 log = logging.getLogger(__name__)
 
@@ -142,6 +149,7 @@ class Detect3DPipeline:
         if self.use_scatter and hasattr(model, "from_volume"):
             candidates = ("voxelize_scatter",) + candidates
         self.fused_stages = resolve_fused_stages(config.fused, candidates, self.device)
+        self._jit = CapturedFunction(self.run, config.model_name)
         if "voxelize_scatter" in self.fused_stages:
             log.info(
                 "fused voxelize->scatter caps occupied cells at max_voxels (%d), the grouped "
@@ -186,25 +194,53 @@ class Detect3DPipeline:
     def infer(self, points: np.ndarray) -> dict[str, np.ndarray]:
         """points: (M, 4+) raw cloud [x, y, z, intensity, ...] -> pred_boxes
         (n, 7), pred_scores (n,), pred_labels (n,) over the n live rows."""
+        return self.infer_dispatch(points).result()
+
+    def infer_dispatch(self, points: np.ndarray) -> InferFuture:
+        """``infer`` split at the readback: host prep and the graph's replay
+        now, the device -> host copy in the returned future's ``result()``
+        (the driver's ``--async`` pump)."""
         cfg = self.config
         padded, m = prepare_points(
             points, self.model.cfg.voxel.point_features, cfg.point_buckets, cfg.z_offset
         )
-        dets, valid = self.run(
+        dets, valid = self._jit(
             torch.from_numpy(padded).to(self.device),
-            torch.tensor(m, dtype=torch.int32, device=self.device),
+            torch.tensor(m, dtype=torch.int32).to(self.device),
         )
-        return unpack_rows(dets.cpu().numpy(), valid.cpu().numpy())
+        return InferFuture(lambda: unpack_rows(dets.cpu().numpy(), valid.cpu().numpy()))
 
     def infer_fn(self):
         """Repository-facing adapter over the padded contract (points,
-        num_points); the channel reads the outputs back."""
+        num_points), through the captured body; the channel reads the
+        outputs back."""
+
+        def fn(inputs):
+            dets, valid = self._jit(inputs["points"], inputs["num_points"])
+            return {"detections": dets, "valid": valid}
+
+        return fn
+
+    def device_fn(self):
+        """The eager body over a dict of device tensors, with the wire
+        names (the JAX pipeline's ``device_fn``)."""
 
         def fn(inputs):
             dets, valid = self.run(inputs["points"], inputs["num_points"])
             return {"detections": dets, "valid": valid}
 
         return fn
+
+    def warmup(self, buckets=None) -> None:
+        """Capture the graph of every point bucket before traffic
+        (``RegisteredModel.warmup``)."""
+        pf = self.model.cfg.voxel.point_features
+        for n in buckets or self.config.point_buckets:
+            self._jit(torch.zeros((n, pf), dtype=torch.float32, device=self.device),
+                      torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def graph_stats(self) -> dict:
+        return self._jit.stats()
 
 
 def gathered_decode_args(model, heads: dict[str, torch.Tensor], top_idx: torch.Tensor) -> tuple:

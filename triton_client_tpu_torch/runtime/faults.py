@@ -9,11 +9,20 @@ request sequence replays the same fault timeline. Sleep-class rules
 (``latency_s`` > 0) sleep at the probe, the others raise
 :class:`InjectedFault`.
 
-The port probes ``batcher_stall`` (the batcher's group execution, a
-sleep). The JAX package's other points (launch, readback, slow_launch,
-codec_decode, replica_down, shm_detach, quality_corrupt,
-temporal_overskip) belong to layers not ported yet, and so does the
-flag-class probe (``probe_flag``) that three of them use.
+The port probes these points:
+
+  ==============  ============================================ =======
+  point           probed from                                  effect
+  ==============  ============================================ =======
+  launch          StagedChannel.launch, before the launcher     raise
+  slow_launch     StagedChannel.launch, before the launcher     sleep
+  readback        InferFuture resolve, before the host copy     raise
+  batcher_stall   the batchers' group execution                 sleep
+  ==============  ============================================ =======
+
+The JAX package's other points (codec_decode, replica_down, shm_detach,
+quality_corrupt, temporal_overskip) belong to layers not ported yet, and
+so does the flag-class probe (``probe_flag``) that three of them use.
 
 With no plan installed a probe is one ``is None`` check.
 """
