@@ -14,7 +14,8 @@ SECOND-IoU with the dense middle at the full KITTI width
 (``examples/second_iou``, the 352 x 400 x 10 grid), and the continuous
 batcher in front of the channel: packed ragged batches of KITTI-sized
 clouds through the pool model (``models/pool.py``), and YOLOv5n through its
-dense merged path. One JSON line per phase:
+dense merged path; then the KServe v2 façade over a disk repository of the
+same three entries. One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -122,6 +123,25 @@ dense merged path. One JSON line per phase:
                  in flight: frames/s and p50 each, the async results bitwise
                  equal to the sync ones frame by frame, batch 8 within 1e-5
                  of batch 1 on every live row
+ 25. facade    — the KServe v2 façade over a disk repository: scan_disk of
+                 copies of examples/yolov5_crop_base, pointpillar_kitti and
+                 second_iou (config.yaml only; data/ read from the checkout
+                 with yaml_subset) and of the YOLOv5n entry at conf 0.05,
+                 served by CUDAChannel with each entry's graphs captured at
+                 registration; the server's _Servicer answers every RPC
+                 in-process on request bytes (service.invoke): health,
+                 metadata, ModelConfig, RepositoryIndex; ModelInfer for
+                 YOLOv5n at batch 1 and 8 and both 3D entries at 20k and
+                 120k points, each output bitwise equal to
+                 CUDAChannel.do_inference; ModelStreamInfer of 8 requests at
+                 depth 2, in order, each its own request's result; NOT_FOUND
+                 and INVALID_ARGUMENT; kernels 1, 3, 4 and 5 launched once a
+                 fused request inside the phase. p50 and frames/s or scans/s
+                 through the servicer against the direct channel (YOLOv5n b1,
+                 PointPillars 120k) and the servicer's own host ms a request.
+                 Where grpc imports, InferenceServer on a loopback port
+                 repeats the ModelInfer checks through the port's GRPCChannel
+                 ("grpc": true; otherwise "grpc": false and no socket leg)
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -864,6 +884,7 @@ def main() -> int:
     run_dense_batched(card, counters, repo, channel, frames)
     run_graphs(card, dev, counters)
     run_driver(card)
+    run_facade(card, counters)
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -2076,6 +2097,271 @@ def run_driver(card: str) -> None:
                            for m, (st, rows) in runs.items()}
     out["pointpillars"]["async_equals_sync_bitwise"] = True
     emit("driver", card, frames=DRIVER_FRAMES, frame_hw=[512, 512], clouds=DRIVER_CLOUDS, **out)
+
+
+# phase 25: the disk repository's entries (configs only); the YOLOv5n entry
+# is served twice, as it stands (conf 0.3) and at conf 0.05 (detections on
+# random weights); requests a timed path, requests of the stream
+FACADE_ENTRIES = ("yolov5_crop_base", "pointpillar_kitti", "second_iou")
+FACADE_C005 = "yolov5_crop_base_c005"
+FACADE_REQUESTS, FACADE_STREAM = 30, 8
+
+
+def facade_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """A repository root holding copies of the three portable entries'
+    ``config.yaml`` and the conf-0.05 YOLOv5n entry derived from one."""
+    for name in FACADE_ENTRIES:
+        (tmp / name).mkdir()
+        (tmp / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    text = (ROOT / "examples" / FACADE_ENTRIES[0] / "config.yaml").read_text()
+    check("conf_thresh: 0.3" in text, "examples/yolov5_crop_base changed its conf_thresh")
+    (tmp / FACADE_C005).mkdir()
+    (tmp / FACADE_C005 / "config.yaml").write_text(
+        text.replace("conf_thresh: 0.3", "conf_thresh: 0.05"))
+    return tmp
+
+
+def run_facade(card: str, counters) -> None:
+    """Phase 25: the KServe v2 façade. ``scan_disk`` builds the disk
+    repository (its YAML read by ``yaml_subset``), ``CUDAChannel`` serves it
+    with each entry's graphs captured at registration, and the server's
+    ``_Servicer`` answers every RPC in-process on request bytes
+    (``channel/kserve/service.invoke``: the deserializer and serializer
+    grpc would use, an ``InProcessContext``). Where ``grpc`` imports, the
+    same checks run through ``InferenceServer`` on a loopback port and the
+    port's ``GRPCChannel``."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.channel.kserve import codec, pb, service
+    from triton_client_tpu_torch.obs.trace import Tracer
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.disk_repository import scan_disk
+    from triton_client_tpu_torch.runtime.server import _Servicer
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="facade_repo_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        t0 = time.perf_counter()
+        repo = scan_disk(facade_repository(tmp))
+        for name, _ in repo.list_models():
+            repo.get(name).warmup()
+        build_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp)
+    channel = CUDAChannel(repo)
+    tracer = Tracer(capacity=4 * FACADE_REQUESTS)
+    servicer = _Servicer(repo, channel, stream_pipeline_depth=2, tracer=tracer)
+    names = [n for n, _ in repo.list_models()]
+    check(sorted(names) == sorted(FACADE_ENTRIES + (FACADE_C005,)), f"scanned {names}")
+    for name in names:
+        spec = repo.metadata(name)
+        check("decode_nms" in spec.extra["fused_stages"], f"{name}: not fused on the card")
+
+    def rpc(method, msg, context=None):
+        return service.METHODS[method][1].FromString(
+            service.invoke(servicer, method, msg.SerializeToString(), context))
+
+    # -- health, metadata, config, index -----------------------------------------
+    check(rpc("ServerLive", pb.ServerLiveRequest()).live, "ServerLive")
+    check(rpc("ServerReady", pb.ServerReadyRequest()).ready, "ServerReady")
+    meta = rpc("ServerMetadata", pb.ServerMetadataRequest())
+    check(meta.name == "triton_client_tpu_torch" and "binary_tensor_data" in meta.extensions,
+          "ServerMetadata")
+    index = rpc("RepositoryIndex", pb.RepositoryIndexRequest())
+    check(sorted((m.name, m.version, m.state) for m in index.models)
+          == sorted((n, "1", "READY") for n in names), "RepositoryIndex")
+    configs = {}
+    for name in names:
+        check(rpc("ModelReady", pb.ModelReadyRequest(name=name)).ready, f"ModelReady {name}")
+        md = rpc("ModelMetadata", pb.ModelMetadataRequest(name=name))
+        spec = repo.metadata(name)
+        check([t.name for t in md.inputs] == [t.name for t in spec.inputs]
+              and md.platform == "torch", f"ModelMetadata {name}")
+        cfg = rpc("ModelConfig", pb.ModelConfigRequest(name=name)).config
+        params = {k: json.loads(v) for k, v in cfg.parameters.items()}
+        check(params == json.loads(json.dumps(spec.extra)), f"ModelConfig parameters {name}")
+        configs[name] = {"max_batch_size": cfg.max_batch_size,
+                         "inputs": [list(t.dims) for t in cfg.input]}
+    check(not rpc("ModelReady", pb.ModelReadyRequest(name="nope")).ready, "ModelReady nope")
+
+    # -- the requests ----------------------------------------------------------------
+    rng = np.random.default_rng(25)
+    hw = tuple(repo.metadata(FACADE_C005).extra["model_input_hw"])
+    frames = rng.integers(0, 256, (B_MAIN + FACADE_STREAM + 1, *hw, 3)).astype(np.float32)
+    requests = {  # label -> (model, inputs)
+        "yolov5n_c005_b1": (FACADE_C005, {"images": frames[:1]}),
+        f"yolov5n_c005_b{B_MAIN}": (FACADE_C005, {"images": frames[1:1 + B_MAIN]}),
+        "yolov5n_conf0.3_b1": (FACADE_ENTRIES[0], {"images": frames[:1]}),
+    }
+    for model in FACADE_ENTRIES[1:]:
+        pipe_cfg = repo.metadata(model).extra
+        for i, n in enumerate(SCAN_POINTS):
+            pc = uniform_clouds(250 + i, (0.0, -39.68, -3.0, 69.12, 39.68, 1.0), n, 1)[0]
+            padded, m = prepare_points(pc, 4, pipe_cfg["point_buckets"], pipe_cfg["z_offset"])
+            requests[f"{model}_{n}"] = (model, {"points": padded,
+                                                "num_points": np.asarray(m, np.int32)})
+    stream_frames = [frames[1 + B_MAIN + i: 2 + B_MAIN + i] for i in range(FACADE_STREAM)]
+
+    def wire(model, inputs, rid=""):
+        return codec.build_infer_request(model, inputs, request_id=rid).SerializeToString()
+
+    def through_servicer(payload):
+        return codec.parse_infer_response(pb.ModelInferResponse.FromString(
+            service.invoke(servicer, "ModelInfer", payload)))
+
+    # the direct channel's answers, and one uncounted pass through the
+    # servicer (any capture happens here, outside the counted window)
+    direct = {label: channel.do_inference(InferRequest(m, x)).outputs
+              for label, (m, x) in requests.items()}
+    direct_stream = [channel.do_inference(InferRequest(FACADE_C005, {"images": f})).outputs
+                     for f in stream_frames]
+    payloads = {label: wire(m, x, label) for label, (m, x) in requests.items()}
+    for payload in payloads.values():
+        through_servicer(payload)
+    torch.cuda.synchronize()
+
+    # -- the counted window: ModelInfer and ModelStreamInfer through the servicer -----
+    for counter in counters:
+        counter.reset()
+    got = {label: through_servicer(p) for label, p in payloads.items()}
+    stream_out = [pb.ModelStreamInferResponse.FromString(b) for b in service.invoke(
+        servicer, "ModelStreamInfer",
+        [wire(FACADE_C005, {"images": f}, f"s{i}") for i, f in enumerate(stream_frames)])]
+    torch.cuda.synchronize()
+    launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+    fused_2d = 3 + FACADE_STREAM
+    scans_3d = 2 * len(SCAN_POINTS)
+    want_launches = {"decode_nms_2d": fused_2d, "greedy_nms": 0,
+                     "residual_decode_3d": scans_3d, "suppress_pack_3d": scans_3d,
+                     "segment_mean": len(SCAN_POINTS), "segment_sum": 0,
+                     "residual_decode_3d_gathered": scans_3d}
+    check(launches == want_launches, f"façade launches {launches}, want {want_launches}")
+
+    for label, out in got.items():
+        want = direct[label]
+        check(sorted(out) == sorted(want), f"{label}: outputs {sorted(out)}")
+        for key in want:
+            check(out[key].dtype == want[key].dtype and out[key].shape == want[key].shape
+                  and out[key].tobytes() == want[key].tobytes(),
+                  f"{label}: {key} through the servicer differs from CUDAChannel.do_inference")
+        check(bool(np.isfinite(out["detections"]).all()), f"{label}: non-finite detections")
+    kept = {label: int(out["valid"].sum()) for label, out in got.items()}
+    check(kept["yolov5n_c005_b1"] > 0 and kept[f"yolov5n_c005_b{B_MAIN}"] > 0,
+          f"conf 0.05 kept nothing: {kept}")
+    check(all(v > 0 for k, v in kept.items() if not k.startswith("yolov5n")), f"3D kept {kept}")
+    check(len(stream_out) == FACADE_STREAM, f"{len(stream_out)} stream responses")
+    for i, (resp, want) in enumerate(zip(stream_out, direct_stream)):
+        check(not resp.error_message, f"stream {i}: {resp.error_message}")
+        check(resp.infer_response.id == f"s{i}", f"stream response {i} is {resp.infer_response.id}")
+        out = codec.parse_infer_response(resp.infer_response)
+        check(all(out[k].tobytes() == want[k].tobytes() for k in want),
+              f"stream response {i} is not its request's result")
+    check(any(stream_out[0].infer_response.raw_output_contents[0] != r.infer_response
+              .raw_output_contents[0] for r in stream_out[1:]),
+          "the stream's requests all give one result; the order check shows nothing")
+
+    # -- errors ------------------------------------------------------------------------
+    codes = {}
+    for label, payload in (
+        ("unknown_model", wire("nope", {"images": frames[:1]})),
+        ("wrong_shape", wire(FACADE_C005, {"images": frames[:1, :, :, :2]})),
+    ):
+        ctx = service.InProcessContext()
+        try:
+            service.invoke(servicer, "ModelInfer", payload, ctx)
+        except service.RpcAborted:
+            pass
+        codes[label] = ctx.aborted[0] if ctx.aborted else "OK"
+    check(codes == {"unknown_model": "NOT_FOUND", "wrong_shape": "INVALID_ARGUMENT"},
+          f"status codes {codes}")
+
+    # -- times: servicer against the direct channel, on the same requests ------------
+    times = {}
+    for label, unit, size in (("yolov5n_c005_b1", "frames_per_s", lambda r: 1),
+                              (f"pointpillar_kitti_{SCAN_POINTS[1]}", "scans_per_s",
+                               lambda r: 1)):
+        model, inputs = requests[label]
+        req = InferRequest(model, inputs)
+        payload = payloads[label]
+        row = {}
+        for mode in ("direct", "servicer", "direct2", "servicer2"):
+            call = (lambda _x: channel.do_inference(req)) if mode.startswith("direct") else (
+                lambda _x: service.invoke(servicer, "ModelInfer", payload))
+            row[mode] = serve(call, [None], FACADE_REQUESTS, unit, size)
+        times[label] = row
+    # the servicer's own host time a request: the message decode, its spans
+    # outside the channel (admission, parse, encode, the span summary, the
+    # accounting), the response encode
+    host = {}
+    for label in times:
+        payload = payloads[label]
+        t = time.perf_counter()
+        for _ in range(FACADE_REQUESTS):
+            pb.ModelInferRequest.FromString(payload)
+        decode_ms = (time.perf_counter() - t) / FACADE_REQUESTS * 1e3
+        resp = pb.ModelInferResponse.FromString(service.invoke(servicer, "ModelInfer", payload))
+        t = time.perf_counter()
+        for _ in range(FACADE_REQUESTS):
+            resp.SerializeToString()
+        serialize_ms = (time.perf_counter() - t) / FACADE_REQUESTS * 1e3
+        traces = [tr for tr in tracer.recent() if tr.request_id == label][-FACADE_REQUESTS:]
+        inside, channel_ms, spans = [], [], {}
+        for tr in traces:
+            ch = sum(s.duration_s for s in tr.spans if s.name == "channel")
+            inside.append((tr.wall_s() - ch) * 1e3)
+            channel_ms.append(ch * 1e3)
+            for s in tr.spans:
+                if s.name in ("parse", "encode"):
+                    spans.setdefault(s.name, []).append(s.duration_s * 1e3)
+        check(len(traces) >= FACADE_REQUESTS // 2, f"{label}: {len(traces)} traces kept")
+        host[label] = {"decode_message_ms": decode_ms, "serialize_response_ms": serialize_ms,
+                       "outside_channel_ms_p50": float(np.median(inside)),
+                       "channel_ms_p50": float(np.median(channel_ms)),
+                       **{f"{k}_ms_p50": float(np.median(v)) for k, v in spans.items()},
+                       "servicer_host_ms": decode_ms + serialize_ms + float(np.median(inside)),
+                       "request_bytes": len(payload),
+                       "response_bytes": len(resp.SerializeToString())}
+
+    # -- the socket leg ------------------------------------------------------------------
+    try:
+        import grpc  # noqa: F401
+        grpc_ok = True
+    except ImportError:
+        grpc_ok = False
+    socket_leg = None
+    if grpc_ok:
+        from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+        from triton_client_tpu_torch.runtime.server import InferenceServer
+
+        server = InferenceServer(repo, channel, address="127.0.0.1:0", max_workers=4)
+        server.start()
+        try:
+            client = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=120)
+            check(client.server_live() and client.server_ready(), "grpc: not live")
+            for label, (m, x) in requests.items():
+                out = client.do_inference(InferRequest(m, x)).outputs
+                check(all(out[k].tobytes() == direct[label][k].tobytes() for k in direct[label]),
+                      f"grpc {label}: differs from CUDAChannel.do_inference")
+            socket_leg = {"requests_checked": len(requests)}
+            for label in times:  # the timed paths, through the socket
+                model, inputs = requests[label]
+                req = InferRequest(model, inputs)
+                socket_leg[label] = serve(lambda _x: client.do_inference(req), [None],
+                                          FACADE_REQUESTS, "frames_per_s"
+                                          if label.startswith("yolov5n") else "scans_per_s")
+            client.close()
+        finally:
+            server.stop()
+    emit("facade", card, build_and_capture_s=build_s, entries=names, model_configs=configs,
+         requests=sorted(requests), stream=FACADE_STREAM, bitwise_equal_to_channel=True,
+         kept=kept, launches=launches, status_codes=codes, times=times, servicer_host=host,
+         grpc=grpc_ok, socket_leg=socket_leg)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _BLOCKER = r"""
 import importlib, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu", "grpc", "google")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -39,6 +39,8 @@ print(json.dumps(sorted(names)))
 
 
 def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
+    """Also grpc and protobuf: every module imports on a host without them
+    (grpc is imported where a socket opens)."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
@@ -69,6 +71,16 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.obs.trace",
         "triton_client_tpu_torch.models.pool",
         "triton_client_tpu_torch.ops.mask_scan",
+        "triton_client_tpu_torch.channel.kserve.pb",
+        "triton_client_tpu_torch.channel.kserve.codec",
+        "triton_client_tpu_torch.channel.kserve.service",
+        "triton_client_tpu_torch.channel.grpc_channel",
+        "triton_client_tpu_torch.runtime.server",
+        "triton_client_tpu_torch.runtime.disk_repository",
+        "triton_client_tpu_torch.dataset_config",
+        "triton_client_tpu_torch.yaml_subset",
+        "triton_client_tpu_torch.obs.logs",
+        "triton_client_tpu_torch.cli.serve",
     ):
         assert must in names
 
@@ -101,7 +113,8 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         PoolModel()
     for argv in (["detect2d", "-i", "synthetic:1", "--input-size", "64"],
                  ["detect3d", "-i", "synthetic:1"],
-                 ["detect3d", "-m", "second_iou", "-i", "synthetic:1"]):
+                 ["detect3d", "-m", "second_iou", "-i", "synthetic:1"],
+                 ["serve", "--model-repository", "examples"]):
         out = subprocess.run(
             [sys.executable, "-m", "triton_client_tpu_torch", *argv],
             cwd=ROOT, capture_output=True, text=True, timeout=120,

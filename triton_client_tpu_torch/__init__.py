@@ -11,3 +11,5 @@ CUDA kernels under ``csrc/`` are built with ``nvcc`` at first use.
 
     python -m triton_client_tpu_torch detect2d -i synthetic:32
 """
+
+__version__ = "0.1.0"

@@ -3,13 +3,14 @@
 Commands ported so far:
   detect2d   — in-process 2D detection over synthetic frames
   detect3d   — in-process 3D detection (PointPillars) over point clouds
+  serve      — a disk model repository behind the KServe v2 gRPC server
 """
 
 from __future__ import annotations
 
 import sys
 
-COMMANDS = ("detect2d", "detect3d")
+COMMANDS = ("detect2d", "detect3d", "serve")
 
 
 def main() -> None:
@@ -21,6 +22,8 @@ def main() -> None:
         from triton_client_tpu_torch.cli.detect2d import main as run
     elif cmd == "detect3d":
         from triton_client_tpu_torch.cli.detect3d import main as run
+    elif cmd == "serve":
+        from triton_client_tpu_torch.cli.serve import main as run
     else:
         print(f"unknown command '{cmd}'; commands: {', '.join(COMMANDS)}")
         raise SystemExit(2)

@@ -50,6 +50,9 @@ class InferResponse:
     request_id: str = ""
     # seconds from launch to the outputs on the host
     latency_s: float = 0.0
+    # response-level wire parameters a remote channel decoded (the
+    # server's span summary); None in-process
+    parameters: dict | None = None
 
 
 class InferFuture:

@@ -122,7 +122,10 @@ class CUDAChannel(StagedChannel):
         """``arrays`` on the device (see module docstring); returns (device
         inputs, the staging slot or None)."""
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in arrays.items()}, None
+            # a read-only wire view (the KServe codec's np.frombuffer) is
+            # copied: a tensor over it could not be written safely
+            return {k: torch.from_numpy(v if v.flags.writeable else v.copy())
+                    for k, v in arrays.items()}, None
         slot = self._take_slot()
         try:
             if slot.used:

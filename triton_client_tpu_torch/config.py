@@ -1,7 +1,7 @@
 """Model specs: the served tensor contract of each model.
 
 The port's copy of ``triton_client_tpu.config``, cut to what the
-in-process serving path reads. The port imports nothing of the JAX
+serving path reads: the specs, the dtype table and the wire sizes. The port imports nothing of the JAX
 package, so this module stands alone.
 """
 
@@ -30,6 +30,19 @@ _DTYPES = {
     "UINT8": np.uint8,
     "BOOL": np.bool_,
 }
+
+# Wire width in bytes per dtype string (BF16 travels as 16-bit words).
+_ITEMSIZE = {k: (2 if v is None else np.dtype(v).itemsize) for k, v in _DTYPES.items()}
+
+# Headroom for protobuf framing and tensor name/shape metadata on top of
+# the raw payloads when sizing gRPC message caps from ``wire_bytes()``.
+FRAMING_BYTES = 1 << 20
+
+
+def config_dtypes() -> dict:
+    """The KServe dtype table (BF16 maps to None: the port has no bf16
+    numpy dtype and its codec refuses BF16 tensors)."""
+    return dict(_DTYPES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +99,14 @@ class ModelSpec:
         """Input names whose staged device buffers the serving channel may
         reuse once the launch has consumed them (channel/cuda_channel.py)."""
         return tuple(t.name for t in self.inputs if t.donatable)
+
+    def wire_bytes(self) -> int:
+        """Largest raw-tensor payload of one full-batch request and its
+        response, or 0 if any dim is dynamic (callers fall back to a
+        floor). Sizes the gRPC message caps (``runtime/server.message_limit``)."""
+        total = 0
+        for t in tuple(self.inputs) + tuple(self.outputs):
+            if any(d < 0 for d in t.shape):
+                return 0
+            total += int(np.prod(t.shape, dtype=np.int64)) * _ITEMSIZE.get(t.dtype, 8)
+        return total * max(1, self.max_batch_size)

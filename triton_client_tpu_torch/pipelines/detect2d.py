@@ -187,9 +187,7 @@ def build_yolov5_pipeline(
     def forward(x: torch.Tensor) -> torch.Tensor:
         return model.decode(model(x))
 
-    cfg = config or Detect2DConfig(
-        model_name=f"yolov5{variant}", input_hw=input_hw, num_classes=num_classes
-    )
+    cfg = config or default_detect2d_config(variant, num_classes, input_hw)
     pipeline = Detect2DPipeline(cfg, forward, device=dev)
     spec = _detect2d_spec(cfg, num_predictions(cfg.input_hw))
     spec.extra["fused_stages"] = list(pipeline.fused_stages)
@@ -205,6 +203,15 @@ def build_yolov5_pipeline(
         }
     )
     return pipeline, spec, model
+
+
+def default_detect2d_config(
+    variant: str = "n", num_classes: int = 80, input_hw: tuple[int, int] = (512, 512)
+) -> Detect2DConfig:
+    """The config ``build_yolov5_pipeline`` takes when given none."""
+    return Detect2DConfig(
+        model_name=f"yolov5{variant}", input_hw=tuple(input_hw), num_classes=num_classes
+    )
 
 
 def _detect2d_spec(cfg: Detect2DConfig, n_predictions: int) -> ModelSpec:

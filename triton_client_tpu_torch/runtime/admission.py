@@ -1,13 +1,16 @@
-"""The overload errors and the circuit breaker of the serving stack (the
-port's copy of the error classes and ``CircuitBreaker`` of
-``runtime/admission.py``).
+"""Admission control, the overload errors and the circuit breaker of the
+serving stack (the port's copy of ``runtime/admission.py``).
 
 One exception per deliberate degradation decision, so a caller can tell
-a shed request from a bug. :class:`CircuitBreaker` is the closed -> open
--> half-open machine the staged channel wraps around launch and
-readback: consecutive failures open the circuit (fail fast, launch cache
-dropped), a timed probe half-opens it, one success closes it. The
-admission controller of the JAX module is not ported yet.
+a shed request from a bug; each maps to the gRPC status code the client
+retry ladder keys on (``runtime/server._grpc_code``).
+:class:`AdmissionController` is the per-model queue-depth gate the
+server consults before parsing a request: a request that finds its
+model's queue at the limit is rejected at the door.
+:class:`CircuitBreaker` is the closed -> open -> half-open machine the
+staged channel wraps around launch and readback: consecutive failures
+open the circuit (fail fast, launch cache dropped), a timed probe
+half-opens it, one success closes it.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ class OverloadError(RuntimeError):
 
 
 class AdmissionRejectedError(OverloadError):
-    """Shed at the door: the queue ahead already exceeds the request's
-    budget (``RESOURCE_EXHAUSTED`` on the wire)."""
+    """Shed at the door: the model's queue is at its limit
+    (``RESOURCE_EXHAUSTED`` on the wire)."""
 
 
 class QueueFullError(AdmissionRejectedError):
@@ -38,6 +41,72 @@ class DeadlineExpiredError(OverloadError):
 class CircuitOpenError(OverloadError):
     """The model's circuit breaker is open (recent consecutive failures);
     fail fast until the timed probe (``UNAVAILABLE`` on the wire)."""
+
+
+class ServerDrainingError(OverloadError):
+    """The server is draining (SIGTERM / ``drain()``): in-flight work
+    completes, new work is refused (``UNAVAILABLE`` on the wire)."""
+
+
+class ReplicaDownError(OverloadError):
+    """Injected replica death (the ``replica_down`` fault point): the
+    server answers as if its process were gone, ``UNAVAILABLE`` with no
+    drain marker. Only fault plans raise this."""
+
+
+class AdmissionController:
+    """Per-model bounded queue-depth admission.
+
+    ``max_queue``: cap on a model's admitted-but-unfinished requests (the
+    knee for priority >= 0; lower priorities hit ``max_queue *
+    low_priority_fraction``). The JAX module's estimated-wait check (a
+    service-time EWMA against the request's deadline budget) waits for the
+    SLO plane, the only producer of deadlines, and its per-tenant caps for
+    the tenant table (ROADMAP.md Queue 1 item 8)."""
+
+    def __init__(self, max_queue: int = 64, low_priority_fraction: float = 0.5) -> None:
+        self._max_queue = max(1, int(max_queue))
+        self._low_frac = min(1.0, max(0.05, float(low_priority_fraction)))
+        self._lock = threading.Lock()
+        self._inflight: dict[str, int] = {}
+        self._rejects: dict[tuple[str, int], int] = {}
+        self._admitted = 0
+
+    def admit(self, model: str, priority: int = 0) -> None:
+        """Admit or raise :class:`AdmissionRejectedError`. An admitted
+        request counts against the model's queue until :meth:`finished`,
+        which the caller must reach on every exit path."""
+        with self._lock:
+            depth = self._inflight.get(model, 0)
+            limit = self._max_queue
+            if priority < 0:
+                # the background class sheds first
+                limit = max(1, int(limit * self._low_frac))
+            if depth >= limit:
+                key = (model, int(priority))
+                self._rejects[key] = self._rejects.get(key, 0) + 1
+                raise AdmissionRejectedError(
+                    f"model '{model}' overloaded: queue depth {depth} >= limit {limit} "
+                    f"(priority {priority})"
+                )
+            self._inflight[model] = depth + 1
+            self._admitted += 1
+
+    def finished(self, model: str) -> None:
+        """One admitted request left (any outcome)."""
+        with self._lock:
+            depth = self._inflight.get(model, 0)
+            if depth > 0:
+                self._inflight[model] = depth - 1
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "max_queue": self._max_queue,
+                "admitted": self._admitted,
+                "inflight": dict(self._inflight),
+                "rejects": {f"{m}|{p}": n for (m, p), n in self._rejects.items()},
+            }
 
 
 # breaker states, as the JAX package's breaker_state gauge reads them

@@ -439,6 +439,19 @@ class BatchingChannel(BaseChannel):
             t_staged, request, future = group[0]
             self._run_solo(request, future, free_slot, t_staged=t_staged)
             return
+        if any(np.ndim(a) == 0 for _t, r, _f in group for a in r.inputs.values()):
+            # a 0-d input (a 3D request's num_points) has no batch axis to
+            # merge along: each member runs alone, as the JAX batcher's
+            # failed merge ends up running them, without a fallback counted.
+            # Every member launches before the slot frees, and only then do
+            # the readbacks wait, so the pipeline overlap stays
+            launched = [(future, self._launch_solo(request, future, t_staged))
+                        for t_staged, request, future in group]
+            if free_slot is not None:
+                free_slot()
+            for future, fut in launched:
+                self._resolve_solo(future, fut)
+            return
         requests = [g[1] for g in group]
         futures = [g[2] for g in group]
         traces = [r.trace for r in requests]
@@ -555,15 +568,31 @@ class BatchingChannel(BaseChannel):
             counters[key] += 1
 
     def _run_solo(self, request: InferRequest, future, free_slot=None, t_staged=None) -> None:
+        fut = self._launch_solo(request, future, t_staged)
+        if free_slot is not None:
+            free_slot()  # launched: the slot frees before the readback
+        self._resolve_solo(future, fut)
+
+    def _launch_solo(self, request: InferRequest, future, t_staged=None):
+        """Enqueue one request alone: the inner future, or None once
+        ``future`` has failed at launch."""
         if request.trace is not None:
             if t_staged is not None:
                 # None on the merged-failure retry, whose wait was recorded
                 request.trace.add("merge_wait", t_staged, time.perf_counter())
             request.trace.end("batch_queue")
         try:
-            fut = self._inner.do_inference_async(request)
-            if free_slot is not None:
-                free_slot()  # launched: the slot frees before the readback
+            return self._inner.do_inference_async(request)
+        except Exception as e:
+            future.set_exception(e)
+            return None
+
+    @staticmethod
+    def _resolve_solo(future, fut) -> None:
+        """Wait for a solo launch's readback into ``future``."""
+        if fut is None:
+            return
+        try:
             future.set_result(fut.result())
         except Exception as e:
             future.set_exception(e)

@@ -18,11 +18,18 @@ The port probes these points:
   slow_launch     StagedChannel.launch, before the launcher     sleep
   readback        InferFuture resolve, before the host copy     raise
   batcher_stall   the batchers' group execution                 sleep
+  codec_decode    kserve codec.parse_infer_request              raise
+  replica_down    _Servicer ServerReady/ModelReady/_issue       flag
+  shm_detach      _Servicer, before a request's parse           flag
   ==============  ============================================ =======
 
-The JAX package's other points (codec_decode, replica_down, shm_detach,
-quality_corrupt, temporal_overskip) belong to layers not ported yet, and
-so does the flag-class probe (``probe_flag``) that three of them use.
+``replica_down`` and ``shm_detach`` are flag-class (:func:`probe_flag`):
+the caller owns the failure's shape. The servicer keys ``replica_down``
+by its ``replica_of`` label and then answers as a dead process would
+(not ready, ``UNAVAILABLE`` with no drain marker). ``shm_detach`` keys
+by model; the port's server has no shared-memory registry to drop, so
+the probe only counts. The JAX package's quality_corrupt and
+temporal_overskip points belong to layers not ported yet.
 
 With no plan installed a probe is one ``is None`` check.
 """
@@ -157,3 +164,17 @@ def probe(point: str, model: str | None = None) -> None:
     sleep_s = plan.check(point, model)
     if sleep_s > 0:
         time.sleep(sleep_s)
+
+
+def probe_flag(point: str, model: str | None = None) -> bool:
+    """Flag-class probe: True when a rule fired; never raises or sleeps.
+    Same counting and seeding as :func:`probe`, so flag rules replay
+    identically too."""
+    plan = _ACTIVE
+    if plan is None:
+        return False
+    try:
+        plan.check(point, model)
+    except InjectedFault:
+        return True
+    return False

@@ -1,5 +1,5 @@
 """Model repository: versioned registry of model functions (port of
-``runtime/repository.py``, cut to what the in-process path reads).
+``runtime/repository.py``, cut to what the serving path reads).
 
 A model is a ModelSpec plus a callable over tensors; "the latest
 version" is the default serve target, as Triton's version_policy.
@@ -112,3 +112,15 @@ class ModelRepository:
 
     def metadata(self, name: str, version: str = "") -> ModelSpec:
         return self.get(name, version).spec
+
+    def list_models(self) -> list[tuple[str, str]]:
+        with self._lock:
+            return [(n, v) for n, vs in self._models.items() for v in vs]
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._models)
+
+    def versions(self, name: str) -> list[str]:
+        with self._lock:
+            return sorted(self._models.get(name, {}), key=_version_key)
