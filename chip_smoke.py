@@ -15,7 +15,8 @@ SECOND-IoU with the dense middle at the full KITTI width
 batcher in front of the channel: packed ragged batches of KITTI-sized
 clouds through the pool model (``models/pool.py``), and YOLOv5n through its
 dense merged path; then the KServe v2 façade over a disk repository of the
-same three entries. One JSON line per phase:
+same three entries, and the layout and precision of examples/yolov5_crop
+(phase 26). One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -142,6 +143,31 @@ same three entries. One JSON line per phase:
                  Where grpc imports, InferenceServer on a loopback port
                  repeats the ModelInfer checks through the port's GRPCChannel
                  ("grpc": true; otherwise "grpc": false and no socket leg)
+ 26. layout    — the layout and precision of examples/yolov5_crop: scan_disk
+                 of yolov5_crop (s2d stem, ch_floor 32, bf16 body),
+                 yolov5_crop_mxu, yolov5l_crop (YOLOv5l at full width) and
+                 yolov5_crop_base, each as it stands (conf 0.3) and at conf
+                 0.05, from a seeded upstream checkpoint of its variant in
+                 its version dirs (1/weights.pt; the conf-0.05 copies also
+                 2/weights.onnx of the same tensors), and PointPillars and
+                 SECOND-IoU from 1/weights.pth; every entry and version at
+                 batch 1 and 8 and a 20k scan a 3D entry through the
+                 servicer, bitwise equal to CUDAChannel.do_inference, with
+                 kernel 1 launched once a 2D request (3, 4, 5 on the 3D
+                 ones) and no capture inside the counted window;
+                 weights.pt = weights.onnx = load_pipeline in-process, and
+                 captured = eager, bit for bit at batch 1 and 8;
+                 yolov5_crop_base under precision="bf16" (staged as
+                 torch.bfloat16, detections float32, the host down-cast's
+                 ms; its conf-0.05 copy's detections at batch 1 and 8
+                 scored against the f32 entry's, at least the f32
+                 self-score less MAP_BUDGETS["bf16"]); for YOLOv5n and
+                 YOLOv5l the s2d/ch_floor f32 heads within 5e-4 of the
+                 plain ones and the bf16 s2d/ch_floor
+                 detections' mAP against the plain f32 ones at least the
+                 f32 self-score less MAP_BUDGETS["bf16"]; p50 and frames/s
+                 of each conf-0.05 entry at batch 1 and 8, param_bytes and
+                 graph-pool bytes
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -885,6 +911,7 @@ def main() -> int:
     run_graphs(card, dev, counters)
     run_driver(card)
     run_facade(card, counters)
+    run_layout(card, counters)
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -2362,6 +2389,343 @@ def run_facade(card: str, counters) -> None:
          requests=sorted(requests), stream=FACADE_STREAM, bitwise_equal_to_channel=True,
          kept=kept, launches=launches, status_codes=codes, times=times, servicer_host=host,
          grpc=grpc_ok, socket_leg=socket_leg)
+
+
+# phase 26: the layout and precision of examples/yolov5_crop. The entries
+# as they stand (conf 0.3) and at conf 0.05, each holding one seeded
+# upstream checkpoint of its variant (1/weights.pt; the conf-0.05 copies
+# also 2/weights.onnx of the same tensors); PointPillars and SECOND-IoU
+# with 1/weights.pth; yolov5_crop_base under precision="bf16"
+LAYOUT_ENTRIES = ("yolov5_crop_base", "yolov5_crop", "yolov5_crop_mxu", "yolov5l_crop")
+LAYOUT_3D = ("pointpillar_kitti", "second_iou")
+LAYOUT_REQUESTS, LAYOUT_MAP_FRAMES = 20, 8
+
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    return _varint(field << 3 | 2) + _varint(len(payload)) + payload
+
+
+def onnx_bytes(state: dict) -> bytes:
+    """A ModelProto holding ``state`` as its graph's float32 initializers
+    (the weights of a ``torch.onnx`` export; no graph nodes)."""
+    tensors = []
+    for name, t in state.items():
+        arr = t.detach().float().cpu().numpy()
+        body = b"".join(_varint(1 << 3) + _varint(d) for d in arr.shape)
+        body += _varint(2 << 3) + _varint(1) + _ld(8, name.encode()) + _ld(9, arr.tobytes())
+        tensors.append(_ld(5, body))
+    return _ld(7, b"".join(tensors))
+
+
+def upstream_yolov5(variant: str, seed: int) -> dict:
+    """A seeded ultralytics-named YOLOv5 checkpoint (``model.N.*``) of the
+    plain layout, drawn as flax initialises the JAX models (the statistics
+    of tests/test_precision.py's budget check: BatchNorm the identity,
+    biases 0)."""
+    from triton_client_tpu_torch.models.layers import init_random_
+    from triton_client_tpu_torch.models.yolov5 import YoloV5
+    from triton_client_tpu_torch.runtime.importers import yolov5_torch_key
+
+    model = init_random_(YoloV5(num_classes=NC, variant=variant), seed)
+    return {yolov5_torch_key(k): v for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def layout_repository(tmp: pathlib.Path) -> tuple[pathlib.Path, dict]:
+    """The phase-26 repository root, and each variant's checkpoint."""
+    from triton_client_tpu_torch.runtime import importers
+    from triton_client_tpu_torch.runtime.disk_repository import _Entry
+
+    weights = {"n": upstream_yolov5("n", 26), "l": upstream_yolov5("l", 26)}
+    for name in LAYOUT_ENTRIES:
+        text = (ROOT / "examples" / name / "config.yaml").read_text()
+        check("conf_thresh: 0.3" in text, f"examples/{name} changed its conf_thresh")
+        state = weights["l" if "variant: l" in text else "n"]
+        for entry, body, versions in ((name, text, ("1",)),
+                                      (f"{name}_c005", text.replace("conf_thresh: 0.3",
+                                                                    "conf_thresh: 0.05"),
+                                       ("1", "2"))):
+            (tmp / entry / "1").mkdir(parents=True)
+            (tmp / entry / "config.yaml").write_text(body)
+            torch.save({"model": state}, tmp / entry / "1" / "weights.pt")
+            if "2" in versions:
+                (tmp / entry / "2").mkdir()
+                (tmp / entry / "2" / "weights.onnx").write_bytes(onnx_bytes(state))
+    keys = {"pointpillar_kitti": importers.pointpillars_torch_key,
+            "second_iou": importers.second_torch_key}
+    for name in LAYOUT_3D:
+        (tmp / name / "1").mkdir(parents=True)
+        (tmp / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+        _, _, model = _Entry(tmp / name, device="cpu")._build()  # seeded, on the host
+        state = {keys[name](k): v for k, v in model.state_dict().items()
+                 if not k.endswith("num_batches_tracked")}
+        torch.save({"model_state": state}, tmp / name / "1" / "weights.pth")
+    return tmp, weights
+
+
+def run_layout(card: str, counters) -> None:
+    """Phase 26: the layout and precision of ``examples/yolov5_crop``. The
+    s2d/ch_floor/bf16 entries (YOLOv5n twice, YOLOv5l at full width) built
+    by ``scan_disk`` from upstream checkpoints in their version dirs
+    (``weights.pt``, ``weights.onnx``; the 3D entries ``weights.pth``),
+    served by ``CUDAChannel`` and the KServe v2 servicer; the bf16 policy as
+    a repository-wide override; bf16 against f32 by the port's
+    ``eval/detection_map``."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.channel.kserve import codec, pb, service
+    from triton_client_tpu_torch.config import BF16
+    from triton_client_tpu_torch.eval.detection_map import DetectionEvaluator
+    from triton_client_tpu_torch.pipelines.detect2d import Detect2DConfig, build_yolov5_pipeline
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime import importers
+    from triton_client_tpu_torch.runtime.disk_repository import load_pipeline, scan_disk
+    from triton_client_tpu_torch.channel.staged import cast_wire_input
+    from triton_client_tpu_torch.runtime.precision import MAP_BUDGETS, to_bf16_words
+    from triton_client_tpu_torch.runtime.server import _Servicer
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="layout_repo_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        t0 = time.perf_counter()
+        root, weights = layout_repository(tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        repo = scan_disk(root)
+        for name, version in repo.list_models():
+            repo.get(name, version).warmup()
+        build_s = time.perf_counter() - t0
+        c005 = [f"{n}_c005" for n in LAYOUT_ENTRIES]
+        in_process = {name: load_pipeline(root / name, version="1")[0] for name in c005}
+        in_process_3d = {name: load_pipeline(root / name)[0] for name in LAYOUT_3D}
+        override_root = _only(root, LAYOUT_ENTRIES[0], tmp / "override")
+        _only(root, c005[0], override_root)
+        override = scan_disk(override_root, precision="bf16")
+    finally:
+        os.chdir(cwd)
+    channel = CUDAChannel(repo)
+    servicer = _Servicer(repo, channel, stream_pipeline_depth=2)
+    names = sorted(repo.names())
+    check(names == sorted(LAYOUT_ENTRIES + tuple(c005) + LAYOUT_3D), f"scanned {names}")
+    for name in names:
+        spec = repo.metadata(name)
+        check("decode_nms" in spec.extra["fused_stages"], f"{name}: not fused on the card")
+        want = "2" if name in c005 else "1"
+        check(repo.versions(name)[-1] == want, f"{name}: versions {repo.versions(name)}")
+
+    # -- requests: every 2D entry and version at batch 1 and 8, one 20k scan a 3D entry ----
+    rng = np.random.default_rng(26)
+    hw = tuple(repo.metadata(c005[0]).extra["model_input_hw"])
+    frames = rng.integers(0, 256, (B_MAIN + 1, *hw, 3)).astype(np.float32)
+    requests = {}  # label -> (model, version, inputs)
+    for name in LAYOUT_ENTRIES + tuple(c005):
+        for version in repo.versions(name):
+            requests[f"{name}:{version}_b1"] = (name, version, {"images": frames[:1]})
+            requests[f"{name}:{version}_b{B_MAIN}"] = (name, version,
+                                                      {"images": frames[1:1 + B_MAIN]})
+    for i, name in enumerate(LAYOUT_3D):
+        pipe_cfg = repo.metadata(name).extra
+        pc = uniform_clouds(260 + i, (0.0, -39.68, -3.0, 69.12, 39.68, 1.0), SCAN_POINTS[0], 1)[0]
+        padded, m = prepare_points(pc, 4, pipe_cfg["point_buckets"], pipe_cfg["z_offset"])
+        requests[name] = (name, "1", {"points": padded, "num_points": np.asarray(m, np.int32)})
+
+    def through_servicer(model, version, inputs):
+        payload = codec.build_infer_request(model, inputs, model_version=version)
+        return codec.parse_infer_response(pb.ModelInferResponse.FromString(
+            service.invoke(servicer, "ModelInfer", payload.SerializeToString())))
+
+    direct = {label: channel.do_inference(InferRequest(m, x, model_version=v)).outputs
+              for label, (m, v, x) in requests.items()}
+    for m, v, x in requests.values():  # any capture happens here, outside the window
+        through_servicer(m, v, x)
+    torch.cuda.synchronize()
+    captures = {(n, v): repo.get(n, v).infer_fn.graph_stats()["captures"]
+                for n in names for v in repo.versions(n)}
+
+    # -- the counted window -------------------------------------------------------------------
+    for counter in counters:
+        counter.reset()
+    got = {label: through_servicer(m, v, x) for label, (m, v, x) in requests.items()}
+    torch.cuda.synchronize()
+    launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+    n2d = len(requests) - len(LAYOUT_3D)
+    want_launches = {"decode_nms_2d": n2d, "greedy_nms": 0, "residual_decode_3d": 2,
+                     "suppress_pack_3d": 2, "segment_mean": 1, "segment_sum": 0,
+                     "residual_decode_3d_gathered": 2}
+    check(launches == want_launches, f"layout launches {launches}, want {want_launches}")
+    after = {(n, v): repo.get(n, v).infer_fn.graph_stats()["captures"]
+             for n in names for v in repo.versions(n)}
+    check(after == captures, "a request captured a graph inside the counted window")
+
+    for label, out in got.items():
+        want = direct[label]
+        for key in want:
+            check(out[key].dtype == want[key].dtype and out[key].tobytes() == want[key].tobytes(),
+                  f"{label}: {key} through the servicer differs from CUDAChannel.do_inference")
+        check(out["detections"].dtype == np.float32 and bool(np.isfinite(out["detections"]).all()),
+              f"{label}: detections not finite float32")
+    kept = {label: int(out["valid"].sum()) for label, out in got.items()}
+    check(all(kept[f"{n}:{v}_b1"] > 0 for n in c005 for v in ("1", "2")),
+          f"conf 0.05 kept nothing: {kept}")
+    check(all(kept[n] > 0 for n in LAYOUT_3D), f"3D kept {kept}")
+
+    # -- importers: .pt == .onnx == the in-process load_pipeline, captured == eager -------------
+    eager_equal = {}
+    for name in c005:
+        pipe = in_process[name]
+        for b, x in ((1, frames[:1]), (B_MAIN, frames[1:1 + B_MAIN])):
+            xs = torch.from_numpy(x).cuda()
+            captured = pipe.infer_fn()({"images": xs})
+            eager = pipe.device_fn()({"images": xs})
+            for key in ("detections", "valid"):
+                pt, ox = (direct[f"{name}:{v}_b{b}"][key] for v in ("1", "2"))
+                check(pt.tobytes() == ox.tobytes(), f"{name} b{b}: weights.pt != weights.onnx")
+                check(captured[key].cpu().numpy().tobytes() == pt.tobytes(),
+                      f"{name} b{b}: served != load_pipeline in-process")
+                check(torch.equal(captured[key], eager[key]),
+                      f"{name} b{b}: captured != eager")
+            eager_equal[f"{name}_b{b}"] = True
+    for name in LAYOUT_3D:
+        _, _, x = requests[name]
+        out = in_process_3d[name].infer_fn()({k: torch.from_numpy(np.asarray(v)).cuda()
+                                              for k, v in x.items()})
+        check(all(out[k].cpu().numpy().tobytes() == direct[name][k].tobytes() for k in out),
+              f"{name}: weights.pth served != load_pipeline in-process")
+
+    # -- the precision override ----------------------------------------------------------------
+    base = override.get(LAYOUT_ENTRIES[0])
+    check(base.precision.name == "bf16" and base.spec.extra["precision"] == "bf16",
+          "precision='bf16' did not reach the entry")
+    base.warmup()
+    ochannel = CUDAChannel(override)
+    words = cast_wire_input(base, "images", frames[:1])
+    check(words.dtype == BF16, f"the bf16 policy staged {words.dtype}")
+    staged, slot = ochannel._upload({"images": words})
+    check(staged["images"].dtype == torch.bfloat16 and staged["images"].is_cuda,
+          f"staged {staged['images'].dtype}")
+    if slot is not None:
+        ochannel._give_slot(slot)
+    keys_before = base.infer_fn.graph_stats()
+    bout = ochannel.do_inference(InferRequest(LAYOUT_ENTRIES[0], {"images": frames[:1]})).outputs
+    check(base.infer_fn.graph_stats()["captures"] == keys_before["captures"],
+          "a bf16-staged request captured: the warmup was not at the wire dtype")
+    check(bout["detections"].dtype == np.float32, "bf16 policy: detections not float32")
+    # batch 8 captures here, before it is timed
+    ochannel.do_inference(InferRequest(LAYOUT_ENTRIES[0], {"images": frames[1:1 + B_MAIN]}))
+    downcast_ms = {}
+    for b, x in ((1, frames[:1]), (B_MAIN, frames[1:1 + B_MAIN])):
+        lat = []
+        for _ in range(LAYOUT_REQUESTS):
+            t = time.perf_counter()
+            to_bf16_words(x)
+            lat.append(time.perf_counter() - t)
+        downcast_ms[f"b{b}"] = float(np.median(lat)) * 1e3
+
+    def map_score(dets, valid, gts) -> float:
+        ev = DetectionEvaluator()
+        for a, b, gt in zip(dets, valid, gts):
+            ev.add_frame(a, b, gt)
+        return float(ev.summary()["map"])
+
+    # the override's detections scored against the f32 entry's on the same
+    # frames and weights: at conf 0.3 seeded weights keep nothing in either,
+    # so the conf-0.05 copy of the entry is the one scored
+    f32_outs, bf16_outs = [], []
+    for x in (frames[:1], frames[1:1 + B_MAIN]):
+        f32_outs.append(direct[f"{c005[0]}:1_b{len(x)}"])
+        out = ochannel.do_inference(InferRequest(c005[0], {"images": x}, model_version="1")).outputs
+        check(out["detections"].dtype == np.float32 and bool(np.isfinite(out["detections"]).all()),
+              f"bf16 policy b{len(x)}: detections not finite float32")
+        bf16_outs.append(out)
+    f32_dets, f32_valid, bf16_dets, bf16_valid = (
+        np.concatenate([o[k] for o in outs]) for outs in (f32_outs, bf16_outs)
+        for k in ("detections", "valid"))
+    gts = [d[v][:, [0, 1, 2, 3, 5]] for d, v in zip(f32_dets, f32_valid)]
+    override_map = {"f32": map_score(f32_dets, f32_valid, gts),
+                    "bf16": map_score(bf16_dets, bf16_valid, gts),
+                    "kept_f32": int(f32_valid.sum()), "kept_bf16": int(bf16_valid.sum())}
+    override_map["floor"] = override_map["f32"] - MAP_BUDGETS["bf16"]
+    check(override_map["kept_f32"] > 0 and override_map["bf16"] >= override_map["floor"],
+          f"precision='bf16' {c005[0]}: {override_map}")
+
+    # -- bf16 against f32 on the card, the port's detection_map ---------------------------------
+    map_frames = rng.integers(0, 256, (LAYOUT_MAP_FRAMES, *hw, 3)).astype(np.float32)
+    accuracy = {}
+    for variant, state in weights.items():
+        cfg = Detect2DConfig(model_name=f"yolov5{variant}", num_classes=NC, input_hw=hw,
+                             conf_thresh=0.05)
+        kw = dict(variant=variant, num_classes=NC, input_hw=hw, config=cfg,
+                  state_dict=lambda model, s=state: importers.load_yolov5(s, model))
+        plain, _, plain_model = build_yolov5_pipeline(**kw)
+        mxu32, _, mxu_model = build_yolov5_pipeline(s2d=True, ch_floor=32, **kw)
+        mxu16, spec16, _ = build_yolov5_pipeline(s2d=True, ch_floor=32, dtype="bf16", **kw)
+        x = torch.from_numpy(map_frames[:2] / 255.0).float().cuda()
+        with torch.no_grad():
+            heads_err = max(float((a - b).abs().max()) for a, b in zip(plain_model(x),
+                                                                      mxu_model(x)))
+        check(heads_err <= 5e-4, f"yolov5{variant}: s2d/ch_floor f32 heads {heads_err} from plain")
+        dets, valid = plain.infer(map_frames)
+        gts = [d[v][:, [0, 1, 2, 3, 5]] for d, v in zip(dets, valid)]
+        scores = {label: map_score(*out, gts)
+                  for label, out in (("f32_plain", (dets, valid)),
+                                     ("f32_s2d_ch_floor", mxu32.infer(map_frames)),
+                                     ("bf16_s2d_ch_floor", mxu16.infer(map_frames)))}
+        floor = scores["f32_plain"] - MAP_BUDGETS["bf16"]
+        check(scores["bf16_s2d_ch_floor"] >= floor,
+              f"yolov5{variant}: bf16 mAP {scores['bf16_s2d_ch_floor']} under {floor}")
+        accuracy[f"yolov5{variant}"] = {"map": scores, "floor": floor, "heads_max_abs": heads_err,
+                                        "kept_f32": int(valid.sum()),
+                                        "param_bytes_bf16": spec16.extra["param_bytes"]}
+        del plain, mxu32, mxu16, plain_model, mxu_model
+    torch.cuda.empty_cache()
+
+    # -- times: p50 and frames/s a conf-0.05 entry, at batch 1 and 8 ----------------------------
+    times = {}
+    for name in c005:
+        for b, x in ((1, frames[:1]), (B_MAIN, frames[1:1 + B_MAIN])):
+            req = InferRequest(name, {"images": x})
+            times[f"{name}_b{b}"] = serve(lambda _x: channel.do_inference(req), [None],
+                                          LAYOUT_REQUESTS, "frames_per_s", lambda _x: b)
+    for b, x in ((1, frames[:1]), (B_MAIN, frames[1:1 + B_MAIN])):
+        req = InferRequest(LAYOUT_ENTRIES[0], {"images": x})
+        times[f"{LAYOUT_ENTRIES[0]}_precision_bf16_b{b}"] = serve(
+            lambda _x: ochannel.do_inference(req), [None], LAYOUT_REQUESTS, "frames_per_s",
+            lambda _x: b)
+    shutil.rmtree(tmp)
+    emit("layout", card, write_s=write_s, build_and_capture_s=build_s, entries=names,
+         requests=len(requests), launches=launches, kept=kept,
+         bitwise_servicer_channel=True, bitwise_pt_onnx_in_process=True,
+         captured_equals_eager=eager_equal, precision_override={
+             "staged": str(staged["images"].dtype), "detections": str(bout["detections"].dtype),
+             "map_against_f32": override_map},
+         downcast_host_ms=downcast_ms, accuracy=accuracy, times=times,
+         param_bytes={n: repo.metadata(n).extra["param_bytes"] for n in names}
+         | {f"{LAYOUT_ENTRIES[0]}_precision_bf16": base.spec.extra["param_bytes"]},
+         graph_pool_bytes={f"{n}:{v}": repo.get(n, v).infer_fn.graph_stats()["pool_bytes"]
+                           for n in names for v in repo.versions(n)})
+
+
+def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:
+    """A repository root holding one entry of ``root`` (config and weights)."""
+    import shutil
+
+    shutil.copytree(root / name, dest / name)
+    return dest
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ package's, on the CPU.
   JAX entries' specs and serves the same ``ModelConfig`` bytes; the JAX
   specs come from each entry's builder without an init (the template's
   ``param_bytes`` is then 0, so that key is compared in
-  tests/test_torch_server.py on carried weights). Unported families, the
-  ``s2d`` layout and weight artifacts raise naming their ROADMAP item.
+  tests/test_torch_server.py on carried weights). Unported families and
+  ``export_model`` raise naming their ROADMAP item; the ``s2d``/``ch_floor``
+  /bf16 entries serve, and a version dir's ``weights.pt`` loads.
 """
 
 import dataclasses
@@ -33,6 +34,8 @@ from triton_client_tpu_torch import dataset_config as tds
 from triton_client_tpu_torch import yaml_subset
 from triton_client_tpu_torch.channel.kserve import pb, service
 from triton_client_tpu_torch.runtime import disk_repository as tdr
+from triton_client_tpu_torch.models.yolov5 import YoloV5
+from triton_client_tpu_torch.runtime.precision import stored_params, tree_bytes
 from triton_client_tpu_torch.runtime.server import _Servicer
 from tests.test_torch_server import yolo_variables
 
@@ -244,8 +247,8 @@ UNPORTED = {
     "yolov4_coco": "item 7", "retinanet_coco": "item 7", "fcos_crop": "item 7",
     "camera_preprocess": "item 7", "ensemble_crop_pipeline": "item 7",
     "ensemble_fused_pipeline": "item 7", "centerpoint_nusc": "item 5",
-    "yolov5_crop": "item 3", "yolov5_crop_mxu": "item 3", "yolov5l_crop": "item 3",
 }
+LAYOUT_ENTRIES = ("yolov5_crop", "yolov5_crop_mxu", "yolov5l_crop")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -256,16 +259,70 @@ def test_unported_entries_raise_naming_their_item(tmp_path, monkeypatch, name):
         tdr.scan_disk(root, device="cpu")
 
 
-def test_weight_artifacts_raise_naming_item_4(tmp_path, monkeypatch):
+@pytest.mark.parametrize("name", LAYOUT_ENTRIES)
+def test_layout_entries_serve(tmp_path, monkeypatch, name):
+    """The s2d/ch_floor/bf16 entries scan as they stand, with the JAX entry's
+    spec but for the bytes the port stores; a 64x64 copy answers a request on
+    the CPU."""
+    monkeypatch.chdir(ROOT)
+    root = _copy_entries(tmp_path, [name])
+    repo = tdr.scan_disk(root, device="cpu")
+    model = repo.get(name)
+    jentry = jdr._Entry(root / name)
+    _, jspec, _ = jentry._build(variables={}, config=jentry.cfg)
+    got = {k: v for k, v in model.spec.extra.items() if k != "param_bytes"}
+    want = {k: v for k, v in jspec.extra.items() if k != "param_bytes"}
+    assert got == want and got["precision"] == "f32"
+    assert model.precision.name == "f32"
+    # the body is stored in bfloat16 (dtype: bf16), the detect convs in
+    # float32: just over half the float32 bytes
+    variant = "l" if name == "yolov5l_crop" else "n"
+    f32 = tree_bytes(stored_params(YoloV5(num_classes=2, variant=variant, s2d=True,
+                                          ch_floor=32)))
+    assert 0.5 * f32 < model.spec.extra["param_bytes"] < 0.51 * f32
+    text = (root / name / "config.yaml").read_text().replace("[512, 512]", "[64, 64]")
+    (root / name / "config.yaml").write_text(text)
+    small = tdr.scan_disk(root, device="cpu").get(name)
+    out = small.infer_fn({"images": torch.rand((1, 64, 64, 3)) * 255})
+    assert tuple(out["detections"].shape) == (1, 300, 6)
+    assert bool(torch.isfinite(out["detections"]).all())
+
+
+@pytest.mark.parametrize("how", ["dtype", "precision", "override"])
+def test_bf16_on_a_3d_entry_raises_naming_item_11(tmp_path, monkeypatch, how):
+    monkeypatch.chdir(ROOT)
+    root = _copy_entries(tmp_path, ["pointpillar_kitti"])
+    config = root / "pointpillar_kitti" / "config.yaml"
+    if how != "override":
+        config.write_text(config.read_text() + f"model:\n  {how}: bf16\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11 "):
+        tdr.scan_disk(root, device="cpu", precision="bf16" if how == "override" else None)
+
+
+def test_weight_artifacts_load_and_export_raises_naming_item_12(tmp_path, monkeypatch):
+    """A version dir's weights.pt (an upstream-named state_dict) serves
+    through scan_disk and load_pipeline alike; export_model raises naming
+    its item."""
+    from tests.test_import_fidelity import TYoloV5N, _randomize
+
     monkeypatch.chdir(ROOT)
     root = _copy_entries(tmp_path, ["yolov5_crop_base"])
-    (root / "yolov5_crop_base" / "1").mkdir()
-    (root / "yolov5_crop_base" / "1" / "weights.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdr.scan_disk(root, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdr.load_pipeline(root / "yolov5_crop_base", kind="2d", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    entry = root / "yolov5_crop_base"
+    (entry / "config.yaml").write_text(
+        (entry / "config.yaml").read_text().replace("[512, 512]", "[64, 64]"))
+    tmodel = TYoloV5N(2).eval()
+    _randomize(tmodel, 3)
+    (entry / "1").mkdir()
+    torch.save({"model": tmodel.state_dict()}, entry / "1" / "weights.pt")
+    frames = torch.rand((2, 64, 64, 3)) * 255
+    served = tdr.scan_disk(root, device="cpu").get("yolov5_crop_base").infer_fn(
+        {"images": frames})
+    pipe, spec = tdr.load_pipeline(entry, device="cpu")
+    direct = pipe.infer_fn()({"images": frames})
+    assert spec.version == "1"
+    for k in ("detections", "valid"):
+        assert torch.equal(served[k], direct[k])
+    with pytest.raises(NotImplementedError, match="item 12"):
         tdr.export_model(tmp_path, "x", {"family": "yolov5"})
 
 

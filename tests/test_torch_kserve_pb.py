@@ -249,11 +249,28 @@ def test_codec_roundtrip_every_config_dtype(rng, datatype):
     assert not back.flags.writeable and np.shares_memory(back, np.frombuffer(raw, np.uint8))
 
 
-def test_bf16_is_refused_naming_the_roadmap_item():
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        codec.deserialize_tensor(b"\x00\x00", "BF16", (1,))
+def test_bf16_round_trips_as_words_with_the_jax_codecs_bytes(rng):
+    """BF16 travels as little-endian 16-bit words: the port's words serialize to
+    the JAX codec's bytes for the same ml_dtypes array, each side reads the
+    other's, and the words come back as a zero-copy view."""
+    import ml_dtypes
+
+    from triton_client_tpu_torch.config import BF16
+    from triton_client_tpu_torch.runtime.precision import bf16_words_to_f32, to_bf16_words
+
+    x = rng.normal(0, 10, (3, 5)).astype(np.float32)
+    words = to_bf16_words(x)
+    jarr = x.astype(ml_dtypes.bfloat16)
+    assert codec.datatype_of(words) == jcodec.datatype_of(jarr) == "BF16"
+    raw = codec.serialize_tensor(words)
+    assert raw == jcodec.serialize_tensor(jarr)
+    back = codec.deserialize_tensor(raw, "BF16", words.shape)
+    assert back.dtype == BF16 and np.shares_memory(back, np.frombuffer(raw, np.uint8))
+    np.testing.assert_array_equal(back.view(np.uint16), words.view(np.uint16))
+    jback = jcodec.deserialize_tensor(raw, "BF16", words.shape)
+    np.testing.assert_array_equal(jback.astype(np.float32), bf16_words_to_f32(back))
     assert codec.config_datatype("BF16") == P.TYPE_BF16 == J.TYPE_BF16
-    assert "BF16" not in SERVED_DTYPES
+    assert "BF16" not in SERVED_DTYPES  # the table keeps None, as the JAX one
 
 
 def test_requests_and_responses_cross_the_packages(rng):

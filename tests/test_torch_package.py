@@ -18,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _BLOCKER = r"""
 import importlib, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu", "grpc", "google")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu", "grpc", "google",
+           "msgpack", "onnx")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -39,8 +40,9 @@ print(json.dumps(sorted(names)))
 
 
 def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
-    """Also grpc and protobuf: every module imports on a host without them
-    (grpc is imported where a socket opens)."""
+    """Also grpc, protobuf, msgpack and onnx: every module imports on a host
+    without them (grpc is imported where a socket opens; the weight readers
+    parse msgpack and ONNX bytes themselves)."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
@@ -81,6 +83,12 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.yaml_subset",
         "triton_client_tpu_torch.obs.logs",
         "triton_client_tpu_torch.cli.serve",
+        "triton_client_tpu_torch.runtime.precision",
+        "triton_client_tpu_torch.runtime.checkpoint",
+        "triton_client_tpu_torch.runtime.importers",
+        "triton_client_tpu_torch.runtime.onnx_reader",
+        "triton_client_tpu_torch.runtime.flax_msgpack",
+        "triton_client_tpu_torch.eval.detection_map",
     ):
         assert must in names
 

@@ -122,7 +122,7 @@ def test_conv3d_kernel_layout():
 
 
 def test_sparse_middle_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         tsec.SECONDIoU(tsec.SECONDConfig(middle="sparse"))
 
 

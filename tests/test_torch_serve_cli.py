@@ -113,7 +113,7 @@ def test_batch_timeout_warns_once_on_continuous(repo_root, caplog):
 
 
 NON_DEFAULT = {
-    "uds": ["--uds", "auto"], "mesh": ["--mesh", "data=-1"], "precision": ["--precision", "bf16"],
+    "uds": ["--uds", "auto"], "mesh": ["--mesh", "data=-1"],
     "metrics_port": ["--metrics-port", "8002"], "op_sample_interval": ["--op-sample-interval", "2"],
     "op_sample_window": ["--op-sample-window", "0.5"],
     "history_interval": ["--history-interval", "10"],
@@ -151,6 +151,33 @@ def test_unported_flag_exits_with_its_message(repo_root, capsys):
 
 def test_f32_precision_is_served(repo_root):
     serve.check_unported(_args(repo_root, "--precision", "f32"))
+
+
+@pytest.mark.parametrize("policy", ["int8w", "int8"])
+def test_int8_precisions_raise_naming_item_10(repo_root, policy):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 10 "):
+        serve.build_server(_args(repo_root, "--precision", policy))
+    with pytest.raises(SystemExit, match=f"precision policy '{policy}' is not ported yet"):
+        serve.main(["-r", str(repo_root), "--device", "cpu", "--precision", policy])
+
+
+def test_precision_bf16_serves_fp32_requests(repo_root, capsys):
+    """``--precision bf16`` serves every entry under the bf16 policy: FP32 frames
+    stage as bfloat16, the detections come back float32."""
+    server = serve.build_server(_args(repo_root, "--precision", "bf16"))
+    server.start()
+    try:
+        chan = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=60)
+        spec = chan.get_metadata("tiny")
+        assert spec.extra["precision"] == "bf16"
+        frame = np.random.default_rng(0).uniform(0, 255, (1, 64, 64, 3)).astype(np.float32)
+        out = chan.do_inference(InferRequest("tiny", {"images": frame})).outputs
+        assert out["detections"].dtype == np.float32 and out["detections"].shape == (1, 300, 6)
+        assert np.isfinite(out["detections"]).all()
+        chan.close()
+    finally:
+        server.stop()
+    assert "loaded tiny:1 (torch, device=cpu) precision=bf16" in capsys.readouterr().out
 
 
 def test_an_embedders_namespace_needs_only_the_served_flags(repo_root):

@@ -68,8 +68,21 @@ def test_strict_conversion_rejects_missing_and_extra_leaves(carried):
         yolov5_state_dict_from_flax(wrong, tmodel)
 
 
-def test_unported_layout_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        YoloV5(num_classes=2, s2d=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        YoloV5(num_classes=2, ch_floor=32)
+def test_s2d_ch_floor_layout_shapes_match_jax():
+    """The layout of examples/yolov5_crop (s2d stem, 32-channel floor, a
+    bfloat16 body) builds, with the JAX model's tensor shapes and a float32
+    detect head."""
+    jmodel, variables = init_yolov5(jax.random.PRNGKey(0), num_classes=2, input_hw=(64, 64),
+                                    s2d=True, ch_floor=32)
+    tmodel = YoloV5(num_classes=2, s2d=True, ch_floor=32, dtype=torch.bfloat16)
+    want = yolov5_state_dict_from_flax(_to_numpy(variables), YoloV5(num_classes=2, s2d=True,
+                                                                      ch_floor=32))
+    got = tmodel.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+    assert tuple(got["stem.conv.weight"].shape) == (32, 12, 3, 3)
+    assert got["stem.conv.weight"].dtype == torch.bfloat16
+    assert got["detect0.weight"].dtype == torch.float32
+    with torch.no_grad():
+        heads = tmodel(torch.zeros((1, 64, 64, 3)))
+    assert [h.dtype for h in heads] == [torch.float32] * 3

@@ -5,8 +5,9 @@ placement policy of ``StagedChannel`` (port of ``channel/tpu_channel.py``).
 registered model runs on the card, and outputs come back as numpy only
 at the boundary, lazily (``channel/staged.py``).
 
-- **Placement** (``_place_inputs``): the never-widen dtype policy
-  (``cast_wire_input``), then a copy into pinned host buffers owned by a
+- **Placement** (``_place_inputs``): the never-widen dtype policy and the
+  model's precision policy (``cast_wire_input``: a ``bf16`` model's float32
+  frames become bfloat16 words), then a copy into pinned host buffers owned by a
   staging slot and reused across requests, then a host-to-device copy
   with ``non_blocking=True``. A slot's pinned buffers are written again
   only after an event shows its last copy done. On the CPU the request's
@@ -43,6 +44,7 @@ from triton_client_tpu_torch.channel.staged import (  # noqa: F401 (re-exported)
     cast_wire_input,
 )
 from triton_client_tpu_torch.device import resolve_device
+from triton_client_tpu_torch.runtime.precision import host_tensor
 from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
@@ -66,7 +68,7 @@ class _StagingSlot:
             buf = self.host[name] = torch.empty(
                 max(arr.nbytes, 1), dtype=torch.uint8, pin_memory=True
             )
-        src = torch.from_numpy(arr)
+        src = host_tensor(arr)  # bfloat16 words as torch.bfloat16
         view = buf[: arr.nbytes].view(src.dtype).view(src.shape)
         view.copy_(src)
         return view
@@ -113,7 +115,7 @@ class CUDAChannel(StagedChannel):
         # np.require, not np.ascontiguousarray: that one turns a 0-d array
         # (num_points) into shape (1,)
         return {
-            name: np.require(cast_wire_input(model.spec, name, np.asarray(arr)),
+            name: np.require(cast_wire_input(model, name, np.asarray(arr)),
                              requirements="C")
             for name, arr in request.inputs.items()
         }
@@ -124,7 +126,7 @@ class CUDAChannel(StagedChannel):
         if self.device.type != "cuda":
             # a read-only wire view (the KServe codec's np.frombuffer) is
             # copied: a tensor over it could not be written safely
-            return {k: torch.from_numpy(v if v.flags.writeable else v.copy())
+            return {k: host_tensor(v if v.flags.writeable else v.copy())
                     for k, v in arrays.items()}, None
         slot = self._take_slot()
         try:

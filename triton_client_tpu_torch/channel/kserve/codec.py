@@ -4,9 +4,10 @@ port's copy of ``channel/kserve/codec.py``, over the port's own ``pb``).
 Both directions are single buffer views: ``np.frombuffer`` over the
 message's ``memoryview`` slices on receive (no copy; the message bytes
 own the memory) and ``ndarray.tobytes()`` on send. Datatype strings
-follow the KServe v2 table of ``config._DTYPES``. BF16 has no numpy dtype
-here (the JAX package takes it from ``ml_dtypes``), so a BF16 tensor is
-refused (ROADMAP.md Queue 1 item 3, the bf16 precision policy).
+follow the KServe v2 table of ``config._DTYPES``. BF16 travels as uint16
+words, little-endian; numpy has no bfloat16 (the JAX package takes it from
+``ml_dtypes``), so on this side a BF16 tensor is an array of
+``config.BF16`` words (``runtime/precision.py``).
 """
 
 from __future__ import annotations
@@ -14,17 +15,13 @@ from __future__ import annotations
 import numpy as np
 
 from triton_client_tpu_torch.channel.kserve import pb
-from triton_client_tpu_torch.config import config_dtypes
+from triton_client_tpu_torch.config import BF16, config_dtypes
 from triton_client_tpu_torch.runtime import faults
 
-_BF16_REFUSED = (
-    "BF16 tensors are not served by the port yet (ROADMAP.md Queue 1 item 3: "
-    "the bf16 precision policy and its wire words)"
-)
-
-# KServe v2 datatype string <-> numpy dtype (little-endian wire order)
+# KServe v2 datatype string <-> numpy dtype (little-endian wire order);
+# BF16 is the one special case, the words dtype
 _TO_NP: dict[str, np.dtype] = {
-    k: np.dtype(v) for k, v in config_dtypes().items() if v is not None
+    k: (BF16 if v is None else np.dtype(v)) for k, v in config_dtypes().items()
 }
 _FROM_NP = {v: k for k, v in _TO_NP.items()}
 
@@ -46,10 +43,10 @@ _CONFIG_DTYPE = {
 
 
 def datatype_of(arr: np.ndarray) -> str:
+    if arr.dtype == BF16:
+        return "BF16"
     dtype = arr.dtype.newbyteorder("=")
     if dtype not in _FROM_NP:
-        if dtype.name == "bfloat16":
-            raise ValueError(_BF16_REFUSED)
         raise ValueError(f"unsupported wire dtype {arr.dtype}")
     return _FROM_NP[dtype]
 
@@ -68,8 +65,6 @@ def serialize_tensor(arr: np.ndarray) -> bytes:
 
 def deserialize_tensor(raw, datatype: str, shape) -> np.ndarray:
     """Raw bytes -> array view over the buffer (zero copy)."""
-    if datatype == "BF16":
-        raise ValueError(_BF16_REFUSED)
     if datatype not in _TO_NP:
         raise ValueError(f"unsupported wire datatype '{datatype}'")
     arr = np.frombuffer(raw, dtype=_TO_NP[datatype])

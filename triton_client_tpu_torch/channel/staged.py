@@ -48,6 +48,7 @@ from triton_client_tpu_torch.runtime.admission import (
     CircuitOpenError,
     DeadlineExpiredError,
 )
+from triton_client_tpu_torch.runtime.precision import bf16_words_to_f32, host_array, is_bf16_words
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
 # the key under which a packed request's segment ids ride with its inputs
@@ -59,17 +60,24 @@ _NOT_PORTED = (
 )
 
 
-def cast_wire_input(spec: ModelSpec, name: str, arr: np.ndarray) -> np.ndarray:
+def cast_wire_input(model, name: str, arr: np.ndarray) -> np.ndarray:
     """Never widen on the host; cast a stray wider dtype down to the spec's.
     A narrower input (uint8 camera frames against an FP32 spec) uploads as
     it is, a quarter of the bytes, and the pipeline widens it on the
-    device; a float64 or int64 one casts down to the wire contract."""
+    device; a float64 or int64 one casts down to the wire contract. Then
+    the registered model's precision policy narrows further
+    (``PrecisionPolicy.wire_cast``: a ``bf16`` model's float32 frames stage
+    as bfloat16 words, half the bytes)."""
     try:
-        want = spec.input_by_name(name).np_dtype()
+        want = model.spec.input_by_name(name).np_dtype()
     except (KeyError, ValueError):
-        return arr  # undeclared or BF16 inputs pass through as they are
-    if arr.dtype != want and want.itemsize <= arr.dtype.itemsize:
-        arr = arr.astype(want)
+        want = None  # undeclared or BF16 inputs pass through as they are
+    if want is not None and arr.dtype != want and want.itemsize <= arr.dtype.itemsize:
+        # BF16 words widen exactly before the cast (numpy would cast the words)
+        arr = (bf16_words_to_f32(arr) if is_bf16_words(arr) else arr).astype(want)
+    policy = getattr(model, "precision", None)
+    if policy is not None:
+        arr = policy.wire_cast(name, arr)
     return arr
 
 
@@ -239,7 +247,7 @@ class StagedChannel(BaseChannel):
             }
         host = {}
         for k, v in outputs.items():
-            arr = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            arr = host_array(v) if isinstance(v, torch.Tensor) else np.asarray(v)
             dt = out_dtype.get(k) if out_dtype else None
             host[k] = arr.astype(dt, copy=False) if dt is not None else arr
         return host

@@ -33,7 +33,6 @@ _timeout_warned = False
 UNPORTED = {
     "uds": ("--uds", "off", "unix socket"),
     "mesh": ("--mesh", "", "mesh"),
-    "precision": ("--precision", "", "precision"),
     "metrics_port": ("--metrics-port", 0, "telemetry"),
     "op_sample_interval": ("--op-sample-interval", 0.0, "telemetry"),
     "op_sample_window": ("--op-sample-window", 0.2, "telemetry"),
@@ -106,6 +105,10 @@ def parser() -> argparse.ArgumentParser:
                    help="recent request traces kept; 0 turns request tracing off")
     p.add_argument("--warmup", action="store_true",
                    help="capture every registered model's graphs before serving")
+    p.add_argument("--precision", default="", choices=["", "f32", "bf16", "int8w", "int8"],
+                   help="serving precision policy of EVERY repository entry, over each "
+                   "config.yaml model.precision (runtime/precision.py): bf16 = parameters, "
+                   "compute and float wire inputs in bfloat16; int8w and int8 are not ported")
     p.add_argument("-v", "--verbose", action="store_true")
     for dest, (flag, default, what) in UNPORTED.items():
         kw = {"dest": dest, "default": default,
@@ -123,13 +126,13 @@ def parser() -> argparse.ArgumentParser:
 
 def check_unported(args) -> None:
     """Raise NotImplementedError naming the item of the first unported flag
-    set away from its off value (a precision of f32 is the served one)."""
+    set away from its off value, or of an unported precision policy."""
+    from triton_client_tpu_torch.runtime.precision import PrecisionPolicy
     from triton_client_tpu_torch.runtime.server import not_ported
 
+    PrecisionPolicy.parse(getattr(args, "precision", "") or None)
     for dest, (flag, default, what) in UNPORTED.items():
         value = getattr(args, dest, default)
-        if dest == "precision" and value == "f32":
-            continue
         if value != default:
             raise not_ported(what, f"{flag} {value}")
 
@@ -171,10 +174,12 @@ def build_server(args):
 
     # the device first: without a card this raises before any scan
     device = resolve_device(getattr(args, "device", None))
-    repo = scan_disk(args.model_repository, device=device)
+    repo = scan_disk(args.model_repository, device=device,
+                     precision=getattr(args, "precision", "") or None)
     for name, version in repo.list_models():
         model = repo.get(name, version)
-        print(f"loaded {name}:{version} ({model.spec.platform}, device={device.type})")
+        print(f"loaded {name}:{version} ({model.spec.platform}, device={device.type}) "
+              f"precision={model.spec.extra.get('precision', 'f32')}")
         if getattr(args, "warmup", False) and model.warmup is not None:
             model.warmup()
 

@@ -12,9 +12,15 @@ from typing import Any
 
 import numpy as np
 
-# KServe v2 dtype strings -> numpy. BF16 has no numpy dtype (the JAX
-# package takes it from ml_dtypes) and is refused by TensorSpec.np_dtype:
-# the port does not serve bf16 yet.
+# Host bfloat16: numpy has none (the JAX package takes it from ml_dtypes),
+# so a bfloat16 array travels as its 16-bit words, little-endian, in a
+# structured dtype whose one field names them (runtime/precision.py says
+# why a tagged dtype and not plain uint16).
+BF16 = np.dtype([("bfloat16", "<u2")])
+
+# KServe v2 dtype strings -> numpy. BF16 maps to None, as in the JAX
+# package: TensorSpec.np_dtype refuses it and the codec resolves it to
+# the words dtype BF16.
 _DTYPES = {
     "FP64": np.float64,
     "FP32": np.float32,
@@ -40,8 +46,8 @@ FRAMING_BYTES = 1 << 20
 
 
 def config_dtypes() -> dict:
-    """The KServe dtype table (BF16 maps to None: the port has no bf16
-    numpy dtype and its codec refuses BF16 tensors)."""
+    """The KServe dtype table (BF16 maps to None; the codec carries it as
+    :data:`BF16` words)."""
     return dict(_DTYPES)
 
 

@@ -16,7 +16,10 @@ arrays or anything ``np.asarray`` takes) maps onto a model's
     ``running_mean``/``running_var``; conv and dense ``bias`` -> ``bias``
 
 Conversion is strict: every leaf is used exactly once and every tensor
-of the model is filled, with matching shapes, or it raises.
+of the model is filled, with matching shapes, or it raises. Leaves are
+read as float32 (bfloat16 ones widen exactly); the model's own dtypes
+decide what they are stored as (``load_state_dict`` rounds to a bfloat16
+body), and a precision policy's ``cast_params`` runs after.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from triton_client_tpu_torch.runtime.precision import bf16_words_to_f32, is_bf16_words
 
 # (collection, leaf name) -> state_dict suffix
 _LEAF = {
@@ -45,6 +50,14 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield from _flatten(value, path)
         else:
             yield path, value
+
+
+def _leaf_f32(leaf) -> np.ndarray:
+    # bfloat16 leaves read from a flax msgpack arrive as BF16 words, which
+    # np.asarray would cast as integers
+    if is_bf16_words(leaf):
+        return bf16_words_to_f32(leaf)
+    return np.asarray(leaf, dtype=np.float32)
 
 
 def _kernel_to_torch(module: nn.Module, arr: np.ndarray) -> np.ndarray:
@@ -81,7 +94,7 @@ def state_dict_from_flax(
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} -> {key}: no such tensor")
             if key in out:
                 raise KeyError(f"two flax leaves map onto {key}")
-            arr = np.asarray(leaf, dtype=np.float32)
+            arr = _leaf_f32(leaf)
             if path[-1] == "kernel":
                 arr = _kernel_to_torch(model.get_submodule(mod_path), arr)
             if tuple(arr.shape) != tuple(want[key].shape):
@@ -96,6 +109,31 @@ def state_dict_from_flax(
     if missing:
         raise KeyError(f"flax variables leave {len(missing)} tensors unfilled: {missing[:5]}")
     return out
+
+
+def fill_model(
+    model: nn.Module,
+    variables: Mapping | None = None,
+    state_dict=None,
+    seed: int = 0,
+    from_flax: Callable[[Mapping, nn.Module], dict] = state_dict_from_flax,
+) -> nn.Module:
+    """Fill a built model's tensors, in the builders' order of sources:
+    a flax tree through ``from_flax``; else ``state_dict``, a state_dict in
+    the model's own names and layout or a function of the model that
+    returns one (the disk repository's importers, which read the model's
+    shapes as their template); else seeded random weights."""
+    from triton_client_tpu_torch.models.layers import init_random_
+
+    if variables is not None:
+        model.load_state_dict(from_flax(variables, model))
+    elif state_dict is not None:
+        if callable(state_dict):
+            state_dict = state_dict(model)
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
+    else:
+        init_random_(model, seed)
+    return model
 
 
 def _yolov5_module_path(names: tuple[str, ...]) -> str:

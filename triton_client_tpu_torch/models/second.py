@@ -114,7 +114,7 @@ class SECONDConfig:
     def validate(self) -> None:
         if self.middle == "sparse":
             raise NotImplementedError(
-                "the sparse middle encoder is not ported yet (ROADMAP Queue 1 item 3); "
+                "the sparse middle encoder is not ported yet (ROADMAP Queue 1 item 5); "
                 "use middle='dense'"
             )
         if self.middle != "dense":

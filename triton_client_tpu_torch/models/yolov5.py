@@ -5,6 +5,21 @@ strides 8/16/32, scaled by (depth_multiple, width_multiple). Input is
 NHWC float in [0, 1]; the heads come back in the JAX package's layout,
 (B, h, w, anchors, 5+nc), so decoded predictions flatten in
 (b, h, w, anchor) order. Inside, the convolutions run NCHW.
+
+Two layout options of the JAX model are served (``examples/yolov5_crop``):
+
+- ``s2d``: space-to-depth of the NHWC input to (H/2, W/2, 12), channel
+  ``(a*2 + b)*3 + c`` for the pixel at row offset ``a``, column offset
+  ``b`` of its 2x2 block, then the stem as a 3x3 stride-1 conv; the
+  blocking happens on NHWC before the NCHW permute, so the channel order
+  is the JAX model's and ``runtime/importers`` reshapes an upstream 6x6
+  stem onto it exactly;
+- ``ch_floor``: every stage width raised to at least this many channels.
+
+``dtype`` is the body's compute dtype: with ``torch.bfloat16`` every
+convolution and BatchNorm of the body holds its tensors in bfloat16, and
+the three detect convs run in float32 on float32 features, whatever the
+dtype their weights are stored in.
 """
 
 from __future__ import annotations
@@ -12,6 +27,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from triton_client_tpu_torch.models.layers import (
@@ -45,10 +61,7 @@ STRIDES = (8, 16, 32)
 class YoloV5(nn.Module):
     """YOLOv5 detector. ``forward`` returns the raw per-scale heads;
     ``decode`` maps them to (B, N, 5+nc) predictions in input pixels.
-
-    Only the plain layout is ported: ``s2d`` and ``ch_floor`` (the TPU's
-    MXU-shaped layout of ``examples/yolov5_crop``) raise
-    ``NotImplementedError``; they are a later ROADMAP item."""
+    ``s2d``, ``ch_floor`` and ``dtype``: the module docstring."""
 
     def __init__(
         self,
@@ -57,22 +70,19 @@ class YoloV5(nn.Module):
         anchors: Sequence[Sequence[tuple[int, int]]] = DEFAULT_ANCHORS,
         s2d: bool = False,
         ch_floor: int = 0,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
-        if s2d or ch_floor:
-            raise NotImplementedError(
-                "YoloV5 s2d/ch_floor layout is not ported yet "
-                "(ROADMAP.md Queue 1: the examples/yolov5_crop layout)"
-            )
         if variant not in YOLOV5_VARIANTS:
             raise ValueError(f"unknown YOLOv5 variant {variant!r} (of {sorted(YOLOV5_VARIANTS)})")
         self.num_classes = num_classes
         self.variant = variant
         self.anchors = tuple(tuple(tuple(a) for a in scale) for scale in anchors)
+        self.s2d, self.ch_floor, self.dtype = s2d, ch_floor, dtype
         depth_mult, width_mult = YOLOV5_VARIANTS[variant]
 
         def c(ch: int) -> int:
-            return make_divisible(ch * width_mult)
+            return max(make_divisible(ch * width_mult), ch_floor)
 
         def d(n: int) -> int:
             return scale_depth(n, depth_mult)
@@ -80,7 +90,10 @@ class YoloV5(nn.Module):
         na = len(self.anchors[0])
         self.na, self.no = na, 5 + num_classes
         # Backbone
-        self.stem = ConvBnAct(3, c(64), 6, 2, padding=2)
+        if s2d:
+            self.stem = ConvBnAct(12, c(64), 3, 1)
+        else:
+            self.stem = ConvBnAct(3, c(64), 6, 2, padding=2)
         self.down2 = ConvBnAct(c(64), c(128), 3, 2)
         self.c3_2 = C3(c(128), c(128), d(3))
         self.down3 = ConvBnAct(c(128), c(256), 3, 2)
@@ -104,10 +117,18 @@ class YoloV5(nn.Module):
         self.detect0 = nn.Conv2d(c(256), na * self.no, 1)
         self.detect1 = nn.Conv2d(c(512), na * self.no, 1)
         self.detect2 = nn.Conv2d(c(1024), na * self.no, 1)
+        for name, child in self.named_children():
+            if not name.startswith("detect"):
+                child.to(dtype)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """x: (B, H, W, 3) float in [0, 1] -> raw heads
+        """x: (B, H, W, 3) float in [0, 1] -> raw float32 heads
         [(B, H/8, W/8, a, 5+nc), (B, H/16, ...), (B, H/32, ...)]."""
+        x = x.to(self.dtype)
+        if self.s2d:
+            b, h, w, ch = x.shape
+            x = x.reshape(b, h // 2, 2, w // 2, 2, ch).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(b, h // 2, w // 2, 4 * ch)
         x = x.permute(0, 3, 1, 2)
         x = self.c3_2(self.down2(self.stem(x)))
         p3 = self.c3_3(self.down3(x))
@@ -123,7 +144,10 @@ class YoloV5(nn.Module):
 
         heads = []
         for conv, feat in zip((self.detect0, self.detect1, self.detect2), (out3, out4, out5)):
-            h = conv(feat.to(torch.float32)).permute(0, 2, 3, 1)
+            # float32 on float32 features, whatever the body's dtype and the
+            # weights' storage (the JAX model's detect head)
+            h = F.conv2d(feat.float(), conv.weight.float(), conv.bias.float())
+            h = h.permute(0, 2, 3, 1)
             b, hh, ww, _ = h.shape
             heads.append(h.reshape(b, hh, ww, self.na, self.no))
         return heads

@@ -30,8 +30,10 @@ def resize_bilinear(frames: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
     widens its triangle kernel when it downscales (antialiasing);
     ``antialias=True, align_corners=False`` is the same filter. The two
     differ in float rounding and, where the kernel leaves the image, in
-    how the edge weights are renormalised.
+    how the edge weights are renormalised. A bfloat16 input is resized in
+    float32 and rounded back (PyTorch's CPU filter takes no bfloat16).
     """
     x = frames.permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False, antialias=True)
-    return x.permute(0, 2, 3, 1)
+    x = F.interpolate(x.float() if x.dtype == torch.bfloat16 else x, size=tuple(out_hw),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return x.to(frames.dtype).permute(0, 2, 3, 1)

@@ -1,10 +1,11 @@
 """2D detection pipeline: raw frame(s) in, packed detections out (port
 of ``pipelines/detect2d.py``).
 
-cast -> bilinear resize to the model input -> normalize -> YOLOv5
-forward + decode -> confidence gate + top-k -> class-aware NMS (the
-fused CUDA tail, or the unfused op chain) -> rescale to original
-pixels. Output per image: (max_det, 6) rows [x1, y1, x2, y2, conf,
+cast to the precision policy's compute dtype -> bilinear resize to the
+model input -> normalize -> YOLOv5 forward (float32 heads) -> decode ->
+float32 (the policy's ``boundary``) -> confidence gate + top-k
+-> class-aware NMS (the fused CUDA tail, or the unfused op chain) ->
+rescale to original pixels. Output per image: (max_det, 6) rows [x1, y1, x2, y2, conf,
 class] plus a validity mask.
 
 ``run`` is the eager body. ``infer`` and ``infer_fn`` go through
@@ -25,8 +26,7 @@ import torch
 
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.device import resolve_device, strict_fp32
-from triton_client_tpu_torch.models.convert import yolov5_state_dict_from_flax
-from triton_client_tpu_torch.models.layers import init_random_
+from triton_client_tpu_torch.models.convert import fill_model, yolov5_state_dict_from_flax
 from triton_client_tpu_torch.models.yolov5 import YoloV5, num_predictions
 from triton_client_tpu_torch.ops.boxes import scale_boxes
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes
@@ -34,10 +34,14 @@ from triton_client_tpu_torch.ops.fused import resolve_fused_stages
 from triton_client_tpu_torch.ops.nms import route_setting
 from triton_client_tpu_torch.ops.preprocess import normalize_image, resize_bilinear
 from triton_client_tpu_torch.runtime.graphs import CapturedFunction
-
-# The ops the JAX package keeps in float32 under any precision policy
-# (runtime/precision.py KEEP_F32_2D); the port serves float32 only.
-KEEP_F32_2D = ("box_decode", "nms_scores", "box_rescale")
+from triton_client_tpu_torch.runtime.precision import (
+    KEEP_F32_2D,
+    PrecisionPolicy,
+    apply_cast_params,
+    parse_compute_dtype,
+    resolve_policy,
+    stored_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +73,17 @@ class Detect2DPipeline:
         config: Detect2DConfig,
         forward: Callable[[torch.Tensor], torch.Tensor],
         device: str | torch.device | None = None,
+        precision: PrecisionPolicy | str | None = None,
     ) -> None:
         """``forward``: (B, H, W, 3) float input on ``device`` ->
-        (B, N, 5+nc) decoded predictions in input-pixel units."""
+        (B, N, 5+nc) decoded predictions in input-pixel units.
+        ``precision``: the serving policy (``runtime/precision.py``): frames
+        cast to its compute dtype at ingress, the forward's output back to
+        float32 before the keep-list ops (decode, NMS, rescale)."""
         self.config = config
         self.device = resolve_device(device)
         self._forward = forward
+        self.precision = PrecisionPolicy.parse(precision)
         self.fused_stages = resolve_fused_stages(config.fused, ("decode_nms",), self.device)
         # the unfused tail routes its NMS on TRITON_CLIENT_TPU_NMS when it
         # runs, so its graphs are captured per setting
@@ -88,13 +97,16 @@ class Detect2DPipeline:
         """(B, H, W, 3) uint8/float frames on the pipeline's device ->
         ((B, max_det, 6) float32, (B, max_det) bool) on the device."""
         cfg = self.config
-        # narrow wire inputs (uint8 frames) widen here, on the device
-        x = frames.to(torch.float32)
+        # narrow wire inputs (uint8 frames, bf16 words) reach the policy's
+        # compute dtype here, on the device
+        x = self.precision.cast_in(frames)
         orig_hw = (x.shape[1], x.shape[2])
         if orig_hw != tuple(cfg.input_hw):
             x = resize_bilinear(x, cfg.input_hw)
         x = normalize_image(x, cfg.scaling)
-        pred = self._forward(x)
+        # keep-list boundary (KEEP_F32_2D): decode, NMS scores and the
+        # rescale run in float32 under any policy
+        pred = self.precision.boundary(self._forward(x))
         dets, valid = extract_boxes(
             pred,
             conf_thresh=cfg.conf_thresh,
@@ -130,6 +142,7 @@ class Detect2DPipeline:
             dets, valid = self._jit(inputs["images"])
             return {"detections": dets, "valid": valid}
 
+        fn.graph_stats = self.graph_stats  # the captures behind a registered model
         return fn
 
     def device_fn(self):
@@ -145,7 +158,9 @@ class Detect2DPipeline:
 
     def warmup(self, frame_hw: tuple[int, int], batch_sizes=(1,), dtype=torch.uint8) -> None:
         """Capture the graph of every batch size for one camera
-        resolution, before traffic (``RegisteredModel.warmup``)."""
+        resolution, before traffic (``RegisteredModel.warmup``). ``dtype``
+        is the staged frames' dtype: a channel stages float32 frames of a
+        ``bf16`` model as bfloat16 (``self.precision.wire_dtype``)."""
         for b in batch_sizes:
             self._jit(torch.zeros((b, *frame_hw, 3), dtype=dtype, device=self.device))
 
@@ -167,41 +182,41 @@ def build_yolov5_pipeline(
     config: Detect2DConfig | None = None,
     device: str | torch.device | None = None,
     seed: int = 0,
+    dtype: torch.dtype | str = torch.float32,
+    s2d: bool = False,
+    ch_floor: int = 0,
+    precision: PrecisionPolicy | str | None = None,
+    state_dict=None,
 ) -> tuple[Detect2DPipeline, ModelSpec, YoloV5]:
     """Model + pipeline + serving spec in one call.
 
-    ``variables=None`` draws seeded random weights (``seed``); a flax
-    variable tree from the JAX package is carried across through
-    ``models/convert.yolov5_state_dict_from_flax``. Runs on ``cuda``
-    unless ``device="cpu"``. The port serves float32 only, and turns
-    TF32 off so float32 means float32 (``device.strict_fp32``)."""
+    Weights (``models/convert.fill_model``): a flax variable tree from the
+    JAX package (``variables``, through ``yolov5_state_dict_from_flax``),
+    else ``state_dict`` (the port's names, or a function of the model that
+    returns them: ``runtime/importers``), else seeded random ones
+    (``seed``). ``s2d``/``ch_floor``: the layout of ``examples/yolov5_crop``
+    (``models/yolov5.py``). ``dtype``: the body's compute dtype;
+    ``precision``: the serving policy, whose ``cast_params`` stores the
+    tensors once, here (``runtime/precision.resolve_policy``: ``bf16``
+    switches a float32 body to bfloat16, an explicit ``dtype`` wins). Runs
+    on ``cuda`` unless ``device="cpu"``, with TF32 off so float32 means
+    float32 (``device.strict_fp32``)."""
     dev = resolve_device(device)
     strict_fp32()
-    model = YoloV5(num_classes=num_classes, variant=variant)
-    if variables is None:
-        init_random_(model, seed)
-    else:
-        model.load_state_dict(yolov5_state_dict_from_flax(variables, model))
-    model = model.to(dev).eval()
+    policy, dtype = resolve_policy(precision, parse_compute_dtype(dtype))
+    model = YoloV5(num_classes=num_classes, variant=variant, s2d=s2d, ch_floor=ch_floor,
+                   dtype=dtype)
+    fill_model(model, variables, state_dict, seed, yolov5_state_dict_from_flax)
+    model = apply_cast_params(model, policy).to(dev).eval()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         return model.decode(model(x))
 
     cfg = config or default_detect2d_config(variant, num_classes, input_hw)
-    pipeline = Detect2DPipeline(cfg, forward, device=dev)
+    pipeline = Detect2DPipeline(cfg, forward, device=dev, precision=policy)
     spec = _detect2d_spec(cfg, num_predictions(cfg.input_hw))
     spec.extra["fused_stages"] = list(pipeline.fused_stages)
-    spec.extra.update(
-        {
-            "precision": "f32",
-            "precision_keep_f32": list(KEEP_F32_2D),
-            "param_bytes": sum(
-                t.numel() * t.element_size()
-                for k, t in model.state_dict().items()
-                if not k.endswith("num_batches_tracked")
-            ),
-        }
-    )
+    spec.extra.update(policy.spec_extra(stored_params(model), KEEP_F32_2D))
     return pipeline, spec, model
 
 

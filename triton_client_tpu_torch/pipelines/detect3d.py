@@ -34,10 +34,10 @@ from triton_client_tpu_torch.channel.base import InferFuture
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.device import resolve_device, strict_fp32
 from triton_client_tpu_torch.models.convert import (
+    fill_model,
     pointpillars_state_dict_from_flax,
     second_state_dict_from_flax,
 )
-from triton_client_tpu_torch.models.layers import init_random_
 from triton_client_tpu_torch.models.pointpillars import (
     PointPillars,
     PointPillarsConfig,
@@ -50,12 +50,13 @@ from triton_client_tpu_torch.ops.gpu_decode3d import gather_residual_decode
 from triton_client_tpu_torch.ops.gpu_voxel import fused_mean_volume
 from triton_client_tpu_torch.ops.voxelize import pad_points, voxelize
 from triton_client_tpu_torch.runtime.graphs import CapturedFunction
+from triton_client_tpu_torch.runtime.precision import (
+    KEEP_F32_3D,
+    PrecisionPolicy,
+    stored_params,
+)
 
 log = logging.getLogger(__name__)
-
-# The ops the JAX package keeps in float32 under any precision policy
-# (runtime/precision.py KEEP_F32_3D); the port serves float32 only.
-KEEP_F32_3D = ("voxelize_coords", "box_decode", "nms_scores")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +220,7 @@ class Detect3DPipeline:
             dets, valid = self._jit(inputs["points"], inputs["num_points"])
             return {"detections": dets, "valid": valid}
 
+        fn.graph_stats = self.graph_stats  # the captures behind a registered model
         return fn
 
     def device_fn(self):
@@ -296,17 +298,8 @@ def _serve(
     pipeline = Detect3DPipeline(cfg, model, device=dev)
     spec = _detect3d_spec(cfg, model.cfg, extra)
     spec.extra["fused_stages"] = list(pipeline.fused_stages)
-    spec.extra.update(
-        {
-            "precision": "f32",
-            "precision_keep_f32": list(KEEP_F32_3D),
-            "param_bytes": sum(
-                t.numel() * t.element_size()
-                for k, t in model.state_dict().items()
-                if not k.endswith("num_batches_tracked")
-            ),
-        }
-    )
+    # the 3D paths serve float32 only (ROADMAP.md Queue 1 item 11)
+    spec.extra.update(PrecisionPolicy().spec_extra(stored_params(model), KEEP_F32_3D))
     return pipeline, spec, model
 
 
@@ -316,20 +309,20 @@ def build_pointpillars_pipeline(
     variables=None,
     device: str | torch.device | None = None,
     seed: int = 0,
+    state_dict=None,
 ) -> tuple[Detect3DPipeline, ModelSpec, PointPillars]:
     """Model + pipeline + serving spec in one call.
 
-    ``variables=None`` draws seeded random weights (``seed``); a flax
-    variable tree from the JAX package is carried across through
-    ``models/convert.pointpillars_state_dict_from_flax``. Runs on ``cuda``
-    unless ``device="cpu"``, in float32 with TF32 off."""
+    Weights (``models/convert.fill_model``): a flax variable tree from the
+    JAX package (``variables``, through
+    ``pointpillars_state_dict_from_flax``), else ``state_dict`` (the port's
+    names, or a function of the model that returns them:
+    ``runtime/importers``), else seeded random ones (``seed``). Runs on
+    ``cuda`` unless ``device="cpu"``, in float32 with TF32 off."""
     dev = resolve_device(device)
     strict_fp32()
     model = PointPillars(model_cfg or PointPillarsConfig())
-    if variables is None:
-        init_random_(model, seed)
-    else:
-        model.load_state_dict(pointpillars_state_dict_from_flax(variables, model))
+    fill_model(model, variables, state_dict, seed, pointpillars_state_dict_from_flax)
     return _serve(model, dev, config or Detect3DConfig())
 
 
@@ -339,6 +332,7 @@ def build_second_pipeline(
     variables=None,
     device: str | torch.device | None = None,
     seed: int = 0,
+    state_dict=None,
 ) -> tuple[Detect3DPipeline, ModelSpec, SECONDIoU]:
     """SECOND-IoU (dense middle) over the same seam as PointPillars, with
     the same arguments; flax variables carry across through
@@ -348,10 +342,7 @@ def build_second_pipeline(
     strict_fp32()
     model_cfg = model_cfg or SECONDConfig()
     model = SECONDIoU(model_cfg)
-    if variables is None:
-        init_random_(model, seed)
-    else:
-        model.load_state_dict(second_state_dict_from_flax(variables, model))
+    fill_model(model, variables, state_dict, seed, second_state_dict_from_flax)
     cfg = config or Detect3DConfig(model_name="second_iou")
     return _serve(model, dev, cfg, {"iou_alpha": model_cfg.iou_alpha})
 

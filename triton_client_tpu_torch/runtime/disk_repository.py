@@ -2,8 +2,9 @@
 ``runtime/disk_repository.py``)::
 
     <root>/<model_name>/
-        config.yaml      # family + model/pipeline config (config.pbtxt)
-        1/weights.*      # a version dir's weight artifact
+        config.yaml        # family + model/pipeline config (config.pbtxt)
+        1/weights.msgpack  # flax-native weights (the JAX package's format)
+        2/weights.pt       # or an upstream .pt/.pth/.onnx, imported
 
 :func:`scan_disk` builds every entry's pipeline with the port's builders
 (``build_yolov5_pipeline``, ``build_pointpillars_pipeline``,
@@ -14,23 +15,32 @@ that captures the graph real traffic uses: batch 1 of FP32 frames at the
 model's input size (2D), or every point bucket (3D). ``config.yaml`` and
 the dataset files it names are read with the port's ``yaml_subset``.
 
-Weights: an entry with no version dir registers version 1 with random
-weights from a seed (seed 0, where the JAX package draws from
-``PRNGKey(0)``); tests hand JAX's variables across through
-``registered(..., variables=...)``. Broken or unported entries raise, so
-a serving process fails at startup instead of skipping models:
+Weights (:func:`load_weights`, no JAX needed): a version dir's
+``weights.msgpack`` is read by ``runtime/flax_msgpack`` and carried across
+by ``models/convert``; ``.pt``/``.pth`` and ``.onnx`` (``runtime/
+onnx_reader``) go through the family's importer (``runtime/importers``).
+An entry with no version dir registers version 1 with random weights
+from a seed (seed 0, where the JAX package draws from ``PRNGKey(0)``);
+tests hand JAX's variables across through ``registered(...,
+variables=...)``.
+
+Precision: ``model: {dtype: bf16}`` runs the body in bfloat16 with the
+f32 policy and wire; ``model: {precision: bf16}``, or ``scan_disk(...,
+precision="bf16")`` (``serve --precision``) over every entry, selects the
+bf16 policy (``runtime/precision.py``). Broken or unported entries raise,
+so a serving process fails at startup instead of skipping models:
 
 - the families not ported (yolov4, retinanet, fcos, preprocess and
   ensembles: ROADMAP.md Queue 1 item 7; centerpoint: item 5);
-- the ``s2d`` / ``ch_floor`` / ``dtype: bf16`` layout and the precision
-  policies (item 3);
-- weight artifacts in version dirs, ``load_pipeline`` and ``export_model``
-  (item 4).
+- the int8w and int8 policies (item 10); bfloat16 on a 3D entry
+  (item 11);
+- ``export_model`` (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import pathlib
 from typing import Any, Mapping
@@ -44,6 +54,7 @@ from triton_client_tpu_torch.dataset_config import (
     load_yaml,
     model_config_from_dict,
 )
+from triton_client_tpu_torch.runtime.precision import PrecisionPolicy, parse_compute_dtype
 from triton_client_tpu_torch.runtime.repository import ModelRepository, RegisteredModel
 
 log = logging.getLogger(__name__)
@@ -60,8 +71,8 @@ _UNPORTED_FAMILIES = {
     "ensemble": "7 (runtime/ensemble.py)",
     "centerpoint": "5 (models/centerpoint.py)",
 }
-_LAYOUT_ITEM = "3 (the examples/yolov5_crop layout and runtime/precision.py)"
-_WEIGHTS_ITEM = "4 (weight importers that need no JAX)"
+_BF16_3D_ITEM = "11 (bfloat16 on the 3D paths)"
+_EXPORT_ITEM = "12 (export_model with a flax msgpack writer)"
 
 
 def _families_2d() -> tuple[str, ...]:
@@ -76,13 +87,42 @@ def _families_3d() -> tuple[str, ...]:
     return tuple(BUILDERS_3D)
 
 
-def load_weights(path: str | pathlib.Path, family: str):
-    """A version dir's weight artifact: not ported (every format needs an
-    importer the port does not have yet)."""
-    raise NotImplementedError(
-        f"{pathlib.Path(path)}: weight artifacts for {family!r} are not ported yet "
-        f"(ROADMAP.md Queue 1 item {_WEIGHTS_ITEM})"
-    )
+def _from_flax(family: str):
+    from triton_client_tpu_torch.models import convert
+
+    return {"yolov5": convert.yolov5_state_dict_from_flax,
+            "pointpillars": convert.pointpillars_state_dict_from_flax,
+            "second_iou": convert.second_state_dict_from_flax}[family]
+
+
+def load_weights(path: str | pathlib.Path, family: str, model: torch.nn.Module) -> dict:
+    """A version dir's weight artifact -> a ``state_dict`` for ``model`` (the
+    entry's model as built: its shapes are the template). ``.msgpack``:
+    a flax tree (``runtime/flax_msgpack``) through ``models/convert``;
+    ``.pt``/``.pth``: an upstream state_dict, ``.onnx``: an export's
+    initializers, both through the family's importer."""
+    from triton_client_tpu_torch.runtime.importers import IMPORTERS
+
+    path = pathlib.Path(path)
+    ext = path.suffix
+    if ext == ".msgpack":
+        from triton_client_tpu_torch.runtime.flax_msgpack import read_flax_msgpack
+
+        return _from_flax(family)(read_flax_msgpack(path), model)
+    importer = IMPORTERS.get(family)
+    if importer is None:
+        raise ValueError(f"family {family!r} has no torch/onnx importer; provide "
+                         f"weights.msgpack (got {path.name})")
+    if ext in (".pt", ".pth"):
+        return importer(str(path), model)
+    if ext == ".onnx":
+        from triton_client_tpu_torch.runtime.onnx_reader import (
+            onnx_to_state_dict,
+            read_onnx_initializers,
+        )
+
+        return importer(onnx_to_state_dict(read_onnx_initializers(str(path))), model)
+    raise ValueError(f"unrecognized weight artifact {path.name}")
 
 
 def _resolve(path_str: str, model_dir: pathlib.Path) -> str:
@@ -101,27 +141,14 @@ def _resolve(path_str: str, model_dir: pathlib.Path) -> str:
     )
 
 
-def _refuse_layout(where: pathlib.Path, model_kwargs: Mapping[str, Any]) -> None:
-    """The layout and precision options the port does not serve yet."""
-    bad = [k for k in ("s2d", "ch_floor") if model_kwargs.get(k)]
-    if str(model_kwargs.get("dtype", "fp32")) not in ("fp32", "float32"):
-        bad.append(f"dtype: {model_kwargs['dtype']}")
-    if model_kwargs.get("precision") not in (None, "", "f32"):
-        bad.append(f"precision: {model_kwargs['precision']}")
-    if bad:
-        raise NotImplementedError(
-            f"{where / 'config.yaml'}: {', '.join(bad)} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_LAYOUT_ITEM})"
-        )
-
-
 def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, device):
     from triton_client_tpu_torch.pipelines import detect2d
 
     model_kwargs = dict(doc.get("model", {}))
-    _refuse_layout(model_dir, model_kwargs)
-    for k in ("s2d", "ch_floor", "dtype", "precision"):
-        model_kwargs.pop(k, None)
+    # parsed at scan time, so a typo'd dtype or policy fails at startup
+    if "dtype" in model_kwargs:
+        model_kwargs["dtype"] = parse_compute_dtype(model_kwargs["dtype"])
+    policy = PrecisionPolicy.parse(model_kwargs.pop("precision", None))
     if "input_hw" in model_kwargs:
         model_kwargs["input_hw"] = tuple(model_kwargs["input_hw"])
     pipe_d = dict(doc.get("pipeline", {}))
@@ -129,7 +156,7 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     names = detect2d.load_class_names(_resolve(names_file, model_dir)) if names_file else None
     if names:
         model_kwargs.setdefault("num_classes", len(names))
-    known = {"variant", "num_classes", "input_hw"}
+    known = {"variant", "num_classes", "input_hw", "s2d", "ch_floor", "dtype"}
     if set(model_kwargs) - known:
         raise KeyError(f"{model_dir / 'config.yaml'}: unknown model keys "
                        f"{sorted(set(model_kwargs) - known)}; known: {sorted(known)}")
@@ -142,15 +169,17 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     if names:
         cfg = dataclasses.replace(cfg, class_names=names, num_classes=model_kwargs["num_classes"])
 
-    def build(variables=None):
+    def build(variables=None, state_dict=None):
         return detect2d.BUILDERS_2D[family](
-            variables=variables, config=cfg, device=device, **model_kwargs
+            variables=variables, state_dict=state_dict, config=cfg, device=device,
+            precision=policy, **model_kwargs
         )
 
     def warmup(pipe):
         # batch 1 of FP32 frames at the model's input size, as the JAX
-        # entry compiles it (other shapes capture on first use)
-        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,), dtype=torch.float32)
+        # entry compiles it (other shapes capture on first use), in the
+        # dtype the channel stages them in (bfloat16 under the bf16 policy)
+        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,), dtype=pipe.precision.wire_dtype)
 
     return build, cfg, warmup
 
@@ -159,9 +188,14 @@ def _build_3d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     from triton_client_tpu_torch.pipelines import detect3d
 
     model_doc = dict(doc.get("model", {}))
-    _refuse_layout(model_dir, model_doc)
-    model_doc.pop("dtype", None)
-    model_doc.pop("precision", None)
+    dtype = parse_compute_dtype(model_doc.pop("dtype", "fp32"))
+    policy = PrecisionPolicy.parse(model_doc.pop("precision", None))
+    if dtype != torch.float32 or policy.name != "f32":
+        raise NotImplementedError(
+            f"{model_dir / 'config.yaml'}: bfloat16 ({family} with dtype "
+            f"{str(dtype).removeprefix('torch.')}, precision {policy.name}) is not ported yet "
+            f"(ROADMAP.md Queue 1 item {_BF16_3D_ITEM})"
+        )
     if "dataset" in doc:
         got_family, model_cfg, pipe_cfg = detect3d_from_yaml(_resolve(doc["dataset"], model_dir))
         if got_family != family:
@@ -172,9 +206,10 @@ def _build_3d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
             detect3d.default_detect3d_config(family), dict(doc.get("pipeline", {})), _SEQ_KEYS
         )
 
-    def build(variables=None):
+    def build(variables=None, state_dict=None):
         return detect3d.BUILDERS_3D[family](
-            model_cfg=model_cfg, config=pipe_cfg, variables=variables, device=device
+            model_cfg=model_cfg, config=pipe_cfg, variables=variables,
+            state_dict=state_dict, device=device,
         )
 
     return build, pipe_cfg, lambda pipe: pipe.warmup()
@@ -191,12 +226,17 @@ class _Entry:
         model_dir: str | pathlib.Path,
         doc: Mapping[str, Any] | None = None,
         device: str | torch.device | None = None,
+        precision: str | None = None,
     ) -> None:
-        """``device``: cuda unless the caller passes cpu."""
+        """``device``: cuda unless the caller passes cpu. ``precision``: a
+        repository-wide override of the entry's ``model.precision``
+        (``serve --precision``)."""
         self.model_dir = pathlib.Path(model_dir)
         if doc is None:
             doc = load_yaml(str(self.model_dir / "config.yaml"))
         doc = dict(doc)
+        if precision:
+            doc["model"] = {**dict(doc.get("model", {})), "precision": precision}
         self.family = doc.get("family")
         if self.family in _UNPORTED_FAMILIES:
             raise NotImplementedError(
@@ -222,31 +262,46 @@ class _Entry:
         self, version: str, weights: str | pathlib.Path | None = None, variables=None
     ) -> RegisteredModel:
         """The entry's pipeline as a RegisteredModel. ``weights``: a version
-        dir's artifact (raises: not ported). ``variables``: a flax variable
-        tree carried across by ``models/convert.py`` (tests); None draws
-        seeded random weights."""
+        dir's artifact (:func:`load_weights`). ``variables``: a flax variable
+        tree carried across by ``models/convert.py`` (tests). Neither: seeded
+        random weights."""
+        pipeline, spec = self.pipeline(version, weights, variables)
+        return RegisteredModel(
+            spec=spec, infer_fn=pipeline.infer_fn(),
+            warmup=lambda p=pipeline: self._warmup(p),
+            precision=getattr(pipeline, "precision", None),
+        )
+
+    def pipeline(self, version: str, weights=None, variables=None):
+        """(pipeline, spec) of one version, with its weights."""
+        state_dict = None
         if weights is not None:
-            load_weights(weights, self.family)
-        pipeline, spec, _ = self._build(variables=variables)
+            state_dict = functools.partial(load_weights, weights, self.family)
+        pipeline, spec, _ = self._build(variables=variables, state_dict=state_dict)
         spec = dataclasses.replace(
             spec,
             name=self.model_dir.name,
             version=version,
             max_batch_size=int(self.doc.get("max_batch_size", spec.max_batch_size)),
         )
-        return RegisteredModel(
-            spec=spec, infer_fn=pipeline.infer_fn(),
-            warmup=lambda p=pipeline: self._warmup(p),
-        )
+        return pipeline, spec
 
 
-def load_pipeline(model_dir, version: str = "", kind: str = "", device=None):
-    """One model dir's pipeline with its trained weights (the detect CLIs'
-    ``--repo``): every served artifact needs an importer the port does not
-    have yet."""
-    raise NotImplementedError(
-        f"load_pipeline is not ported yet (ROADMAP.md Queue 1 item {_WEIGHTS_ITEM})"
-    )
+def load_pipeline(model_dir, version: str = "", device=None):
+    """One model dir -> (pipeline, spec) with its trained weights, for use
+    in-process. Empty ``version`` takes the latest version dir."""
+    entry = _Entry(model_dir, device=device)
+    if version:
+        vdir = entry.model_dir / version
+        if not vdir.is_dir():
+            raise FileNotFoundError(f"{entry.model_dir}: no version dir {version!r}")
+    else:
+        vdirs = version_dirs(entry.model_dir)
+        if not vdirs:
+            raise FileNotFoundError(f"{entry.model_dir}: no version dirs with weights "
+                                    "(a --repo entry must carry trained artifacts)")
+        vdir = vdirs[-1]
+    return entry.pipeline(vdir.name, find_weights(vdir))
 
 
 def version_dirs(model_dir: pathlib.Path) -> list[pathlib.Path]:
@@ -271,6 +326,7 @@ def scan_disk(
     root: str | pathlib.Path,
     repository: ModelRepository | None = None,
     device: str | torch.device | None = None,
+    precision: str | None = None,
 ) -> ModelRepository:
     """Load every ``<root>/<model>/config.yaml`` entry into a repository.
 
@@ -278,19 +334,21 @@ def scan_disk(
     registers version 1 with seeded random weights. A ``warmup: true``
     entry captures its graphs at scan time; every entry carries its warmup
     for ``serve --warmup``. Broken and unported entries raise (module
-    docstring). ``device``: cuda unless the caller passes cpu."""
+    docstring). ``device``: cuda unless the caller passes cpu.
+    ``precision``: a policy for every entry, over each ``model.precision``
+    (``serve --precision``)."""
     root = pathlib.Path(root)
     repo = repository or ModelRepository()
     for model_dir in sorted(p for p in root.iterdir() if p.is_dir()):
         if not (model_dir / "config.yaml").exists():
             log.info("skipping %s (no config.yaml)", model_dir)
             continue
-        entry = _Entry(model_dir, device=device)
+        entry = _Entry(model_dir, device=device, precision=precision)
         versions = version_dirs(model_dir)
         pairs = [(v.name, find_weights(v)) for v in versions] if versions else [("1", None)]
         for version, weights in pairs:
             rm = entry.registered(version, weights)
-            repo.register(rm.spec, rm.infer_fn, warmup=rm.warmup)
+            repo.register(rm.spec, rm.infer_fn, warmup=rm.warmup, precision=rm.precision)
             if entry.doc.get("warmup"):
                 rm.warmup()
     return repo
@@ -298,7 +356,8 @@ def scan_disk(
 
 def export_model(root, name: str, config_doc: Mapping[str, Any], variables=None,
                  version: str = "1"):
-    """Writing an entry (config and weight artifact) is not ported."""
+    """Writing an entry (config and weight artifact) is not ported: the port
+    reads flax msgpack but writes none."""
     raise NotImplementedError(
-        f"export_model is not ported yet (ROADMAP.md Queue 1 item {_WEIGHTS_ITEM})"
+        f"export_model is not ported yet (ROADMAP.md Queue 1 item {_EXPORT_ITEM})"
     )

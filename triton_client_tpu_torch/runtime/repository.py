@@ -50,6 +50,10 @@ class RegisteredModel:
     # carry an out-of-range id), and every per-request output has leading
     # dim ``num_segments``. None: the model only runs dense.
     ragged_fn: Callable | None = None
+    # Optional serving precision policy (runtime/precision.PrecisionPolicy):
+    # the channel applies its ``wire_cast`` when staging host arrays, so a
+    # bf16 model's float32 frames upload as bfloat16. None: float32.
+    precision: object | None = None
 
 
 class ModelRepository:
@@ -75,10 +79,11 @@ class ModelRepository:
         ragged_fn: Callable | None = None,
         warmup: Callable[[], None] | None = None,
         device_fn: InferFn | None = None,
+        precision=None,
     ) -> None:
         with self._lock:
             self._models.setdefault(spec.name, {})[spec.version] = RegisteredModel(
-                spec, infer_fn, warmup, device_fn, ragged_fn
+                spec, infer_fn, warmup, device_fn, ragged_fn, precision
             )
 
     def unregister(self, name: str, version: str = "") -> None:

@@ -86,7 +86,6 @@ ROADMAP_ITEMS = {
     "sessions": "8 (runtime/sessions.py)",
     "router": "8 (runtime/router.py)",
     "mesh": "8 (channel/sharded_channel.py)",
-    "precision": "3 (runtime/precision.py)",
 }
 
 
