@@ -15,8 +15,9 @@ SECOND-IoU with the dense middle at the full KITTI width
 batcher in front of the channel: packed ragged batches of KITTI-sized
 clouds through the pool model (``models/pool.py``), and YOLOv5n through its
 dense merged path; then the KServe v2 façade over a disk repository of the
-same three entries, and the layout and precision of examples/yolov5_crop
-(phase 26). One JSON line per phase:
+same three entries, the layout and precision of examples/yolov5_crop (phase
+26), and detect2d/detect3d client processes against serve (phase 27). One
+JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -168,6 +169,30 @@ same three entries, and the layout and precision of examples/yolov5_crop
                  f32 self-score less MAP_BUDGETS["bf16"]; p50 and frames/s
                  of each conf-0.05 entry at batch 1 and 8, param_bytes and
                  graph-pool bytes
+ 27. remote    — the reference's own shape of run: `serve`
+                 (cli/serve.build_server in this process, loopback TCP and
+                 --uds auto) over copies of examples/yolov5_crop, its
+                 conf-0.05 copy and pointpillar_kitti with seeded upstream
+                 weights, and client processes with no card visible:
+                 detect2d -m yolov5_crop_c005 -i synthetic:64:512x512 at -b 1,
+                 -b 8 and --async --inflight 2, and detect3d over 16 seeded
+                 120k-point clouds, each over the wire (--no-shm), --shm and
+                 grpc:unix: (auto -> shm). Every client's detections.jsonl
+                 rows equal the in-process detect2d/detect3d -r run's (its own
+                 process, on the card), bit for bit; each report names its
+                 transport; kernel 1 once a 2D request, kernels 3 and 4 once a
+                 3D request inside the counted window, no capture in it;
+                 ServerMetadata lists system_shared_memory. Frames/s and p50
+                 a client and transport beside phase 25's socket leg, the
+                 size of /dev/shm, and the wire split of YOLOv5 batch 1 and
+                 PointPillars 120k on each transport (client encode, the
+                 wire: the RPC beyond the server's wall, the server's wall
+                 from its span summary, client decode; traced
+                 GRPCChannel.do_inference calls, which graft the summary
+                 with obs/trace.graft_span_summary), from this process and
+                 from a client process; the host time of the servicer's
+                 q8/q16 dequantization at batch-8 512² frames and a 120k
+                 cloud
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -912,6 +937,7 @@ def main() -> int:
     run_driver(card)
     run_facade(card, counters)
     run_layout(card, counters)
+    run_remote(card, counters)
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -2369,7 +2395,8 @@ def run_facade(card: str, counters) -> None:
         server = InferenceServer(repo, channel, address="127.0.0.1:0", max_workers=4)
         server.start()
         try:
-            client = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=120)
+            client = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=120,
+                                 use_shared_memory=False)  # the wire leg; shm is phase 27
             check(client.server_live() and client.server_ready(), "grpc: not live")
             for label, (m, x) in requests.items():
                 out = client.do_inference(InferRequest(m, x)).outputs
@@ -2385,6 +2412,7 @@ def run_facade(card: str, counters) -> None:
             client.close()
         finally:
             server.stop()
+    SERVED["socket_leg"] = socket_leg  # phase 27 prints it beside its clients
     emit("facade", card, build_and_capture_s=build_s, entries=names, model_configs=configs,
          requests=sorted(requests), stream=FACADE_STREAM, bitwise_equal_to_channel=True,
          kept=kept, launches=launches, status_codes=codes, times=times, servicer_host=host,
@@ -2718,6 +2746,306 @@ def run_layout(card: str, counters) -> None:
          | {f"{LAYOUT_ENTRIES[0]}_precision_bf16": base.spec.extra["param_bytes"]},
          graph_pool_bytes={f"{n}:{v}": repo.get(n, v).infer_fn.graph_stats()["pool_bytes"]
                            for n in names for v in repo.versions(n)})
+
+
+# phase 27: the reference's own shape of run, a client process sending
+# frames to serve. The entries: examples/yolov5_crop as it stands and at
+# conf 0.05, and examples/pointpillar_kitti, each with seeded upstream
+# weights in 1/ (phase 26's checkpoints)
+REMOTE_2D, REMOTE_3D = "yolov5_crop", "pointpillar_kitti"
+REMOTE_FRAMES, REMOTE_CLOUDS, REMOTE_SPLIT = 64, 16, 30
+REMOTE_TRANSPORTS = ("wire", "shm", "uds")
+REMOTE_2D_RUNS = {"b1": [], f"b{B_MAIN}": ["-b", str(B_MAIN)],
+                  "async2": ["--async", "--inflight", "2"]}
+
+
+def remote_repository(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path]:
+    """The phase-27 repository root and a directory of seeded 120k-point
+    ``.npy`` clouds."""
+    from triton_client_tpu_torch.runtime import importers
+    from triton_client_tpu_torch.runtime.disk_repository import _Entry
+
+    root = tmp / "repo"
+    state = upstream_yolov5("n", 27)
+    text = (ROOT / "examples" / REMOTE_2D / "config.yaml").read_text()
+    check("conf_thresh: 0.3" in text and "dtype: bf16" in text and "s2d: true" in text,
+          f"examples/{REMOTE_2D} changed")
+    for entry, body in ((REMOTE_2D, text),
+                        (f"{REMOTE_2D}_c005", text.replace("conf_thresh: 0.3",
+                                                           "conf_thresh: 0.05"))):
+        (root / entry / "1").mkdir(parents=True)
+        (root / entry / "config.yaml").write_text(body)
+        torch.save({"model": state}, root / entry / "1" / "weights.pt")
+    (root / REMOTE_3D / "1").mkdir(parents=True)
+    (root / REMOTE_3D / "config.yaml").write_bytes(
+        (ROOT / "examples" / REMOTE_3D / "config.yaml").read_bytes())
+    _, _, model = _Entry(root / REMOTE_3D, device="cpu")._build()  # seeded, on the host
+    torch.save({"model_state": {importers.pointpillars_torch_key(k): v
+                                for k, v in model.state_dict().items()
+                                if not k.endswith("num_batches_tracked")}},
+               root / REMOTE_3D / "1" / "weights.pth")
+    clouds = tmp / "clouds"
+    clouds.mkdir()
+    pc_range = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+    for i, pc in enumerate(uniform_clouds(27, pc_range, SCAN_POINTS[1], REMOTE_CLOUDS)):
+        np.save(clouds / f"{i:03d}.npy", pc)
+    return root, clouds
+
+
+def client_run(cli: str, argv: list[str], out: pathlib.Path, remote: bool) -> tuple[dict, list]:
+    """One ``python -m triton_client_tpu_torch <cli>`` process with a jsonl
+    sink: (its report, its rows without their wall-clock ``ts``). A remote
+    client runs with no card visible: it must do no device work."""
+    env = dict(os.environ)
+    if remote:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-m", "triton_client_tpu_torch", cli, *argv, "--sink", "jsonl",
+         "-o", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"{cli} {' '.join(argv)} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = [{k: v for k, v in json.loads(line).items() if k != "ts"}
+            for line in open(out / "detections.jsonl")]
+    return report, rows
+
+
+def wire_split(client, request, reps: int) -> dict:
+    """The loopback p50 split on the client's clock: traced
+    ``client.do_inference`` calls, one at a time, whose traces carry the
+    channel's own ``encode`` and ``decode`` spans and the server's span
+    summary grafted between them (``obs/trace.graft_span_summary``, as
+    the JAX router grafts a replica's). ``wire`` is the RPC's time beyond
+    the server's wall: the graft splits it evenly into ``wire_send`` and
+    ``wire_recv``, so it is reported as one number. Medians in ms."""
+    import dataclasses
+
+    from triton_client_tpu_torch.obs.trace import Tracer
+
+    tracer = Tracer(capacity=reps)
+    rows = {k: [] for k in ("client_encode", "wire", "server_wall", "client_decode", "total")}
+    for _ in range(3):  # the output arena's sizes are learned on the first
+        client.do_inference(request)
+    for i in range(reps):
+        trace = tracer.start(model=request.model_name, request_id=f"split{i}")
+        t0 = time.perf_counter()
+        client.do_inference(dataclasses.replace(request, trace=trace))
+        t1 = time.perf_counter()
+        tracer.finish(trace)
+        spans = {sp.name: sp for sp in trace.spans}
+        check({"encode", "wire_send", "wire_recv", "decode"} <= set(spans),
+              f"a traced request carried spans {sorted(spans)}")
+        for key, value in (
+            ("client_encode", spans["encode"].duration_s),
+            ("wire", spans["wire_send"].duration_s + spans["wire_recv"].duration_s),
+            ("server_wall", spans["wire_recv"].t0 - spans["wire_send"].t1),
+            ("client_decode", spans["decode"].duration_s),
+            ("total", t1 - t0),
+        ):
+            rows[key].append(value)
+    return {f"{k}_ms": float(np.median(v)) * 1e3 for k, v in rows.items()}
+
+
+# a client process running split_legs: argv is the checkout, the legs as
+# JSON, the 2D model and the clouds' directory
+SPLIT_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+               "print(json.dumps(cs.split_legs(json.loads(sys.argv[2]), sys.argv[3], "
+               "sys.argv[4])))")
+
+
+def split_legs(legs: dict, model_2d: str, clouds: str) -> dict:
+    """``wire_split`` of YOLOv5 batch 1 (an FP32 512² frame) and one
+    PointPillars 120k scan (``000.npy``, padded by the served metadata) on
+    each leg: name -> (endpoint, use_shared_memory)."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    frame = np.random.default_rng(27).integers(0, 256, (1, 512, 512, 3)).astype(np.float32)
+    cloud = np.load(pathlib.Path(clouds) / "000.npy")
+    out = {}
+    for transport, (endpoint, shm) in legs.items():
+        client = GRPCChannel(endpoint, use_shared_memory=shm, timeout_s=120)
+        extra = client.get_metadata(REMOTE_3D).extra
+        padded, m = prepare_points(cloud, 4, extra["point_buckets"], extra["z_offset"])
+        requests = {
+            "yolov5_b1": InferRequest(model_2d, {"images": frame}),
+            f"pointpillars_{SCAN_POINTS[1]}": InferRequest(
+                REMOTE_3D, {"points": padded, "num_points": np.asarray(m, np.int32)}),
+        }
+        for label, req in requests.items():
+            out[f"{label}_{transport}"] = wire_split(client, req, REMOTE_SPLIT)
+        client.close()
+    return out
+
+
+def dequant_host() -> dict:
+    """The servicer's q8/q16 decode (``runtime/wire_encoding.dequantize``,
+    on the host, where the JAX server dequantizes on its device): a batch
+    of eight FP32 512² frames as q8 and a 120k cloud padded to 131,072
+    points as q16, each checked against the whole-tensor float64 formula
+    and timed over 10 calls (median ms)."""
+    from triton_client_tpu_torch.runtime import wire_encoding
+
+    rng = np.random.default_rng(27)
+    out = {}
+    for label, arr, bits in (
+        (f"frames_b{B_MAIN}_512_q8", rng.integers(0, 256, (B_MAIN, 512, 512, 3))
+         .astype(np.float32), 8),
+        ("cloud_131072_q16", rng.standard_normal((131072, 4)).astype(np.float32) * 20, 16),
+    ):
+        q, params = wire_encoding.quantize(arr, bits)
+        scale, lo = float(params["q_scale"]), float(params["q_min"])
+        got = wire_encoding.dequantize(q, scale, lo, np.float32)
+        want = (q.astype(np.float64) * np.float64(np.float32(scale))
+                + np.float64(np.float32(lo))).astype(np.float32)
+        check(got.tobytes() == want.tobytes(), f"{label}: blocked dequantization differs")
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            wire_encoding.dequantize(q, scale, lo, np.float32)
+            times.append(time.perf_counter() - t0)
+        out[label] = {"payload_bytes": q.nbytes, "decoded_bytes": got.nbytes,
+                      "host_ms_p50": float(np.median(times)) * 1e3}
+    return out
+
+
+def run_remote(card: str, counters) -> None:
+    """Phase 27: ``detect2d``/``detect3d -u grpc:`` client processes against
+    ``serve`` (``cli/serve.build_server`` in this process, so the kernel
+    counters are read here), over the wire (``--no-shm``), shared memory
+    (``--shm``) and the unix socket (``grpc:unix:``, auto -> shm). Each
+    client's rows equal, bit for bit, the other transports' and the
+    in-process ``-r`` run's on the same frames and weights; each report
+    names its transport; the server launches kernel 1 once a 2D request
+    and kernels 3 and 4 once a 3D request, with no capture inside the
+    counted window. Then the wire split of YOLOv5 batch 1 and PointPillars
+    120k on each transport, from this process and from a client process."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.channel.kserve import pb
+    from triton_client_tpu_torch.cli import serve as serve_cli
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="remote_repo_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        t0 = time.perf_counter()
+        root, clouds = remote_repository(tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        args = serve_cli.parser().parse_args(["-r", str(root), "-a", "127.0.0.1:0", "--uds",
+                                              "auto", "--warmup", "--max-workers", "8"])
+        server = serve_cli.build_server(args)
+    finally:
+        os.chdir(cwd)
+    repo = server.servicer._repo
+    model_2d = f"{REMOTE_2D}_c005"
+    # the rest of the registration warmup: the clients' uint8 512x512 frames
+    # at batch 1 and 8 (the entry's own warmup captures float32 batch 1)
+    for b in (1, B_MAIN):
+        repo.get(model_2d).infer_fn({"images": torch.zeros((b, 512, 512, 3), dtype=torch.uint8,
+                                                           device="cuda")})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    server.start()
+    tcp = f"127.0.0.1:{server.port}"
+    endpoints = {"wire": ["-u", f"grpc:{tcp}", "--no-shm"],
+                 "shm": ["-u", f"grpc:{tcp}", "--shm"],
+                 "uds": ["-u", f"grpc:{server.uds_address}"]}
+    want_transport = {"wire": "grpc", "shm": "shm", "uds": "uds+shm"}
+    try:
+        probe = GRPCChannel(tcp, use_shared_memory=False)
+        meta = probe._stub.ServerMetadata(pb.ServerMetadataRequest(), timeout=30)
+        check("system_shared_memory" in meta.extensions, f"ServerMetadata {meta.extensions}")
+        probe.close()
+        shm_fs = os.statvfs("/dev/shm")
+        captures = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+
+        # -- the in-process references (their own processes, on the card) ------------
+        frames_arg = ["-i", f"synthetic:{REMOTE_FRAMES}:512x512"]
+        local = {}
+        for label, flags in (("b1", []), (f"b{B_MAIN}", ["-b", str(B_MAIN)])):
+            local[label] = client_run("detect2d", ["-r", str(root), "-m", model_2d, *frames_arg,
+                                                   *flags], tmp / f"local_2d_{label}", False)
+        local["3d"] = client_run("detect3d", ["-r", str(root), "-m", REMOTE_3D, "-i",
+                                              str(clouds)], tmp / "local_3d", False)
+
+        # -- the counted window: every remote client, each transport ------------------------
+        for counter in counters:
+            counter.reset()
+        clients, requests_2d, requests_3d = {}, 0, 0
+        for transport in REMOTE_TRANSPORTS:
+            for label, flags in REMOTE_2D_RUNS.items():
+                report, rows = client_run(
+                    "detect2d", ["-m", model_2d, *frames_arg, *flags, *endpoints[transport]],
+                    tmp / f"{transport}_2d_{label}", True)
+                want = local["b1" if label != f"b{B_MAIN}" else label]
+                check(rows == want[1], f"detect2d {label} over {transport}: rows differ from "
+                      "the in-process -r run")
+                check(report["transport"] == want_transport[transport],
+                      f"detect2d {label} over {transport} reports {report['transport']}")
+                requests_2d += report["driver"]["ticks"] + 1  # and the driver's warmup call
+                clients[f"detect2d_{label}_{transport}"] = {
+                    "frames_per_s": report["driver"]["fps"], "p50_ms": report["driver"]["p50_ms"],
+                    "frames": report["frames"], "detections": report["detections"],
+                    "transport": report["transport"]}
+            report, rows = client_run("detect3d", ["-m", REMOTE_3D, "-i", str(clouds),
+                                                   *endpoints[transport]],
+                                      tmp / f"{transport}_3d", True)
+            check(rows == local["3d"][1], f"detect3d over {transport}: rows differ from the "
+                  "in-process -r run")
+            check(report["transport"] == want_transport[transport],
+                  f"detect3d over {transport} reports {report['transport']}")
+            requests_3d += report["driver"]["ticks"] + 1
+            clients[f"detect3d_{transport}"] = {
+                "scans_per_s": report["driver"]["fps"], "p50_ms": report["driver"]["p50_ms"],
+                "scans": report["scans"], "detections": report["detections"],
+                "transport": report["transport"]}
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        want_launches = {"decode_nms_2d": requests_2d, "greedy_nms": 0,
+                         "residual_decode_3d": requests_3d, "suppress_pack_3d": requests_3d,
+                         "segment_mean": 0, "segment_sum": 0,
+                         "residual_decode_3d_gathered": requests_3d}
+        check(launches == want_launches, f"remote launches {launches}, want {want_launches}")
+        after = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+        check(after == captures, "a request captured a graph inside the counted window")
+        check(server.shm_registry.status() == {}, "a client left regions registered")
+        check(local["b1"][0]["detections"] > 0 and local["3d"][0]["detections"] > 0,
+              "the references kept nothing")
+
+        # -- the wire split: YOLOv5 batch 1 and PointPillars 120k, each transport, from
+        # this process and from a client process (no card visible, as the clients) --------
+        legs = {"wire": (tcp, False), "shm": (tcp, True), "uds": (server.uds_address, True)}
+        split = split_legs(legs, model_2d, str(clouds))
+        proc = subprocess.run(
+            [sys.executable, "-c", SPLIT_CHILD, str(ROOT), json.dumps(legs), model_2d,
+             str(clouds)],
+            cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+            text=True, timeout=600,
+        )
+        check(proc.returncode == 0, f"the client-process split exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        split_child = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        server.stop()
+        shutil.rmtree(tmp)
+    emit("remote", card, write_s=write_s, build_and_capture_s=build_s,
+         server={"tcp": tcp, "uds": server.uds_address},
+         dev_shm_bytes={"size": shm_fs.f_frsize * shm_fs.f_blocks,
+                        "free": shm_fs.f_frsize * shm_fs.f_bavail},
+         clients_are_processes=True, bitwise_equal_to_in_process=True,
+         launches=launches, requests={"2d": requests_2d, "3d": requests_3d},
+         no_capture_in_window=True, clients=clients,
+         in_process={k: {"frames_per_s": v[0]["driver"]["fps"],
+                         "p50_ms": v[0]["driver"]["p50_ms"]} for k, v in local.items()},
+         phase25_socket_leg=SERVED.get("socket_leg"), wire_split=split,
+         wire_split_client_process=split_child, dequant_host=dequant_host())
 
 
 def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:

@@ -164,9 +164,9 @@ def test_window_knobs_are_not_parameters():
 def test_native_batcher_and_arena_are_refused():
     inner = _RecordingInner()
     for kw in ({"use_native": True}, {"arena_slots": 4}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             BatchingChannel(inner, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         ContinuousBatchingChannel(inner, arena_slots=4)
 
 

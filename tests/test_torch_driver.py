@@ -89,6 +89,59 @@ def test_driver_matches_jax_on_the_same_source(mode, n):
     assert ticks == (-(-n // 4) if mode == "batch4" else n)
 
 
+def _infer3d(data):
+    """Deterministic 3D contract from a cloud: a few boxes a frame."""
+    pts = np.asarray(data, np.float64)
+    c = pts[:4, :3].mean(0)
+    boxes = np.array([[c[0] + i, c[1], c[2], 2 + i % 2, 1.5, 1.5, 0.1 * i] for i in range(4)])
+    return {"pred_boxes": boxes.astype(np.float32),
+            "pred_scores": np.linspace(0.9, 0.3, 4).astype(np.float32),
+            "pred_labels": np.array([1, 2, 1, 3], np.int32)}
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+@pytest.mark.parametrize("mode", ["sync", "batch3", "inflight2"])
+def test_driver_scores_frames_through_the_evaluator_as_jax(kind, mode):
+    """``evaluator`` + ``gt_lookup`` score every frame with ground truth
+    through the evaluator's adapter; the summary equals the JAX driver's
+    with the JAX evaluator on the same seeded frames and GT (frame 2 has
+    none and is skipped)."""
+    from triton_client_tpu.eval import detection_map as jdm
+
+    from triton_client_tpu_torch.eval import detection_map as tdm
+
+    rng = np.random.default_rng(8)
+    if kind == "2d":
+        gts = {i: np.column_stack([rng.uniform(0, 8, (3, 2)), rng.uniform(8, 16, (3, 2)),
+                                   rng.integers(0, 2, 3)]) for i in range(7) if i != 2}
+    else:
+        gts = {i: np.column_stack([rng.uniform(0, 4, (3, 3)), rng.uniform(1, 3, (3, 3)),
+                                   rng.uniform(0, 1, 3), rng.integers(0, 3, 3)])
+               for i in range(7) if i != 2}
+    summaries = []
+    for drv, src, dm, fut in ((tdriver, tsources, tdm, _future),
+                              (jdriver, jsources, jdm, _JFuture)):
+        if kind == "2d":
+            source = src.SyntheticImageSource(7, (16, 16), seed=5)
+            evaluator, base = dm.DetectionEvaluator(), _infer
+        else:
+            source = src.SyntheticPointCloudSource(7)
+            evaluator, base = dm.Detection3DEvaluator(), _infer3d
+        kw = {}
+        if mode == "batch3" and kind == "2d":
+            kw = {"batch_size": 3}
+        infer = base
+        if mode == "inflight2":
+            kw = {"inflight": 2}
+            infer = (lambda data, base=base, fut=fut: fut(base(data)))
+        drv.InferenceDriver(infer, source, evaluator=evaluator,
+                            gt_lookup=lambda frame: gts.get(frame.frame_id), warmup=0,
+                            **kw).run()
+        assert len(evaluator.frames) == 6
+        summaries.append(json.loads(json.dumps(evaluator.summary())))
+    assert summaries[0] == summaries[1]
+
+
 def test_driver_stats_and_latency_stats_match_jax():
     lat = [0.002, 0.004, 0.003, 0.010]
     assert tdriver.latency_stats(lat, 8, 0.5, 4).to_dict() == \
@@ -129,8 +182,6 @@ def test_driver_empty_source_and_max_frames():
 def test_driver_guards():
     with pytest.raises(ValueError, match="pick one"):
         tdriver.InferenceDriver(_infer, [], batch_size=2, inflight=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.InferenceDriver(_infer, [], evaluator=object())
 
     class Ragged:
         def __iter__(self):

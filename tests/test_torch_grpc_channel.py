@@ -88,7 +88,9 @@ def server(request):
 @pytest.fixture
 def clients(server):
     endpoint = f"127.0.0.1:{server.port}"
-    port = GRPCChannel(endpoint, timeout_s=30, backoff_s=0.01)
+    # both on the wire: the shared-memory transport has its own tests
+    # (tests/test_torch_transport.py)
+    port = GRPCChannel(endpoint, timeout_s=30, backoff_s=0.01, use_shared_memory=False)
     jax_ = JGRPCChannel(endpoint, timeout_s=30, use_shared_memory=False)
     yield port, jax_
     port.close()
@@ -113,7 +115,7 @@ def test_health_and_index(clients):
                                       "unix:///tmp/kserve.sock", "unix-abstract:kserve"])
 def test_transport_label_equals_the_jax_clients_without_shared_memory(endpoint):
     """Channels dial lazily: no server is needed to read the label."""
-    port = GRPCChannel(endpoint)
+    port = GRPCChannel(endpoint, use_shared_memory=False)
     jax_ = JGRPCChannel(endpoint, use_shared_memory=False)
     try:
         assert port.transport == jax_.transport
@@ -219,7 +221,8 @@ def test_deadlines_fail_before_the_wire():
 
 def test_unavailable_retries_with_backoff_then_raises():
     with socket_port() as free:
-        port = GRPCChannel(f"127.0.0.1:{free}", timeout_s=0.5, retries=2, backoff_s=0.01)
+        port = GRPCChannel(f"127.0.0.1:{free}", timeout_s=0.5, retries=2, backoff_s=0.01,
+                           use_shared_memory=False)
         assert not port.server_live(timeout_s=0.5)
         with pytest.raises(grpc.RpcError) as e:
             port.repository_index()
@@ -233,7 +236,8 @@ def test_unavailable_retries_with_backoff_then_raises():
 
 def test_a_deadline_caps_the_backoff():
     with socket_port() as free:
-        port = GRPCChannel(f"127.0.0.1:{free}", timeout_s=0.5, retries=5, backoff_s=0.2)
+        port = GRPCChannel(f"127.0.0.1:{free}", timeout_s=0.5, retries=5, backoff_s=0.2,
+                           use_shared_memory=False)
         req = InferRequest("addone", {"x": _x(0)}, deadline_s=time.perf_counter() + 0.15)
         with pytest.raises(tgc.DeadlineExceededRpcError):
             port.do_inference(req)
@@ -241,8 +245,18 @@ def test_a_deadline_caps_the_backoff():
 
 
 def test_shared_memory_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        GRPCChannel("127.0.0.1:1", use_shared_memory=True)
+    """Forcing shared memory on a loopback endpoint with no server: the
+    channel says ``shm`` and a request fails UNAVAILABLE (the registration
+    RPC), with no fallback to the wire."""
+    with socket_port() as free:
+        port = GRPCChannel(f"127.0.0.1:{free}", use_shared_memory=True, timeout_s=2,
+                           retries=0)
+        assert port.transport == "shm"
+        with pytest.raises(grpc.RpcError) as e:
+            port.do_inference(InferRequest("addone", {"x": _x(0)}))
+        assert e.value.code() == grpc.StatusCode.UNAVAILABLE
+        assert port.transport == "shm"
+        port.close()
 
 
 class socket_port:

@@ -89,6 +89,11 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.runtime.onnx_reader",
         "triton_client_tpu_torch.runtime.flax_msgpack",
         "triton_client_tpu_torch.eval.detection_map",
+        "triton_client_tpu_torch.channel.transport",
+        "triton_client_tpu_torch.runtime.shared_memory",
+        "triton_client_tpu_torch.runtime.wire_encoding",
+        "triton_client_tpu_torch.obs.profiling",
+        "triton_client_tpu_torch.cli.common",
     ):
         assert must in names
 

@@ -113,7 +113,7 @@ def test_batch_timeout_warns_once_on_continuous(repo_root, caplog):
 
 
 NON_DEFAULT = {
-    "uds": ["--uds", "auto"], "mesh": ["--mesh", "data=-1"],
+    "mesh": ["--mesh", "data=-1"],
     "metrics_port": ["--metrics-port", "8002"], "op_sample_interval": ["--op-sample-interval", "2"],
     "op_sample_window": ["--op-sample-window", "0.5"],
     "history_interval": ["--history-interval", "10"],
@@ -145,8 +145,8 @@ def test_unported_flags_raise_naming_their_item(repo_root, dest):
 
 
 def test_unported_flag_exits_with_its_message(repo_root, capsys):
-    with pytest.raises(SystemExit, match="--uds auto is not ported yet"):
-        serve.main(["-r", str(repo_root), "--device", "cpu", "--uds", "auto"])
+    with pytest.raises(SystemExit, match="--mesh data=2 is not ported yet"):
+        serve.main(["-r", str(repo_root), "--device", "cpu", "--mesh", "data=2"])
 
 
 def test_f32_precision_is_served(repo_root):

@@ -9,10 +9,10 @@ rows within 1e-3 relative / 1e-2 pixels; tests/test_torch_detect3d.py:
 equal labels, boxes and scores within 1e-5). Health, metadata,
 ``ModelConfig`` (its JSON parameters included), ``RepositoryIndex``,
 streaming and the status code of every error case agree, and so does
-``message_limit``. By design the port's ``ServerMetadata`` names itself
-and lists no ``system_shared_memory`` (its shared-memory RPCs answer
-UNIMPLEMENTED), specs say ``platform: torch``, and every response
-carries a ``trace_summary`` parameter.
+``message_limit``; so do shared memory (JAX's client negotiates it with
+the port's server) and ``content_encoding`` inputs. By design the port's
+``ServerMetadata`` names itself, specs say ``platform: torch``, and every
+response carries a ``trace_summary`` parameter.
 
 The variables are a seeded fill of the flax tree's shapes
 (``jax.eval_shape`` of the init), not ``PRNGKey(0)``'s: the init costs
@@ -177,7 +177,8 @@ def test_server_metadata_agrees_but_for_the_name_and_shared_memory(pair):
     want, got = (s.ServerMetadata(jpb.ServerMetadataRequest(), timeout=10) for s in _stubs(pair))
     assert got.version == want.version
     assert (want.name, got.name) == ("triton_client_tpu", "triton_client_tpu_torch")
-    assert list(got.extensions) == [e for e in want.extensions if e != "system_shared_memory"]
+    assert list(got.extensions) == list(want.extensions)
+    assert "system_shared_memory" in got.extensions
 
 
 @pytest.mark.parametrize("model", ["yolov5n", "pointpillars"])
@@ -300,19 +301,29 @@ def test_every_response_carries_the_span_summary(pair):
 
 
 def test_shared_memory_answers_unimplemented_and_clients_fall_back(pair):
+    """The shared-memory extension is served: a registration with no key is
+    INVALID_ARGUMENT in both servers, and the JAX client, on auto,
+    negotiates shm with the port's server on loopback, its outputs (the
+    second request's through the output arena) equal to the wire's."""
     _, ts = pair
-    stub = _stubs(pair)[1]
-    with pytest.raises(grpc.RpcError) as e:
-        stub.SystemSharedMemoryRegister(jpb.SystemSharedMemoryRegisterRequest(name="r"), timeout=10)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED and "item 8" in e.value.details()
-    # the JAX client negotiates shared memory on loopback, then rides the wire
+    codes = []
+    for stub in _stubs(pair):
+        with pytest.raises(grpc.RpcError) as e:
+            stub.SystemSharedMemoryRegister(jpb.SystemSharedMemoryRegisterRequest(name="r"),
+                                            timeout=10)
+        codes.append(e.value.code())
+    assert codes == [grpc.StatusCode.INVALID_ARGUMENT] * 2
     jc = JGRPCChannel(f"127.0.0.1:{ts.port}", timeout_s=60)
-    x = frames(9, 1)
-    auto = jc.do_inference(JInferRequest("yolov5n", {"images": x})).outputs
-    wire = _clients(pair)[1].do_inference(JInferRequest("yolov5n", {"images": x})).outputs
-    assert jc.stats()["transport"] == "grpc"
-    np.testing.assert_array_equal(auto["detections"], wire["detections"])
+    for seed in (9, 10):
+        x = frames(seed, 1)
+        auto = jc.do_inference(JInferRequest("yolov5n", {"images": x})).outputs
+        wire = _clients(pair)[1].do_inference(JInferRequest("yolov5n", {"images": x})).outputs
+        assert jc.stats()["transport"] == "shm"
+        for k in wire:
+            assert auto[k].tobytes() == wire[k].tobytes(), k
+    assert jc.stats()["shm_pool"]["regions"] == 2  # the input and the output arena
     jc.close()
+    assert ts.shm_registry.status() == {}
 
 
 # -- status codes ------------------------------------------------------------------------
@@ -520,7 +531,7 @@ def test_grpc_code_mapping_agrees(name):
 
 def test_unported_options_raise_naming_their_item():
     repo = ModelRepository()
-    for kw in ({"metrics_port": 8002}, {"uds_address": "auto"}, {"slo_ms": 5.0},
+    for kw in ({"metrics_port": 8002}, {"slo_ms": 5.0},
                {"tenants": object()}, {"lifecycle": object()}, {"quality": object()},
                {"temporal": object()}, {"history_path": "h.json"},
                {"op_sample_interval_s": 1.0}):
@@ -529,13 +540,38 @@ def test_unported_options_raise_naming_their_item():
 
 
 def test_content_encoding_is_unimplemented(pair):
-    from triton_client_tpu.channel.kserve import codec as jcodec
+    """``q8``/``q16``-encoded frames are served as the JAX server serves
+    them (the decoded frame bitwise equal to JAX's dequantization, the
+    detections at the 2D bar), and a ``jpeg`` one answers as JAX's does."""
+    from triton_client_tpu.runtime import wire_encoding as jwe
 
-    req = jcodec.build_infer_request("yolov5n", {"images": np.zeros((1, 48, 80, 3), np.uint8)},
-                                     input_parameters={"images": {"content_encoding": "jpeg"}})
-    with pytest.raises(grpc.RpcError) as e:
-        _stubs(pair)[1].ModelInfer(req, timeout=30)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED and "wire_encoding" in e.value.details()
+    from triton_client_tpu_torch.runtime import wire_encoding as twe
+
+    jc, tc = _clients(pair)
+    x = frames(11, 1).astype(np.float32)
+    for bits in (8, 16):
+        q, params = jwe.quantize(x, bits)
+        assert np.asarray(jwe.dequantize(q, float(params["q_scale"]), float(params["q_min"]),
+                                         np.float32)).tobytes() == \
+            twe.dequantize(q, float(params["q_scale"]), float(params["q_min"]),
+                           np.float32).tobytes()
+        req = JInferRequest("yolov5n", {"images": q}, input_params={"images": params})
+        want, got = jc.do_inference(req).outputs, tc.do_inference(req).outputs
+        assert_2d_close(got, want)
+        assert got["valid"].sum() > 0
+    if jwe._PILImage is None:
+        return
+    payload, params = jwe.encode_jpeg(frames(12, 1)[0])
+    req = JInferRequest("yolov5n", {"images": payload}, input_params={"images": params})
+    answers = []
+    for c in (jc, tc):
+        try:
+            answers.append(("ok", c.do_inference(req).outputs))
+        except grpc.RpcError as e:
+            answers.append((e.code(), None))
+    assert answers[0][0] == answers[1][0]
+    if answers[0][0] == "ok":
+        assert_2d_close(answers[1][1], answers[0][1])
 
 
 # -- the servicer in-process, where grpc is not installed ---------------------------------

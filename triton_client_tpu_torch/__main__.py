@@ -1,8 +1,10 @@
 """``python -m triton_client_tpu_torch <command>`` dispatch.
 
 Commands ported so far:
-  detect2d   — in-process 2D detection over synthetic frames
-  detect3d   — in-process 3D detection (PointPillars) over point clouds
+  detect2d   — 2D detection over synthetic frames, in-process (-u cuda) or
+               as a client of serve (-u grpc:<host:port> | grpc:unix:<path>)
+  detect3d   — 3D detection (PointPillars, SECOND-IoU) over point clouds,
+               in-process or as a client of serve
   serve      — a disk model repository behind the KServe v2 gRPC server
 """
 

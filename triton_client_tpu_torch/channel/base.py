@@ -40,6 +40,11 @@ class InferRequest:
     sequence_id: str = dataclasses.field(default="", repr=False, compare=False)
     sequence_start: bool = dataclasses.field(default=False, repr=False, compare=False)
     sequence_end: bool = dataclasses.field(default=False, repr=False, compare=False)
+    # per-input wire parameters (input name -> {key: value}), such as a
+    # compressed payload's content_encoding (runtime/wire_encoding.py);
+    # only a remote channel sends them
+    input_params: Mapping[str, dict] | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 @dataclasses.dataclass

@@ -16,23 +16,32 @@ seam ``CUDAChannel`` implements.
   the server, and ``INTERNAL`` (a kernel fault) is surfaced as it is.
 - ``grpc`` is imported when the channel dials, never at module import;
   :data:`DeadlineExceededRpcError` (a ``grpc.RpcError``) is built then.
-
-The shared-memory transport of the JAX client waits for the port's
-shared-memory registry (ROADMAP.md Queue 1 item 8): ``use_shared_memory=
-True`` raises, and every endpoint rides the wire (``transport`` reads
-``grpc`` or ``uds``).
+- **Shared memory** (``use_shared_memory``): same-host endpoints write
+  inputs into client-owned ``/dev/shm`` regions and send only their
+  coordinates; once a model's output sizes are known, responses come back
+  through the regions too (``channel/transport.py`` decides, as the JAX
+  client does).
+- **Tracing**: a ``do_inference`` whose request carries a
+  ``RequestTrace`` gets the client's ``encode`` and ``decode`` spans with
+  the server's span summary grafted between them, as the JAX router
+  grafts a replica's (this package has no router).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import logging
+import os
 import random
+import threading
 import time
+import weakref
 
 import numpy as np
 
+from triton_client_tpu_torch.channel import transport as transports
 from triton_client_tpu_torch.channel.base import (
     BaseChannel,
     InferFuture,
@@ -41,7 +50,14 @@ from triton_client_tpu_torch.channel.base import (
 )
 from triton_client_tpu_torch.channel.kserve import codec, pb, service
 from triton_client_tpu_torch.config import FRAMING_BYTES, ModelSpec, TensorSpec
-from triton_client_tpu_torch.obs.trace import SUMMARY_PARAM_KEY, TraceContext
+from triton_client_tpu_torch.obs.trace import (
+    SUMMARY_PARAM_KEY,
+    RequestTrace,
+    TraceContext,
+    decode_span_summary,
+    graft_span_summary,
+)
+from triton_client_tpu_torch.runtime.shared_memory import ShmRegionPool
 
 log = logging.getLogger(__name__)
 
@@ -49,6 +65,24 @@ log = logging.getLogger(__name__)
 _BACKOFF_CAP_S = 5.0
 
 _DEADLINE_ERROR: type | None = None
+
+# shared-memory region-name tag: process-wide and monotonic, so no two
+# channels (live or dead) share a name prefix
+_SHM_CHANNEL_SEQ = itertools.count()
+
+# status names of a server that does not serve the shm extension (stock
+# UNIMPLEMENTED, the same-host gate's PERMISSION_DENIED for a dial that
+# only looks loopback, UNKNOWN from fake servicers): an auto-negotiated
+# channel falls back to the wire for good. INVALID_ARGUMENT is absent on
+# purpose: it is the restart-recovery signal ("not registered")
+_SHM_UNSUPPORTED = ("UNIMPLEMENTED", "PERMISSION_DENIED", "UNKNOWN")
+
+# per-output alignment inside a slot's output arena (a cache line)
+_SHM_OUT_ALIGN = 64
+
+# the region pool's slots: requests in flight on shm at once (a request
+# past them waits for a slot, or rides the wire when async)
+_SHM_POOL_DEPTH = 4
 
 
 def _deadline_error_class() -> type:
@@ -106,6 +140,30 @@ def _wire_params(request: InferRequest) -> dict | None:
     return params
 
 
+def _not_registered(e) -> bool:
+    """A restarted server's empty registry: INVALID_ARGUMENT 'not registered'."""
+    code = e.code() if hasattr(e, "code") else None
+    return getattr(code, "name", None) == "INVALID_ARGUMENT" and "not registered" in (
+        e.details() or "")
+
+
+def _trace_rpc(trace, resp, t_encode: float, t_sent: float, t_recv: float,
+               t_done: float) -> None:
+    """A traced request's client timeline, as the JAX router grafts a
+    replica's answer: ``encode`` (the message, or the region writes and the
+    message of coordinates), the server's span summary placed on this clock
+    (``wire_send``, ``srv.*``, ``wire_recv``: the RPC's time beyond the
+    server's wall, split evenly) and ``decode`` (the parse, or the copy out
+    of the output arena)."""
+    if not isinstance(trace, RequestTrace):
+        return
+    trace.add("encode", t_encode, t_sent)
+    summary = decode_span_summary(codec.get_string_param(resp, SUMMARY_PARAM_KEY) or "")
+    if summary is not None:
+        graft_span_summary(trace, summary, t_sent, t_recv)
+    trace.add("decode", t_recv, t_done)
+
+
 def _response_params(resp) -> dict | None:
     """Response-level parameters off the wire: the server's span summary."""
     raw = codec.get_string_param(resp, SUMMARY_PARAM_KEY)
@@ -124,12 +182,15 @@ class GRPCChannel(BaseChannel):
         backoff_s: float = 0.1,
         use_shared_memory: bool | None = None,
     ) -> None:
-        """``use_shared_memory``: None or False ride the wire; True raises
-        (the shared-memory transport is not ported)."""
-        if use_shared_memory:
-            from triton_client_tpu_torch.runtime.server import not_ported
-
-            raise not_ported("shared memory", "use_shared_memory=True")
+        """``use_shared_memory``: ``None`` (the default) negotiates:
+        loopback and ``unix:`` endpoints with a usable /dev/shm ride shared
+        memory, the rest the wire, and a same-host endpoint whose server
+        refuses the extension falls back to the wire once and for good.
+        ``True``/``False`` force the choice. Regions live in a pool of
+        ``_SHM_POOL_DEPTH`` slots, each sized to the largest array it has
+        carried; ``do_inference``, ``do_inference_async`` and
+        ``infer_stream`` all ride it, and a request past the depth waits
+        for a slot (async: rides the wire)."""
         import grpc
 
         self._grpc = grpc
@@ -147,6 +208,15 @@ class GRPCChannel(BaseChannel):
         self._channel = None
         self._stub: service.GRPCInferenceServiceStub | None = None
         self._retired: list = []
+        self._shm_auto = use_shared_memory is None
+        self._use_shm = (transports.shm_eligible(endpoint) if use_shared_memory is None
+                         else bool(use_shared_memory))
+        self._shm_tag = next(_SHM_CHANNEL_SEQ)
+        self._pool: ShmRegionPool | None = None
+        self._pool_lock = threading.Lock()
+        # model -> output name -> most bytes seen: the first request of a
+        # model answers over the wire, later ones ask for region windows
+        self._learned_out: dict[str, dict[str, int]] = {}
         # sheds the server sent back (RESOURCE_EXHAUSTED on ModelInfer,
         # never retried) and transient failures the ladder re-issued
         self._infer_rejections = 0
@@ -155,9 +225,9 @@ class GRPCChannel(BaseChannel):
 
     @property
     def transport(self) -> str:
-        """``grpc`` (TCP wire) or ``uds`` (a ``unix:`` / ``unix-abstract:``
-        target, the unix-socket wire)."""
-        return "uds" if self._endpoint.startswith(("unix:", "unix-abstract:")) else "grpc"
+        """The negotiated label: ``grpc``, ``uds``, ``shm`` or ``uds+shm``
+        (``channel/transport.negotiated``)."""
+        return transports.negotiated(self._endpoint, self._use_shm)
 
     # -- BaseChannel protocol -------------------------------------------------
 
@@ -211,6 +281,7 @@ class GRPCChannel(BaseChannel):
             model_version=request.model_version,
             request_id=request.request_id,
             parameters=_wire_params(request),
+            input_parameters=request.input_params,
         )
 
     @staticmethod
@@ -228,6 +299,14 @@ class GRPCChannel(BaseChannel):
         # an already-expired deadline fails before any transport work
         if self._expired(request):
             raise self._deadline_error("deadline expired before ModelInfer was issued")
+        if self._use_shm:
+            try:
+                return self._do_inference_shm(request)
+            except self._grpc.RpcError as e:
+                if not self._maybe_disable_shm(e):
+                    raise
+                # the server lacks the extension: this request rides the wire
+        t_encode = time.perf_counter()
         wire = self._wire(request)
         t0 = time.perf_counter()
         try:
@@ -238,7 +317,10 @@ class GRPCChannel(BaseChannel):
         except self._grpc.RpcError as e:
             self._record_infer_error(e)
             raise
-        return self._response(resp, t0)
+        t_recv = time.perf_counter()
+        out = self._response(resp, t0)
+        _trace_rpc(request.trace, resp, t_encode, t0, t_recv, time.perf_counter())
+        return out
 
     def do_inference_async(self, request: InferRequest) -> InferFuture:
         """Non-blocking ModelInfer through a gRPC call future: the RPC is on
@@ -250,6 +332,16 @@ class GRPCChannel(BaseChannel):
             return InferFuture.failed(
                 self._deadline_error("deadline expired before async ModelInfer was issued")
             )
+        if self._use_shm:
+            try:
+                return self._do_inference_async_shm(request)
+            except TimeoutError:
+                # every slot in flight: this request rides the wire (waiting
+                # could deadlock a caller that resolves its own futures)
+                pass
+            except self._grpc.RpcError as e:
+                if not self._maybe_disable_shm(e):
+                    return InferFuture.failed(e)
         try:
             wire = self._wire(request)
             t0 = time.perf_counter()
@@ -285,6 +377,198 @@ class GRPCChannel(BaseChannel):
             self._stub.ModelInfer, wire, retryable=self._infer_retryable,
             deadline_s=request.deadline_s,
         )
+
+    # -- shared-memory transport ----------------------------------------------
+
+    def _shm_pool(self) -> ShmRegionPool:
+        pool = self._pool
+        if pool is not None:
+            return pool
+        with self._pool_lock:
+            if self._pool is None:
+                # weak callbacks: channel -> pool -> bound method -> channel
+                # would be a cycle, and a dropped channel must unregister
+                # and unlink its segments at once, not at the next gc
+                def weak(method):
+                    ref = weakref.WeakMethod(method)
+
+                    def call(*a):
+                        fn = ref()
+                        if fn is not None:
+                            fn(*a)
+
+                    return call
+
+                self._pool = ShmRegionPool(
+                    tag=f"tct_{os.getpid()}_{self._shm_tag}",
+                    depth=_SHM_POOL_DEPTH,
+                    register_fn=weak(self._shm_register),
+                    unregister_fn=weak(self._shm_unregister_quiet),
+                )
+            return self._pool
+
+    def _shm_register(self, name: str, key: str, byte_size: int) -> None:
+        # no retry: a duplicate name is refused, so register is not idempotent
+        self._call(
+            self._stub.SystemSharedMemoryRegister,
+            pb.SystemSharedMemoryRegisterRequest(name=name, key=key, offset=0,
+                                                 byte_size=byte_size),
+            retryable=(),
+        )
+
+    def _shm_unregister_quiet(self, name: str) -> None:
+        """Best effort (growth, recovery's duplicate-name guard, teardown):
+        a failure must not mask the operation that needed it."""
+        try:
+            self._stub.SystemSharedMemoryUnregister(
+                pb.SystemSharedMemoryUnregisterRequest(name=name),
+                timeout=min(self._timeout_s, 2.0),
+            )
+        except self._grpc.RpcError as e:
+            log.debug("unregister of shm region %s failed (%s)", name, e)
+
+    def _maybe_disable_shm(self, e) -> bool:
+        """An auto-negotiated channel whose server does not serve the
+        extension flips to the wire for good and tells the caller to
+        re-issue there. A forced ``use_shared_memory=True`` never does."""
+        code = e.code() if hasattr(e, "code") else None
+        if self._shm_auto and getattr(code, "name", None) in _SHM_UNSUPPORTED:
+            log.info("endpoint %s does not serve the shared-memory extension (%s); "
+                     "the channel falls back to the wire", self._endpoint, code)
+            self._use_shm = False
+            return True
+        return False
+
+    def _stage_shm(self, request: InferRequest, acquire_timeout_s: float | None = None):
+        """Take a pool slot, write the inputs into its regions and build the
+        message of coordinates: ``(wire, slot)``, the slot the caller's to
+        release. Known output sizes add requested-output windows in the
+        slot's arena. ``acquire_timeout_s``: how long to wait for a slot
+        (the async path passes 0)."""
+        pool = self._shm_pool()
+        slot = pool.acquire(
+            timeout_s=self._timeout_s if acquire_timeout_s is None else acquire_timeout_s)
+        try:
+            shm_inputs, arrays = {}, {}
+            for name, value in request.inputs.items():
+                arr = np.asarray(value)
+                region = slot.region_for(f"i_{name}", arr.nbytes)
+                region.write(arr)
+                shm_inputs[name] = (region.key.lstrip("/"), 0, arr.nbytes)
+                arrays[name] = arr
+            wire = codec.build_infer_request_shm(
+                model_name=request.model_name,
+                inputs=arrays,
+                shm_inputs=shm_inputs,
+                model_version=request.model_version,
+                request_id=request.request_id,
+                parameters=_wire_params(request),
+                input_parameters=request.input_params,
+            )
+            self._request_shm_outputs(wire, slot, request.model_name)
+            return wire, slot
+        except BaseException:
+            pool.release(slot)
+            raise
+
+    def _request_shm_outputs(self, wire, slot, model_name: str) -> None:
+        """Requested-output windows (learned sizes, cache-line aligned) in
+        the slot's output arena; nothing until a first response has taught
+        the channel this model's output sizes."""
+        sizes = self._learned_out.get(model_name)
+        if not sizes:
+            return
+        offsets, total = {}, 0
+        for name in sorted(sizes):
+            offsets[name] = total
+            total += -(-sizes[name] // _SHM_OUT_ALIGN) * _SHM_OUT_ALIGN
+        arena = slot.region_for("o", total)
+        rname = arena.key.lstrip("/")
+        for name, off in offsets.items():
+            codec.add_requested_output(wire, name, rname, off, sizes[name])
+
+    def _parse_shm_response(self, resp, slot, model_name: str, t0: float) -> InferResponse:
+        regions = {}
+        arena = slot.regions.get("o")
+        if arena is not None:
+            regions[arena.key.lstrip("/")] = arena
+        outputs = codec.parse_infer_response(resp, regions=regions)
+        if arena is not None:
+            # the next request on this slot overwrites the arena: copy the
+            # outputs that live there into arrays of their own
+            for t in resp.outputs:
+                if codec.shm_params(t) is not None:
+                    outputs[t.name] = np.copy(outputs[t.name])
+        sizes = self._learned_out.setdefault(model_name, {})
+        for name, arr in outputs.items():
+            if sizes.get(name, 0) < arr.nbytes:
+                sizes[name] = arr.nbytes
+        return InferResponse(
+            model_name=resp.model_name,
+            model_version=resp.model_version,
+            outputs=outputs,
+            request_id=resp.id,
+            latency_s=time.perf_counter() - t0,
+            parameters=_response_params(resp),
+        )
+
+    def _recover_shm(self, e, wire, request: InferRequest):
+        """A restarted server's registry is empty: its 'not registered' is
+        answered by registering the pool's regions again and re-issuing
+        once (the wire recovers through the UNAVAILABLE ladder; shm must
+        not do worse)."""
+        if not _not_registered(e):
+            self._record_infer_error(e)
+            raise e
+        pool = self._shm_pool()
+        log.warning("server lost shared-memory registrations (%s); re-registering %d "
+                    "region(s)", e.details(), len(pool.regions()))
+        pool.reregister_all()
+        return self._call(self._stub.ModelInfer, wire, retryable=self._infer_retryable,
+                          deadline_s=request.deadline_s)
+
+    def _do_inference_shm(self, request: InferRequest) -> InferResponse:
+        t_encode = time.perf_counter()
+        wire, slot = self._stage_shm(request)
+        pool = self._pool
+        try:
+            t0 = time.perf_counter()
+            try:
+                resp = self._call(self._stub.ModelInfer, wire, retryable=self._infer_retryable,
+                                  deadline_s=request.deadline_s)
+            except self._grpc.RpcError as e:
+                resp = self._recover_shm(e, wire, request)
+            t_recv = time.perf_counter()
+            out = self._parse_shm_response(resp, slot, request.model_name, t0)
+            _trace_rpc(request.trace, resp, t_encode, t0, t_recv, time.perf_counter())
+            return out
+        finally:
+            pool.release(slot)
+
+    def _do_inference_async_shm(self, request: InferRequest) -> InferFuture:
+        wire, slot = self._stage_shm(request, acquire_timeout_s=0.0)
+        pool = self._pool
+        try:
+            t0 = time.perf_counter()
+            call = self._issue_async(wire, request.deadline_s)
+        except BaseException:
+            pool.release(slot)
+            raise
+
+        def resolve() -> InferResponse:
+            try:
+                try:
+                    resp = call.result()
+                except self._grpc.RpcError as e:
+                    if _not_registered(e):
+                        resp = self._recover_shm(e, wire, request)
+                    else:
+                        resp = self._async_retry(e, wire, request)
+                return self._parse_shm_response(resp, slot, request.model_name, t0)
+            finally:
+                pool.release(slot)
+
+        return InferFuture(resolve)
 
     # -- health and the repository --------------------------------------------
 
@@ -330,7 +614,7 @@ class GRPCChannel(BaseChannel):
         open-loop producers; a closed-loop caller keeps ``group_size=1``."""
 
         def groupable(r: InferRequest) -> bool:
-            if r.trace is not None or r.sequence_id:
+            if r.trace is not None or r.input_params or r.sequence_id:
                 return False
             return all(np.asarray(v).ndim >= 1 for v in r.inputs.values())
 
@@ -362,29 +646,47 @@ class GRPCChannel(BaseChannel):
         if group:
             yield group
 
-    @staticmethod
-    def _stage_stream_group(members: list[InferRequest]):
-        """One wire message for G compatible requests, their inputs packed
-        back to back along the leading axis."""
+    def _stage_stream_group(self, members: list[InferRequest]):
+        """One message for G compatible requests, their inputs packed back
+        to back along the leading axis: into a pooled region per input on
+        a shm channel (the region write is the pack), else into joined raw
+        content. Returns ``(wire, slot)``, slot None on the wire. Responses
+        ride the wire: a stream has no per-request output arena."""
         first = members[0]
         g = len(members)
-        req = pb.ModelInferRequest(
-            model_name=first.model_name, model_version=first.model_version, id=first.request_id
-        )
-        params = dict(_wire_params(first) or {})
-        if g > 1:
-            params[codec.STREAM_GROUP_PARAM] = g
-            ids = [m.request_id for m in members]
-            if any(ids):
-                params[codec.STREAM_GROUP_IDS_PARAM] = json.dumps(ids)
-        codec.set_request_params(req, params)
-        for name in sorted(first.inputs):
-            arrs = [np.asarray(m.inputs[name]) for m in members]
-            a0 = arrs[0]
-            shape = (g * a0.shape[0],) + tuple(a0.shape[1:]) if g > 1 else a0.shape
-            req.inputs.add(name=name, datatype=codec.datatype_of(a0), shape=shape)
-            req.raw_input_contents.append(b"".join(codec.serialize_tensor(a) for a in arrs))
-        return req
+        slot = self._shm_pool().acquire(timeout_s=self._timeout_s) if self._use_shm else None
+        try:
+            req = pb.ModelInferRequest(
+                model_name=first.model_name, model_version=first.model_version,
+                id=first.request_id,
+            )
+            params = dict(_wire_params(first) or {})
+            if g > 1:
+                params[codec.STREAM_GROUP_PARAM] = g
+                ids = [m.request_id for m in members]
+                if any(ids):
+                    params[codec.STREAM_GROUP_IDS_PARAM] = json.dumps(ids)
+            codec.set_request_params(req, params)
+            for name in sorted(first.inputs):
+                arrs = [np.asarray(m.inputs[name]) for m in members]
+                a0 = arrs[0]
+                shape = (g * a0.shape[0],) + tuple(a0.shape[1:]) if g > 1 else a0.shape
+                t = req.inputs.add(name=name, datatype=codec.datatype_of(a0), shape=shape)
+                if g == 1 and first.input_params:
+                    codec.set_request_params(t, first.input_params.get(name))
+                if slot is not None:
+                    region = slot.region_for(f"i_{name}", g * a0.nbytes)
+                    for i, a in enumerate(arrs):
+                        region.write(a, offset=i * a0.nbytes)
+                    codec.set_shm_params(t, region.key.lstrip("/"), 0, g * a0.nbytes)
+                else:
+                    req.raw_input_contents.append(
+                        b"".join(codec.serialize_tensor(a) for a in arrs))
+            return req, slot
+        except BaseException:
+            if slot is not None:
+                self._pool.release(slot)
+            raise
 
     def infer_stream(self, requests, stream_timeout_s: float | None = 3600.0,
                      group_size: int = 1):
@@ -392,17 +694,25 @@ class GRPCChannel(BaseChannel):
         InferRequest; yields InferResponse in request order.
         ``group_size > 1`` packs up to that many compatible requests into
         one stream message, which the server fans back out; a whole-group
-        failure is prefixed ``stream group failed:``.
-        ``stream_timeout_s`` bounds the whole stream (None: unbounded)."""
+        failure is prefixed ``stream group failed:``. On a shm channel each
+        entry stages its inputs through the region pool (one slot an entry,
+        released when its last response lands); an entry that meets an
+        emptied server registry re-registers and re-issues its members
+        unary. ``stream_timeout_s`` bounds the whole stream (None:
+        unbounded)."""
         # appended on gRPC's request-consumer thread, consumed in order here:
         # an entry is always enqueued before its first response arrives
         entries: collections.deque = collections.deque()
 
         def wire_iter():
             for members in self._stream_groups(requests, group_size):
-                wire = self._stage_stream_group(members)
-                entries.append({"members": members, "remaining": len(members)})
+                wire, slot = self._stage_stream_group(members)
+                entries.append({"members": members, "slot": slot, "remaining": len(members)})
                 yield wire
+
+        def release(entry) -> None:
+            if entry["slot"] is not None:
+                self._pool.release(entry["slot"])
 
         call = self._stub.ModelStreamInfer(wire_iter(), timeout=stream_timeout_s)
         try:
@@ -412,20 +722,47 @@ class GRPCChannel(BaseChannel):
                     msg = resp.error_message
                     if len(entry["members"]) == 1 or msg.startswith("stream group failed: "):
                         entries.popleft()
+                        release(entry)
+                        if entry["slot"] is not None and "not registered" in msg:
+                            # the server lost its registry mid-stream: register
+                            # again and re-issue this entry's members unary, so
+                            # every request still gets one response
+                            log.warning("stream entry hit an empty server shm registry (%s); "
+                                        "re-registering and re-issuing %d member(s)", msg,
+                                        len(entry["members"]))
+                            self._shm_pool().reregister_all()
+                            for m in entry["members"]:
+                                yield self.do_inference(m)
+                            continue
                     raise RuntimeError(msg)
                 entry["remaining"] -= 1
                 if entry["remaining"] <= 0:
                     entries.popleft()
+                    release(entry)
                 yield self._response(resp.infer_response)
         finally:
             call.cancel()
+            while entries:
+                release(entries.popleft())
 
     def close(self) -> None:
+        # the client owns the segments: the pool unregisters them (best
+        # effort: the server may be gone) and unlinks every slot's regions
+        if self._pool is not None:
+            self._pool.close()
         if self._channel is not None:
             self._channel.close()
         for ch in self._retired:
             ch.close()
         self._retired.clear()
+
+    def __del__(self):
+        # a dropped channel must still unlink its /dev/shm segments, which
+        # outlive the process otherwise
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # -- internals ------------------------------------------------------------
 
@@ -439,12 +776,16 @@ class GRPCChannel(BaseChannel):
 
     def stats(self) -> dict:
         """``infer_rejections`` (sheds, never retried), ``retries`` (what
-        the backoff ladder re-issued) and the ``transport`` label."""
-        return {
+        the backoff ladder re-issued), the ``transport`` label and, once
+        it exists, the shm pool's counters (``shm_pool``)."""
+        out = {
             "infer_rejections": self._infer_rejections,
             "retries": self._retries_total,
             "transport": self.transport,
         }
+        if self._pool is not None:
+            out["shm_pool"] = self._pool.stats()
+        return out
 
     def _call(self, method, request, retryable=None, deadline_s: float | None = None,
               timeout_s: float | None = None):

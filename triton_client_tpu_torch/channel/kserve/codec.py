@@ -168,6 +168,15 @@ def build_infer_request_shm(
     return req
 
 
+def add_requested_output(req, name: str, region: str, offset: int, byte_size: int) -> None:
+    """Ask the server to place one response tensor into a client-owned
+    shared-memory window (Triton requested-output semantics): the server
+    writes the readback bytes into the client's mapped segment and the
+    response carries only coordinates."""
+    t = req.outputs.add(name=name)
+    set_shm_params(t, region, offset, byte_size)
+
+
 def shm_params(tensor) -> tuple[str, int, int] | None:
     """(region, offset, byte_size) when a tensor's parameters ask for
     shared-memory transport (Triton system-shared-memory extension); None
@@ -197,8 +206,9 @@ def set_shm_params(tensor, region: str, offset: int, byte_size: int) -> None:
 
 def parse_infer_request(req: pb.ModelInferRequest, shm=None) -> dict[str, np.ndarray]:
     """Wire -> arrays. Inputs with shared-memory parameters are read from
-    ``shm`` (a registry with ``read(name, offset, byte_size)``) and take no
-    raw_input_contents slot; the port's server passes none."""
+    ``shm`` (a ``SystemSharedMemoryRegistry``) and take no
+    raw_input_contents slot: the wire pairs raw buffers with the other
+    inputs by position (Triton semantics)."""
     faults.probe("codec_decode", req.model_name)
     wire_inputs = [t for t in req.inputs if shm_params(t) is None]
     if len(req.raw_input_contents) != len(wire_inputs):
@@ -229,16 +239,31 @@ def build_infer_response(
     model_version: str = "",
     request_id: str = "",
     parameters: dict | None = None,
+    shm_outputs: dict[str, tuple[str, int, int]] | None = None,
+    shm=None,
 ) -> pb.ModelInferResponse:
-    """Arrays -> a response with every output as raw content. (The JAX
-    codec's shared-memory output placement waits for the shared-memory
-    registry, ROADMAP.md Queue 1 item 8.)"""
+    """Arrays -> a response. ``shm_outputs`` maps output name -> (region,
+    offset, byte_size): those tensors are written into the registry's
+    (``shm``) region and travel as shared-memory parameters with no raw
+    content. An output larger than its window ships as raw content, so a
+    client whose learned sizes lag a larger batch still gets its answer
+    and learns the size from it."""
     resp = pb.ModelInferResponse(model_name=model_name, model_version=model_version, id=request_id)
     set_request_params(resp, parameters)
     for name in sorted(outputs):
         arr = np.asarray(outputs[name])
-        resp.outputs.add(name=name, datatype=datatype_of(arr), shape=arr.shape)
-        resp.raw_output_contents.append(serialize_tensor(arr))
+        t = resp.outputs.add(name=name, datatype=datatype_of(arr), shape=arr.shape)
+        target = (shm_outputs or {}).get(name)
+        if target is None:
+            resp.raw_output_contents.append(serialize_tensor(arr))
+            continue
+        region, offset, byte_size = target
+        if arr.nbytes > byte_size:
+            resp.raw_output_contents.append(serialize_tensor(arr))
+            continue
+        # the one host copy on this path: readback -> the client's mapped page
+        shm.write(region, offset, arr)
+        set_shm_params(t, region, offset, arr.nbytes)
     return resp
 
 

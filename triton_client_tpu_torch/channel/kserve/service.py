@@ -79,6 +79,11 @@ class InProcessContext:
     def __init__(self) -> None:
         self.aborted: tuple | None = None
 
+    def peer(self) -> str:
+        """Neither loopback nor a unix socket in grpc's form, so the
+        shared-memory extension refuses an in-process caller."""
+        return "in-process"
+
     def abort(self, code, details: str):
         self.aborted = (code, details)
         raise RpcAborted(code, details)

@@ -1,15 +1,24 @@
-"""3D detection entry point (port of the in-process path of
-``cli/detect3d.py``): build PointPillars or SECOND-IoU, register it with
-its warmup (a graph a point bucket), and run ``InferenceDriver`` over
-``CUDAChannel`` with ``drivers.channel_infer3d``. Prints one JSON
-summary: the driver's stats under ``driver``, then the run's detections
-and kernel launches (over the driver's run, its warmup calls included).
-As in the JAX CLI, a 3D dispatch takes one cloud: ``-b`` does not batch.
+"""3D detection entry point (the port's copy of ``cli/detect3d.py``).
+
+In-process (``-u cuda``, the default): build PointPillars or SECOND-IoU
+(or load one from a repository entry with ``-r``), register it with its
+warmup (a graph a point bucket), and run ``InferenceDriver`` over
+``CUDAChannel`` with ``drivers.channel_infer3d``. Remote (``-u
+grpc:<host:port>`` or ``grpc:unix:<path>``): the same adapter over a
+``GRPCChannel`` to ``serve``, its host prep configured from the served
+metadata; the client builds no model and does no device work. Prints one
+JSON summary: the driver's stats under ``driver``, ``eval`` with
+``--gt``, then the run's detections and, in-process, the kernel launches
+(over the driver's run, its warmup calls included) or, remote, the
+transport. As in the JAX CLI, a 3D dispatch takes one cloud: ``-b`` does
+not batch.
 
 Usage:
   python -m triton_client_tpu_torch detect3d -i synthetic:16
   python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:16 --async
   python -m triton_client_tpu_torch detect3d -i ./clouds --score 0.3 --sink jsonl -o out
+  python -m triton_client_tpu_torch detect3d -r repo -m pointpillar_kitti --gt gt3d.jsonl
+  python -m triton_client_tpu_torch detect3d -u grpc:127.0.0.1:8001 -m pointpillar_kitti
   python -m triton_client_tpu_torch detect3d -i synthetic:2 --device cpu \
       --pc-range 0,-6.4,-3,12.8,6.4,1 --voxel-size 0.2,0.2,4
   python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:2 --device cpu \
@@ -22,6 +31,9 @@ import argparse
 import dataclasses
 
 from triton_client_tpu_torch.cli.common import add_common_flags
+
+_ITEM_SWEEPS = "5 (ops/sweeps.py)"
+_ITEM_BF16_3D = "11 (bfloat16 on the 3D paths)"
 
 
 def _floats(n: int):
@@ -37,12 +49,6 @@ def _floats(n: int):
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__)
     add_common_flags(parser)
-    parser.add_argument(
-        "-m", "--model-name", default="pointpillars", help="pointpillars | second_iou"
-    )
-    parser.add_argument(
-        "-i", "--input", default="synthetic:16", help="synthetic[:N] or a directory of .npy clouds"
-    )
     parser.add_argument("--score", type=float, default=None, help="score gate, default 0.1")
     parser.add_argument("--z-offset", type=float, default=None, help="sensor z correction")
     parser.add_argument(
@@ -59,29 +65,37 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="voxel size dx,dy,dz in m (default 0.16,0.16,4 for pointpillars, 0.2,0.2,0.4 "
         "for second_iou)",
     )
-    return parser.parse_args(argv)
+    parser.add_argument("--sweeps", type=int, default=None, help="not ported yet")
+    parser.add_argument("--poses", default="", help="not ported yet")
+    args = parser.parse_args(argv)
+    # the raw argv, so the --repo guards can tell a passed flag from a default
+    import sys
+
+    args.argv = list(argv) if argv is not None else sys.argv[1:]
+    return args
 
 
-def main(argv=None) -> None:
-    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
-    from triton_client_tpu_torch.cli.common import (
-        CountingSink,
-        _check_async_flags,
-        make_sink,
-        print_report,
-    )
-    from triton_client_tpu_torch.drivers.driver import InferenceDriver, channel_infer3d
-    from triton_client_tpu_torch.io.sources import open_source
+def _build(args):
+    """-> (pipeline, spec): seeded weights at the KITTI grid (or
+    ``--pc-range``/``--voxel-size``), or with ``--repo`` the entry's."""
+    if args.repo:
+        from triton_client_tpu_torch.cli.common import flags_given, load_repo_pipeline
+
+        overrides = {k: v for k, v in (("score_thresh", args.score), ("z_offset", args.z_offset),
+                                       ("vfe", args.vfe)) if v is not None}
+        return load_repo_pipeline(args, overrides, "3d", conflicts={
+            "--dtype": flags_given(args.argv, "--dtype"),
+            "--pc-range": args.pc_range is not None,
+            "--voxel-size": args.voxel_size is not None,
+        })
     from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
     from triton_client_tpu_torch.models.second import SECONDConfig
-    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, gpu_voxel
     from triton_client_tpu_torch.pipelines.detect3d import BUILDERS_3D, default_detect3d_config
-    from triton_client_tpu_torch.runtime.repository import ModelRepository
 
-    args = parse_args(argv)
-    if args.async_set:
-        _check_async_flags(args)
-    name = args.model_name
+    if args.dtype != "fp32":
+        raise SystemExit(f"--dtype {args.dtype} on a 3D model is not ported yet (ROADMAP.md "
+                         f"Queue 1 item {_ITEM_BF16_3D})")
+    name = args.model_name or "pointpillars"
     if name not in BUILDERS_3D:
         raise SystemExit(f"unknown 3D model '{name}' (choose from {sorted(BUILDERS_3D)})")
     cfg = default_detect3d_config(name)
@@ -97,6 +111,67 @@ def main(argv=None) -> None:
         voxel = dataclasses.replace(voxel, voxel_size=args.voxel_size)
     model_cfg = dataclasses.replace(model_cfg, voxel=voxel)
     pipe, spec, _ = BUILDERS_3D[name](model_cfg=model_cfg, config=cfg, device=args.device)
+    return pipe, spec
+
+
+def main(argv=None) -> None:
+    from triton_client_tpu_torch.cli.common import (
+        CountingSink,
+        _check_async_flags,
+        check_unported,
+        grpc_channel,
+        make_sink,
+        print_report,
+        remote,
+        run_driver,
+    )
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.io.sources import open_source
+
+    args = parse_args(argv)
+    check_unported(args)
+    if args.sweeps is not None or args.poses:
+        raise SystemExit(f"--sweeps/--poses are not ported yet (ROADMAP.md Queue 1 item "
+                         f"{_ITEM_SWEEPS})")
+    if args.streaming:
+        raise SystemExit("--streaming is the 2D remote path (detect2d -u grpc:...)")
+    if args.async_set:
+        _check_async_flags(args)
+
+    def source_and_sink():
+        return (open_source(args.input, args.limit, kind="pointcloud"),
+                CountingSink(make_sink(args), lambda result: len(result["pred_scores"])))
+
+    if remote(args):
+        if not args.model_name:
+            raise SystemExit("--channel grpc:... requires -m/--model-name")
+        if args.repo:
+            raise SystemExit("--repo is in-process mode; in remote mode the SERVER loads the "
+                             "repository (serve -r ...)")
+        if (args.score is not None or args.vfe is not None or args.pc_range is not None
+                or args.voxel_size is not None):
+            raise SystemExit("--score/--vfe/--pc-range/--voxel-size are server-side in remote "
+                             "mode: set them in the model repository entry's config.yaml")
+        channel = grpc_channel(args)
+        infer = channel_infer3d(channel, args.model_name, model_version=args.model_version,
+                                z_offset=args.z_offset,  # None -> the served value
+                                asynchronous=args.async_set)
+        source, sink = source_and_sink()
+        stats, summary = run_driver(args, infer, source, sink, 1, "3d")
+        print_report(stats, summary, {
+            "model": args.model_name,
+            "transport": channel.stats()["transport"],
+            "scans": stats.frames,
+            "detections": sink.detections,
+        })
+        channel.close()
+        return
+
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d, gpu_voxel
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    pipe, spec = _build(args)
     repo = ModelRepository()
     repo.register(spec, pipe.infer_fn(), warmup=pipe.warmup)  # a graph a point bucket
     channel = CUDAChannel(repo, device=pipe.device, pipeline_depth=args.pipeline_depth)
@@ -110,22 +185,14 @@ def main(argv=None) -> None:
     }
     for counter in counters.values():
         counter.reset()
-    sink = CountingSink(make_sink(args), lambda result: len(result["pred_scores"]))
-    driver = InferenceDriver(
-        infer,
-        open_source(args.input, args.limit, kind="pointcloud"),
-        sink=sink,
-        prefetch=args.prefetch,
-        warmup=args.warmup,
-        inflight=args.inflight if args.async_set else 1,
-    )
-    stats = driver.run(max_frames=args.limit)
-    print_report(stats, {
+    source, sink = source_and_sink()
+    stats, summary = run_driver(args, infer, source, sink, 1, "3d")
+    print_report(stats, summary, {
         "model": spec.name,
         "device": str(pipe.device),
         "fused_stages": spec.extra["fused_stages"],
         "vfe": "scatter" if pipe.use_scatter else "grouped",
-        "grid": list(model_cfg.voxel.grid_size),
+        "grid": list(pipe.model.cfg.voxel.grid_size),
         "scans": stats.frames,
         "detections": sink.detections,
         "kernel_launches": {k: c.count for k, c in counters.items()},

@@ -11,11 +11,14 @@ on the serving host. Runs on ``cuda`` (``--device cpu`` runs the kernels'
 plain versions); without a card it raises "no CUDA device" before
 scanning, as ``detect2d``/``detect3d`` do.
 
+``--uds`` (default ``auto``, as in the JAX CLI) also listens on a unix
+socket, printed at startup; same-host clients dial ``grpc:unix:<path>``
+and negotiate shared memory there.
+
 The JAX CLI's flags for layers the port does not serve yet keep their
 off values here and raise at any other value, naming the ROADMAP item
-(:data:`UNPORTED`). Three of them default differently from the JAX CLI,
-which turns them on: ``--uds`` (``off``), ``--metrics-port`` (0) and
-``--max-sessions`` (0).
+(:data:`UNPORTED`). Two of them default differently from the JAX CLI,
+which turns them on: ``--metrics-port`` (0) and ``--max-sessions`` (0).
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ _timeout_warned = False
 # dest -> (flag, default (the off value), what); what keys
 # runtime/server.ROADMAP_ITEMS
 UNPORTED = {
-    "uds": ("--uds", "off", "unix socket"),
     "mesh": ("--mesh", "", "mesh"),
     "metrics_port": ("--metrics-port", 0, "telemetry"),
     "op_sample_interval": ("--op-sample-interval", 0.0, "telemetry"),
@@ -67,6 +69,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-r", "--model-repository", required=True,
                    help="model repository root (the examples/ layout)")
     p.add_argument("-a", "--address", default="0.0.0.0:8001")
+    p.add_argument("--uds", default="auto",
+                   help="unix-socket listener beside TCP: 'auto' (default) picks a socket of "
+                   "this process under the temporary directory, 'unix:/path.sock' or "
+                   "'/path.sock' pins it, 'off' disables. Same-host clients dialing the unix: "
+                   "target skip the TCP stack and negotiate shared-memory tensors")
     p.add_argument("--max-workers", type=int, default=8)
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="default cuda; cpu runs the kernels' plain versions")
@@ -147,6 +154,8 @@ def main(argv=None) -> None:
     server.start()
     # flush: supervisors parse this line through a pipe
     print(f"KServe v2 gRPC server listening on port {server.port}", flush=True)
+    if server.uds_address:
+        print(f"unix socket: {server.uds_address}", flush=True)
 
     import signal
 
@@ -226,10 +235,12 @@ def build_server(args):
             note = f"timeout={timeout_us}us"
         print(f"micro-batching[{batcher}]: max_batch={args.max_batch} {note} "
               f"pipeline_depth={args.pipeline_depth}", flush=True)
+    uds = getattr(args, "uds", "auto") or "off"
     return InferenceServer(
         repo,
         channel,
         address=args.address,
+        uds_address=None if uds == "off" else uds,
         max_workers=args.max_workers,
         trace_capacity=getattr(args, "trace_capacity", 256),
         admission_max_queue=getattr(args, "admission", 0),

@@ -4,9 +4,9 @@ The loop is pull-driven with a bounded prefetch queue: a producer thread
 reads and decodes upcoming frames while the card runs the current one.
 The driver is model-agnostic: it pumps ``Frame``s through an
 ``infer(data) -> {name: array}`` callable (the adapters below wrap the
-2D/3D pipelines and the channel) and reports throughput and latency
-percentiles. Scoring against ground truth (``evaluator``, ``gt_lookup``)
-waits for ``eval/``, which is not ported yet.
+2D/3D pipelines and the channel), optionally scores each frame against
+ground truth (``evaluator``, ``gt_lookup``) and reports throughput and
+latency percentiles.
 """
 
 from __future__ import annotations
@@ -31,11 +31,6 @@ InferFn = Callable[[np.ndarray], Mapping[str, Any]]
 AsyncInferFn = Callable[[np.ndarray], Any]
 
 _SENTINEL = object()
-
-_EVAL_NOT_PORTED = (
-    "scoring against ground truth needs eval/, which is not ported yet "
-    "(ROADMAP.md Queue 1, 'Evaluation and replay')"
-)
 
 
 @dataclasses.dataclass
@@ -73,7 +68,7 @@ def latency_stats(latencies_s: list, frames: int, wall_s: float, ticks: int) -> 
 
 
 class InferenceDriver:
-    """Prefetching pull loop: source -> infer -> sink."""
+    """Prefetching pull loop: source -> infer -> sink (+ eval)."""
 
     def __init__(
         self,
@@ -88,20 +83,23 @@ class InferenceDriver:
         batch_size: int = 1,
         inflight: int = 1,
     ) -> None:
-        """``profiler``: optional object with ``record(stage, seconds)``;
+        """``evaluator``: an ``eval.detection_map`` evaluator scored through
+        ``gt_lookup``, which maps a frame to its ground truth (2D: (n, 5)
+        [x1, y1, x2, y2, cls]; 3D: (n, 8) boxes and class) or None.
+        ``profiler``: optional object with ``record(stage, seconds)``;
         records source/infer/sink stage latencies. ``batch_size`` > 1
         stacks that many frames a dispatch (frames must share a shape) and
         demuxes the results back per frame. ``inflight`` > 1 selects the
         async pump: ``infer`` must then return a future (``.result() ->
         Mapping``) and up to ``inflight`` dispatches overlap, retired in
         issue order. The two are mutually exclusive."""
-        if evaluator is not None or gt_lookup is not None:
-            raise NotImplementedError(_EVAL_NOT_PORTED)
         self.infer = infer
         self.source = source
         self.sink = sink
         self.prefetch = prefetch
         self.warmup = warmup
+        self.evaluator = evaluator
+        self.gt_lookup = gt_lookup
         self.profiler = profiler
         self.batch_size = max(1, int(batch_size))
         self.inflight = max(1, int(inflight))
@@ -258,12 +256,19 @@ class InferenceDriver:
         return latency_stats(latencies, frames=n, wall_s=wall, ticks=n)
 
     def _deliver(self, frame, per: Mapping[str, Any]) -> None:
-        """The per-frame tail of both loops: the sink write."""
+        """The per-frame tail of both loops: the sink write and the
+        optional scoring."""
         if self.sink is not None:
             t1 = time.perf_counter()
             self.sink.write(frame, per)
             if self.profiler is not None:
                 self.profiler.record("sink", time.perf_counter() - t1)
+        if self.evaluator is not None and self.gt_lookup is not None:
+            gts = self.gt_lookup(frame)
+            if gts is not None:
+                # the evaluator's adapter owns the output contract (2D
+                # packed rows, 3D pred_boxes dict)
+                self.evaluator.add_frame_from(per, gts)
 
 
 def detect2d_infer(pipeline) -> InferFn:
@@ -348,7 +353,11 @@ def channel_infer(
 
     def make_request(data: np.ndarray) -> InferRequest:
         if input_name == "images" and data.ndim == 3:
-            data = data[None]
+            # a reshape, not data[None]: the batch axis gets a real stride,
+            # as in a staged or wire copy (PyTorch's CPU kernels may round
+            # differently on a stride-0 axis), so in-process and remote
+            # runs see the same tensor
+            data = data.reshape((1, *data.shape))
         return InferRequest(
             model_name=model_name, model_version=model_version, inputs={input_name: data}
         )

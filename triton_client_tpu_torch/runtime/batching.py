@@ -18,13 +18,11 @@ its neighbours; each fallback is logged and counted
 launch (:class:`~triton_client_tpu_torch.ops.cuda_build.KernelError`)
 fails the group's requests instead: a plain path must not hide it.
 
-No entry point of the port builds the window batcher itself yet: its
-callers (the ``serve`` CLI's window scheduler) wait for the wire façade
-(ROADMAP Queue 1 item 5). It is the base of
-:class:`~triton_client_tpu_torch.runtime.continuous.ContinuousBatchingChannel`
+``serve --batcher window`` builds it; it is also the base of
+:class:`~triton_client_tpu_torch.runtime.continuous.ContinuousBatchingChannel`,
 and the tests hold the continuous dense path against it.
 
-Not ported yet (ROADMAP Queue 1 item 5): the native C++ admission
+Not ported yet (ROADMAP Queue 1 item 8): the native C++ admission
 window and the native staging arena. ``use_native=True`` or
 ``arena_slots > 0`` raise ``NotImplementedError``.
 """
@@ -52,7 +50,7 @@ log = logging.getLogger(__name__)
 
 _NOT_PORTED = (
     "the native C++ batcher and its staging arena are not ported yet "
-    "(ROADMAP Queue 1 item 5); use use_native=False and arena_slots=0"
+    "(ROADMAP Queue 1 item 8); use use_native=False and arena_slots=0"
 )
 
 

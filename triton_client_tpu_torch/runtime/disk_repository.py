@@ -169,9 +169,9 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     if names:
         cfg = dataclasses.replace(cfg, class_names=names, num_classes=model_kwargs["num_classes"])
 
-    def build(variables=None, state_dict=None):
+    def build(variables=None, state_dict=None, config=None):
         return detect2d.BUILDERS_2D[family](
-            variables=variables, state_dict=state_dict, config=cfg, device=device,
+            variables=variables, state_dict=state_dict, config=config or cfg, device=device,
             precision=policy, **model_kwargs
         )
 
@@ -206,9 +206,9 @@ def _build_3d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
             detect3d.default_detect3d_config(family), dict(doc.get("pipeline", {})), _SEQ_KEYS
         )
 
-    def build(variables=None, state_dict=None):
+    def build(variables=None, state_dict=None, config=None):
         return detect3d.BUILDERS_3D[family](
-            model_cfg=model_cfg, config=pipe_cfg, variables=variables,
+            model_cfg=model_cfg, config=config or pipe_cfg, variables=variables,
             state_dict=state_dict, device=device,
         )
 
@@ -272,12 +272,14 @@ class _Entry:
             precision=getattr(pipeline, "precision", None),
         )
 
-    def pipeline(self, version: str, weights=None, variables=None):
-        """(pipeline, spec) of one version, with its weights."""
+    def pipeline(self, version: str, weights=None, variables=None, config=None):
+        """(pipeline, spec) of one version, with its weights; ``config``
+        replaces the entry's pipeline config."""
         state_dict = None
         if weights is not None:
             state_dict = functools.partial(load_weights, weights, self.family)
-        pipeline, spec, _ = self._build(variables=variables, state_dict=state_dict)
+        pipeline, spec, _ = self._build(variables=variables, state_dict=state_dict,
+                                        config=config)
         spec = dataclasses.replace(
             spec,
             name=self.model_dir.name,
@@ -287,10 +289,20 @@ class _Entry:
         return pipeline, spec
 
 
-def load_pipeline(model_dir, version: str = "", device=None):
+def load_pipeline(model_dir, version: str = "", overrides: Mapping[str, Any] | None = None,
+                  kind: str | None = None, device=None):
     """One model dir -> (pipeline, spec) with its trained weights, for use
-    in-process. Empty ``version`` takes the latest version dir."""
+    in-process (the detect CLIs' ``--repo``). Empty ``version`` takes the
+    latest version dir. ``overrides`` replace fields of the entry's
+    pipeline config (``--conf``, ``--score``); ``kind`` (``2d``/``3d``)
+    refuses an entry of the other kind up front."""
     entry = _Entry(model_dir, device=device)
+    if kind:
+        families = _families_2d() if kind == "2d" else _families_3d()
+        if entry.family not in families:
+            other = "3d" if kind == "2d" else "2d"
+            raise ValueError(f"{entry.model_dir}: family {entry.family!r} is a {other} model; "
+                             f"use the detect{other} CLI for this entry")
     if version:
         vdir = entry.model_dir / version
         if not vdir.is_dir():
@@ -301,7 +313,8 @@ def load_pipeline(model_dir, version: str = "", device=None):
             raise FileNotFoundError(f"{entry.model_dir}: no version dirs with weights "
                                     "(a --repo entry must carry trained artifacts)")
         vdir = vdirs[-1]
-    return entry.pipeline(vdir.name, find_weights(vdir))
+    config = dataclasses.replace(entry.cfg, **overrides) if overrides else None
+    return entry.pipeline(vdir.name, find_weights(vdir), config=config)
 
 
 def version_dirs(model_dir: pathlib.Path) -> list[pathlib.Path]:

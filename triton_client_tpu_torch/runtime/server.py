@@ -24,26 +24,35 @@ reach the models the port serves, dispatching through a ``BaseChannel``
   its span summary in the ``trace_summary`` parameter.
 - **Streams** keep up to ``stream_pipeline_depth`` requests in flight and
   answer in request order, each response the moment it resolves.
+- **Shared memory** (Triton's system-shared-memory extension, the JAX
+  server's registry): same-host clients register ``/dev/shm`` regions and
+  send inputs, and ask for outputs, as region coordinates. Only a
+  loopback or unix-socket peer may reach the registry
+  (``PERMISSION_DENIED`` otherwise). ``uds_address`` adds a unix-socket
+  listener beside TCP. ``content_encoding`` inputs (``jpeg``, ``q8``,
+  ``q16``) decode as the JAX server decodes them
+  (``runtime/wire_encoding.py``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item (the defaults keep them off, as in the JAX server): the telemetry
-endpoint (``metrics_port``), the unix socket (``uds_address``), the op
-sampler and metric history, the SLO plane (``slo_ms > 0``), lifecycle,
-tenants, the quality and temporal planes, and ``content_encoding`` input
-parameters. The shared-memory RPCs answer ``UNIMPLEMENTED``, and
-``ServerMetadata`` does not list ``system_shared_memory``.
+endpoint (``metrics_port``), the op sampler and metric history, the SLO
+plane (``slo_ms > 0``), lifecycle, tenants, and the quality and temporal
+planes.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import logging
+import os
 import queue
 import threading
 import time
 
 from triton_client_tpu_torch import __version__
+from triton_client_tpu_torch.channel import transport as transports
 from triton_client_tpu_torch.channel.base import BaseChannel, InferRequest
 from triton_client_tpu_torch.channel.kserve import codec, pb, service
 from triton_client_tpu_torch.config import FRAMING_BYTES
@@ -54,7 +63,7 @@ from triton_client_tpu_torch.obs.trace import (
     Tracer,
     encode_span_summary,
 )
-from triton_client_tpu_torch.runtime import faults
+from triton_client_tpu_torch.runtime import faults, wire_encoding
 from triton_client_tpu_torch.runtime.admission import (
     AdmissionController,
     AdmissionRejectedError,
@@ -65,6 +74,7 @@ from triton_client_tpu_torch.runtime.admission import (
     ServerDrainingError,
 )
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from triton_client_tpu_torch.runtime.shared_memory import SystemSharedMemoryRegistry
 
 log = logging.getLogger(__name__)
 
@@ -74,9 +84,6 @@ _MIN_MSG_BYTES = 64 << 20
 
 # the ROADMAP.md Queue 1 item each unported option waits for
 ROADMAP_ITEMS = {
-    "shared memory": "8 (runtime/shared_memory.py, channel/transport.py)",
-    "unix socket": "8 (channel/transport.py)",
-    "content_encoding": "8 (runtime/wire_encoding.py)",
     "telemetry": "8 (obs/{collector,histogram,slo,history,sampler}.py)",
     "slo": "8 (obs/slo.py)",
     "lifecycle": "8 (runtime/lifecycle.py)",
@@ -138,12 +145,15 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         draining: threading.Event | None = None,
         replica_of: str | None = None,
         status: dict | None = None,
+        shm_registry: SystemSharedMemoryRegistry | None = None,
     ) -> None:
         """``status``: status name -> code for ``context.abort`` (the grpc
         table, from ``service.grpc_status_table``); None aborts with the
-        names, for an in-process context."""
+        names, for an in-process context. ``shm_registry``: the regions
+        the shared-memory RPCs register (a new one when None)."""
         self._repo = repository
         self._channel = channel
+        self._shm = shm_registry if shm_registry is not None else SystemSharedMemoryRegistry()
         self._stream_depth = max(1, int(stream_pipeline_depth))
         self._tracer = tracer
         self._admission = admission
@@ -194,7 +204,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
     # -- metadata -------------------------------------------------------------
 
     def ServerMetadata(self, request, context):
-        extensions = ["model_repository", "binary_tensor_data"]
+        extensions = ["model_repository", "binary_tensor_data", "system_shared_memory"]
         if self._replica_of:
             extensions.append(f"replica_of:{self._replica_of}")
         return pb.ServerMetadataResponse(
@@ -240,20 +250,62 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 resp.models.add(name=name, version=version, state="READY")
         return resp
 
-    # -- shared memory: not ported ----------------------------------------------
+    # -- shared memory (Triton system-shared-memory extension) ----------------
 
-    def _no_shm(self, context):
-        self._abort(context, "UNIMPLEMENTED", str(not_ported("shared memory", "the "
-                                                             "system-shared-memory extension")))
+    @staticmethod
+    def _is_local_peer(context) -> bool:
+        # ipv6:[::ffff:127.*] is the v4-mapped loopback a dual-stack bind
+        # reports for a 127.0.0.1 dial
+        return context.peer().startswith(
+            ("ipv4:127.", "ipv6:[::1]", "ipv6:[::ffff:127.", "unix:"))
 
-    def SystemSharedMemoryStatus(self, request, context):
-        self._no_shm(context)
+    def _require_local(self, context) -> None:
+        """Registration maps a /dev/shm file into the server and requests
+        read and write it, so a remote peer must never reach it (it could
+        attach any flat-named segment on this host). Loopback and unix
+        sockets only."""
+        if not self._is_local_peer(context):
+            self._abort(context, "PERMISSION_DENIED",
+                        f"shared-memory extension is restricted to same-host clients "
+                        f"(peer {context.peer()})")
 
     def SystemSharedMemoryRegister(self, request, context):
-        self._no_shm(context)
+        self._require_local(context)
+        try:
+            self._shm.register(request.name, request.key, request.offset, request.byte_size)
+        except (ValueError, OSError) as e:
+            self._abort(context, "INVALID_ARGUMENT", str(e))
+        return pb.SystemSharedMemoryRegisterResponse()
 
     def SystemSharedMemoryUnregister(self, request, context):
-        self._no_shm(context)
+        self._require_local(context)
+        if request.name:
+            self._shm.unregister(request.name)
+        else:
+            self._shm.unregister_all()
+        return pb.SystemSharedMemoryUnregisterResponse()
+
+    def SystemSharedMemoryStatus(self, request, context):
+        self._require_local(context)
+        resp = pb.SystemSharedMemoryStatusResponse()
+        try:
+            regions = self._shm.status(request.name)
+        except KeyError as e:
+            self._abort(context, "NOT_FOUND", str(e))
+        for name, reg in regions.items():
+            resp.regions[name].name = name
+            resp.regions[name].key = reg.key
+            resp.regions[name].offset = reg.offset
+            resp.regions[name].byte_size = reg.byte_size
+        return resp
+
+    def _detach_probe(self, model_name: str) -> None:
+        """Fault point ``shm_detach``: drop every attached region right
+        before a parse, so the parse fails as on a freshly restarted server
+        ('not registered' -> INVALID_ARGUMENT) and clients exercise their
+        re-registration."""
+        if faults.probe_flag("shm_detach", model_name):
+            self._shm.unregister_all()
 
     # -- inference ------------------------------------------------------------
 
@@ -263,10 +315,11 @@ class _Servicer(service.GRPCInferenceServiceServicer):
 
         ``inputs_override``/``id_override``: one member of a packed stream
         group (:meth:`_issue_group`), whose inputs are views into the
-        group's parse. The dispatch is ``do_inference_async``, so the card
-        starts while this thread returns; the finisher's ``result()`` is
-        the only wait. ``_account`` closes every request out, failed ones
-        included."""
+        group's parse; content decoding and output placement are then
+        skipped (a shared output region cannot serve G members). The
+        dispatch is ``do_inference_async``, so the card starts while this
+        thread returns; the finisher's ``result()`` is the only wait.
+        ``_account`` closes every request out, failed ones included."""
         t0 = time.perf_counter()
         request_id = id_override if id_override is not None else request.id
         trace = None
@@ -303,18 +356,21 @@ class _Servicer(service.GRPCInferenceServiceServicer):
             if inputs_override is not None:
                 inputs = inputs_override
             else:
-                # the port's server has no shared-memory registry to drop;
-                # the probe keeps the fault timeline's counts equal to JAX's
-                faults.probe_flag("shm_detach", request.model_name)
+                self._detach_probe(request.model_name)
                 if trace is not None:
                     with trace.span("parse"):
-                        inputs = codec.parse_infer_request(request)
+                        inputs = codec.parse_infer_request(request, shm=self._shm)
                 else:
-                    inputs = codec.parse_infer_request(request)
-                for t in request.inputs:
-                    if "content_encoding" in t.parameters:
-                        raise not_ported("content_encoding",
-                                         f"input {t.name!r}: a content_encoding parameter")
+                    inputs = codec.parse_infer_request(request, shm=self._shm)
+                encodings = wire_encoding.encodings_of(request)
+                if encodings:
+                    # in a pipelined stream this runs on the reader thread
+                    # while the previous request owns the card
+                    if trace is not None:
+                        with trace.span("decode"):
+                            inputs = wire_encoding.decode_inputs(inputs, encodings)
+                    else:
+                        inputs = wire_encoding.decode_inputs(inputs, encodings)
             if trace is not None:
                 # closed in finish() once the future resolves
                 trace.begin("channel")
@@ -330,6 +386,11 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 sequence_end=sequence_end,
             )
             future = self._channel.do_inference_async(ireq)
+            # overlapped with the card: the placement needs only the request
+            shm_outputs = {} if inputs_override is not None else {
+                t.name: params for t in request.outputs
+                if (params := codec.shm_params(t)) is not None
+            }
         except BaseException as e:
             self._account(request.model_name, t0, trace, error=e, admitted=admitted)
             raise
@@ -342,20 +403,22 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 finally:
                     if trace is not None:
                         trace.end("channel")
-                if trace is None:
-                    return codec.build_infer_response(
-                        model_name=result.model_name,
-                        model_version=result.model_version,
-                        outputs=result.outputs,
-                        request_id=result.request_id,
-                    )
-                t_e0 = time.perf_counter()
-                resp = codec.build_infer_response(
+                # the encode copies the outputs (into the wire message or the
+                # client's region) now: nothing keeps a view of a readback
+                # buffer past this request
+                encode = functools.partial(
+                    codec.build_infer_response,
                     model_name=result.model_name,
                     model_version=result.model_version,
                     outputs=result.outputs,
                     request_id=result.request_id,
+                    shm_outputs=shm_outputs,
+                    shm=self._shm,
                 )
+                if trace is None:
+                    return encode()
+                t_e0 = time.perf_counter()
+                resp = encode()
                 trace.add("encode", t_e0, time.perf_counter())
                 # the summary goes in after the encode span, so the far
                 # side's grafted timeline includes it
@@ -405,8 +468,8 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         g = self._stream_group_size(request)
         if g == 1:
             return [self._issue(request)]
-        faults.probe_flag("shm_detach", request.model_name)
-        inputs = codec.parse_infer_request(request)
+        self._detach_probe(request.model_name)
+        inputs = codec.parse_infer_request(request, shm=self._shm)
         members: list[dict] = [{} for _ in range(g)]
         for name, arr in inputs.items():
             if arr.ndim < 1 or arr.shape[0] % g:
@@ -449,7 +512,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
 
     def ModelInfer(self, request, context):
         if self._uses_shm(request):
-            self._no_shm(context)
+            self._require_local(context)
         try:
             return self._issue(request)()
         except OverloadError as e:
@@ -476,7 +539,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         if self._stream_depth <= 1:
             for request in request_iterator:
                 if self._uses_shm(request):
-                    self._no_shm(context)
+                    self._require_local(context)
                 try:
                     finishers = self._issue_group(request)
                 except self._STREAM_ERRORS as e:
@@ -496,8 +559,8 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         def issue_loop() -> None:
             try:
                 for request in request_iterator:
-                    if self._uses_shm(request):
-                        q.put(("shm", None))  # the abort runs on the handler thread
+                    if self._uses_shm(request) and not self._is_local_peer(context):
+                        q.put(("non_local", None))  # the abort runs on the handler thread
                         return
                     try:
                         finishers = self._issue_group(request)
@@ -525,8 +588,8 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                         yield pb.ModelStreamInferResponse(error_message=str(e))
                 elif kind == "error":
                     yield pb.ModelStreamInferResponse(error_message=payload)
-                elif kind == "shm":
-                    self._no_shm(context)
+                elif kind == "non_local":
+                    self._require_local(context)
                 else:  # crash
                     raise payload
         finally:
@@ -566,10 +629,14 @@ class InferenceServer:
         no admission control); beyond it requests are rejected with
         RESOURCE_EXHAUSTED before parse.
         ``replica_of``: replica-set label (keys the ``replica_down`` fault
-        point; advertised in ServerMetadata.extensions). The other options
-        are not ported and raise when set (module docstring)."""
+        point; advertised in ServerMetadata.extensions). ``uds_address``:
+        also listen on a unix socket (``unix:/path``, a bare path, or
+        ``"auto"`` for a path of this process and port in the temporary
+        directory), so same-host clients skip the TCP stack; read the bound
+        target back from ``.uds_address``. The socket file is unlinked on
+        ``stop()``. The other options are not ported and raise when set
+        (module docstring)."""
         for what, value, option in (
-            ("unix socket", uds_address, "uds_address"),
             ("telemetry", metrics_port, "metrics_port"),
             ("telemetry", op_sample_interval_s, "op_sample_interval_s"),
             ("telemetry", history_interval_s, "history_interval_s"),
@@ -598,6 +665,7 @@ class InferenceServer:
                 ("grpc.max_receive_message_length", limit),
             ],
         )
+        self.shm_registry = SystemSharedMemoryRegistry()
         self._servicer = _Servicer(
             repository,
             channel,
@@ -607,12 +675,33 @@ class InferenceServer:
             draining=self._draining,
             replica_of=replica_of,
             status=service.grpc_status_table(),
+            shm_registry=self.shm_registry,
         )
         service.add_GRPCInferenceServiceServicer_to_server(self._servicer, self._server)
         self._port = self._server.add_insecure_port(address)
         if self._port == 0:
             raise RuntimeError(f"could not bind {address}")
         self._address = address
+        self.uds_address: str | None = None
+        self._uds_path: str | None = None
+        if uds_address:
+            path = uds_address
+            if path == "auto":
+                import tempfile
+
+                path = os.path.join(tempfile.gettempdir(),
+                                    f"tct_serve_{os.getpid()}_{self._port}.sock")
+            elif transports.is_uds(path):
+                path = transports.uds_path(path)
+            try:
+                # a stale socket from a crashed run blocks the bind
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+            if self._server.add_insecure_port(f"unix:{path}") == 0:
+                raise RuntimeError(f"could not bind unix:{path}")
+            self.uds_address = f"unix:{path}"
+            self._uds_path = path
         self.channel = channel
 
     @property
@@ -625,7 +714,10 @@ class InferenceServer:
 
     def start(self) -> None:
         self._server.start()
-        log.info("KServe v2 server listening on %s", self._address)
+        listening = self._address
+        if self.uds_address:
+            listening = f"{listening} + {self.uds_address}"
+        log.info("KServe v2 server listening on %s", listening)
 
     def wait(self) -> None:
         self._server.wait_for_termination()
@@ -655,3 +747,12 @@ class InferenceServer:
 
     def stop(self, grace: float = 1.0) -> None:
         self._server.stop(grace).wait()
+        # detach, never unlink: the segments are the clients'
+        self.shm_registry.unregister_all()
+        if self._uds_path is not None:
+            # the socket file is the server's
+            try:
+                os.unlink(self._uds_path)
+            except FileNotFoundError:
+                pass
+            self._uds_path = None
