@@ -16,8 +16,10 @@ batcher in front of the channel: packed ragged batches of KITTI-sized
 clouds through the pool model (``models/pool.py``), and YOLOv5n through its
 dense merged path; then the KServe v2 façade over a disk repository of the
 same three entries, the layout and precision of examples/yolov5_crop (phase
-26), and detect2d/detect3d client processes against serve (phase 27). One
-JSON line per phase:
+26), detect2d/detect3d client processes against serve (phase 27), and
+CenterPoint with velocity on nuScenes at full width with 10-sweep
+aggregation, with examples/pointpillar_wide beside it (phase 28). One JSON
+line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -193,6 +195,29 @@ JSON line per phase:
                  from a client process; the host time of the servicer's
                  q8/q16 dequantization at batch-8 512² frames and a 120k
                  cloud
+ 28. centerpoint — examples/centerpoint_nusc (data/nusc_centerpoint.yaml:
+                 the 512 x 512 canvas, 5 point features, buckets 131,072
+                 and 262,144) from a seeded det3d-named weights.pth with a
+                 shared-conv bias (runtime/importers.load_centerpoint, no
+                 JAX), and examples/pointpillar_wide, behind serve in this
+                 process. Scans: 10 seeded sweeps of 26,000 points over the
+                 nuScenes range, 0.05 s apart, moved into the keyframe by a
+                 pose JSONL (260,000 points), and single 30,000-point
+                 sweeps. Lines centerpoint_kernel4 (kernel 4 bitwise equal
+                 to its plain version on the main path's own K = 128
+                 candidates of 11 columns, captured = eager bitwise with
+                 equal launches at both buckets), centerpoint_main_path
+                 (13 scans through CUDAChannel: one kernel 4 launch each and
+                 no other, no capture in the window, rows bitwise equal to
+                 the in-process pipeline's, the card against the CPU
+                 pipeline with rows matched by box), centerpoint_times (p50
+                 and scans/s at both buckets, device ms, busy share and
+                 top ops, stable_top_k over 655,360 entries, kernel 4's
+                 ms/call/plain/bound at this shape, pointpillar_wide's p50)
+                 and centerpoint_remote (detect3d -u grpc: --sweeps 10
+                 --poses clients with no card over the wire, shm and the
+                 unix socket, rows bitwise equal to the in-process -r run
+                 and carrying pred_velocities; kernel 4 once a request)
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -938,6 +963,11 @@ def main() -> int:
     run_facade(card, counters)
     run_layout(card, counters)
     run_remote(card, counters)
+    record_cp = run_centerpoint(card, counters)
+    # kernel 4 also runs CenterPoint's tail, at K = 128 rows of 11 columns
+    k4_row = next(row for row in record_3d if row["name"] == "suppress_pack_3d")
+    k4_row["launches_by_path"]["centerpoint"] = record_cp.pop("launches")
+    k4_row["centerpoint_shape"] = record_cp
 
     record = [
         {"name": "decode_nms_2d", "route": "cuda",
@@ -1928,6 +1958,47 @@ def request_profile(run, requests: int) -> dict:
             "host_issued_by_call": {k: v / requests for k, v in sorted(issued.items())}}
 
 
+def outputs_bitwise_equal(got, want) -> bool:
+    return all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
+                           bits(e) if e.dtype == torch.float32 else e)
+               for g, e in zip(got, want))
+
+
+def hold_captured_to_eager(pipe, a, b, counters, label: str) -> tuple:
+    """A pipeline's captured body (``pipe._jit``) against its eager body
+    (``pipe.run``) on two inputs: ``GRAPH_REPLAYS`` replays on ``a``
+    bitwise equal to one eager call and launching ``GRAPH_REPLAYS`` times
+    its kernels, a replay on ``b`` giving ``b``'s result, the two results
+    not equal, and no capture past the first call. Returns (eager launches
+    a call per counter, eager outputs on a, on b)."""
+    pipe._jit(*a)  # captures here unless captured at registration
+    torch.cuda.synchronize()
+    before = [c.count for c in counters]
+    eager_a = pipe.run(*a)
+    torch.cuda.synchronize()
+    per_call = [c.count - x for c, x in zip(counters, before)]
+    eager_b = pipe.run(*b)
+    captures_before = pipe.graph_stats()["captures"]
+    torch.cuda.synchronize()
+    before = [c.count for c in counters]
+    got = [pipe._jit(*a) for _ in range(GRAPH_REPLAYS)]
+    torch.cuda.synchronize()
+    replayed = [c.count - x for c, x in zip(counters, before)]
+    got_b = pipe._jit(*b)
+    check(pipe.graph_stats()["captures"] == captures_before,
+          f"{label}: a request captured a graph after the first call")
+    check(replayed == [GRAPH_REPLAYS * n for n in per_call],
+          f"{label}: {GRAPH_REPLAYS} replays launched {replayed}, eager once {per_call}")
+    for out in got:
+        check(outputs_bitwise_equal(out, eager_a),
+              f"{label}: the captured call differs from the eager body")
+    check(outputs_bitwise_equal(got_b, eager_b),
+          f"{label}: a replay on a second input did not give that input's result")
+    check(not all(torch.equal(x, y) for x, y in zip(eager_a, eager_b)),
+          f"{label}: the two inputs give the same result; the check shows nothing")
+    return per_call, eager_a, eager_b
+
+
 def run_graphs(card: str, dev: torch.device, counters) -> None:
     """Phases 22-23: each served path's CUDA graph against its eager body
     (``runtime/graphs``), then eager against captured through
@@ -1978,35 +2049,11 @@ def run_graphs(card: str, dev: torch.device, counters) -> None:
         if route:
             os.environ["TRITON_CLIENT_TPU_NMS"] = route
         try:
-            pipe._jit(*a)  # captured already at registration; a no-op capture check
-            torch.cuda.synchronize()
-            before = [c.count for c in counters]
-            eager_a = pipe.run(*a)
-            torch.cuda.synchronize()
-            per_call = [c.count - x for c, x in zip(counters, before)]
-            eager_b = pipe.run(*b)
-            captures_before = pipe.graph_stats()["captures"]
-            torch.cuda.synchronize()
-            before = [c.count for c in counters]
-            got = [pipe._jit(*a) for _ in range(GRAPH_REPLAYS)]
-            torch.cuda.synchronize()
-            replayed = [c.count - x for c, x in zip(counters, before)]
-            got_b = pipe._jit(*b)
-            check(pipe.graph_stats()["captures"] == captures_before,
+            # captured already at registration: the first call captures nothing
+            captures = pipe.graph_stats()["captures"]
+            per_call, eager_a, eager_b = hold_captured_to_eager(pipe, a, b, counters, label)
+            check(pipe.graph_stats()["captures"] == captures,
                   f"{label}: a request captured a graph after the registration warmup")
-            check(replayed == [GRAPH_REPLAYS * n for n in per_call],
-                  f"{label}: {GRAPH_REPLAYS} replays launched {replayed}, eager once {per_call}")
-            for out in got:
-                check(all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
-                                      bits(e) if e.dtype == torch.float32 else e)
-                          for g, e in zip(out, eager_a)),
-                      f"{label}: the captured call differs from the eager body")
-            check(all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
-                                  bits(e) if e.dtype == torch.float32 else e)
-                      for g, e in zip(got_b, eager_b)),
-                  f"{label}: a replay on a second input did not give that input's result")
-            check(not all(torch.equal(x, y) for x, y in zip(eager_a, eager_b)),
-                  f"{label}: the two inputs give the same result; the check shows nothing")
             # two requests in flight at pipeline_depth 2, resolved in reverse
             channel = served["channel"]
             check(channel.pipeline_depth == 2, "the channel is not at pipeline_depth 2")
@@ -3046,6 +3093,373 @@ def run_remote(card: str, counters) -> None:
                          "p50_ms": v[0]["driver"]["p50_ms"]} for k, v in local.items()},
          phase25_socket_leg=SERVED.get("socket_leg"), wire_split=split,
          wire_split_client_process=split_child, dequant_host=dequant_host())
+
+
+# phase 28: examples/centerpoint_nusc (data/nusc_centerpoint.yaml at full
+# width) and examples/pointpillar_wide; CenterPoint's scans are 10 sweeps of
+# 26,000 points 0.05 s apart (260,000 points: the 262,144 bucket) and single
+# 30,000-point sweeps (the 131,072 bucket); the remote clients replay
+# CP_FILES sweeps, of which the last CP_FILES - 9 aggregate 10
+CP_ENTRY, WIDE_ENTRY = "centerpoint_nusc", "pointpillar_wide"
+CP_SWEEPS, CP_SWEEP_POINTS, CP_SINGLE_POINTS, CP_PERIOD = 10, 26000, 30000, 0.05
+CP_FILES, CP_REQUESTS, WIDE_REQUESTS = 20, 20, 10
+NUSC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+# card against CPU: rows matched by label and box centre within CP_MATCH_M
+# metres; matched rows within CP_TOL in every column, and at least
+# CP_MATCHED of the card's rows matched
+CP_MATCH_M, CP_TOL, CP_MATCHED = 0.05, 1e-4, 0.9
+
+
+def det3d_state(model) -> dict:
+    """A seeded CenterPoint's weights under det3d's names, with a
+    shared-conv bias added to the conv and to the BatchNorm mean after it,
+    which ``runtime/importers.load_centerpoint`` folds back."""
+    from triton_client_tpu_torch.runtime.importers import centerpoint_torch_key
+
+    state = {centerpoint_torch_key(k): v.clone() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    bias = torch.linspace(-0.1, 0.1, model.cfg.head_width)
+    state["bbox_head.shared_conv.0.bias"] = bias
+    state["bbox_head.shared_conv.1.running_mean"] += bias
+    return state
+
+
+def centerpoint_repository(tmp: pathlib.Path) -> tuple[pathlib.Path, pathlib.Path, pathlib.Path]:
+    """The phase-28 repository root (``centerpoint_nusc`` with a seeded
+    det3d-named ``1/weights.pth``, ``pointpillar_wide`` seeded), a
+    directory of ``CP_FILES`` seeded sweeps over the nuScenes range and
+    their poses (a platform moving 0.5 m and turning 0.01 rad a sweep)."""
+    from triton_client_tpu_torch.runtime.disk_repository import _Entry
+
+    root = tmp / "repo"
+    for name in (CP_ENTRY, WIDE_ENTRY):
+        (root / name).mkdir(parents=True)
+        (root / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    (root / CP_ENTRY / "1").mkdir()
+    _, _, model = _Entry(root / CP_ENTRY, device="cpu")._build()  # seeded, on the host
+    torch.save({"state_dict": det3d_state(model)}, root / CP_ENTRY / "1" / "weights.pth")
+    sweeps = tmp / "sweeps"
+    sweeps.mkdir()
+    poses = tmp / "poses.jsonl"
+    with open(poses, "w") as f:
+        for i in range(CP_FILES):
+            np.save(sweeps / f"{i:03d}.npy",
+                    uniform_clouds(280 + i, NUSC_RANGE, CP_SWEEP_POINTS, 1)[0])
+            yaw = 0.01 * i
+            f.write(json.dumps({"frame_id": i, "pose": [0.5 * i, 0.0, 0.0, 0.0, 0.0,
+                                                        float(np.sin(yaw / 2)),
+                                                        float(np.cos(yaw / 2))]}) + "\n")
+    return root, sweeps, poses
+
+
+def recorded_suppress_args(run):
+    """``run()`` with ``ops/detect3d_postprocess.fused_suppress_pack_3d``
+    recording its arguments: the candidates the main path hands kernel 4.
+    Returns (what ``run`` returned, (args, kwargs) of the one call)."""
+    from triton_client_tpu_torch.ops import detect3d_postprocess as post
+
+    seen, call = [], post.fused_suppress_pack_3d
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return call(*args, **kw)
+
+    post.fused_suppress_pack_3d = record
+    try:
+        out = run()
+    finally:
+        post.fused_suppress_pack_3d = call
+    torch.cuda.synchronize()
+    check(len(seen) == 1, f"one scan called the suppress+pack wrapper {len(seen)} times")
+    return out, seen[0]
+
+
+def rows_matched_by_box(card: dict, cpu: dict) -> tuple[int, float]:
+    """Each card row against the CPU row of its label whose box centre is
+    nearest, within ``CP_MATCH_M``: (rows matched, the largest difference
+    over their boxes, scores and velocities)."""
+    matched, err = 0, 0.0
+    for i in range(len(card["pred_scores"])):
+        same = np.flatnonzero(cpu["pred_labels"] == card["pred_labels"][i])
+        if not len(same):
+            continue
+        d = np.hypot(*(cpu["pred_boxes"][same, :2] - card["pred_boxes"][i, :2]).T)
+        j = same[int(d.argmin())]
+        if d.min() > CP_MATCH_M:
+            continue
+        matched += 1
+        err = max(err, *(float(np.abs(card[k][i] - cpu[k][j]).max())
+                         for k in ("pred_boxes", "pred_scores", "pred_velocities")))
+    return matched, err
+
+
+def run_centerpoint(card: str, counters) -> dict:
+    """Phase 28: ``examples/centerpoint_nusc`` (CenterPoint with velocity,
+    nuScenes, 10 sweeps, at full width) and ``examples/pointpillar_wide``
+    served by ``serve`` (``cli/serve.build_server`` in this process) from a
+    repository written here: CenterPoint's weights a seeded det3d-named
+    ``weights.pth`` with a shared-conv bias, imported with no JAX.
+
+    Held: kernel 4 bitwise equal to its plain version on the main path's
+    own candidates (K = 128 rows of 11 columns, the velocity riding) at
+    both buckets; the captured body bitwise equal to the eager one with
+    equal launch counts at both buckets; the card against the CPU pipeline
+    on the same weights (rows matched by box, ``CP_TOL``); through
+    ``CUDAChannel`` exactly one kernel 4 launch a scan, no other kernel and
+    no capture in the counted window, rows equal to the in-process
+    pipeline's bit for bit, ``velocities`` the rows' columns 7:9; and
+    ``detect3d -u grpc: --sweeps 10 --poses`` client processes with no card
+    visible over the wire, shm and the unix socket, whose rows equal the
+    in-process ``-r`` run's bit for bit and carry ``pred_velocities``.
+    Prints p50 and scans/s at both buckets, device ms, busy share and the
+    top device ops, ``stable_top_k``'s time over the 655,360 heatmap
+    entries, kernel 4's ms, call ms, plain ms and bound at this shape,
+    pointpillar_wide's p50, and the clients' p50. Returns kernel 4's
+    numbers for the ``{"kernels": [...]}`` record."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.cli import serve as serve_cli
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.io.bag_io import pose_lookup_from_jsonl
+    from triton_client_tpu_torch.io.sources import NpyPointCloudSource, SyntheticPointCloudSource
+    from triton_client_tpu_torch.ops import gpu_suppress3d, mask_scan
+    from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
+    from triton_client_tpu_torch.ops.sweeps import sweep_source
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.disk_repository import load_pipeline
+
+    dev = torch.device("cuda")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="centerpoint_repo_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        t0 = time.perf_counter()
+        root, sweeps_dir, poses = centerpoint_repository(tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        args = serve_cli.parser().parse_args(["-r", str(root), "-a", "127.0.0.1:0", "--uds",
+                                              "auto", "--warmup", "--max-workers", "8"])
+        server = serve_cli.build_server(args)  # every entry's graphs captured
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pipe, spec = load_pipeline(root / CP_ENTRY, device="cuda")
+        cpu_pipe, _ = load_pipeline(root / CP_ENTRY, device="cpu")
+    finally:
+        os.chdir(cwd)
+    try:
+        repo, channel = server.servicer._repo, server.servicer._channel
+        model, cfg = pipe.model, pipe.config
+        served = repo.metadata(CP_ENTRY)
+        check(model.cfg.voxel.grid_size == (512, 512, 1) and model.cfg.voxel.point_features == 5
+              and model.cfg.head_hw == (256, 256) and model.cfg.with_velocity
+              and cfg.nsweeps == CP_SWEEPS and tuple(cfg.point_buckets) == (131072, 262144)
+              and cfg.iou_thresh == 0.2 and pipe.use_scatter, "not the nuScenes entry")
+        check([(t.name, t.shape) for t in served.outputs] == [
+            ("detections", (cfg.max_det, 11)), ("valid", (cfg.max_det,)),
+            ("velocities", (cfg.max_det, 2))] and served.extra["with_velocity"] is True,
+              f"served outputs {served.outputs}")
+        check(served.extra["fused_stages"] == ["decode_nms"], "the tail is not fused on the card")
+
+        # the scans: 10 sweeps aggregated with their poses on a 0.05 s replay clock
+        frames = [f.data for f in sweep_source(
+            NpyPointCloudSource(str(sweeps_dir), period=CP_PERIOD), CP_SWEEPS,
+            pose_lookup_from_jsonl(str(poses)))]
+        full = [d for d in frames if len(d) == CP_SWEEPS * CP_SWEEP_POINTS]
+        check(len(full) == CP_FILES - CP_SWEEPS + 1 and full[0].shape[1] == 5,
+              f"{len(full)} aggregated scans of 10 sweeps")
+        lags = np.unique(full[0][:, 4])
+        check(np.allclose(lags, np.arange(CP_SWEEPS) * CP_PERIOD, atol=1e-6), f"Δt {lags}")
+        single = uniform_clouds(281, NUSC_RANGE, CP_SINGLE_POINTS, 2)  # 4 columns: Δt = 0
+        scans = {262144: full, 131072: single}
+
+        def on_card(pc):
+            padded, m = prepare_points(pc, 5, cfg.point_buckets)
+            return (torch.from_numpy(padded).to(dev),
+                    torch.tensor(m, dtype=torch.int32).to(dev))
+
+        # -- kernel 4 on the main path's own candidates; captured against eager --
+        k4 = {}
+        capture = {}
+        for bucket, pcs in scans.items():
+            a, b = on_card(pcs[0]), on_card(pcs[1])
+            check(a[0].shape[0] == bucket, f"a scan padded to {a[0].shape[0]}, not {bucket}")
+            (rows, keep), (cargs, ckw) = recorded_suppress_args(lambda: pipe.run(*a))
+            iou, srows = gpu_suppress3d.sorted_candidates(*cargs)
+            check(srows.shape == (1, 128, 11), f"kernel 4's rows {tuple(srows.shape)}")
+            thresh, max_det = ckw["iou_thresh"], ckw["max_det"]
+            # sorted_candidates hands them over in score order: taken as it stands
+            got, ws, sizes = with_workspace(
+                lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, thresh, max_det))
+            check(bool(mask_scan.took_own_order(ws, sizes).all()),
+                  "the order pass sorted CenterPoint's candidates")
+            del ws
+            want = gpu_suppress3d.suppress_pack_3d_reference(iou, srows, thresh, max_det)
+            check(torch.equal(got[1], want[1]) and torch.equal(bits(got[0]), bits(want[0])),
+                  f"suppress_pack_3d differs on CenterPoint's candidates ({bucket})")
+            check(torch.equal(bits(rows), bits(want[0][0])) and torch.equal(keep, want[1][0]),
+                  f"the pipeline's rows differ from the plain suppress+pack ({bucket})")
+            k4[bucket] = {"candidates": int(torch.isfinite(srows[0, :, 9]).sum()),
+                          "kept": int(keep.sum()), "iou": iou, "srows": srows,
+                          "thresh": thresh, "max_det": max_det}
+            per_call, _, _ = hold_captured_to_eager(pipe, a, b, counters, f"centerpoint {bucket}")
+            capture[bucket] = {c_name: n for c_name, n in zip(COUNTER_NAMES, per_call) if n}
+            check(capture[bucket] == {"suppress_pack_3d": 1},
+                  f"one eager CenterPoint scan launched {capture[bucket]}")
+        emit("centerpoint_kernel4", card, shape=[1, 128, 128, 11],
+             by_bucket={n: {k: v for k, v in r.items() if k not in ("iou", "srows")}
+                        for n, r in k4.items()},
+             match=True, max_abs_err=0.0, captured_equals_eager=True,
+             eager_launches_per_scan=capture, replays=GRAPH_REPLAYS)
+
+        # -- the card against the CPU pipeline, same weights, rows matched by box ---
+        vs_cpu = {}
+        for bucket, pcs in scans.items():
+            g, c = pipe.infer(pcs[0]), cpu_pipe.infer(pcs[0])
+            matched, err = rows_matched_by_box(g, c)
+            n = len(g["pred_scores"])
+            check(n > 0 and matched >= CP_MATCHED * n and err <= CP_TOL,
+                  f"card against CPU at {bucket}: {matched} of {n} rows matched "
+                  f"(CPU {len(c['pred_scores'])}), largest difference {err}")
+            vs_cpu[bucket] = {"card_rows": n, "cpu_rows": len(c["pred_scores"]),
+                              "matched": matched, "max_abs_err": err}
+
+        # -- the main path: scans through CUDAChannel, counted ------------------------
+        infer = channel_infer3d(channel, CP_ENTRY)
+        for pcs in scans.values():  # warm-up, not counted
+            infer(pcs[0])
+        torch.cuda.synchronize()
+        captures = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+        requests = full + single
+        for counter in counters:
+            counter.reset()
+        outs = [infer(pc) for pc in requests]
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        want_launches = {name: 0 for name in COUNTER_NAMES}
+        want_launches["suppress_pack_3d"] = len(requests)
+        check(launches == want_launches, f"CenterPoint launches {launches}, want {want_launches}")
+        after = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+        check(after == captures, "a request captured a graph inside the counted window")
+        for pc, o in zip(requests, outs):
+            n = len(o["pred_scores"])
+            check(0 < n <= cfg.max_det and o["pred_boxes"].shape == (n, 7)
+                  and o["pred_velocities"].shape == (n, 2), "misshapen rows")
+            check(all(bool(np.isfinite(v).all()) for v in o.values()), "non-finite rows")
+            check(1 <= o["pred_labels"].min() and o["pred_labels"].max() <= 10, "labels")
+            want = pipe.infer(pc)
+            check(all(o[k].tobytes() == want[k].tobytes() for k in want),
+                  "the served rows differ from the in-process pipeline's")
+        padded, m = prepare_points(full[0], 5, cfg.point_buckets)
+        raw = channel.do_inference(InferRequest(
+            CP_ENTRY, {"points": padded, "num_points": np.asarray(m, np.int32)})).outputs
+        check(raw["velocities"].tobytes() == np.ascontiguousarray(
+            raw["detections"][:, 7:9]).tobytes(), "velocities are not the rows' columns 7:9")
+        emit("centerpoint_main_path", card, model=CP_ENTRY, grid=list(model.cfg.voxel.grid_size),
+             head_hw=list(model.cfg.head_hw), points={"262144": len(full[0]),
+                                                      "131072": len(single[0])},
+             requests=len(requests), kept=[len(o["pred_scores"]) for o in outs],
+             launches=launches, no_capture_in_window=True, bitwise_equal_in_process=True,
+             card_vs_cpu=vs_cpu, write_s=write_s, build_and_capture_s=build_s,
+             graphs=repo.get(CP_ENTRY).infer_fn.graph_stats(),
+             param_bytes=served.extra["param_bytes"])
+
+        # -- times on the card's clock ----------------------------------------------
+        e2e = {f"bucket{n}": serve(infer, pcs, CP_REQUESTS) for n, pcs in scans.items()}
+        with torch.no_grad():  # the decode's top-k input, as it builds it
+            logits = model.from_points(*on_card(full[0]))["heatmap"]
+            pooled = torch.nn.functional.max_pool2d(logits.permute(0, 3, 1, 2), 3, 1, 1)
+            heat = torch.where(logits >= pooled.permute(0, 2, 3, 1), torch.sigmoid(logits), 0.0)
+        flat = heat.reshape(1, -1)
+        check(flat.shape[1] == 655360, f"{flat.shape[1]} heatmap entries")
+        topk_ms = cuda_ms(lambda: stable_top_k(flat, model.cfg.max_objects), reps=50)
+        r = k4[262144]
+        iou, srows, thresh, max_det = r["iou"], r["srows"], r["thresh"], r["max_det"]
+        k4_ms = kernel_device_ms(
+            lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, thresh, max_det),
+            gpu_suppress3d.launches)
+        k4_call_ms = cuda_ms(
+            lambda: gpu_suppress3d.suppress_pack_3d(iou, srows, thresh, max_det), reps=200)
+        k4_plain_ms = cuda_ms(
+            lambda: gpu_suppress3d.suppress_pack_3d_reference(iou, srows, thresh, max_det),
+            reps=5, warmup=1)
+        tests, kept_steps = live_counts_3d(iou, srows[..., 9].clone(),
+                                           torch.tensor(thresh, device=dev), max_det)
+        k, cols = srows.shape[1], srows.shape[2]
+        k4_bytes = kept_steps * k * 4 + k * cols * 4 + max_det * (cols * 4 + 1)
+        k4_bound, k4_by = roofline(k4_bytes, tests)
+        profiles = {f"bucket{n}": device_profile(lambda pc=pcs[0]: infer(pc), PROFILE_REQUESTS)
+                    for n, pcs in scans.items()}
+        wide = channel_infer3d(channel, WIDE_ENTRY)
+        wide_scans = {n: [f.data for f in SyntheticPointCloudSource(2, points=n, seed=28 + i)]
+                      for i, n in enumerate(SCAN_POINTS)}
+        for pcs in wide_scans.values():
+            check(len(wide(pcs[0])["pred_scores"]) > 0, "pointpillar_wide kept nothing")
+        wide_e2e = {f"points{n}": serve(wide, pcs, WIDE_REQUESTS)
+                    for n, pcs in wide_scans.items()}
+        emit("centerpoint_times", card, in_process=e2e, stable_top_k_ms=topk_ms,
+             stable_top_k_entries=int(flat.shape[1]),
+             kernel4={"ms": k4_ms, "call_ms": k4_call_ms, "plain_ms": k4_plain_ms,
+                      "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes,
+                      "live_tests": tests, "kept_steps": kept_steps,
+                      "shape": [1, k, max_det, cols]},
+             profile=profiles, pointpillar_wide={
+                 "in_process": wide_e2e, "param_bytes": repo.metadata(WIDE_ENTRY)
+                 .extra["param_bytes"]})
+
+        # -- detect3d -u grpc: --sweeps 10 --poses client processes --------------------
+        server.start()
+        tcp = f"127.0.0.1:{server.port}"
+        endpoints = {"wire": ["-u", f"grpc:{tcp}", "--no-shm"],
+                     "shm": ["-u", f"grpc:{tcp}", "--shm"],
+                     "uds": ["-u", f"grpc:{server.uds_address}"]}
+        want_transport = {"wire": "grpc", "shm": "shm", "uds": "uds+shm"}
+        sweep_args = ["-i", str(sweeps_dir), "--sweeps", str(CP_SWEEPS), "--poses", str(poses),
+                      "--scan-period", str(CP_PERIOD)]
+        local = client_run("detect3d", ["-r", str(root), "-m", CP_ENTRY, *sweep_args],
+                           tmp / "local_cp", False)
+        captures = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+        for counter in counters:
+            counter.reset()
+        clients, requests_3d = {}, 0
+        for transport in REMOTE_TRANSPORTS:
+            report, rows = client_run("detect3d", ["-m", CP_ENTRY, *sweep_args,
+                                                   *endpoints[transport]],
+                                      tmp / f"{transport}_cp", True)
+            check(rows == local[1], f"detect3d --sweeps over {transport}: rows differ from the "
+                  "in-process -r run")
+            check(all(len(r["pred_velocities"]) == len(r["pred_scores"]) for r in rows),
+                  "rows without pred_velocities")
+            check(report["transport"] == want_transport[transport],
+                  f"detect3d over {transport} reports {report['transport']}")
+            requests_3d += report["driver"]["ticks"] + 1  # and the driver's warmup call
+            clients[f"detect3d_{transport}"] = {
+                "scans_per_s": report["driver"]["fps"], "p50_ms": report["driver"]["p50_ms"],
+                "scans": report["scans"], "detections": report["detections"],
+                "transport": report["transport"]}
+        torch.cuda.synchronize()
+        remote_launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        want_launches["suppress_pack_3d"] = requests_3d
+        check(remote_launches == want_launches,
+              f"remote launches {remote_launches}, want {want_launches}")
+        after = {n: repo.get(n).infer_fn.graph_stats()["captures"] for n in repo.names()}
+        check(after == captures, "a request captured a graph inside the counted window")
+        check(local[0]["detections"] > 0 and local[0]["sweeps"] == CP_SWEEPS,
+              f"the reference run {local[0]}")
+        emit("centerpoint_remote", card, sweeps=CP_SWEEPS, files=CP_FILES,
+             request_bytes=int(np.dtype(np.float32).itemsize * 262144 * 5),
+             clients_are_processes=True, bitwise_equal_to_in_process=True,
+             launches=remote_launches, requests=requests_3d, no_capture_in_window=True,
+             clients=clients, in_process={"scans_per_s": local[0]["driver"]["fps"],
+                                          "p50_ms": local[0]["driver"]["p50_ms"]})
+    finally:
+        server.stop()
+        shutil.rmtree(tmp)
+    return {"launches": launches["suppress_pack_3d"], "ms": k4_ms, "call_ms": k4_call_ms,
+            "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+            "shape": [1, k, max_det, cols]}
 
 
 def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:

@@ -5,12 +5,14 @@ package's, on the CPU.
   ``data/`` and ``examples/`` and on scalar edge cases, and raises (naming
   the file and line) on what is outside the subset.
 - ``dataset_config`` builds the JAX package's configs from ``data/*.yaml``.
-- ``scan_disk`` over the three portable ``examples/`` entries
-  (``yolov5_crop_base``, ``pointpillar_kitti``, ``second_iou``) builds the
-  JAX entries' specs and serves the same ``ModelConfig`` bytes; the JAX
-  specs come from each entry's builder without an init (the template's
-  ``param_bytes`` is then 0, so that key is compared in
-  tests/test_torch_server.py on carried weights). Unported families and
+- ``scan_disk`` over the portable ``examples/`` entries
+  (``yolov5_crop_base``, ``pointpillar_kitti``, ``pointpillar_wide``,
+  ``second_iou``, ``centerpoint_nusc``) builds the JAX entries' specs and
+  serves the same ``ModelConfig`` bytes; the JAX specs come from each
+  entry's builder without an init (the template's ``param_bytes`` is then
+  0, so that key is compared in tests/test_torch_server.py on carried
+  weights, and here against the bytes of the JAX init's tree, traced with
+  ``jax.eval_shape``, for the entries this file adds). Unported families and
   ``export_model`` raise naming their ROADMAP item; the ``s2d``/``ch_floor``
   /bf16 entries serve, and a version dir's ``weights.pt`` loads.
 """
@@ -46,7 +48,8 @@ YAML_FILES = sorted(
     for p in (ROOT / base).rglob("*")
     if p.suffix in (".yaml", ".yml")
 )
-PORTABLE = ("yolov5_crop_base", "pointpillar_kitti", "second_iou")
+PORTABLE = ("yolov5_crop_base", "pointpillar_kitti", "pointpillar_wide", "second_iou",
+            "centerpoint_nusc")
 
 
 # -- yaml_subset -----------------------------------------------------------------
@@ -129,7 +132,8 @@ def _fields(obj):
 
 
 @pytest.mark.parametrize("name", ["kitti_pointpillars", "kitti_pointpillars_capacity",
-                                  "kitti_second", "kitti_second_dense01"])
+                                  "kitti_second", "kitti_second_dense01", "nusc_centerpoint",
+                                  "kitti_centerpoint"])
 def test_detect3d_from_yaml_builds_the_jax_configs(name):
     path = str(ROOT / "data" / f"{name}.yaml")
     jmodel, jmcfg, jpcfg = jds.detect3d_from_yaml(path)
@@ -145,11 +149,6 @@ def test_client_params_equal_jax():
     path = str(ROOT / "data" / "client_parameter.yaml")
     assert tds.client_params(path) == jds.client_params(path)
     assert tds.client_params() == jds.client_params()
-
-
-def test_unported_3d_model_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tds.detect3d_from_yaml(str(ROOT / "data" / "kitti_centerpoint.yaml"))
 
 
 def test_unknown_keys_raise_in_both_packages():
@@ -172,7 +171,7 @@ def _copy_entries(tmp, names):
 
 @pytest.fixture(scope="module")
 def scanned(tmp_path_factory, monkeypatch_module):
-    """The port's scan of the three portable entries (config.yaml only; the
+    """The port's scan of the portable entries (config.yaml only; the
     names and dataset files resolve from the checkout) beside the JAX
     entries' specs."""
     monkeypatch_module.chdir(ROOT)
@@ -235,6 +234,41 @@ def test_scan_disk_serves_the_jax_model_config(scanned, name):
     assert got == want
 
 
+def _jax_tree_bytes(name):
+    """The bytes of the JAX entry's init tree (params and batch stats),
+    traced with ``jax.eval_shape``: nothing is initialised."""
+    import jax
+
+    from triton_client_tpu.models.centerpoint import init_centerpoint
+    from triton_client_tpu.models.pointpillars import init_pointpillars
+
+    entry = jdr._Entry(ROOT / "examples" / name)
+    init = {"pointpillars": init_pointpillars, "centerpoint": init_centerpoint}[entry.family]
+    _, model_cfg, _ = jds.detect3d_from_yaml(str(ROOT / entry.doc["dataset"]))
+    tree = jax.eval_shape(lambda k: init(k, model_cfg)[1], jax.random.PRNGKey(0))
+    return sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in jax.tree_util.tree_leaves(tree))
+
+
+@pytest.mark.parametrize("name,want", [("pointpillar_wide", 137950496),
+                                       ("centerpoint_nusc", None)])
+def test_new_3d_entries_store_the_jax_trees_bytes(scanned, monkeypatch, name, want):
+    """``param_bytes`` of the entries this port serves since CenterPoint
+    equals the JAX init tree's (float32 both); CenterPoint's spec serves
+    the velocity columns and output as JAX's does."""
+    monkeypatch.chdir(ROOT)
+    repo, _ = scanned
+    got = repo.metadata(name).extra["param_bytes"]
+    assert got == _jax_tree_bytes(name)
+    assert want is None or got == want
+    if name == "centerpoint_nusc":
+        spec = repo.metadata(name)
+        assert spec.extra["with_velocity"] is True and spec.extra["iou_thresh"] == 0.2
+        assert [(t.name, t.shape) for t in spec.outputs] == [
+            ("detections", (128, 11)), ("valid", (128,)), ("velocities", (128, 2))]
+        assert spec.inputs[0].shape == (-1, 5)
+        assert spec.extra["point_buckets"] == [131072, 262144]
+
+
 def test_scanned_entries_carry_a_warmup_and_serve(scanned):
     repo, _ = scanned
     model = repo.get("yolov5_crop_base")
@@ -246,7 +280,7 @@ def test_scanned_entries_carry_a_warmup_and_serve(scanned):
 UNPORTED = {
     "yolov4_coco": "item 7", "retinanet_coco": "item 7", "fcos_crop": "item 7",
     "camera_preprocess": "item 7", "ensemble_crop_pipeline": "item 7",
-    "ensemble_fused_pipeline": "item 7", "centerpoint_nusc": "item 5",
+    "ensemble_fused_pipeline": "item 7",
 }
 LAYOUT_ENTRIES = ("yolov5_crop", "yolov5_crop_mxu", "yolov5l_crop")
 

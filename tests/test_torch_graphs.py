@@ -248,6 +248,26 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def _first_difference(got, want) -> str:
+    """Where two outputs of one body first differ: the flat index, both
+    values and their bit patterns, and how many elements differ."""
+    g, w = got.detach().cpu().reshape(-1), want.detach().cpu().reshape(-1)
+    if g.dtype == torch.float32:
+        gb, wb = g.view(torch.int32), w.view(torch.int32)
+    else:
+        gb, wb = g, w
+    diff = (gb != wb).nonzero().reshape(-1)
+    i = int(diff[0])
+    return (f"{len(diff)} of {g.numel()} elements differ; first at flat index {i} of shape "
+            f"{tuple(got.shape)}: {g[i].item()!r} (bits {int(gb[i])}) against {w[i].item()!r} "
+            f"(bits {int(wb[i])})")
+
+
+def _assert_outputs_equal(got, want, label):
+    for j, (g, e) in enumerate(zip(got, want)):
+        assert _bits_equal(g, e), f"{label}, output {j}: {_first_difference(g, e)}"
+
+
 def _counts():
     return [c.count for c in cuda_build.all_counters()]
 
@@ -269,9 +289,9 @@ def _hold_captured_to_eager(pipe, inputs_a, inputs_b, replays=3):
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(c0, _counts())] == [replays * n for n in eager_launches]
     got_b = pipe._jit(*inputs_b)
-    for got in got_a:
-        assert all(_bits_equal(g, e) for g, e in zip(got, eager_a))
-    assert all(_bits_equal(g, e) for g, e in zip(got_b, eager_b))
+    for r, got in enumerate(got_a):
+        _assert_outputs_equal(got, eager_a, f"replay {r} of input a")
+    _assert_outputs_equal(got_b, eager_b, "input b")
     assert pipe.graph_stats()["captures"] >= 1
 
 
@@ -331,6 +351,39 @@ def test_3d_capture_equals_eager_bitwise_on_card(cuda_device, family, fused):
         padded, m = prepare_points(pc, model.cfg.voxel.point_features, spec.extra["point_buckets"])
         inputs.append((torch.from_numpy(padded).to(cuda_device),
                        torch.tensor(m, dtype=torch.int32).to(cuda_device)))
+    _hold_captured_to_eager(pipe, *inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["auto", "off"])
+@pytest.mark.parametrize("points", [30000, 260000], ids=["bucket131072", "bucket262144"])
+def test_centerpoint_capture_equals_eager_bitwise_on_card(cuda_device, points, fused):
+    """Full-width nuScenes CenterPoint (data/nusc_centerpoint.yaml: the 512 x
+    512 canvas, 5 features, buckets 131,072 and 262,144) on 5-column
+    clouds over its range, at each bucket."""
+    from triton_client_tpu_torch.dataset_config import detect3d_from_yaml
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        build_centerpoint_pipeline,
+        prepare_points,
+    )
+
+    import dataclasses
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "data" / "nusc_centerpoint.yaml"
+    _, model_cfg, cfg = detect3d_from_yaml(str(path))
+    pipe, spec, _ = build_centerpoint_pipeline(
+        model_cfg=model_cfg, config=dataclasses.replace(cfg, fused=fused), device="cuda", seed=0)
+    assert model_cfg.voxel.grid_size == (512, 512, 1)
+    inputs = []
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        pc = np.column_stack([rng.uniform(-51.2, 51.2, (points, 2)), rng.uniform(-5, 3, points),
+                              rng.uniform(0, 1, points), rng.integers(0, 10, points) * 0.05])
+        padded, m = prepare_points(pc, 5, spec.extra["point_buckets"])
+        inputs.append((torch.from_numpy(padded).to(cuda_device),
+                       torch.tensor(m, dtype=torch.int32).to(cuda_device)))
+    assert inputs[0][0].shape[0] == (131072 if points < 131072 else 262144)
     _hold_captured_to_eager(pipe, *inputs)
 
 

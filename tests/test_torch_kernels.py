@@ -284,6 +284,35 @@ def test_suppress_pack_3d_plain_matches_tpu_kernel_bitwise(kind):
         assert kept <= (live + 3) // 4 + 1
 
 
+def _with_velocity(kind, k, seed):
+    """Kernel 4's candidates as CenterPoint hands them over: (k, 9) boxes
+    whose columns 7:9 are a velocity riding through, 11-column rows."""
+    boxes, scores, labels = kernel_cases.suppress3d_inputs(kind, k, seed=seed)
+    vel = np.random.default_rng(seed + 1).normal(0, 3, (k, 2)).astype(boxes.dtype)
+    return np.concatenate([boxes, vel], 1), scores, labels
+
+
+@pytest.mark.parametrize("kind", kernel_cases.SUPPRESS3D_KINDS)
+def test_suppress_pack_3d_plain_matches_tpu_kernel_with_velocity_columns(kind):
+    """CenterPoint's shape: K = 128 candidates of 11-column rows, max_det
+    128; the velocity columns come through untouched, bit for bit."""
+    import jax.numpy as jnp
+    from triton_client_tpu.ops.pallas_decode import fused_suppress_pack_3d as jax_pack
+
+    boxes, scores, labels = _with_velocity(kind, 128, seed=16)
+    want_rows, want_keep = jax_pack(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(labels), iou_thresh=0.2,
+        max_det=128, interpret=True,
+    )
+    got_rows, got_keep = gpu_suppress3d.fused_suppress_pack_3d(
+        *(torch.from_numpy(a)[None] for a in (boxes, scores, labels)), 0.2, 128)
+    assert got_rows.shape == (1, 128, 11)
+    np.testing.assert_array_equal(got_keep[0].numpy(), np.asarray(want_keep))
+    np.testing.assert_array_equal(got_rows[0].numpy(), np.asarray(want_rows))
+    assert gpu_suppress3d.smem_fits(128, 11)
+    assert gpu_suppress3d.smem_bytes(128, 11) < gpu_suppress3d.smem_bytes(256, 9)
+
+
 def test_suppress_pack_3d_plain_matches_tpu_kernel_at_the_threshold(monkeypatch):
     """IoUs equal to the float32 threshold (and one ulp either side) in the
     matrix: ``iou > thresh`` suppresses only those above. The JAX function
@@ -536,6 +565,30 @@ def test_suppress_pack_3d_kernel_matches_plain_on_card(cuda_device, kind):
     assert gpu_suppress3d.launches.count == before + 1
     assert torch.equal(got_keep, want_keep)
     assert torch.equal(got_rows.view(torch.int32), want_rows.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", kernel_cases.SUPPRESS3D_KINDS)
+@pytest.mark.parametrize("shuffle", [False, True], ids=["sorted", "shuffled"])
+def test_suppress_pack_3d_kernel_with_velocity_columns_on_card(cuda_device, kind, shuffle):
+    """CenterPoint's shape on the card: K = 128, 11 columns, max_det 128,
+    through the wrapper the pipeline calls and on shuffled sorted rows."""
+    parts = [_with_velocity(kind, 128, seed=38 + i) for i in range(2)]
+    boxes, scores, labels = (torch.from_numpy(np.stack(p)).to(cuda_device) for p in zip(*parts))
+    if not shuffle:
+        before = gpu_suppress3d.launches.count
+        got_rows, got_keep = gpu_suppress3d.fused_suppress_pack_3d(boxes, scores, labels, 0.2,
+                                                                   128)
+        iou, rows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+        want_rows, want_keep = gpu_suppress3d.suppress_pack_3d_reference(iou, rows, 0.2, 128)
+        torch.cuda.synchronize()
+        assert gpu_suppress3d.launches.count == before + 1 and got_rows.shape == (2, 128, 11)
+        assert torch.equal(got_keep, want_keep)
+        assert torch.equal(got_rows.view(torch.int32), want_rows.view(torch.int32))
+        return
+    iou, rows = gpu_suppress3d.sorted_candidates(boxes, scores, labels)
+    perm = torch.from_numpy(np.random.default_rng(39).permutation(128)).to(cuda_device)
+    _suppress3d_on_card(iou[:, perm][:, :, perm].contiguous(), rows[:, perm].contiguous())
 
 
 def _suppress3d_on_card(iou, rows, max_det=128):

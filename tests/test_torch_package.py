@@ -94,6 +94,9 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.runtime.wire_encoding",
         "triton_client_tpu_torch.obs.profiling",
         "triton_client_tpu_torch.cli.common",
+        "triton_client_tpu_torch.models.centerpoint",
+        "triton_client_tpu_torch.ops.sweeps",
+        "triton_client_tpu_torch.io.bag_io",
     ):
         assert must in names
 

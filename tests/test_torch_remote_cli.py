@@ -1,13 +1,16 @@
 """The port's detect CLIs as remote clients of its ``serve``, on the CPU.
 
 A tiny repository (a 64x64 YOLOv5n with a seeded ``weights.pt``, a 64 x 64
-pillar PointPillars with a seeded ``weights.pth``) is served by
+pillar PointPillars and a 64 x 64 pillar CenterPoint with velocity, each
+with a seeded ``weights.pth``, det3d-named with a shared-conv bias for
+CenterPoint) is served by
 ``cli/serve.build_server`` on loopback and a unix socket. ``detect2d`` and
 ``detect3d -u grpc:`` over the wire (``--no-shm``), shared memory
 (``--shm``) and the unix socket (``grpc:unix:``, auto -> shm) write the
 same ``detections.jsonl`` rows, bit for bit, as the in-process run with
 ``-r`` on the same frames and weights; each report names its transport.
-``--streaming``, the JAX CLI's remote-mode guards, the ``--repo``
+CenterPoint's rows carry ``pred_velocities`` through ``--sweeps 3 --poses``
+(aggregated on the client). ``--streaming``, the JAX CLI's remote-mode guards, the ``--repo``
 conflict and kind guards, the refusals that name their ROADMAP item,
 ``--profile`` and ``--profile-trace`` are covered, and the ``--gt``
 summary equals the JAX package's evaluator fed the same detections and
@@ -60,7 +63,38 @@ pipeline:
   pre_max: 64
 max_batch_size: 1
 """
+CONFIG_CP = """family: centerpoint
+model:
+  voxel:
+    point_cloud_range: [-6.4, -6.4, -5.0, 6.4, 6.4, 3.0]
+    voxel_size: [0.2, 0.2, 8.0]
+    max_voxels: 512
+    max_points_per_voxel: 8
+    point_features: 5
+  backbone_layers: [1, 1, 1]
+  backbone_filters: [16, 32, 64]
+  upsample_filters: [16, 16, 16]
+  vfe_filters: 16
+  head_width: 16
+  max_objects: 32
+pipeline:
+  point_buckets: [1024, 4096]
+  iou_thresh: 0.2
+  max_det: 16
+max_batch_size: 1
+"""
 FRAMES = ["-i", "synthetic:5:48x80"]
+
+
+def _det3d_state(model) -> dict:
+    """A seeded CenterPoint's weights under det3d's names, with a shared-conv
+    bias that the importer folds back into the BN mean it was added to."""
+    state = {importers.centerpoint_torch_key(k): v.clone() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    bias = torch.linspace(-0.1, 0.1, model.cfg.head_width)
+    state["bbox_head.shared_conv.0.bias"] = bias
+    state["bbox_head.shared_conv.1.running_mean"] += bias
+    return state
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +116,10 @@ def served(tmp_path_factory):
                                 for k, v in model3.state_dict().items()
                                 if not k.endswith("num_batches_tracked")}},
                repo / "tiny3d" / "1" / "weights.pth")
+    (repo / "tinycp" / "1").mkdir(parents=True)
+    (repo / "tinycp" / "config.yaml").write_text(CONFIG_CP)
+    _, _, model_cp = _Entry(repo / "tinycp", device="cpu")._build()  # seeded
+    torch.save({"state_dict": _det3d_state(model_cp)}, repo / "tinycp" / "1" / "weights.pth")
     clouds = tmp / "clouds"
     clouds.mkdir()
     rng = np.random.default_rng(0)
@@ -89,6 +127,15 @@ def served(tmp_path_factory):
         pc = np.column_stack([rng.uniform(0, 12.8, n), rng.uniform(-6.4, 6.4, n),
                               rng.uniform(-3, 1, n), rng.uniform(0, 1, n)]).astype(np.float32)
         np.save(clouds / f"{i:03d}.npy", pc)
+    (tmp / "sweeps").mkdir()
+    with open(tmp / "poses.jsonl", "w") as f:
+        for i, n in enumerate((500, 700, 400, 900)):
+            pc = np.column_stack([rng.uniform(-6.4, 6.4, (n, 2)), rng.uniform(-5, 3, n),
+                                  rng.uniform(0, 1, n)]).astype(np.float32)
+            np.save(tmp / "sweeps" / f"{i:03d}.npy", pc)
+            yaw = 0.02 * i
+            f.write(json.dumps({"frame_id": i, "pose": [0.4 * i, 0.0, 0.0, 0.0, 0.0,
+                                                        np.sin(yaw / 2), np.cos(yaw / 2)]}) + "\n")
     args = serve.parser().parse_args(["-r", str(repo), "-a", "127.0.0.1:0", "--device", "cpu",
                                       "--max-workers", "4"])
     with contextlib.redirect_stdout(io.StringIO()):
@@ -171,6 +218,24 @@ def test_detect3d_remote_equals_in_process(served, tmp_path, transport, flags):
     assert report["scans"] == 3
 
 
+@pytest.mark.parametrize("transport", ["wire", "shm", "uds"])
+def test_centerpoint_sweeps_remote_equals_in_process(served, tmp_path, transport):
+    """CenterPoint behind serve: the client aggregates 3 sweeps with their
+    poses on a 0.05 s replay clock and sends 5-column clouds; the rows,
+    ``pred_velocities`` included, equal the in-process -r run's bit for
+    bit."""
+    server, _, _, tmp = served
+    argv = ["-m", "tinycp", "-i", str(tmp / "sweeps"), "--sweeps", "3", "--poses",
+            str(tmp / "poses.jsonl"), "--scan-period", "0.05"]
+    want_report, want = _local(detect3d, served, argv, "cp_sweeps")
+    report, got = run(detect3d, [*argv, *_remote(server, transport)], tmp_path)
+    assert report["transport"] == WANT_TRANSPORT[transport]
+    assert got == want and len(got) == 4
+    assert all(len(r["pred_velocities"]) == len(r["pred_scores"]) for r in got)
+    assert report["detections"] == want_report["detections"] > 0
+    assert want_report["sweeps"] == 3
+
+
 def test_a_separate_client_process_equals_in_process(served, tmp_path):
     """``python -m triton_client_tpu_torch detect2d -u grpc:unix:...`` as its
     own process, as a robot's client runs."""
@@ -238,6 +303,35 @@ def test_detect3d_gt_summary_equals_the_jax_evaluator(served, tmp_path):
                        np.asarray(r["pred_scores"], np.float32),
                        np.asarray(r["pred_labels"], np.int32),
                        np.asarray(table[r["frame_id"]], np.float64).reshape(-1, 8))
+    assert report["eval"] == json.loads(json.dumps(ev.summary()))
+    assert report["eval"]["map50"] > 0
+
+
+def test_centerpoint_gt_with_velocity_labels_equals_the_jax_evaluator(served, tmp_path):
+    """10-column ground truth ([box7, cls, vx, vy]) against CenterPoint's
+    rows over shm: the report's ``eval`` equals the JAX evaluator's on the
+    same rows (the box metric reads the first 8 columns)."""
+    server, _, _, tmp = served
+    argv = ["-m", "tinycp", "-i", str(tmp / "sweeps"), "--sweeps", "3", "--poses",
+            str(tmp / "poses.jsonl"), "--scan-period", "0.05"]
+    _, rows = _local(detect3d, served, argv, "cp_sweeps")
+    gt = tmp_path / "gt3d.jsonl"
+    with open(gt, "w") as f:
+        for r in rows:
+            boxes = np.column_stack([np.asarray(r["pred_boxes"]).reshape(-1, 7)[:5],
+                                     np.asarray(r["pred_labels"])[:5] - 1,
+                                     np.asarray(r["pred_velocities"]).reshape(-1, 2)[:5]])
+            f.write(json.dumps({"frame_id": r["frame_id"], "boxes": boxes.tolist()}) + "\n")
+    report, got = run(detect3d, [*argv, *_remote(server, "shm"), "--gt", str(gt)],
+                      tmp_path / "out")
+    assert got == rows
+    table = {json.loads(line)["frame_id"]: json.loads(line)["boxes"] for line in open(gt)}
+    ev = JDetection3DEvaluator()
+    for r in got:
+        ev.add_frame3d(np.asarray(r["pred_boxes"], np.float32).reshape(-1, 7),
+                       np.asarray(r["pred_scores"], np.float32),
+                       np.asarray(r["pred_labels"], np.int32),
+                       np.asarray(table[r["frame_id"]], np.float64).reshape(-1, 10))
     assert report["eval"] == json.loads(json.dumps(ev.summary()))
     assert report["eval"]["map50"] > 0
 
@@ -322,8 +416,8 @@ def test_repo_overrides_reach_the_pipeline(served, tmp_path):
     (detect2d, ["--cameras", "2"], "item 8 "),
     (detect2d, ["--mesh", "data=2", "--device", "cpu"], "item 8 "),
     (detect2d, ["-m", "yolov4", "--device", "cpu"], "item 7 "),
-    (detect3d, ["--sweeps", "3"], "item 5 "),
-    (detect3d, ["--poses", "odom"], "item 5 "),
+    (detect3d, ["--poses", "odom:/odom"], "item 6 "),
+    (detect3d, ["--poses", "odom"], "item 6 "),
     (detect3d, ["--dtype", "bf16", "--device", "cpu"], "item 11 "),
     (detect3d, ["--streaming"], "2D remote path"),
 ])

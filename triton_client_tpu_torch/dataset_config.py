@@ -95,10 +95,10 @@ _SEQ_KEYS = {
 
 
 def model_config_from_dict(model: str, d: Mapping[str, Any]):
-    """'pointpillars' | 'second_iou' + mapping -> config dataclass.
-    Sections: ``voxel`` (the grid), ``anchors`` (per-class rows), any
-    other key a field override. CenterPoint is not ported (ROADMAP.md
-    Queue 1 item 5)."""
+    """'pointpillars' | 'second_iou' | 'centerpoint' + mapping -> config
+    dataclass. Sections: ``voxel`` (the grid), ``anchors`` (per-class
+    rows; not for the anchor-free CenterPoint), any other key a field
+    override."""
     d = dict(d)
     voxel = d.pop("voxel", None)
     anchors = d.pop("anchors", None)
@@ -111,14 +111,16 @@ def model_config_from_dict(model: str, d: Mapping[str, Any]):
 
         cfg = SECONDConfig()
     elif model == "centerpoint":
-        raise NotImplementedError(
-            "CenterPoint is not ported yet (ROADMAP.md Queue 1 item 5: models/centerpoint.py)"
-        )
+        from triton_client_tpu_torch.models.centerpoint import CenterPointConfig
+
+        cfg = CenterPointConfig()
     else:
         raise ValueError(f"unknown 3D model {model!r}")
     if voxel is not None:
         cfg = dataclasses.replace(cfg, voxel=voxel_from_dict(voxel, cfg.voxel))
     if anchors is not None:
+        if not hasattr(cfg, "anchor_classes"):
+            raise ValueError(f"{model} is anchor-free; remove the anchors section")
         cfg = dataclasses.replace(cfg, anchor_classes=_anchor_classes(anchors))
     return _apply_overrides(cfg, d, _SEQ_KEYS)
 

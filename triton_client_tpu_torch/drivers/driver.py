@@ -314,12 +314,17 @@ def channel_infer3d(
     buckets), then the padded (points, num_points) contract over the
     channel. ``z_offset=None`` takes the served value; pass one to force a
     client-side correction. ``asynchronous=True`` returns futures for the
-    driver's inflight pump."""
+    driver's inflight pump. Rows carry ``pred_velocities`` when the served
+    ``with_velocity`` flag says so; a server that publishes no flag is
+    taken at its row width (11 columns: CenterPoint's velocity)."""
     spec = channel.get_metadata(model_name, model_version)
     buckets = sorted(spec.extra.get("point_buckets", [32768, 65536, 131072]))
     if z_offset is None:
         z_offset = float(spec.extra.get("z_offset", 0.0))
     pf = int(spec.inputs[0].shape[-1])  # the served point-feature width
+    with_velocity = spec.extra.get("with_velocity")
+    if with_velocity is None:
+        with_velocity = int(spec.outputs[0].shape[-1]) == 11
 
     def make_request(points: np.ndarray) -> InferRequest:
         padded, m = prepare_points(points, pf, buckets, z_offset)
@@ -331,7 +336,8 @@ def channel_infer3d(
 
     def unpack(resp) -> Mapping[str, np.ndarray]:
         return unpack_rows(
-            np.asarray(resp.outputs["detections"]), np.asarray(resp.outputs["valid"])
+            np.asarray(resp.outputs["detections"]), np.asarray(resp.outputs["valid"]),
+            with_velocity,
         )
 
     if asynchronous:

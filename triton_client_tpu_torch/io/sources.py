@@ -39,11 +39,21 @@ class SyntheticImageSource:
             yield Frame(img, i, time.time())
 
 
+def _stamp(i: int, period: float | None) -> float:
+    """Frame ``i``'s timestamp: ``i * period`` s on a replay clock, or
+    with no period the wall clock when the frame is read (the JAX
+    package's stamp, which makes multi-sweep Δt differ run to run)."""
+    return i * period if period else time.time()
+
+
 class NpyPointCloudSource:
     """Sorted directory of ``.npy`` point clouds (the format the
-    reference's tools/pc_extractor.py writes)."""
+    reference's tools/pc_extractor.py writes). ``period``: stamp frame i
+    at ``i * period`` s (``detect3d --scan-period``), so the Δt of
+    multi-sweep aggregation is the same in every run."""
 
-    def __init__(self, path: str, limit: int = 0) -> None:
+    def __init__(self, path: str, limit: int = 0, period: float | None = None) -> None:
+        self.period = period
         self.paths = sorted(glob.glob(os.path.join(path, "*.npy")))
         if limit:
             self.paths = self.paths[:limit]
@@ -55,15 +65,16 @@ class NpyPointCloudSource:
 
     def __iter__(self) -> Iterator[Frame]:
         for i, p in enumerate(self.paths):
-            yield Frame(np.load(p).astype(np.float32), i, time.time())
+            yield Frame(np.load(p).astype(np.float32), i, _stamp(i, self.period))
 
 
 class SyntheticPointCloudSource:
     """Random KITTI-like point clouds for benchmarks and tests: the same
     clouds as the JAX package's source for the same seed."""
 
-    def __init__(self, n: int, points: int = 20000, seed: int = 0) -> None:
-        self.n, self.points, self.seed = n, points, seed
+    def __init__(self, n: int, points: int = 20000, seed: int = 0,
+                 period: float | None = None) -> None:
+        self.n, self.points, self.seed, self.period = n, points, seed, period
 
     def __len__(self) -> int:
         return self.n
@@ -80,22 +91,22 @@ class SyntheticPointCloudSource:
                 ],
                 axis=1,
             ).astype(np.float32)
-            yield Frame(pc, i, time.time())
+            yield Frame(pc, i, _stamp(i, self.period))
 
 
-def open_source(spec: str, limit: int = 0, kind: str = "image"):
+def open_source(spec: str, limit: int = 0, kind: str = "image", period: float | None = None):
     """CLI string -> source: ``synthetic[:N[:HxW]]`` images, or with
     ``kind="pointcloud"`` ``synthetic[:N]`` clouds or a directory of
-    ``.npy`` clouds."""
+    ``.npy`` clouds, stamped every ``period`` s when given."""
     if not spec.startswith("synthetic"):
         if kind == "pointcloud":
-            return NpyPointCloudSource(spec, limit)
+            return NpyPointCloudSource(spec, limit, period)
         raise ValueError(f"only synthetic[:N[:HxW]] image sources are ported yet, got {spec!r}")
     parts = spec.split(":")
     n = int(parts[1]) if len(parts) > 1 else (limit or 100)
     n = min(n, limit) if limit else n
     if kind == "pointcloud":
-        return SyntheticPointCloudSource(n)
+        return SyntheticPointCloudSource(n, period=period)
     hw = (480, 640)
     if len(parts) > 2:
         h, w = parts[2].split("x")

@@ -166,3 +166,15 @@ def second_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[st
     the mean VFE has no parameters) -> a ``state_dict`` for the port's
     ``SECONDIoU`` of the same config; the submodules carry the flax names."""
     return state_dict_from_flax(variables, model)
+
+
+def centerpoint_state_dict_from_flax(
+    variables: Mapping, model: nn.Module
+) -> dict[str, torch.Tensor]:
+    """The JAX ``CenterPoint`` tree (``init_centerpoint``: ``vfe/linear``,
+    ``vfe/bn``, ``backbone/...`` as PointPillars', ``head/shared``,
+    ``head/shared_bn`` and the 1x1 branches ``head/heatmap``, ``offset``,
+    ``height``, ``size``, ``rot``, ``vel``) -> a ``state_dict`` for the
+    port's ``CenterPoint`` of the same config; the submodules carry the
+    flax names."""
+    return state_dict_from_flax(variables, model)

@@ -8,7 +8,7 @@
 
 :func:`scan_disk` builds every entry's pipeline with the port's builders
 (``build_yolov5_pipeline``, ``build_pointpillars_pipeline``,
-``build_second_pipeline``) and registers it (name, version) into a
+``build_second_pipeline``, ``build_centerpoint_pipeline``) and registers it (name, version) into a
 ``ModelRepository`` for ``CUDAChannel`` and the serving façade. Each entry
 registers its pipeline's captured body (``infer_fn``) with a ``warmup``
 that captures the graph real traffic uses: batch 1 of FP32 frames at the
@@ -31,7 +31,7 @@ bf16 policy (``runtime/precision.py``). Broken or unported entries raise,
 so a serving process fails at startup instead of skipping models:
 
 - the families not ported (yolov4, retinanet, fcos, preprocess and
-  ensembles: ROADMAP.md Queue 1 item 7; centerpoint: item 5);
+  ensembles: ROADMAP.md Queue 1 item 7);
 - the int8w and int8 policies (item 10); bfloat16 on a 3D entry
   (item 11);
 - ``export_model`` (item 12).
@@ -69,7 +69,6 @@ _UNPORTED_FAMILIES = {
     "fcos": "7 (models/retinanet.py, ops/anchor_decode.py)",
     "preprocess": "7 (pipelines/preprocess2d.py)",
     "ensemble": "7 (runtime/ensemble.py)",
-    "centerpoint": "5 (models/centerpoint.py)",
 }
 _BF16_3D_ITEM = "11 (bfloat16 on the 3D paths)"
 _EXPORT_ITEM = "12 (export_model with a flax msgpack writer)"
@@ -92,7 +91,8 @@ def _from_flax(family: str):
 
     return {"yolov5": convert.yolov5_state_dict_from_flax,
             "pointpillars": convert.pointpillars_state_dict_from_flax,
-            "second_iou": convert.second_state_dict_from_flax}[family]
+            "second_iou": convert.second_state_dict_from_flax,
+            "centerpoint": convert.centerpoint_state_dict_from_flax}[family]
 
 
 def load_weights(path: str | pathlib.Path, family: str, model: torch.nn.Module) -> dict:

@@ -1,14 +1,16 @@
 """Upstream checkpoints onto the port's models (port of
-``runtime/importers.py``: YOLOv5, PointPillars, SECOND-IoU).
+``runtime/importers.py``: YOLOv5, PointPillars, SECOND-IoU, CenterPoint).
 
 Each importer maps the published checkpoint naming (ultralytics YOLOv5
 ``model.N.*``; OpenPCDet PointPillars and SECOND ``vfe.pfn_layers``/
-``backbone_3d``/``backbone_2d.blocks``/``dense_head.*``; an ONNX export's
+``backbone_3d``/``backbone_2d.blocks``/``dense_head.*``; det3d CenterPoint
+``reader.pfn_layers``/``neck.blocks``/``bbox_head.*``; an ONNX export's
 initializers, read by ``runtime/onnx_reader``) onto the port's
 ``state_dict`` names, through ``runtime/checkpoint.convert_state_dict``.
 Both sides are PyTorch layouts, so the JAX importer's transposes vanish
-(OpenPCDet's ``ConvTranspose2d`` deblocks and SECOND's ``Conv3d`` stages
-copy as they are). What remains is YOLOv5's layout of
+(the ``ConvTranspose2d`` deblocks and SECOND's ``Conv3d`` stages copy as
+they are). What remains is det3d's shared-conv bias, folded exactly into
+the BatchNorm mean (:func:`load_centerpoint`), and YOLOv5's layout of
 ``examples/yolov5_crop``, imported exactly from the plain upstream
 weights:
 
@@ -140,22 +142,23 @@ _HEADS = {
 }
 
 
-def _bev_backbone_key(name: str, leaf: str) -> str | None:
-    """A BEV backbone module -> ``backbone_2d.blocks/deblocks...``: OpenPCDet
-    builds each block as Sequential(ZeroPad2d, Conv2d, BN, ReLU, [Conv2d,
-    BN, ReLU] * L) (down conv at 1, its BN at 2, layer li at 4+3*li /
-    5+3*li) and each deblock as Sequential(ConvTranspose2d, BN, ReLU)."""
+def _bev_backbone_key(name: str, leaf: str, prefix: str = "backbone_2d") -> str | None:
+    """A BEV backbone module -> ``<prefix>.blocks/deblocks...`` (OpenPCDet's
+    ``backbone_2d``, det3d's ``neck``): each block is Sequential(ZeroPad2d,
+    Conv2d, BN, ReLU, [Conv2d, BN, ReLU] * L) (down conv at 1, its BN at
+    2, layer li at 4+3*li / 5+3*li) and each deblock Sequential(
+    ConvTranspose2d, BN, ReLU)."""
     m = _BLOCK_DOWN.match(name)
     if m:
-        return f"backbone_2d.blocks.{m.group(1)}.{2 if m.group(2) else 1}.{leaf}"
+        return f"{prefix}.blocks.{m.group(1)}.{2 if m.group(2) else 1}.{leaf}"
     m = _BLOCK_CONV.match(name)
     if m:
         li = int(m.group(3))
         idx = 4 + 3 * li if m.group(2) == "conv" else 5 + 3 * li
-        return f"backbone_2d.blocks.{m.group(1)}.{idx}.{leaf}"
+        return f"{prefix}.blocks.{m.group(1)}.{idx}.{leaf}"
     m = _UP.match(name)
     if m:
-        return f"backbone_2d.deblocks.{m.group(1)}.{1 if m.group(2) else 0}.{leaf}"
+        return f"{prefix}.deblocks.{m.group(1)}.{1 if m.group(2) else 0}.{leaf}"
     return None
 
 
@@ -211,6 +214,55 @@ def load_second(path_or_state: Any, model: torch.nn.Module) -> dict:
                               second_torch_key)
 
 
+# --- CenterPoint (det3d naming, data/nusc_centerpoint_pp_02voxel_...py) ------------
+
+# the port's head branch -> det3d's SepHead task branch
+_CP_BRANCH = {"heatmap": "hm", "offset": "reg", "height": "height", "size": "dim",
+              "rot": "rot", "vel": "vel"}
+_CP_SHARED_BIAS = "bbox_head.shared_conv.0.bias"
+_CP_SHARED_MEAN = "bbox_head.shared_conv.1.running_mean"
+
+
+def centerpoint_torch_key(key: str) -> str:
+    """Port key -> det3d key. det3d names the pillar CenterPoint's trunk
+    ``reader`` (the PillarFeatureNet), ``neck`` (the RPN, laid out as
+    OpenPCDet's BEV backbone) and ``bbox_head`` (``shared_conv``
+    Sequential(Conv2d, BN, ReLU), then per-task branches); the port's head
+    is one task, so its branches sit at ``bbox_head.tasks.0.<name>.0``."""
+    head, rest = key.split(".", 1)
+    name, leaf = rest.split(".", 1)
+    if head == "vfe":
+        return f"reader.pfn_layers.0.{'linear' if name == 'linear' else 'norm'}.{leaf}"
+    if head == "backbone":
+        mapped = _bev_backbone_key(name, leaf, "neck")
+        if mapped:
+            return mapped
+    if head == "head":
+        if name == "shared":
+            return f"bbox_head.shared_conv.0.{leaf}"
+        if name == "shared_bn":
+            return f"bbox_head.shared_conv.1.{leaf}"
+        if name in _CP_BRANCH:
+            return f"bbox_head.tasks.0.{_CP_BRANCH[name]}.0.{leaf}"
+    raise KeyError(f"unmapped CenterPoint key: {key}")
+
+
+def load_centerpoint(path_or_state: Any, model: torch.nn.Module) -> dict:
+    """A det3d-named CenterPoint checkpoint -> a ``state_dict`` for the
+    port's ``model``. det3d's shared conv has a bias and the port's, as
+    the JAX package's, has none (BatchNorm consumes it): the bias folds
+    exactly into the BN running mean, BN((conv + b) - m) = BN(conv -
+    (m - b)), so the forward is unchanged. A bias without a mean raises."""
+    state = dict(_as_state_dict(path_or_state))
+    if _CP_SHARED_BIAS in state:
+        if _CP_SHARED_MEAN not in state:
+            raise KeyError(f"{_CP_SHARED_BIAS} present but {_CP_SHARED_MEAN} missing: cannot "
+                           "fold the shared-conv bias into BN")
+        bias = state.pop(_CP_SHARED_BIAS)
+        state[_CP_SHARED_MEAN] = torch.as_tensor(state[_CP_SHARED_MEAN]) - torch.as_tensor(bias)
+    return convert_state_dict(state, model.state_dict(), centerpoint_torch_key)
+
+
 def _as_state_dict(path_or_state: Any) -> Mapping[str, Any]:
     if isinstance(path_or_state, Mapping):
         return path_or_state
@@ -234,4 +286,5 @@ IMPORTERS = {
     "yolov5": load_yolov5,
     "pointpillars": load_pointpillars,
     "second_iou": load_second,
+    "centerpoint": load_centerpoint,
 }
