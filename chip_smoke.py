@@ -18,8 +18,9 @@ dense merged path; then the KServe v2 façade over a disk repository of the
 same three entries, the layout and precision of examples/yolov5_crop (phase
 26), detect2d/detect3d client processes against serve (phase 27), and
 CenterPoint with velocity on nuScenes at full width with 10-sweep
-aggregation, with examples/pointpillar_wide beside it (phase 28). One JSON
-line per phase:
+aggregation, with examples/pointpillar_wide beside it (phase 28), and every
+serving precision policy on every served family (phase 29). One JSON line
+per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -218,6 +219,24 @@ line per phase:
                  --poses clients with no card over the wire, shm and the
                  unix socket, rows bitwise equal to the in-process -r run
                  and carrying pred_velocities; kernel 4 once a request)
+ 29. precision — scan_disk(..., precision=...) of examples/pointpillar_kitti,
+                 second_iou and centerpoint_nusc (seeded) at f32, bf16 and
+                 int8w, and of yolov5_crop_base (conf 0.05) at f32, int8w
+                 and a calibrated int8, the same weights under every policy;
+                 lines precision_3d (one an entry), precision_2d and
+                 precision. For each entry and policy: kernels 1, 3, 4 and 5
+                 bitwise equal to their plain versions on the path's own
+                 inputs, captured = eager bitwise, one launch of each of the
+                 path's kernels a request through CUDAChannel with the counts
+                 set to 0 just before each path and read just after and no
+                 capture in the window, points staged float32 and the int8
+                 entry's images int8 (bytes a request), the card against the
+                 CPU port at a tiny grid (bf16 heads within twice the CPU's
+                 own bf16 distance) and the policy's detections there within
+                 MAP_BUDGETS of f32's; the full-width mAP against f32
+                 (reported), p50 and scans/s or frames/s, device ms, busy
+                 share and top device ops (torch.profiler), param_bytes and
+                 graph-pool bytes; the phase's wall time
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -964,6 +983,7 @@ def main() -> int:
     run_layout(card, counters)
     run_remote(card, counters)
     record_cp = run_centerpoint(card, counters)
+    precision_launches = run_precision(card, counters)
     # kernel 4 also runs CenterPoint's tail, at K = 128 rows of 11 columns
     k4_row = next(row for row in record_3d if row["name"] == "suppress_pack_3d")
     k4_row["launches_by_path"]["centerpoint"] = record_cp.pop("launches")
@@ -990,6 +1010,12 @@ def main() -> int:
         *record_second,
         *record_ragged,
     ]
+    # phase 29's paths: each precision policy on each family, counted alone
+    for row in record:
+        by_path = row.setdefault("launches_by_path", {})
+        for path, counts in precision_launches.items():
+            if counts.get(row["name"]):
+                by_path[f"precision_{path}"] = counts[row["name"]]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3460,6 +3486,517 @@ def run_centerpoint(card: str, counters) -> dict:
     return {"launches": launches["suppress_pack_3d"], "ms": k4_ms, "call_ms": k4_call_ms,
             "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
             "shape": [1, k, max_det, cols]}
+
+
+# phase 29: every serving precision policy on every served family. The 3D
+# entries as they stand, seeded (seed 0), through scan_disk's precision
+# override at f32, bf16 and int8w; examples/yolov5_crop_base at conf 0.05
+# (seeded weights keep nothing at its 0.3) at f32, int8w and a calibrated
+# int8. The same seeded weights under every policy
+PREC_3D = {"pointpillar_kitti": "pointpillars", "second_iou": "second_iou",
+           "centerpoint_nusc": "centerpoint"}  # entry -> family
+PREC_2D = "yolov5_crop_base"
+PREC_POLICIES_3D = ("f32", "bf16", "int8w")
+PREC_POLICIES_2D = ("f32", "int8w", "int8")
+PREC_SCANS, PREC_REQUESTS, PREC_FRAMES = 3, 10, 8
+# a KITTI scan of a full HDL-64 (the 131,072 bucket); CenterPoint's 10
+# sweeps of 26,000 points (the 262,144 bucket)
+PREC_POINTS = {"pointpillar_kitti": 120000, "second_iou": 120000, "centerpoint_nusc": 260000}
+
+
+def precision_scans(name: str, voxel, count: int, seed: int) -> list[np.ndarray]:
+    """``count`` seeded clouds of ``PREC_POINTS[name]`` points over the
+    entry's range; CenterPoint's carry a fifth column, the sweep's lag (10
+    sweeps 0.05 s apart)."""
+    clouds = uniform_clouds(seed, voxel.point_cloud_range, PREC_POINTS[name], count)
+    if voxel.point_features == 5:
+        rng = np.random.default_rng(seed + 1)
+        clouds = [np.column_stack([pc, (rng.integers(0, 10, len(pc)) * 0.05)]).astype(np.float32)
+                  for pc in clouds]
+    return clouds
+
+
+def pipeline_of(registered):
+    """The pipeline behind a registered model's captured body."""
+    return registered.infer_fn.graph_stats.__self__
+
+
+def recorded_kernel_calls(run) -> tuple:
+    """``run()`` with the kernel wrappers a served path calls recording their
+    arguments (kernel 1's fused 2D tail, kernel 3's gathered decode, kernel
+    4's suppress + pack, kernel 5's segment mean). Returns (what ``run``
+    returned, {kernel: [(args, kwargs), ...]})."""
+    from triton_client_tpu_torch.ops import detect3d_postprocess, detect_postprocess, gpu_voxel
+    from triton_client_tpu_torch.pipelines import detect3d
+
+    sites = {"decode_nms_2d": (detect_postprocess, "fused_decode_nms_2d"),
+             "residual_decode_3d_gathered": (detect3d, "gather_residual_decode"),
+             "suppress_pack_3d": (detect3d_postprocess, "fused_suppress_pack_3d"),
+             "segment_mean": (gpu_voxel, "sorted_segment_mean")}
+    seen = {k: [] for k in sites}
+    saved = {k: getattr(mod, attr) for k, (mod, attr) in sites.items()}
+
+    def recorder(kernel):
+        def record(*args, **kw):
+            seen[kernel].append((args, kw))
+            return saved[kernel](*args, **kw)
+        return record
+
+    for kernel, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(kernel))
+    try:
+        out = run()
+    finally:
+        for kernel, (mod, attr) in sites.items():
+            setattr(mod, attr, saved[kernel])
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in seen.items() if v}
+
+
+def kernels_equal_plain(calls: dict, label: str) -> dict:
+    """Each recorded kernel call against its plain version on the same
+    inputs, bitwise. Returns the shapes compared."""
+    from triton_client_tpu_torch.ops import gpu_decode, gpu_decode3d, gpu_suppress3d, gpu_voxel
+
+    shapes = {}
+    for kernel, recorded in calls.items():
+        for args, kw in recorded:
+            if kernel == "suppress_pack_3d":
+                iou, rows = gpu_suppress3d.sorted_candidates(*args[:3])
+                rest = tuple(args[3:]) + tuple(kw[k] for k in ("iou_thresh", "max_det") if k in kw)
+                got = gpu_suppress3d.suppress_pack_3d(iou, rows, *rest)
+                want = gpu_suppress3d.suppress_pack_3d_reference(iou, rows, *rest)
+                shape = list(rows.shape)
+            elif kernel == "decode_nms_2d":
+                got = gpu_decode.fused_decode_nms_2d(*args, **kw)
+                want = gpu_decode.decode_nms_2d_reference(*args, **kw)
+                shape = list(args[0].shape)
+            elif kernel == "residual_decode_3d_gathered":
+                got = (gpu_decode3d.gather_residual_decode(*args, **kw),)
+                want = (gpu_decode3d.gather_residual_decode_reference(*args, **kw),)
+                shape = list(args[3].shape)
+            else:
+                got = (gpu_voxel.sorted_segment_mean(*args, **kw),)
+                want = (gpu_voxel.sorted_segment_mean_reference(*args, **kw),)
+                shape = list(args[0].shape) + [int(args[2])]
+            check(all(torch.equal(bits(g) if g.dtype == torch.float32 else g,
+                                  bits(w) if w.dtype == torch.float32 else w)
+                      for g, w in zip(got, want)),
+                  f"{label}: {kernel} differs from its plain version on the path's own inputs")
+            shapes[kernel] = shape
+    return shapes
+
+
+def heads_distance(a: dict, b: dict) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max()) for k in a)
+
+
+_TINY: dict = {}
+
+
+def precision_tiny_pair(family: str, policy: str) -> tuple:
+    """A family at the CPU tests' tiny grid, seeded, on the card and on the
+    CPU under ``policy`` (once a phase), and four clouds over its range."""
+    from triton_client_tpu_torch.models.centerpoint import CenterPointConfig
+    from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig
+    from triton_client_tpu_torch.pipelines.detect3d import BUILDERS_3D, Detect3DConfig
+
+    if family == "pointpillars":
+        mcfg = PointPillarsConfig(voxel=VoxelConfig(
+            point_cloud_range=(0.0, -6.4, -3.0, 12.8, 6.4, 1.0), voxel_size=(0.2, 0.2, 4.0),
+            max_voxels=512, max_points_per_voxel=8), backbone_layers=(1, 1, 1))
+        cfg = Detect3DConfig(point_buckets=(2048,), max_det=16, pre_max=64)
+    elif family == "second_iou":
+        mcfg = SECONDConfig(
+            voxel=VoxelConfig(point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+                              voxel_size=(0.5, 0.5, 0.5), max_voxels=1024, max_points_per_voxel=5),
+            middle_filters=(8, 16), backbone_layers=(1, 1), backbone_filters=(16, 32),
+            upsample_filters=(16, 16))
+        cfg = Detect3DConfig(model_name="second_iou", point_buckets=(1024,), max_det=16,
+                             pre_max=64)
+    else:
+        mcfg = CenterPointConfig(
+            voxel=VoxelConfig(point_cloud_range=(-6.4, -6.4, -5.0, 6.4, 6.4, 3.0),
+                              voxel_size=(0.2, 0.2, 8.0), max_voxels=512, max_points_per_voxel=8,
+                              point_features=5),
+            backbone_layers=(1, 1, 1), backbone_filters=(16, 32, 64), upsample_filters=(16, 16, 16),
+            vfe_filters=16, head_width=16, max_objects=32)
+        cfg = Detect3DConfig(model_name="centerpoint", iou_thresh=0.2, point_buckets=(1024,),
+                             max_det=16)
+    if (family, policy) not in _TINY:
+        _TINY[family, policy] = [
+            BUILDERS_3D[family](mcfg, dataclasses.replace(cfg, fused="on"), device=d, seed=0,
+                                precision=policy)[0] for d in ("cuda", "cpu")]
+    clouds = uniform_clouds(29, mcfg.voxel.point_cloud_range, 500, 4)
+    if mcfg.voxel.point_features == 5:
+        clouds = [np.column_stack([pc, np.full(len(pc), 0.05, np.float32)]) for pc in clouds]
+    return _TINY[family, policy], clouds
+
+
+def precision_card_vs_cpu(family: str, policy: str) -> dict:
+    """The card against the CPU port at a tiny grid under ``policy`` (same
+    seed, same weights). f32 and int8w (float32 compute): equal kept counts
+    and labels and rows within 1e-5 (CenterPoint's rows matched by box, as
+    phase 28). bf16: both devices round every layer to bfloat16, after
+    float32 sums in other orders, so a bfloat16 rounding can differ; held
+    as the CPU tests hold the port to JAX: the card's bf16 heads no further
+    from the CPU's f32 heads than twice the CPU's own bf16 distance. Then the
+    card's detections under ``policy`` scored against the card's f32 ones on
+    the same clouds, at least the f32 self-score less ``MAP_BUDGETS[policy]``
+    (the bar tests/test_torch_precision_3d.py holds on the CPU)."""
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.precision import MAP_BUDGETS
+
+    pipes, clouds = precision_tiny_pair(family, policy)
+    out = {}
+    if policy == "bf16":
+        f32_cpu = precision_tiny_pair(family, "f32")[0][1]
+        ratios = []
+        for pc in clouds:
+            padded, m = prepare_points(pc, pipes[1].model.cfg.voxel.point_features,
+                                       pipes[1].config.point_buckets)
+            args = [(torch.from_numpy(padded).to(d), torch.tensor(m, dtype=torch.int32).to(d))
+                    for d in ("cuda", "cpu")]
+            with torch.no_grad():
+                card_h, cpu_h = pipes[0].heads(*args[0]), pipes[1].heads(*args[1])
+                ref = f32_cpu.heads(*args[1])
+            d_card, d_cpu = heads_distance(card_h, ref), heads_distance(cpu_h, ref)
+            check(0 < d_card <= 2 * d_cpu, f"{family} bf16: the card's heads are {d_card} from "
+                  f"the CPU's f32 ones, the CPU's bf16 {d_cpu}")
+            ratios.append(d_card / d_cpu)
+            out["card_cpu_bf16_heads_max_abs"] = max(out.get("card_cpu_bf16_heads_max_abs", 0.0),
+                                                     heads_distance(card_h, cpu_h))
+        out["card_over_cpu_bf16_distance"] = max(ratios)
+    elif family == "centerpoint":
+        for pc in clouds:
+            g, c = pipes[0].infer(pc), pipes[1].infer(pc)
+            matched, err = rows_matched_by_box(g, c)
+            n = len(g["pred_scores"])
+            check(n > 0 and matched >= CP_MATCHED * n and err <= 1e-5,
+                  f"centerpoint {policy} card against CPU: {matched} of {n} rows, {err}")
+            out["matched"] = out.get("matched", 0) + matched
+            out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
+    else:
+        out["max_abs_err"], out["kept"] = card_vs_cpu(pipes[0], pipes[1], clouds)
+    if policy != "f32":
+        ref = [precision_tiny_pair(family, "f32")[0][0].infer(pc) for pc in clouds]
+        got, self_map = map_3d([pipes[0].infer(pc) for pc in clouds], ref), map_3d(ref, ref)
+        check(got >= self_map - MAP_BUDGETS[policy],
+              f"{family} {policy}: tiny-grid mAP {got} against f32, floor "
+              f"{self_map - MAP_BUDGETS[policy]}")
+        out.update(map_against_f32=got, map_floor=self_map - MAP_BUDGETS[policy])
+    return out
+
+
+def map_3d(rows: list[dict], ref: list[dict]) -> float:
+    """The port's Detection3DEvaluator over ``rows``, with ``ref``'s
+    detections as ground truth."""
+    from triton_client_tpu_torch.eval.detection_map import Detection3DEvaluator
+
+    ev = Detection3DEvaluator()
+    for r, g in zip(rows, ref):
+        gt = np.concatenate([g["pred_boxes"], g["pred_labels"][:, None] - 1.0], 1)
+        ev.add_frame3d(r["pred_boxes"], r["pred_scores"], r["pred_labels"], gt)
+    return float(ev.summary()["map"])
+
+
+def map_2d(dets, valid, ref_dets, ref_valid) -> float:
+    from triton_client_tpu_torch.eval.detection_map import DetectionEvaluator
+
+    ev = DetectionEvaluator()
+    for d, v, rd, rv in zip(dets, valid, ref_dets, ref_valid):
+        ev.add_frame(d, v, rd[rv][:, [0, 1, 2, 3, 5]])
+    return float(ev.summary()["map"])
+
+
+def precision_repositories(tmp: pathlib.Path, calib: np.ndarray) -> tuple[dict, dict]:
+    """The phase-29 repositories: the 3D entries under each of
+    ``PREC_POLICIES_3D`` and the 2D entry under each of
+    ``PREC_POLICIES_2D`` (``int8`` calibrated on ``calib``), every one
+    scanned by ``scan_disk`` with its policy as the repository-wide
+    override and its graphs captured at registration."""
+    from triton_client_tpu_torch.runtime.disk_repository import scan_disk
+    from triton_client_tpu_torch.runtime.precision import PrecisionPolicy
+
+    for name in PREC_3D:
+        (tmp / "3d" / name).mkdir(parents=True)
+        (tmp / "3d" / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    (tmp / "2d" / PREC_2D).mkdir(parents=True)
+    text = (ROOT / "examples" / PREC_2D / "config.yaml").read_text()
+    check("conf_thresh: 0.3" in text, f"examples/{PREC_2D} changed its conf_thresh")
+    (tmp / "2d" / PREC_2D / "config.yaml").write_text(
+        text.replace("conf_thresh: 0.3", "conf_thresh: 0.05"))
+    repos_3d = {p: scan_disk(tmp / "3d", precision=None if p == "f32" else p)
+                for p in PREC_POLICIES_3D}
+    overrides = {"f32": None, "int8w": "int8w",
+                 "int8": PrecisionPolicy("int8").calibrated({"images": calib})}
+    repos_2d = {p: scan_disk(tmp / "2d", precision=overrides[p]) for p in PREC_POLICIES_2D}
+    for repo in (*repos_3d.values(), *repos_2d.values()):
+        for name, version in repo.list_models():
+            repo.get(name, version).warmup()
+    return repos_3d, repos_2d
+
+
+def run_precision(card: str, counters) -> dict:
+    """Phase 29: every serving precision policy on every served family.
+    ``scan_disk`` with a repository-wide policy over the full-width 3D
+    entries (PointPillars, SECOND-IoU, CenterPoint with velocity) at f32,
+    bf16 and int8w and over ``yolov5_crop_base`` (conf 0.05) at f32, int8w
+    and a calibrated int8, the same seeded weights under every policy, each
+    through ``CUDAChannel`` with its graphs captured at registration.
+
+    Held, for each entry and policy: the path's kernels (1 on the 2D
+    entry; 3, 4 and 5 on the anchor 3D entries; 4 on CenterPoint) bitwise
+    equal to their plain versions on the path's own inputs, recorded from
+    an eager run; the captured body bitwise equal to the eager one with
+    equal launches; through the channel, one launch of each of the path's
+    kernels a request, no other and no capture, the counts set to 0 just
+    before each path and read just after; ``points`` staged float32 under
+    every policy and the calibrated int8 entry's ``images`` staged int8 (a
+    quarter of the bytes); the card against the CPU port at a tiny grid
+    (``precision_card_vs_cpu``); the detections' mAP against the f32
+    entry's on the same inputs at least the f32 self-score less
+    ``MAP_BUDGETS[policy]``. Prints p50 and scans/s or frames/s, device ms
+    a request, busy share and top device ops, ``param_bytes`` and the
+    graph-pool bytes of every entry. Returns the launches by path."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.channel.staged import cast_wire_input
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.pipelines.detect2d import build_yolov5_pipeline
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.precision import MAP_BUDGETS
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    frames = rng.integers(0, 256, (PREC_FRAMES + 1, 512, 512, 3)).astype(np.float32)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="precision_repo_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        t0 = time.perf_counter()
+        repos_3d, repos_2d = precision_repositories(tmp, frames)
+        build_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp)
+    channels = {("3d", p): CUDAChannel(r) for p, r in repos_3d.items()}
+    channels.update({("2d", p): CUDAChannel(r) for p, r in repos_2d.items()})
+    launches_by_path, lines = {}, {}
+
+    def counted(label, run, want: dict):
+        """``run()`` between the counters set to 0 and read: the path's
+        launches, held to ``want``, with no capture in the window."""
+        caps = {(k, n): channels[k]._repository.get(n).infer_fn.graph_stats()["captures"]
+                for k in channels for n in channels[k]._repository.names()}
+        for c in counters:
+            c.reset()
+        out = run()
+        torch.cuda.synchronize()
+        got = {n: c.count for n, c in zip(COUNTER_NAMES, counters)}
+        full = {n: want.get(n, 0) for n in COUNTER_NAMES}
+        check(got == full, f"{label}: launches {got}, want {full}")
+        after = {(k, n): channels[k]._repository.get(n).infer_fn.graph_stats()["captures"]
+                 for k in channels for n in channels[k]._repository.names()}
+        check(after == caps, f"{label}: a request captured a graph inside the counted window")
+        launches_by_path[label] = {n: v for n, v in got.items() if v}
+        return out
+
+    # -- the 3D entries ---------------------------------------------------------------------
+    for name in PREC_3D:
+        f32_pipe = pipeline_of(repos_3d["f32"].get(name))
+        voxel, cfg, family = f32_pipe.model.cfg.voxel, f32_pipe.config, PREC_3D[name]
+        scans = precision_scans(name, voxel, PREC_SCANS, 290 + list(PREC_3D).index(name))
+        per_request = {"pointpillars": {"residual_decode_3d": 1, "suppress_pack_3d": 1,
+                                        "residual_decode_3d_gathered": 1},
+                       "second_iou": {"residual_decode_3d": 1, "suppress_pack_3d": 1,
+                                      "residual_decode_3d_gathered": 1, "segment_mean": 1},
+                       "centerpoint": {"suppress_pack_3d": 1}}[family]
+
+        def on_card(pc):
+            padded, m = prepare_points(pc, voxel.point_features, cfg.point_buckets)
+            return (torch.from_numpy(padded).to(dev), torch.tensor(m, dtype=torch.int32).to(dev))
+
+        rows, line = {}, {}
+        for policy in PREC_POLICIES_3D:
+            registered = repos_3d[policy].get(name)
+            pipe, spec = pipeline_of(registered), registered.spec
+            label = f"{name}_{policy}"
+            check(spec.extra["precision"] == policy and pipe.precision.name == policy,
+                  f"{label}: the policy did not reach the entry")
+            check(spec.extra["precision_keep_f32"] == ["voxelize_coords", "box_decode",
+                                                       "nms_scores"], f"{label}: keep-list")
+            check(spec.extra["fused_stages"] == list(f32_pipe.fused_stages) and "decode_nms" in
+                  spec.extra["fused_stages"], f"{label}: not fused on the card")
+            # the kernels on the path's own inputs, from an eager run
+            a, b = on_card(scans[0]), on_card(scans[1])
+            _, calls = recorded_kernel_calls(lambda: pipe.run(*a))
+            check(set(calls) == {k for k in per_request if k != "residual_decode_3d"},
+                  f"{label}: the eager run called {sorted(calls)}")
+            shapes = kernels_equal_plain(calls, label)
+            per_call, _, _ = hold_captured_to_eager(pipe, a, b, counters, label)
+            check({c: n for c, n in zip(COUNTER_NAMES, per_call) if n} == per_request,
+                  f"{label}: one eager scan launched {per_call}")
+            # points staged float32: what the channel uploads a request
+            padded, m = prepare_points(scans[0], voxel.point_features, cfg.point_buckets)
+            wire = cast_wire_input(registered, "points", padded)
+            chan = channels[("3d", policy)]
+            staged, slot = chan._upload({"points": wire})
+            if slot is not None:
+                chan._give_slot(slot)
+            check(wire.dtype == np.float32 and staged["points"].dtype == torch.float32,
+                  f"{label}: points staged {staged['points'].dtype}")
+            infer = channel_infer3d(chan, name)
+            infer(scans[0])  # the channel's first request, outside the window
+            outs = counted(label, lambda: [infer(pc) for pc in scans],
+                           {k: v * len(scans) for k, v in per_request.items()})
+            for pc, o in zip(scans, outs):
+                want = pipe.infer(pc)
+                check(all(o[k].tobytes() == want[k].tobytes() for k in want),
+                      f"{label}: served rows differ from the in-process pipeline's")
+                check(len(o["pred_scores"]) > 0 and all(bool(np.isfinite(v).all())
+                                                       for v in o.values()),
+                      f"{label}: no finite rows")
+            rows[policy] = outs
+            t = serve(infer, scans, PREC_REQUESTS)
+            prof = device_profile(lambda: infer(scans[0]), PROFILE_REQUESTS)
+            line[policy] = {
+                "scans_per_s": t["scans_per_s"], "p50_ms": t["p50_ms"],
+                "device_ms": prof["device_ms_per_request"],
+                "busy_share": prof["device_busy_share"],
+                "top_device_ops_ms": prof["top_device_ops_ms_per_request"],
+                "param_bytes": spec.extra["param_bytes"],
+                "pool_bytes": registered.infer_fn.graph_stats()["pool_bytes"],
+                "graph_keys": registered.infer_fn.graph_stats()["keys"],
+                "points_staged": str(staged["points"].dtype),
+                "request_bytes": int(wire.nbytes), "kernel_shapes": shapes,
+                "eager_launches_per_scan": {c: n for c, n in zip(COUNTER_NAMES, per_call) if n},
+                "kept": [len(o["pred_scores"]) for o in outs],
+                "card_vs_cpu_tiny": precision_card_vs_cpu(family, policy)}
+            if family == "centerpoint":
+                # one 30,000-point sweep: the 131,072 bucket, where ~101,000
+                # padding rows contend on the pillar max's dump row
+                sweep = uniform_clouds(299, voxel.point_cloud_range, CP_SINGLE_POINTS, 1)[0]
+                infer(sweep)
+                p131 = device_profile(lambda: infer(sweep), PROFILE_REQUESTS)
+                line[policy]["bucket131072"] = {
+                    "device_ms": p131["device_ms_per_request"],
+                    "busy_share": p131["device_busy_share"],
+                    "scatter_ms": sum(ms for op, ms in p131["top_device_ops_ms_per_request"].items()
+                                      if "scatter" in op),
+                    "top_device_ops_ms": p131["top_device_ops_ms_per_request"]}
+        # at full width, reported: seeded weights are not stable to rounding at
+        # this depth (PERF.md §6); the budget is held at the tiny grid
+        # above, as on the CPU
+        ref = rows["f32"]
+        self_map = map_3d(ref, ref)
+        for policy in PREC_POLICIES_3D[1:]:
+            line[policy]["map_against_f32_full_width"] = map_3d(rows[policy], ref)
+            line[policy]["budget_floor_full_width"] = self_map - MAP_BUDGETS[policy]
+        line["f32"]["map_self"] = self_map
+        lines[name] = line
+        emit("precision_3d", card, entry=name, family=family, points=PREC_POINTS[name],
+             bucket=int(on_card(scans[0])[0].shape[0]), scans=PREC_SCANS,
+             policies=line, captured_equals_eager=True, kernels_equal_plain=True,
+             no_capture_in_window=True)
+
+    # -- the 2D entry -----------------------------------------------------------------------
+    line2d = {}
+    ref_out = None
+    for policy in PREC_POLICIES_2D:
+        registered = repos_2d[policy].get(PREC_2D)
+        pipe, spec = pipeline_of(registered), registered.spec
+        chan = channels[("2d", policy)]
+        label = f"{PREC_2D}_{policy}"
+        check(spec.extra["precision"] == policy, f"{label}: the policy did not reach the entry")
+        wires, staged = {}, {}
+        for b in (1, PREC_FRAMES):
+            x = frames[:b] if b == 1 else frames[1:1 + b]
+            wires[b] = cast_wire_input(registered, "images", x)
+            staged[b], slot = chan._upload({"images": wires[b]})
+            if slot is not None:
+                chan._give_slot(slot)
+        want_dtype = torch.int8 if policy == "int8" else torch.float32
+        check(staged[1]["images"].dtype == want_dtype == pipe.precision.wire_dtype("images"),
+              f"{label}: images staged {staged[1]['images'].dtype}")
+        check(wires[1].nbytes == frames[:1].nbytes // (4 if policy == "int8" else 1),
+              f"{label}: {wires[1].nbytes} bytes a frame")
+        a, bb = (staged[PREC_FRAMES]["images"],), (staged[1]["images"].expand(
+            PREC_FRAMES, -1, -1, -1).contiguous(),)
+        _, calls = recorded_kernel_calls(lambda: pipe.run(*a))
+        check(set(calls) == {"decode_nms_2d"}, f"{label}: the eager run called {sorted(calls)}")
+        shapes = kernels_equal_plain(calls, label)
+        per_call, _, _ = hold_captured_to_eager(pipe, a, bb, counters, label)
+        check({c: n for c, n in zip(COUNTER_NAMES, per_call) if n} == {"decode_nms_2d": 1},
+              f"{label}: one eager batch launched {per_call}")
+        reqs = {b: InferRequest(PREC_2D, {"images": frames[:1] if b == 1 else frames[1:1 + b]})
+                for b in (1, PREC_FRAMES)}
+        for r in reqs.values():  # batch 8 captures here, before the window
+            chan.do_inference(r)
+        outs = counted(label, lambda: {b: chan.do_inference(r).outputs for b, r in reqs.items()},
+                       {"decode_nms_2d": 2})
+        out8 = outs[PREC_FRAMES]
+        check(out8["detections"].dtype == np.float32 and bool(np.isfinite(out8["detections"])
+                                                               .all()),
+              f"{label}: detections not finite float32")
+        if policy == "f32":
+            ref_out = out8
+            check(int(out8["valid"].sum()) > 0, "conf 0.05 kept nothing")
+        times = {f"b{b}": serve(lambda _x, r=r: chan.do_inference(r), [None], PREC_REQUESTS,
+                                "frames_per_s", lambda _x, b=b: b) for b, r in reqs.items()}
+        prof = device_profile(lambda: chan.do_inference(reqs[PREC_FRAMES]), PROFILE_REQUESTS)
+        # the card against the CPU port at 128^2 (phase 4's bar)
+        small = dataclasses.replace(pipe.config, input_hw=(128, 128), max_det=100)
+        policy_arg = pipe.precision
+        g_pipe, c_pipe = (build_yolov5_pipeline(num_classes=NC, input_hw=(128, 128), config=small,
+                                                device=d, seed=0, precision=policy_arg)[0]
+                          for d in ("cuda", "cpu"))
+        sframes = np.random.default_rng(4).integers(0, 255, (2, 96, 128, 3)).astype(np.float32)
+        if policy == "int8":  # the int8 wire, dequantized in the body, on both devices
+            sframes = policy_arg.wire_cast("images", sframes)
+        (gd, gv), (cd, cv) = g_pipe.infer(sframes), c_pipe.infer(sframes)
+        top_err = float(np.abs(gd[:, :5] - cd[:, :5]).max())
+        check(np.array_equal(gv.sum(1), cv.sum(1)) and np.allclose(
+            gd[:, :5], cd[:, :5], rtol=1e-2, atol=1e-2),
+              f"{label}: card and CPU differ ({gv.sum()} / {cv.sum()} kept, {top_err})")
+        line2d[policy] = {
+            "times": times, "device_ms_b8": prof["device_ms_per_request"],
+            "busy_share_b8": prof["device_busy_share"],
+            "top_device_ops_ms_b8": prof["top_device_ops_ms_per_request"],
+            "param_bytes": spec.extra["param_bytes"],
+            "pool_bytes": registered.infer_fn.graph_stats()["pool_bytes"],
+            "graph_keys": registered.infer_fn.graph_stats()["keys"],
+            "images_staged": str(staged[1]["images"].dtype), "bytes_a_frame": int(wires[1].nbytes),
+            "kernel_shapes": shapes, "kept_b8": int(out8["valid"].sum()),
+            "card_vs_cpu_128": {"kept": int(gv.sum()), "top5_max_abs_err": top_err}}
+        if policy != "f32":
+            got = map_2d(out8["detections"], out8["valid"], ref_out["detections"],
+                         ref_out["valid"])
+            self_map = map_2d(ref_out["detections"], ref_out["valid"], ref_out["detections"],
+                              ref_out["valid"])
+            floor = self_map - MAP_BUDGETS[policy]
+            check(got >= floor, f"{label}: mAP {got} against f32, floor {floor}")
+            line2d[policy].update(map_against_f32=got, map_floor=floor, map_self=self_map)
+    if "int8" in line2d:
+        line2d["int8"]["act_scales"] = dict(repos_2d["int8"].get(PREC_2D).precision.act_scales)
+    emit("precision_2d", card, entry=PREC_2D, conf_thresh=0.05, frames=PREC_FRAMES,
+         input_hw=[512, 512], policies=line2d, captured_equals_eager=True,
+         kernels_equal_plain=True, no_capture_in_window=True)
+    wall = time.perf_counter() - t_phase
+    emit("precision", card, wall_s=wall, build_and_capture_s=build_s,
+         launches_by_path=launches_by_path,
+         pool_bytes_total=sum(r.get(n).infer_fn.graph_stats()["pool_bytes"]
+                              for r in (*repos_3d.values(), *repos_2d.values())
+                              for n in r.names()),
+         reserved_bytes=torch.cuda.memory_reserved(dev))
+    return launches_by_path
 
 
 def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:

@@ -322,15 +322,136 @@ def test_layout_entries_serve(tmp_path, monkeypatch, name):
     assert bool(torch.isfinite(out["detections"]).all())
 
 
+def _jax_init_shapes(name, root=ROOT / "examples"):
+    """The JAX entry's init tree as shapes (``jax.eval_shape``: nothing is
+    initialised)."""
+    import jax
+    import jax.numpy as jnp
+
+    from triton_client_tpu.models.centerpoint import init_centerpoint
+    from triton_client_tpu.models.pointpillars import init_pointpillars
+    from triton_client_tpu.models.second import init_second
+    from triton_client_tpu.models.yolov5 import YoloV5 as JYoloV5
+
+    entry = jdr._Entry(root / name)
+    if entry.family == "yolov5":
+        m = dict(entry.doc["model"])
+        model = JYoloV5(num_classes=len(entry.cfg.class_names), variant=m.get("variant", "n"),
+                        s2d=m.get("s2d", False), ch_floor=m.get("ch_floor", 0))
+        hw = tuple(m.get("input_hw", (512, 512)))
+        init = lambda k: model.init(k, jnp.zeros((1, *hw, 3)), train=False)  # noqa: E731
+    else:
+        init_fn = {"pointpillars": init_pointpillars, "centerpoint": init_centerpoint,
+                   "second_iou": init_second}[entry.family]
+        _, model_cfg, _ = jds.detect3d_from_yaml(str(ROOT / entry.doc["dataset"]))
+        init = lambda k: init_fn(k, model_cfg)[1]  # noqa: E731
+    return jax.tree_util.tree_leaves(jax.eval_shape(init, jax.random.PRNGKey(0)))
+
+
+def _jax_policy_bytes(leaves, policy):
+    """JAX's ``tree_bytes`` of its ``cast_params(policy)`` tree, from the
+    shapes: bf16 halves every float leaf; int8 stores each kernel as int8
+    words and one float32 scale per output channel (its last axis), the
+    1-D leaves float32."""
+    total = 0
+    for x in leaves:
+        n = int(np.prod(x.shape))
+        if policy == "bf16":
+            total += 2 * n
+        elif policy in ("int8w", "int8") and len(x.shape) >= 2:
+            total += n + 4 * x.shape[-1]
+        else:
+            total += 4 * n
+    return total
+
+
 @pytest.mark.parametrize("how", ["dtype", "precision", "override"])
-def test_bf16_on_a_3d_entry_raises_naming_item_11(tmp_path, monkeypatch, how):
+def test_bf16_on_a_3d_entry_serves(tmp_path, monkeypatch, how):
+    """``model: {dtype: bf16}``, ``model: {precision: bf16}`` and
+    ``scan_disk(precision="bf16")`` on the full-width KITTI PointPillars
+    entry: the JAX entry's spec (precision, KEEP_F32_3D), ``points`` staged
+    float32, the body in bfloat16. ``param_bytes``: the bf16 policy stores
+    every tensor in bfloat16, half JAX's float32 tree, as JAX's bf16 tree;
+    ``dtype: bf16`` with the f32 policy stores the body in bfloat16 and the
+    heads in float32, where JAX keeps its float32 tree (ROADMAP Queue 3).
+    A tiny copy of the entry serves a cloud the same way."""
     monkeypatch.chdir(ROOT)
     root = _copy_entries(tmp_path, ["pointpillar_kitti"])
     config = root / "pointpillar_kitti" / "config.yaml"
     if how != "override":
         config.write_text(config.read_text() + f"model:\n  {how}: bf16\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11 "):
-        tdr.scan_disk(root, device="cpu", precision="bf16" if how == "override" else None)
+    override = "bf16" if how == "override" else None
+    model = tdr.scan_disk(root, device="cpu", precision=override).get("pointpillar_kitti")
+    jentry = jdr._Entry(root / "pointpillar_kitti", precision=override)
+    _, jspec, _ = jentry._build(variables={}, config=jentry.cfg)
+    policy = "f32" if how == "dtype" else "bf16"
+    for key in ("precision", "precision_keep_f32", "fused_stages"):
+        assert model.spec.extra[key] == jspec.extra[key], key
+    assert model.spec.extra["precision"] == policy
+    assert model.precision.keep_f32_inputs == ("points",)
+    assert model.precision.wire_dtype("points") == torch.float32
+    f32 = _jax_policy_bytes(_jax_init_shapes("pointpillar_kitti"), "f32")
+    if how == "dtype":
+        heads = sum(v.numel() * 4 for k, v in _pipeline_model(model).state_dict().items()
+                    if k.startswith(("cls_head", "box_head", "dir_head")))
+        assert model.spec.extra["param_bytes"] == (f32 - heads) // 2 + heads
+    else:
+        assert model.spec.extra["param_bytes"] == f32 // 2
+    assert _pipeline_model(model).backbone.up0.weight.dtype == torch.bfloat16
+    tiny = tmp_path / "tiny"
+    (tiny / "pp").mkdir(parents=True)
+    (tiny / "pp" / "config.yaml").write_text(TINY_3D + (f"  {how}: bf16\n" if how != "override"
+                                                        else ""))
+    small = tdr.scan_disk(tiny, device="cpu", precision=override).get("pp")
+    rng = np.random.default_rng(0)
+    pts = np.zeros((1024, 4), np.float32)
+    pts[:500] = np.column_stack([rng.uniform(0, 12.8, 500), rng.uniform(-6.4, 6.4, 500),
+                                 rng.uniform(-3, 1, 500), rng.uniform(0, 1, 500)])
+    out = small.infer_fn({"points": torch.from_numpy(pts), "num_points": torch.tensor(500)})
+    assert out["detections"].dtype == torch.float32 and tuple(out["detections"].shape) == (16, 9)
+    assert bool(torch.isfinite(out["detections"]).all()) and int(out["valid"].sum()) > 0
+
+
+TINY_3D = """family: pointpillars
+pipeline:
+  point_buckets: [1024]
+  score_thresh: 0.05
+  max_det: 16
+  pre_max: 64
+model:
+  voxel:
+    point_cloud_range: [0.0, -6.4, -3.0, 12.8, 6.4, 1.0]
+    voxel_size: [0.2, 0.2, 4.0]
+    max_voxels: 512
+    max_points_per_voxel: 8
+  backbone_layers: [1, 1, 1]
+"""
+
+
+def _pipeline_model(registered):
+    """The model behind a registered pipeline's captured body."""
+    return registered.infer_fn.graph_stats.__self__.model
+
+
+@pytest.mark.parametrize("policy", ["bf16", "int8w", "int8"])
+def test_scan_disk_precision_stores_the_jax_trees_bytes(tmp_path, monkeypatch, policy):
+    """``scan_disk(precision=...)`` (``serve --precision``) over the ported
+    entries, examples/yolov5_crop's s2d/ch_floor/bf16 layout included:
+    every entry records the policy, its keep-list and the bytes of JAX's
+    tree under the same policy."""
+    monkeypatch.chdir(ROOT)
+    names = PORTABLE + ("yolov5_crop",)
+    root = _copy_entries(tmp_path, names)
+    repo = tdr.scan_disk(root, device="cpu", precision=policy)
+    for name in names:
+        spec = repo.metadata(name)
+        jentry = jdr._Entry(root / name, precision=policy)
+        _, jspec, _ = jentry._build(variables={}, config=jentry.cfg)
+        assert spec.extra["precision"] == jspec.extra["precision"] == policy, name
+        assert spec.extra["precision_keep_f32"] == jspec.extra["precision_keep_f32"], name
+        assert spec.extra["param_bytes"] == _jax_policy_bytes(_jax_init_shapes(name), policy), \
+            name
+        assert repo.get(name).precision.name == policy
 
 
 def test_weight_artifacts_load_and_export_raises_naming_item_12(tmp_path, monkeypatch):

@@ -355,6 +355,56 @@ def test_3d_capture_equals_eager_bitwise_on_card(cuda_device, family, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16", "int8w"])
+@pytest.mark.parametrize("family", ["pointpillars", "second_iou", "centerpoint"])
+def test_3d_capture_equals_eager_bitwise_under_each_policy_on_card(cuda_device, family, policy):
+    """The bfloat16 body (bf16 convolutions, BatchNorm and the bf16 canvas's
+    16-bit atomic max) and the int8 weights dequantized inside the graph:
+    the captured body bitwise equal to the eager one, with equal launches.
+    The anchor models on the tiny range of the test above, CenterPoint at
+    full nuScenes width in its 131,072 bucket."""
+    import dataclasses
+    import pathlib
+
+    from triton_client_tpu_torch.dataset_config import detect3d_from_yaml
+    from triton_client_tpu_torch.models.pointpillars import PointPillarsConfig
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        BUILDERS_3D,
+        Detect3DConfig,
+        prepare_points,
+    )
+
+    rng = np.random.default_rng(3)
+    if family == "centerpoint":
+        path = pathlib.Path(__file__).resolve().parent.parent / "data" / "nusc_centerpoint.yaml"
+        _, model_cfg, cfg = detect3d_from_yaml(str(path))
+        clouds = [np.column_stack([rng.uniform(-51.2, 51.2, (30000, 2)),
+                                   rng.uniform(-5, 3, 30000), rng.uniform(0, 1, 30000),
+                                   rng.integers(0, 10, 30000) * 0.05]) for _ in range(2)]
+    else:
+        base = SECONDConfig() if family == "second_iou" else PointPillarsConfig()
+        size = (0.4, 0.4, 0.5) if family == "second_iou" else (0.2, 0.2, 4.0)
+        model_cfg = dataclasses.replace(base, voxel=dataclasses.replace(
+            base.voxel, voxel_size=size, **TINY_3D))
+        cfg = Detect3DConfig(model_name=family)
+        r = TINY_3D["point_cloud_range"]
+        clouds = [np.column_stack([rng.uniform(r[0], r[3], 20000), rng.uniform(r[1], r[4], 20000),
+                                   rng.uniform(r[2], r[5], 20000), rng.uniform(0, 1, 20000)])
+                  for _ in range(2)]
+    pipe, spec, model = BUILDERS_3D[family](model_cfg=model_cfg, config=cfg, device="cuda",
+                                            seed=0, precision=policy)
+    assert spec.extra["precision"] == policy
+    inputs = []
+    for pc in clouds:
+        padded, m = prepare_points(pc.astype(np.float32), model.cfg.voxel.point_features,
+                                   spec.extra["point_buckets"])
+        inputs.append((torch.from_numpy(padded).to(cuda_device),
+                       torch.tensor(m, dtype=torch.int32).to(cuda_device)))
+    _hold_captured_to_eager(pipe, *inputs)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused", ["auto", "off"])
 @pytest.mark.parametrize("points", [30000, 260000], ids=["bucket131072", "bucket262144"])
 def test_centerpoint_capture_equals_eager_bitwise_on_card(cuda_device, points, fused):

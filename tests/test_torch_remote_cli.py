@@ -418,7 +418,7 @@ def test_repo_overrides_reach_the_pipeline(served, tmp_path):
     (detect2d, ["-m", "yolov4", "--device", "cpu"], "item 7 "),
     (detect3d, ["--poses", "odom:/odom"], "item 6 "),
     (detect3d, ["--poses", "odom"], "item 6 "),
-    (detect3d, ["--dtype", "bf16", "--device", "cpu"], "item 11 "),
+    (detect3d, ["-i", "ros:/points"], "item 6 "),
     (detect3d, ["--streaming"], "2D remote path"),
 ])
 def test_unported_options_exit_naming_their_item(cli, argv, match):

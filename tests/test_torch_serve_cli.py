@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from triton_client_tpu.cli import serve as jserve
+from triton_client_tpu.runtime.precision import PrecisionPolicy as JPolicy
 
 from triton_client_tpu_torch.channel.base import InferRequest
 from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
@@ -154,11 +155,33 @@ def test_f32_precision_is_served(repo_root):
 
 
 @pytest.mark.parametrize("policy", ["int8w", "int8"])
-def test_int8_precisions_raise_naming_item_10(repo_root, policy):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 10 "):
-        serve.build_server(_args(repo_root, "--precision", policy))
-    with pytest.raises(SystemExit, match=f"precision policy '{policy}' is not ported yet"):
-        serve.main(["-r", str(repo_root), "--device", "cpu", "--precision", policy])
+def test_int8_precisions_serve_fp32_requests(repo_root, capsys, policy):
+    """``--precision int8w|int8`` serves every entry with int8 weights: the
+    spec records the policy and about a quarter of the float32 bytes, FP32
+    frames stage float32 (a config.yaml entry carries no calibration
+    scales, as in the JAX package) and the detections come back float32."""
+    server = serve.build_server(_args(repo_root, "--precision", policy))
+    f32 = serve.build_server(_args(repo_root))
+    server.start()
+    try:
+        chan = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=60)
+        spec = chan.get_metadata("tiny")
+        assert spec.extra["precision"] == policy
+        f32_bytes = f32._servicer._repo.metadata("tiny").extra["param_bytes"]
+        assert f32_bytes * 0.25 < spec.extra["param_bytes"] < f32_bytes * 0.3
+        model = server._servicer._repo.get("tiny")
+        frame = np.random.default_rng(0).uniform(0, 255, (1, 64, 64, 3)).astype(np.float32)
+        assert model.precision.name == policy
+        assert model.precision.wire_cast("images", frame) is frame
+        assert JPolicy.parse(policy).wire_cast("images", frame) is frame
+        out = chan.do_inference(InferRequest("tiny", {"images": frame})).outputs
+        assert out["detections"].dtype == np.float32 and out["detections"].shape == (1, 300, 6)
+        assert np.isfinite(out["detections"]).all()
+        chan.close()
+    finally:
+        server.stop()
+        f32.stop()
+    assert f"loaded tiny:1 (torch, device=cpu) precision={policy}" in capsys.readouterr().out
 
 
 def test_precision_bf16_serves_fp32_requests(repo_root, capsys):

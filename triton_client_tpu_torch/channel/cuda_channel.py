@@ -7,7 +7,8 @@ at the boundary, lazily (``channel/staged.py``).
 
 - **Placement** (``_place_inputs``): the never-widen dtype policy and the
   model's precision policy (``cast_wire_input``: a ``bf16`` model's float32
-  frames become bfloat16 words), then a copy into pinned host buffers owned by a
+  frames become bfloat16 words, a calibrated ``int8`` model's int8 codes),
+  then a copy into pinned host buffers owned by a
   staging slot and reused across requests, then a host-to-device copy
   with ``non_blocking=True``. A slot's pinned buffers are written again
   only after an event shows its last copy done. On the CPU the request's

@@ -67,7 +67,9 @@ def cast_wire_input(model, name: str, arr: np.ndarray) -> np.ndarray:
     device; a float64 or int64 one casts down to the wire contract. Then
     the registered model's precision policy narrows further
     (``PrecisionPolicy.wire_cast``: a ``bf16`` model's float32 frames stage
-    as bfloat16 words, half the bytes)."""
+    as bfloat16 words, half the bytes; a calibrated ``int8`` model's as int8
+    codes, a quarter, dequantized inside its captured body; keep-list inputs
+    such as the 3D ``points`` stay float32)."""
     try:
         want = model.spec.input_by_name(name).np_dtype()
     except (KeyError, ValueError):

@@ -44,7 +44,6 @@ import dataclasses
 from triton_client_tpu_torch.cli.common import add_common_flags
 
 _ITEM_BAG = "6 (io/bag_io.py: the bag reader)"
-_ITEM_BF16_3D = "11 (bfloat16 on the 3D paths)"
 
 
 def _floats(n: int):
@@ -145,9 +144,8 @@ def _build(args):
     from triton_client_tpu_torch.models.second import SECONDConfig
     from triton_client_tpu_torch.pipelines.detect3d import BUILDERS_3D, default_detect3d_config
 
-    if args.dtype != "fp32":
-        raise SystemExit(f"--dtype {args.dtype} on a 3D model is not ported yet (ROADMAP.md "
-                         f"Queue 1 item {_ITEM_BF16_3D})")
+    from triton_client_tpu_torch.cli.common import parse_dtype
+
     if args.config:
         from triton_client_tpu_torch.dataset_config import detect3d_from_yaml
 
@@ -169,7 +167,8 @@ def _build(args):
     if args.voxel_size is not None:
         voxel = dataclasses.replace(voxel, voxel_size=args.voxel_size)
     model_cfg = dataclasses.replace(model_cfg, voxel=voxel)
-    pipe, spec, _ = BUILDERS_3D[name](model_cfg=model_cfg, config=cfg, device=args.device)
+    pipe, spec, _ = BUILDERS_3D[name](model_cfg=model_cfg, config=cfg, device=args.device,
+                                      dtype=parse_dtype(args.dtype))
     return pipe, spec
 
 

@@ -115,7 +115,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="", choices=["", "f32", "bf16", "int8w", "int8"],
                    help="serving precision policy of EVERY repository entry, over each "
                    "config.yaml model.precision (runtime/precision.py): bf16 = parameters, "
-                   "compute and float wire inputs in bfloat16; int8w and int8 are not ported")
+                   "compute and float wire inputs in bfloat16; int8w = int8 weights with "
+                   "per-channel scales; int8 = int8w plus the int8 wire where an entry "
+                   "carries calibrated scales (none from a config.yaml: float32 wire)")
     p.add_argument("-v", "--verbose", action="store_true")
     for dest, (flag, default, what) in UNPORTED.items():
         kw = {"dest": dest, "default": default,
@@ -133,11 +135,9 @@ def parser() -> argparse.ArgumentParser:
 
 def check_unported(args) -> None:
     """Raise NotImplementedError naming the item of the first unported flag
-    set away from its off value, or of an unported precision policy."""
-    from triton_client_tpu_torch.runtime.precision import PrecisionPolicy
+    set away from its off value."""
     from triton_client_tpu_torch.runtime.server import not_ported
 
-    PrecisionPolicy.parse(getattr(args, "precision", "") or None)
     for dest, (flag, default, what) in UNPORTED.items():
         value = getattr(args, dest, default)
         if value != default:

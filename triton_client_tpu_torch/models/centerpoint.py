@@ -17,6 +17,11 @@ run NCHW inside. Submodules carry the flax names (``vfe.linear``,
 ``backbone.block0_down``, ``head.shared``, ``head.shared_bn``,
 ``head.heatmap``, ...), so ``models/convert.centerpoint_state_dict_from_flax``
 maps by path.
+
+``dtype`` is the body's compute dtype, as in the JAX module: the VFE and
+the backbone as PointPillars', and ``CenterHead``'s shared 3x3 conv and
+its BatchNorm, run in it; the per-task 1x1 branches compute in float32 on
+float32 features.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from triton_client_tpu_torch.device import scalar_on
+from triton_client_tpu_torch.models.layers import conv_f32
 from triton_client_tpu_torch.models.pointpillars import (
     BEVBackbone,
     PillarVFE,
@@ -99,14 +105,16 @@ class CenterHead(nn.Module):
     """Shared 3x3 conv (no bias) + BN (eps 1e-3) + ReLU, then one 1x1
     conv a branch; NCHW in, a dict of NHWC maps out. The heatmap's bias
     starts at -2.19 = -log((1 - 0.1) / 0.1), CenterNet's prior (the seeded
-    init keeps it, as flax's ``bias_init`` does)."""
+    init keeps it, as flax's ``bias_init`` does). The shared conv and BN
+    hold ``dtype``; the branches are float32."""
 
-    def __init__(self, cfg: CenterPointConfig, in_channels: int) -> None:
+    def __init__(self, cfg: CenterPointConfig, in_channels: int,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.cfg = cfg
         hw = cfg.head_width
-        self.shared = nn.Conv2d(in_channels, hw, 3, padding=1, bias=False)
-        self.shared_bn = nn.BatchNorm2d(hw, eps=1e-3)
+        self.shared = nn.Conv2d(in_channels, hw, 3, padding=1, bias=False, dtype=dtype)
+        self.shared_bn = nn.BatchNorm2d(hw, eps=1e-3, dtype=dtype)
         widths = {"heatmap": cfg.num_classes, "offset": 2, "height": 1, "size": 3, "rot": 2}
         if cfg.with_velocity:
             widths["vel"] = 2
@@ -116,22 +124,25 @@ class CenterHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         shared = F.relu(self.shared_bn(self.shared(x))).to(torch.float32)
-        return {n: self._modules[n](shared).permute(0, 2, 3, 1) for n in self.branches}
+        return {n: conv_f32(self._modules[n], shared).permute(0, 2, 3, 1) for n in self.branches}
 
 
 class CenterPoint(nn.Module):
     """VFE -> scatter -> backbone -> CenterHead. ``forward`` takes the
     grouped voxels (batched), ``from_points`` one padded cloud (the
     sort-free scatter path); both return the raw NHWC heads, which
-    ``decode`` turns into the anchor models' flat contract."""
+    ``decode`` turns into the anchor models' flat contract. ``dtype``: the
+    body's (module docstring)."""
 
-    def __init__(self, cfg: CenterPointConfig = CenterPointConfig()) -> None:
+    def __init__(self, cfg: CenterPointConfig = CenterPointConfig(),
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         cfg.validate()
         self.cfg = cfg
-        self.vfe = PillarVFE(cfg.vfe_filters, cfg.voxel)
-        self.backbone = BEVBackbone(cfg, cfg.vfe_filters)
-        self.head = CenterHead(cfg, sum(cfg.upsample_filters))
+        self.dtype = dtype
+        self.vfe = PillarVFE(cfg.vfe_filters, cfg.voxel, dtype)
+        self.backbone = BEVBackbone(cfg, cfg.vfe_filters, dtype)
+        self.head = CenterHead(cfg, sum(cfg.upsample_filters), dtype)
 
     def forward(
         self,

@@ -19,7 +19,9 @@ Conversion is strict: every leaf is used exactly once and every tensor
 of the model is filled, with matching shapes, or it raises. Leaves are
 read as float32 (bfloat16 ones widen exactly); the model's own dtypes
 decide what they are stored as (``load_state_dict`` rounds to a bfloat16
-body), and a precision policy's ``cast_params`` runs after.
+body), and a precision policy runs after the fill
+(``runtime/precision.apply_cast_params``: bfloat16, or int8 quantized
+from the float32 leaves ``fill_model`` returns).
 """
 
 from __future__ import annotations
@@ -117,23 +119,30 @@ def fill_model(
     state_dict=None,
     seed: int = 0,
     from_flax: Callable[[Mapping, nn.Module], dict] = state_dict_from_flax,
-) -> nn.Module:
+) -> dict[str, torch.Tensor] | None:
     """Fill a built model's tensors, in the builders' order of sources:
     a flax tree through ``from_flax``; else ``state_dict``, a state_dict in
     the model's own names and layout or a function of the model that
     returns one (the disk repository's importers, which read the model's
-    shapes as their template); else seeded random weights."""
+    shapes as their template); else seeded random weights.
+
+    Returns the state_dict loaded, as read (float32 for a flax tree; None
+    for seeded weights): what a precision policy quantizes in place of a
+    bfloat16 body's rounded copy (``runtime/precision.apply_cast_params``),
+    since the policy runs after the fill."""
     from triton_client_tpu_torch.models.layers import init_random_
 
     if variables is not None:
-        model.load_state_dict(from_flax(variables, model))
+        loaded = from_flax(variables, model)
     elif state_dict is not None:
         if callable(state_dict):
             state_dict = state_dict(model)
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
+        loaded = {k: torch.as_tensor(v) for k, v in state_dict.items()}
     else:
         init_random_(model, seed)
-    return model
+        return None
+    model.load_state_dict(loaded)
+    return loaded
 
 
 def _yolov5_module_path(names: tuple[str, ...]) -> str:

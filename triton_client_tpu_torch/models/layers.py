@@ -98,6 +98,14 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(pools, dim=1))
 
 
+def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 output head in float32 on float32 features, whatever the body's
+    dtype and the weights' storage (bfloat16, or int8 dequantized): the
+    JAX models' ``nn.Conv(..., dtype=jnp.float32)`` heads."""
+    bias = None if conv.bias is None else conv.bias.float()
+    return F.conv2d(x.float(), conv.weight.float(), bias)
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (NCHW)."""
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)

@@ -17,6 +17,13 @@ where pillar mean and max are scatters onto the grid. The pillar xyz
 sums are taken in point order on both devices, so the same scan gives
 the same canvas every time (``pillar_sums``). The pillar max is a
 ``scatter_reduce`` ``amax``, exact in any order.
+
+``dtype`` is the body's compute dtype, as in the JAX module: with
+``torch.bfloat16`` the VFE's linear layer and BatchNorm, the BEV canvas
+and the backbone's convolutions, transposed convolutions and BatchNorms
+run in bfloat16, while the points, their augmentation and the pillar
+means stay float32, and the three 1x1 heads compute in float32 on float32
+features whatever their weights' storage.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from triton_client_tpu_torch.device import scalar_on, values_on
+from triton_client_tpu_torch.models.layers import conv_f32
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
 from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells
 
@@ -210,15 +218,18 @@ class PillarVFE(nn.Module):
     (V, K, F) contract; ``encode`` is the per-point MLP alone, used by the
     scatter path."""
 
-    def __init__(self, filters: int = 64, voxel: VoxelConfig = VoxelConfig()) -> None:
+    def __init__(self, filters: int = 64, voxel: VoxelConfig = VoxelConfig(),
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.voxel = voxel
-        self.linear = nn.Linear(voxel.point_features + 6, filters, bias=False)
-        self.bn = nn.BatchNorm1d(filters, eps=1e-3)
+        self.dtype = dtype
+        self.linear = nn.Linear(voxel.point_features + 6, filters, bias=False, dtype=dtype)
+        self.bn = nn.BatchNorm1d(filters, eps=1e-3, dtype=dtype)
 
     def encode(self, feats: torch.Tensor) -> torch.Tensor:
-        """(..., 10) augmented point features -> (..., filters)."""
-        x = self.linear(feats.to(torch.float32))
+        """(..., 10) augmented point features -> (..., filters) in the body's
+        dtype."""
+        x = self.linear(feats.to(self.dtype))
         return F.relu(self.bn(x.reshape(-1, x.shape[-1])).reshape(x.shape))
 
     def forward(
@@ -306,8 +317,9 @@ def scatter_max_canvas(
     valid: torch.Tensor,  # (N,)
     grid_hw: tuple[int, int],
 ) -> torch.Tensor:
-    """Pillar max onto a zero (H, W, C) canvas. ``x`` is post-ReLU, so a
-    max onto zeros equals the -inf fill + ``count > 0`` formulation."""
+    """Pillar max onto a zero (H, W, C) canvas of ``x``'s dtype. ``x`` is
+    post-ReLU, so a max onto zeros equals the -inf fill + ``count > 0``
+    formulation."""
     h, w = grid_hw
     c = x.shape[-1]
     vid = torch.where(valid, vid, h * w)
@@ -321,8 +333,8 @@ def scatter_to_bev(
     coords: torch.Tensor,        # (V, 3) [z, y, x], -1 invalid
     grid_hw: tuple[int, int],
 ) -> torch.Tensor:
-    """Dense (H=ny, W=nx, C) canvas; invalid pillars land in a dump row
-    that is sliced off (OpenPCDet's PointPillarScatter)."""
+    """Dense (H=ny, W=nx, C) canvas of the features' dtype; invalid pillars
+    land in a dump row that is sliced off (OpenPCDet's PointPillarScatter)."""
     h, w = grid_hw
     c = pillar_feats.shape[-1]
     yy, xx = coords[:, 1].long(), coords[:, 2].long()
@@ -336,9 +348,11 @@ class BEVBackbone(nn.Module):
     """Multi-scale 2D CNN over the BEV canvas, each scale up-sampled by a
     transposed conv and concatenated (NCHW in, NCHW out). Duck-typed on
     the config's backbone fields, so SECOND shares it; ``in_channels`` is
-    the canvas width (PointPillars' VFE filters, SECOND's folded z)."""
+    the canvas width (PointPillars' VFE filters, SECOND's folded z). Every
+    layer holds its tensors in ``dtype``."""
 
-    def __init__(self, cfg: PointPillarsConfig, in_channels: int) -> None:
+    def __init__(self, cfg: PointPillarsConfig, in_channels: int,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.cfg = cfg
         cin = in_channels
@@ -366,6 +380,7 @@ class BEVBackbone(nn.Module):
             )
             self.add_module(f"up{bi}_bn", nn.BatchNorm2d(up_filters, eps=1e-3))
             cin = filters
+        self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ups = []
@@ -381,14 +396,17 @@ class BEVBackbone(nn.Module):
 class PointPillars(nn.Module):
     """VFE -> scatter -> backbone -> anchor head. ``forward`` takes the
     grouped voxels (batched), ``from_points`` one padded cloud; both
-    return the raw heads."""
+    return the raw heads, float32. ``dtype``: the body's (module
+    docstring)."""
 
-    def __init__(self, cfg: PointPillarsConfig = PointPillarsConfig()) -> None:
+    def __init__(self, cfg: PointPillarsConfig = PointPillarsConfig(),
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         cfg.validate()
         self.cfg = cfg
-        self.vfe = PillarVFE(cfg.vfe_filters, cfg.voxel)
-        self.backbone = BEVBackbone(cfg, cfg.vfe_filters)
+        self.dtype = dtype
+        self.vfe = PillarVFE(cfg.vfe_filters, cfg.voxel, dtype)
+        self.backbone = BEVBackbone(cfg, cfg.vfe_filters, dtype)
         a, c = cfg.anchors_per_loc, sum(cfg.upsample_filters)
         self.cls_head = nn.Conv2d(c, a * cfg.num_classes, 1)
         self.box_head = nn.Conv2d(c, a * 7, 1)
@@ -429,7 +447,7 @@ class PointPillars(nn.Module):
         a = cfg.anchors_per_loc
 
         def head(conv, c):
-            out = conv(spatial).permute(0, 2, 3, 1)
+            out = conv_f32(conv, spatial).permute(0, 2, 3, 1)
             b, h, w, _ = out.shape
             return out.reshape(b, h, w, a, c)
 

@@ -23,6 +23,12 @@ padded cloud (every occupied cell kept), ``from_volume`` a mean volume
 built elsewhere (the fused stage, ``ops/gpu_voxel.fused_mean_volume``,
 which caps cells at ``max_voxels``). The sparse middle encoder and the
 training path are not ported.
+
+``dtype`` is the body's compute dtype, as in the JAX module: the mean VFE
+and the mean volume stay float32 up to the middle encoder, which casts the
+volume to ``dtype`` and runs its Conv3d and BatchNorm3d stages in it, as
+does the shared BEV backbone; the four heads, ``iou_head`` included,
+compute in float32 on float32 features.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from triton_client_tpu_torch.models.pointpillars import (
     pillar_sums,
     validate_bev_divisible,
 )
+from triton_client_tpu_torch.models.layers import conv_f32
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
 from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells, linearize_zyx
 
@@ -174,22 +181,26 @@ class MeanVFE(nn.Module):
 
 class DenseMiddleEncoder(nn.Module):
     """3x3x3 conv + BatchNorm + ReLU stages over the dense volume (stride 1,
-    then 2), then z folded into channels."""
+    then 2), then z folded into channels; in ``dtype`` from the volume's
+    cast on."""
 
-    def __init__(self, in_channels: int, filters: tuple[int, ...]) -> None:
+    def __init__(self, in_channels: int, filters: tuple[int, ...],
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.filters = filters
+        self.dtype = dtype
         cin = in_channels
         for si, f in enumerate(filters):
             stride = 2 if si > 0 else 1
             self.add_module(f"conv{si}", nn.Conv3d(cin, f, 3, stride=stride, padding=1, bias=False))
             self.add_module(f"bn{si}", nn.BatchNorm3d(f, eps=1e-3))
             cin = f
+        self.to(dtype)
 
     def forward(self, volume: torch.Tensor) -> torch.Tensor:
         """(B, nz, ny, nx, F) volume -> (B, D*C, H, W) NCHW BEV canvas with
         channel d*C + c."""
-        x = volume.to(torch.float32).permute(0, 4, 1, 2, 3)  # NCDHW
+        x = volume.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW
         m = self._modules
         for si in range(len(self.filters)):
             x = F.relu(m[f"bn{si}"](m[f"conv{si}"](x)))
@@ -199,19 +210,21 @@ class DenseMiddleEncoder(nn.Module):
 
 class SECONDIoU(nn.Module):
     """Mean VFE -> dense volume -> middle encoder -> BEV backbone -> anchor
-    and IoU-quality heads."""
+    and IoU-quality heads. ``dtype``: the body's (module docstring)."""
 
     # the mean VFE keys on the full 3D cell, so the scatter path holds on
     # tall (nz > 1) grids, where the pillar models' does not
     scatter_any_nz = True
 
-    def __init__(self, cfg: SECONDConfig = SECONDConfig()) -> None:
+    def __init__(self, cfg: SECONDConfig = SECONDConfig(),
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.dtype = dtype
         self.vfe = MeanVFE()
-        self.middle = DenseMiddleEncoder(cfg.voxel.point_features, cfg.middle_filters)
-        self.backbone = BEVBackbone(cfg, cfg.bev_channels)
+        self.middle = DenseMiddleEncoder(cfg.voxel.point_features, cfg.middle_filters, dtype)
+        self.backbone = BEVBackbone(cfg, cfg.bev_channels, dtype)
         a, c = cfg.anchors_per_loc, sum(cfg.upsample_filters)
         self.cls_head = nn.Conv2d(c, a * cfg.num_classes, 1)
         self.box_head = nn.Conv2d(c, a * 7, 1)
@@ -250,7 +263,7 @@ class SECONDIoU(nn.Module):
         a = cfg.anchors_per_loc
 
         def head(conv, *c):
-            out = conv(spatial).permute(0, 2, 3, 1)
+            out = conv_f32(conv, spatial).permute(0, 2, 3, 1)
             b, h, w, _ = out.shape
             return out.reshape(b, h, w, a, *c)
 

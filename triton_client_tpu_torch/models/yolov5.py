@@ -19,7 +19,8 @@ Two layout options of the JAX model are served (``examples/yolov5_crop``):
 ``dtype`` is the body's compute dtype: with ``torch.bfloat16`` every
 convolution and BatchNorm of the body holds its tensors in bfloat16, and
 the three detect convs run in float32 on float32 features, whatever the
-dtype their weights are stored in.
+dtype their weights are stored in (bfloat16 under the ``bf16`` policy,
+int8 under ``int8w``/``int8``: ``runtime/precision.apply_cast_params``).
 """
 
 from __future__ import annotations
@@ -27,13 +28,13 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from triton_client_tpu_torch.models.layers import (
     C3,
     SPPF,
     ConvBnAct,
+    conv_f32,
     make_divisible,
     scale_depth,
     upsample2x,
@@ -146,8 +147,7 @@ class YoloV5(nn.Module):
         for conv, feat in zip((self.detect0, self.detect1, self.detect2), (out3, out4, out5)):
             # float32 on float32 features, whatever the body's dtype and the
             # weights' storage (the JAX model's detect head)
-            h = F.conv2d(feat.float(), conv.weight.float(), conv.bias.float())
-            h = h.permute(0, 2, 3, 1)
+            h = conv_f32(conv, feat).permute(0, 2, 3, 1)
             b, hh, ww, _ = h.shape
             heads.append(h.reshape(b, hh, ww, self.na, self.no))
         return heads

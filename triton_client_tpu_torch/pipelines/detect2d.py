@@ -97,8 +97,10 @@ class Detect2DPipeline:
         """(B, H, W, 3) uint8/float frames on the pipeline's device ->
         ((B, max_det, 6) float32, (B, max_det) bool) on the device."""
         cfg = self.config
-        # narrow wire inputs (uint8 frames, bf16 words) reach the policy's
-        # compute dtype here, on the device
+        # narrow wire inputs (uint8 frames, bf16 words, a calibrated int8
+        # policy's int8 frames, dequantized first) reach the policy's
+        # compute dtype here, on the device, inside the captured body
+        frames = self.precision.ingest({"images": frames})["images"]
         x = self.precision.cast_in(frames)
         orig_hw = (x.shape[1], x.shape[2])
         if orig_hw != tuple(cfg.input_hw):
@@ -160,7 +162,8 @@ class Detect2DPipeline:
         """Capture the graph of every batch size for one camera
         resolution, before traffic (``RegisteredModel.warmup``). ``dtype``
         is the staged frames' dtype: a channel stages float32 frames of a
-        ``bf16`` model as bfloat16 (``self.precision.wire_dtype``)."""
+        ``bf16`` model as bfloat16 and of a calibrated ``int8`` one as int8
+        (``self.precision.wire_dtype("images")``)."""
         for b in batch_sizes:
             self._jit(torch.zeros((b, *frame_hw, 3), dtype=dtype, device=self.device))
 
@@ -196,8 +199,9 @@ def build_yolov5_pipeline(
     returns them: ``runtime/importers``), else seeded random ones
     (``seed``). ``s2d``/``ch_floor``: the layout of ``examples/yolov5_crop``
     (``models/yolov5.py``). ``dtype``: the body's compute dtype;
-    ``precision``: the serving policy, whose ``cast_params`` stores the
-    tensors once, here (``runtime/precision.resolve_policy``: ``bf16``
+    ``precision``: the serving policy, which stores the tensors once, here
+    (``runtime/precision.apply_cast_params``: bfloat16, or int8 weights
+    quantized from the float32 ones loaded; ``resolve_policy``: ``bf16``
     switches a float32 body to bfloat16, an explicit ``dtype`` wins). Runs
     on ``cuda`` unless ``device="cpu"``, with TF32 off so float32 means
     float32 (``device.strict_fp32``)."""
@@ -206,8 +210,8 @@ def build_yolov5_pipeline(
     policy, dtype = resolve_policy(precision, parse_compute_dtype(dtype))
     model = YoloV5(num_classes=num_classes, variant=variant, s2d=s2d, ch_floor=ch_floor,
                    dtype=dtype)
-    fill_model(model, variables, state_dict, seed, yolov5_state_dict_from_flax)
-    model = apply_cast_params(model, policy).to(dev).eval()
+    source = fill_model(model, variables, state_dict, seed, yolov5_state_dict_from_flax)
+    model = apply_cast_params(model, policy, source).to(dev).eval()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         return model.decode(model(x))

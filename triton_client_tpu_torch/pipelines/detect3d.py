@@ -21,6 +21,13 @@ CenterPoint's velocity rides as e = 2 extra columns and is served as
 (``runtime/graphs``, the counterpart of the JAX pipeline's ``jax.jit``).
 ``device_fn`` is the body over a dict of device tensors.
 
+Every serving precision policy applies (``runtime/precision.py``): the
+model's body in bfloat16 under ``bf16`` (or ``dtype``), its weights int8
+under ``int8w``/``int8``. ``points`` stays float32 on the wire and into the
+voxelizer under any policy (``KEEP_F32_3D``: a rounded coordinate flips
+its cell), and the heads re-enter float32 (the policy's ``boundary``)
+before every tail, so the kernels receive float32 as they do at ``f32``.
+
 The defaults are the reference's ``examples/pointpillar_kitti``
 (``data/kitti_pointpillars.yaml``), ``examples/second_iou``
 (``data/kitti_second.yaml``) and ``examples/centerpoint_nusc``'s model
@@ -62,6 +69,9 @@ from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 from triton_client_tpu_torch.runtime.precision import (
     KEEP_F32_3D,
     PrecisionPolicy,
+    apply_cast_params,
+    parse_compute_dtype,
+    resolve_policy,
     stored_params,
 )
 
@@ -145,9 +155,18 @@ class Detect3DPipeline:
         config: Detect3DConfig,
         model: PointPillars | SECONDIoU | CenterPoint,
         device: str | torch.device | None = None,
+        precision: PrecisionPolicy | str | None = None,
     ) -> None:
+        """``precision``: the serving policy the model was stored under; the
+        pipeline adds ``points`` to its float32 inputs (KEEP_F32_3D), so no
+        policy narrows the cloud on the wire."""
         self.config = config
         self.model = model
+        policy = PrecisionPolicy.parse(precision)
+        if "points" not in policy.keep_f32_inputs:
+            policy = dataclasses.replace(
+                policy, keep_f32_inputs=policy.keep_f32_inputs + ("points",))
+        self.precision = policy
         self.with_velocity = getattr(model.cfg, "with_velocity", False)
         self.device = resolve_device(device)
         if config.vfe not in ("auto", "grouped"):
@@ -186,7 +205,13 @@ class Detect3DPipeline:
         """(N, F) padded cloud and () real count on the pipeline's device ->
         ((max_det, 9 + e) float32 rows, (max_det,) bool valid) on the
         device."""
-        cfg, model = self.config, self.model
+        return self.tail(self.heads(points, count))
+
+    def heads(self, points: torch.Tensor, count: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The voxel stage and the model: the raw heads, float32 (the
+        policy's ``boundary``)."""
+        model = self.model
+        # the voxelizer always sees the float32 cloud (KEEP_F32_3D)
         points = points.to(torch.float32)
         if "voxelize_scatter" in self.fused_stages:
             heads = model.from_volume(fused_mean_volume(points, count, model.cfg.voxel))
@@ -197,6 +222,14 @@ class Detect3DPipeline:
             heads = model(
                 vox["voxels"][None], vox["num_points_per_voxel"][None], vox["coords"][None]
             )
+        # keep-list boundary: box decode and NMS scoring run in float32
+        # whatever the body's dtype
+        return self.precision.boundary(heads)
+
+    def tail(self, heads: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Float32 heads -> the packed rows and their validity: the gate,
+        top-k, decode and suppress + pack (the kernels on the fused route)."""
+        cfg, model = self.config, self.model
         fused = "decode_nms" in self.fused_stages
         mc = model.cfg
         if not hasattr(model, "topk_indices"):
@@ -280,10 +313,12 @@ class Detect3DPipeline:
 
     def warmup(self, buckets=None) -> None:
         """Capture the graph of every point bucket before traffic
-        (``RegisteredModel.warmup``)."""
+        (``RegisteredModel.warmup``), in the dtypes a channel stages
+        (``points`` float32 under every policy)."""
         pf = self.model.cfg.voxel.point_features
+        dtype = self.precision.wire_dtype("points")
         for n in buckets or self.config.point_buckets:
-            self._jit(torch.zeros((n, pf), dtype=torch.float32, device=self.device),
+            self._jit(torch.zeros((n, pf), dtype=dtype, device=self.device),
                       torch.zeros((), dtype=torch.int32, device=self.device))
 
     def graph_stats(self) -> dict:
@@ -341,15 +376,18 @@ def _serve(
     model: PointPillars | SECONDIoU | CenterPoint,
     dev: torch.device,
     cfg: Detect3DConfig,
+    policy: PrecisionPolicy,
+    source: dict | None,
     extra: dict | None = None,
 ) -> tuple[Detect3DPipeline, ModelSpec, PointPillars | SECONDIoU | CenterPoint]:
-    """The shared tail of the builders: model to the device, pipeline, spec."""
-    model = model.to(dev).eval()
-    pipeline = Detect3DPipeline(cfg, model, device=dev)
+    """The shared tail of the builders: the policy's storage
+    (``apply_cast_params``, quantizing ``source``, the float32 tensors
+    loaded), model to the device, pipeline, spec."""
+    model = apply_cast_params(model, policy, source).to(dev).eval()
+    pipeline = Detect3DPipeline(cfg, model, device=dev, precision=policy)
     spec = _detect3d_spec(cfg, model.cfg, extra)
     spec.extra["fused_stages"] = list(pipeline.fused_stages)
-    # the 3D paths serve float32 only (ROADMAP.md Queue 1 item 11)
-    spec.extra.update(PrecisionPolicy().spec_extra(stored_params(model), KEEP_F32_3D))
+    spec.extra.update(pipeline.precision.spec_extra(stored_params(model), KEEP_F32_3D))
     return pipeline, spec, model
 
 
@@ -360,6 +398,8 @@ def build_pointpillars_pipeline(
     device: str | torch.device | None = None,
     seed: int = 0,
     state_dict=None,
+    dtype: torch.dtype | str = torch.float32,
+    precision: PrecisionPolicy | str | None = None,
 ) -> tuple[Detect3DPipeline, ModelSpec, PointPillars]:
     """Model + pipeline + serving spec in one call.
 
@@ -367,13 +407,17 @@ def build_pointpillars_pipeline(
     JAX package (``variables``, through
     ``pointpillars_state_dict_from_flax``), else ``state_dict`` (the port's
     names, or a function of the model that returns them:
-    ``runtime/importers``), else seeded random ones (``seed``). Runs on
-    ``cuda`` unless ``device="cpu"``, in float32 with TF32 off."""
+    ``runtime/importers``), else seeded random ones (``seed``). ``dtype``:
+    the body's compute dtype; ``precision``: the serving policy
+    (``runtime/precision.resolve_policy``: ``bf16`` switches a float32 body
+    to bfloat16, an explicit ``dtype`` wins), applied after the fill. Runs
+    on ``cuda`` unless ``device="cpu"``, with TF32 off."""
     dev = resolve_device(device)
     strict_fp32()
-    model = PointPillars(model_cfg or PointPillarsConfig())
-    fill_model(model, variables, state_dict, seed, pointpillars_state_dict_from_flax)
-    return _serve(model, dev, config or Detect3DConfig())
+    policy, dtype = resolve_policy(precision, parse_compute_dtype(dtype))
+    model = PointPillars(model_cfg or PointPillarsConfig(), dtype=dtype)
+    source = fill_model(model, variables, state_dict, seed, pointpillars_state_dict_from_flax)
+    return _serve(model, dev, config or Detect3DConfig(), policy, source)
 
 
 def build_second_pipeline(
@@ -383,6 +427,8 @@ def build_second_pipeline(
     device: str | torch.device | None = None,
     seed: int = 0,
     state_dict=None,
+    dtype: torch.dtype | str = torch.float32,
+    precision: PrecisionPolicy | str | None = None,
 ) -> tuple[Detect3DPipeline, ModelSpec, SECONDIoU]:
     """SECOND-IoU (dense middle) over the same seam as PointPillars, with
     the same arguments; flax variables carry across through
@@ -390,11 +436,12 @@ def build_second_pipeline(
     carries ``iou_alpha``."""
     dev = resolve_device(device)
     strict_fp32()
+    policy, dtype = resolve_policy(precision, parse_compute_dtype(dtype))
     model_cfg = model_cfg or SECONDConfig()
-    model = SECONDIoU(model_cfg)
-    fill_model(model, variables, state_dict, seed, second_state_dict_from_flax)
+    model = SECONDIoU(model_cfg, dtype=dtype)
+    source = fill_model(model, variables, state_dict, seed, second_state_dict_from_flax)
     cfg = config or Detect3DConfig(model_name="second_iou")
-    return _serve(model, dev, cfg, {"iou_alpha": model_cfg.iou_alpha})
+    return _serve(model, dev, cfg, policy, source, {"iou_alpha": model_cfg.iou_alpha})
 
 
 # CenterNet's heatmap prior, -log((1 - 0.1) / 0.1): the heatmap bias of a
@@ -409,6 +456,8 @@ def build_centerpoint_pipeline(
     device: str | torch.device | None = None,
     seed: int = 0,
     state_dict=None,
+    dtype: torch.dtype | str = torch.float32,
+    precision: PrecisionPolicy | str | None = None,
 ) -> tuple[Detect3DPipeline, ModelSpec, CenterPoint]:
     """CenterPoint-pillar (the reference's det3d nuScenes path) over the
     same seam, with the same arguments; flax variables carry across through
@@ -418,19 +467,21 @@ def build_centerpoint_pipeline(
     suppress+pack apply unchanged; the velocity rides through the packed
     rows as 2 extra columns and is served as ``velocities``. The config's
     ``class_names`` follow the model's, so a KITTI-default config cannot
-    mislabel nuScenes predictions."""
+    mislabel nuScenes predictions. ``dtype`` and ``precision`` as
+    PointPillars'."""
     dev = resolve_device(device)
     strict_fp32()
+    policy, dtype = resolve_policy(precision, parse_compute_dtype(dtype))
     model_cfg = model_cfg or CenterPointConfig()
-    model = CenterPoint(model_cfg)
-    fill_model(model, variables, state_dict, seed, centerpoint_state_dict_from_flax)
-    if variables is None and state_dict is None:
+    model = CenterPoint(model_cfg, dtype=dtype)
+    source = fill_model(model, variables, state_dict, seed, centerpoint_state_dict_from_flax)
+    if source is None:
         with torch.no_grad():
             model.head.heatmap.bias.fill_(HEATMAP_PRIOR)
     cfg = config if config is not None else default_detect3d_config("centerpoint")
     if tuple(cfg.class_names) != tuple(model_cfg.class_names):
         cfg = dataclasses.replace(cfg, class_names=tuple(model_cfg.class_names))
-    return _serve(model, dev, cfg, {"with_velocity": model_cfg.with_velocity})
+    return _serve(model, dev, cfg, policy, source, {"with_velocity": model_cfg.with_velocity})
 
 
 def default_detect3d_config(model_name: str) -> Detect3DConfig:

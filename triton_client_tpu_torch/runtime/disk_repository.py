@@ -24,16 +24,17 @@ from a seed (seed 0, where the JAX package draws from ``PRNGKey(0)``);
 tests hand JAX's variables across through ``registered(...,
 variables=...)``.
 
-Precision: ``model: {dtype: bf16}`` runs the body in bfloat16 with the
-f32 policy and wire; ``model: {precision: bf16}``, or ``scan_disk(...,
-precision="bf16")`` (``serve --precision``) over every entry, selects the
-bf16 policy (``runtime/precision.py``). Broken or unported entries raise,
-so a serving process fails at startup instead of skipping models:
+Precision, on every family: ``model: {dtype: bf16}`` runs the body in
+bfloat16 with its policy's wire; ``model: {precision: bf16|int8w|int8}``,
+or ``scan_disk(..., precision=...)`` (``serve --precision``) over every
+entry, selects the policy (``runtime/precision.py``). A 3D entry stages
+``points`` float32 under any policy; an ``int8`` entry carries no
+calibration scales, so it stages float32 as ``int8w`` does, as in the JAX
+package. Broken or unported entries raise, so a serving process fails at
+startup instead of skipping models:
 
 - the families not ported (yolov4, retinanet, fcos, preprocess and
   ensembles: ROADMAP.md Queue 1 item 7);
-- the int8w and int8 policies (item 10); bfloat16 on a 3D entry
-  (item 11);
 - ``export_model`` (item 12).
 """
 
@@ -70,7 +71,6 @@ _UNPORTED_FAMILIES = {
     "preprocess": "7 (pipelines/preprocess2d.py)",
     "ensemble": "7 (runtime/ensemble.py)",
 }
-_BF16_3D_ITEM = "11 (bfloat16 on the 3D paths)"
 _EXPORT_ITEM = "12 (export_model with a flax msgpack writer)"
 
 
@@ -179,7 +179,8 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
         # batch 1 of FP32 frames at the model's input size, as the JAX
         # entry compiles it (other shapes capture on first use), in the
         # dtype the channel stages them in (bfloat16 under the bf16 policy)
-        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,), dtype=pipe.precision.wire_dtype)
+        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,),
+                    dtype=pipe.precision.wire_dtype("images"))
 
     return build, cfg, warmup
 
@@ -188,14 +189,9 @@ def _build_3d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     from triton_client_tpu_torch.pipelines import detect3d
 
     model_doc = dict(doc.get("model", {}))
+    # parsed at scan time, so a typo'd dtype or policy fails at startup
     dtype = parse_compute_dtype(model_doc.pop("dtype", "fp32"))
     policy = PrecisionPolicy.parse(model_doc.pop("precision", None))
-    if dtype != torch.float32 or policy.name != "f32":
-        raise NotImplementedError(
-            f"{model_dir / 'config.yaml'}: bfloat16 ({family} with dtype "
-            f"{str(dtype).removeprefix('torch.')}, precision {policy.name}) is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_BF16_3D_ITEM})"
-        )
     if "dataset" in doc:
         got_family, model_cfg, pipe_cfg = detect3d_from_yaml(_resolve(doc["dataset"], model_dir))
         if got_family != family:
@@ -209,7 +205,7 @@ def _build_3d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     def build(variables=None, state_dict=None, config=None):
         return detect3d.BUILDERS_3D[family](
             model_cfg=model_cfg, config=config or pipe_cfg, variables=variables,
-            state_dict=state_dict, device=device,
+            state_dict=state_dict, device=device, dtype=dtype, precision=policy,
         )
 
     return build, pipe_cfg, lambda pipe: pipe.warmup()

@@ -44,6 +44,7 @@ inputs' and no host sync (a sync cannot be captured).
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Callable
 
 import torch
@@ -223,7 +224,12 @@ class CUDAGraphBackend:
     """Warmup and capture on the card (the default backend)."""
 
     def __init__(self) -> None:
-        self._pools: dict = {}
+        # owner -> {device: pool}, held weakly: a pool handle lives as long
+        # as the wrapper whose graphs use it. Keyed by id() instead, a new
+        # wrapper that reuses a freed one's id would capture into the freed
+        # graphs' released pool (the caching allocator's internal assert
+        # ``use_count > 0``)
+        self._pools: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
     def warmup(self, fn, inputs, times: int) -> None:
         device = inputs[0].device
@@ -236,11 +242,12 @@ class CUDAGraphBackend:
 
     def capture(self, fn, inputs, owner) -> tuple[Callable[[], None], object, int]:
         """Capture ``fn(*inputs)``; returns (replay, static outputs, bytes
-        the capture reserved). ``owner`` keys the shared pool."""
+        the capture reserved). ``owner`` (the wrapper) keys the shared pool."""
         device = inputs[0].device
-        pool = self._pools.get((owner, device))
+        pools = self._pools.setdefault(owner, {})
+        pool = pools.get(device)
         if pool is None:
-            pool = self._pools[(owner, device)] = torch.cuda.graph_pool_handle()
+            pool = pools[device] = torch.cuda.graph_pool_handle()
         segments = _Segments(device, pool)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -254,7 +261,7 @@ class CUDAGraphBackend:
             except BaseException:
                 segments.abort()
                 # a pool that took part in a failed capture is not reused
-                self._pools.pop((owner, device), None)
+                pools.pop(device, None)
                 _end_generator_capture(device)
                 raise
             finally:
@@ -326,7 +333,7 @@ class CapturedFunction:
             inputs = tuple(a.clone() for a in args)
             backend.warmup(self._fn, inputs, WARMUP_CALLS)
             with cuda_build.recording() as rec:
-                replay, outputs, nbytes = backend.capture(self._fn, inputs, id(self))
+                replay, outputs, nbytes = backend.capture(self._fn, inputs, self)
         except Exception as e:
             raise cuda_build.KernelError(
                 f"{self.name}: capturing a CUDA graph for key {key} failed: {e!r}"

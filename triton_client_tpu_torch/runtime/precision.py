@@ -1,12 +1,25 @@
 """Per-model serving precision policies (port of ``runtime/precision.py``):
-``f32`` and ``bf16``; ``int8w`` and ``int8`` parse and raise.
+``f32``, ``bf16``, ``int8w`` and ``int8``.
 
-  * ``f32``  — the plain path, unchanged.
-  * ``bf16`` — parameters stored as bfloat16 (:meth:`PrecisionPolicy.
+  * ``f32``   — the plain path, unchanged.
+  * ``bf16``  — parameters stored as bfloat16 (:meth:`PrecisionPolicy.
     cast_params`), the pipeline body computing in bfloat16
     (:meth:`~PrecisionPolicy.cast_in`), float wire inputs narrowed to
     bfloat16 words on the host before staging (:meth:`~PrecisionPolicy.
     wire_cast`: half the host-to-device bytes, never a widening).
+  * ``int8w`` — weight-only quantization: every kernel (a float tensor of
+    two or more dimensions) stored as int8 with one symmetric float32
+    scale per output channel, ``max|w| / 127``
+    (:func:`quantize_channelwise`); biases and BatchNorm stay float32, and
+    so do the wire and the compute. On a module the weight is a
+    ``torch.nn.utils.parametrize`` parametrization (:class:`Dequantize`)
+    that stores ``q`` and ``scale`` and dequantizes on every forward, so
+    a captured graph reads the int8 bytes and no float32 copy is kept.
+  * ``int8``  — ``int8w`` plus the int8 wire: float inputs that a
+    calibration pass covered (:meth:`~PrecisionPolicy.calibrated`,
+    ``max|x| / 127`` a tensor) are quantized on the host and dequantized
+    inside the captured body (:meth:`~PrecisionPolicy.ingest`), a quarter
+    of the float32 bytes. Without scales it stages float32, as ``int8w``.
 
 The keep-lists (``KEEP_F32_2D``/``KEEP_F32_3D``) name the boundary ops
 that stay float32 under any policy: a pipeline applies
@@ -51,13 +64,9 @@ KEEP_F32_3D = ("voxelize_coords", "box_decode", "nms_scores")
 # against the f32 reference.
 MAP_BUDGETS = {"f32": 0.0, "bf16": 0.05, "int8w": 0.10, "int8": 0.15}
 
-INT8_ITEM = "10 (the int8w and int8 precision policies)"
-
-
-def not_ported_policy(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"precision policy {name!r} is not ported yet (ROADMAP.md Queue 1 item {INT8_ITEM})"
-    )
+# the symmetric int8 range: +-127 keeps the scale invertible without the
+# asymmetric -128 corner
+_QMAX = 127.0
 
 
 # -- host bfloat16 words -------------------------------------------------------------
@@ -103,6 +112,70 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+# -- int8 quantization -------------------------------------------------------------------
+
+
+class QuantizedParam:
+    """One int8-quantized parameter: ``q`` (int8) and the per-output-channel
+    float32 ``scale`` that dequantizes it, both numpy arrays or both
+    tensors, as the leaf they came from."""
+
+    __slots__ = ("q", "scale")
+
+    def __init__(self, q, scale) -> None:
+        self.q = q
+        self.scale = scale
+
+    def dequant(self):
+        if isinstance(self.q, torch.Tensor):
+            return self.q.float() * self.scale
+        return self.q.astype(np.float32) * self.scale
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.q) + _nbytes(self.scale)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.q.shape)
+
+    def __repr__(self) -> str:
+        return f"QuantizedParam(shape={self.shape})"
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, QuantizedParam):
+        return x.nbytes
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(np.asarray(x).nbytes)
+
+
+def quantize_channelwise(arr, axis: int = -1) -> QuantizedParam:
+    """Symmetric per-channel int8 quantization: ``scale = max|x| / 127``
+    over every axis but ``axis`` (the output channel: the last of a flax
+    kernel, 0 of a PyTorch ``Conv``/``Linear`` weight, 1 of a
+    ``ConvTranspose``'s), 1.0 for an all-zero channel, and ``q =
+    clip(rint(x / scale), -127, 127)``, computed in numpy float32 as the
+    JAX package computes it, so both give the same bytes. A tensor in gives
+    tensors out (on its device), anything else numpy."""
+    is_tensor = isinstance(arr, torch.Tensor)
+    x = arr.detach().float().cpu().numpy() if is_tensor else _to_f32(arr)
+    reduce_axes = tuple(i for i in range(x.ndim) if i != (axis % x.ndim))
+    amax = np.max(np.abs(x), axis=reduce_axes, keepdims=True)
+    scale = np.where(amax > 0, amax / _QMAX, 1.0).astype(np.float32)
+    q = np.clip(np.rint(x / scale), -_QMAX, _QMAX).astype(np.int8)
+    if is_tensor:
+        return QuantizedParam(torch.from_numpy(q).to(arr.device),
+                              torch.from_numpy(scale).to(arr.device))
+    return QuantizedParam(q, scale)
+
+
+def realize(tree):
+    """Every :class:`QuantizedParam` of ``tree`` dequantized to float32."""
+    return tree_map(lambda x: x.dequant() if isinstance(x, QuantizedParam) else x, tree)
+
+
 # -- trees -----------------------------------------------------------------------------
 
 
@@ -124,16 +197,15 @@ def tree_map(fn, tree):
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of every tensor or array leaf of ``tree``: what ``param_bytes``
-    reports."""
+    """Bytes of every tensor, array or :class:`QuantizedParam` leaf of
+    ``tree`` (a quantized one counts its int8 words and its scales): what
+    ``param_bytes`` reports."""
     total = 0
 
     def add(x):
         nonlocal total
-        if isinstance(x, torch.Tensor):
-            total += x.numel() * x.element_size()
-        elif isinstance(x, (np.ndarray, np.generic)):
-            total += int(x.nbytes)
+        if isinstance(x, (torch.Tensor, np.ndarray, np.generic, QuantizedParam)):
+            total += _nbytes(x)
         return x
 
     tree_map(add, tree)
@@ -161,8 +233,8 @@ def resolve_policy(precision, dtype=torch.float32):
     """The builders' policy resolution: parse the policy and pick the
     model's compute dtype. The ``bf16`` policy switches a float32 model to
     bfloat16; an explicit ``dtype`` wins (``model: {dtype: bf16}``, the
-    examples' spelling, keeps the f32 policy and its float32 wire).
-    Returns ``(policy, model_dtype)``."""
+    examples' spelling, keeps its policy's wire). Returns ``(policy,
+    model_dtype)``."""
     policy = PrecisionPolicy.parse(precision)
     if policy.name == "bf16" and dtype == torch.float32:
         dtype = torch.bfloat16
@@ -183,17 +255,23 @@ def parse_compute_dtype(name) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
-    """One model's serving precision (see the module docstring)."""
+    """One model's serving precision (see the module docstring).
+
+    ``act_scales`` (``int8`` only): per-input symmetric scales from
+    :meth:`calibrated`, a sorted tuple of (name, scale) so the policy stays
+    hashable. ``keep_f32_inputs``: wire inputs never narrowed (the 3D
+    pipelines keep ``points`` float32: the voxelizer's cell coordinates are
+    precision-sensitive)."""
 
     name: str = "f32"
+    act_scales: tuple[tuple[str, float], ...] = ()
+    keep_f32_inputs: tuple[str, ...] = ()
 
     def __post_init__(self) -> None:
         if self.name not in POLICIES:
             raise ValueError(
                 f"unknown precision policy {self.name!r} (expected one of {'|'.join(POLICIES)})"
             )
-        if self.name in ("int8w", "int8"):
-            raise not_ported_policy(self.name)
 
     @classmethod
     def parse(cls, value) -> "PrecisionPolicy":
@@ -207,24 +285,65 @@ class PrecisionPolicy:
 
     @property
     def compute_dtype(self) -> torch.dtype:
+        """bfloat16 for ``bf16`` only: the int8 policies dequantize to
+        float32 compute."""
         return torch.bfloat16 if self.name == "bf16" else torch.float32
 
     @property
-    def wire_dtype(self) -> torch.dtype:
-        """The dtype a float32 wire input is staged in on the card."""
-        return torch.bfloat16 if self.name == "bf16" else torch.float32
+    def quantize_weights(self) -> bool:
+        return self.name in ("int8w", "int8")
+
+    @property
+    def quantize_acts(self) -> bool:
+        return self.name == "int8"
+
+    @property
+    def wire_ingest_needed(self) -> bool:
+        """True when the captured body must dequantize int8 wire inputs."""
+        return self.name == "int8" and bool(self.act_scales)
 
     @property
     def map_budget(self) -> float:
         return MAP_BUDGETS[self.name]
 
+    def scale_for(self, name: str) -> float | None:
+        for k, s in self.act_scales:
+            if k == name:
+                return s
+        return None
+
+    def wire_dtype(self, name: str) -> torch.dtype:
+        """The dtype a float32 wire input ``name`` is staged in on the card
+        (:meth:`wire_cast`): bfloat16 under ``bf16``, int8 for a calibrated
+        input under ``int8``, float32 otherwise and for keep-list inputs."""
+        if name in self.keep_f32_inputs:
+            return torch.float32
+        if self.name == "bf16":
+            return torch.bfloat16
+        scale = self.scale_for(name)
+        if self.name == "int8" and scale is not None and scale > 0:
+            return torch.int8
+        return torch.float32
+
     def cast_params(self, tree):
         """The parameter tree in the policy's storage, once at registration:
         ``bf16`` casts every float leaf (tensors to ``torch.bfloat16``,
-        numpy arrays to :data:`BF16` words); ``f32`` is the identity."""
+        numpy arrays to :data:`BF16` words); ``int8w``/``int8`` quantize
+        every float leaf of two or more dimensions into a
+        :class:`QuantizedParam` over its last axis (a flax kernel's output
+        channel), 1-D leaves (biases, BatchNorm) staying as they are; ``f32``
+        is the identity. On a model, :func:`apply_cast_params`."""
         if self.name == "f32":
             return tree
-        return tree_map(lambda x: _to_bf16(x) if _is_float(x) else x, tree)
+        if self.name == "bf16":
+            return tree_map(lambda x: _to_bf16(x) if _is_float(x) else x, tree)
+
+        def quant(x):
+            if _is_float(x) and len(getattr(x, "shape", ())) >= 2:
+                return quantize_channelwise(x)
+            return x
+
+        return tree_map(quant, tree)
 
     def cast_in(self, x: torch.Tensor) -> torch.Tensor:
         """The pipeline's ingress cast of a staged wire input."""
@@ -239,17 +358,59 @@ class PrecisionPolicy:
 
     def wire_cast(self, name: str, arr: np.ndarray) -> np.ndarray:
         """The host staging cast of one wire input. Never widens: ``bf16``
-        narrows wider floats to :data:`BF16` words; integer frames, words
-        and every input under ``f32`` pass as they are. (The JAX policy's
-        ``keep_f32_inputs`` exempts the 3D ``points``; the port serves no 3D
-        entry in bf16, ROADMAP.md Queue 1 item 11.)"""
-        if self.name == "f32":
+        narrows wider floats to :data:`BF16` words, ``int8`` quantizes a
+        calibrated float input to int8 with its scale (the JAX package's
+        expression, on the float32 array and the Python-float scale, so both
+        packages give the same bytes); integer frames, words, keep-list
+        inputs, uncalibrated inputs and every input under ``f32`` and
+        ``int8w`` pass as they are."""
+        if self.name in ("f32", "int8w") or name in self.keep_f32_inputs:
             return arr
         if is_bf16_words(arr) or not np.issubdtype(arr.dtype, np.floating):
             return arr
-        if arr.dtype.itemsize > BF16.itemsize:
-            return to_bf16_words(arr)
-        return arr
+        if self.name == "bf16":
+            if arr.dtype.itemsize > BF16.itemsize:
+                return to_bf16_words(arr)
+            return arr
+        scale = self.scale_for(name)
+        if scale is None or scale <= 0:
+            return arr
+        return np.clip(np.rint(arr / scale), -_QMAX, _QMAX).astype(np.int8)
+
+    def ingest(self, inputs: dict) -> dict:
+        """The device-side inverse of :meth:`wire_cast`, run inside the
+        captured body: an int8 input with a scale becomes ``q * scale`` in
+        float32 (the scale rounded to float32, as JAX's ``jnp.float32``);
+        everything else, a float32 input of the same name included, passes
+        through."""
+        if not self.wire_ingest_needed:
+            return inputs
+        out = {}
+        for k, v in inputs.items():
+            scale = self.scale_for(k)
+            if scale is not None and v.dtype == torch.int8:
+                out[k] = v.float() * float(np.float32(scale))
+            else:
+                out[k] = v
+        return out
+
+    def calibrated(self, samples: dict) -> "PrecisionPolicy":
+        """Per-input activation scales from sample inputs, at registration:
+        ``max|x| / 127`` over the whole batch, 1.0 for an all-zero one.
+        Only ``int8`` calibrates; keep-list and integer inputs are
+        skipped."""
+        if not self.quantize_acts:
+            return self
+        scales = dict(self.act_scales)
+        for name, arr in samples.items():
+            if name in self.keep_f32_inputs:
+                continue
+            a = np.asarray(arr)
+            if not np.issubdtype(a.dtype, np.floating):
+                continue  # integer frames already travel in a byte or less
+            amax = float(np.max(np.abs(a))) if a.size else 0.0
+            scales[name] = (amax / _QMAX) if amax > 0 else 1.0
+        return dataclasses.replace(self, act_scales=tuple(sorted(scales.items())))
 
     def spec_extra(self, params, keep_ops=KEEP_F32_2D) -> dict:
         """The spec ``extra`` entries of a precision-aware builder: policy,
@@ -261,15 +422,77 @@ class PrecisionPolicy:
         }
 
 
+# -- models -------------------------------------------------------------------------------
+
+
 def stored_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """A model's parameters and running statistics as it stores them (its
-    ``state_dict`` without BatchNorm's ``num_batches_tracked`` counters)."""
+    ``state_dict`` without BatchNorm's ``num_batches_tracked`` counters; a
+    quantized weight is its ``q`` and ``scale``)."""
     return {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
 
 
-def apply_cast_params(model: torch.nn.Module, policy: PrecisionPolicy) -> torch.nn.Module:
-    """Store ``model``'s tensors as ``policy.cast_params`` gives them (the
-    dtypes change in place of a copy into the old ones)."""
-    if policy.name != "f32":
+class Dequantize(torch.nn.Module):
+    """The parametrization of an int8-stored weight: it keeps ``q`` (int8)
+    and ``scale`` (float32, one per output channel along ``axis``) and
+    returns ``q * scale`` in float32, rounded to ``dtype`` where the module
+    computes in bfloat16 (flax casts the dequantized float32 kernel to the
+    module's dtype the same way). It runs on every forward, inside any
+    captured graph: no float32 copy of the weight is kept."""
+
+    def __init__(self, axis: int, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.axis = axis
+        self.dtype = dtype
+
+    def forward(self, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        w = q.float() * scale
+        return w if self.dtype == torch.float32 else w.to(self.dtype)
+
+    def right_inverse(self, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        qp = quantize_channelwise(weight, self.axis)
+        return qp.q, qp.scale
+
+
+def apply_cast_params(
+    model: torch.nn.Module, policy: PrecisionPolicy, source=None
+) -> torch.nn.Module:
+    """Store ``model``'s tensors as ``policy`` gives them.
+
+    ``bf16``: every float tensor in bfloat16 (the dtypes change in place of
+    a copy into the old ones). ``int8w``/``int8``: every weight of two or
+    more dimensions (the kernels of ``Linear``, ``Conv*`` and
+    ``ConvTranspose*``: exactly the flax leaves the JAX policy quantizes;
+    a buffer such as the anchors is no parameter) quantized over its
+    output-channel axis behind a :class:`Dequantize` parametrization that
+    yields the module's own compute dtype; every other float tensor stored
+    in float32, as the JAX tree keeps its 1-D leaves. ``source``: the
+    float32 state_dict the model was filled from, quantized in place of a
+    bfloat16 body's rounded copy (the JAX package quantizes the float32
+    tree)."""
+    if policy.name == "bf16":
         model.load_state_dict(policy.cast_params(dict(model.state_dict())), assign=True)
+    elif policy.quantize_weights:
+        from torch.nn.utils import parametrize
+
+        source = source or {}
+        model.requires_grad_(False)
+        for name, mod in list(model.named_modules()):
+            w = mod._parameters.get("weight")
+            if w is None or not w.is_floating_point() or w.ndim < 2:
+                continue
+            key = f"{name}.weight" if name else "weight"
+            full = source.get(key, w).detach().to(device=w.device, dtype=torch.float32)
+            mod.weight = torch.nn.Parameter(full, requires_grad=False)
+            # the output channel: axis 1 of a transposed convolution's
+            # (cin, cout, ...) weight, 0 of the others'
+            axis = 1 if isinstance(mod, torch.nn.modules.conv._ConvTransposeNd) else 0
+            # a bfloat16 module's parametrization yields bfloat16 from the
+            # float32 it was registered over: "unsafe" is that dtype change
+            parametrize.register_parametrization(
+                mod, "weight", Dequantize(axis, w.dtype), unsafe=w.dtype != torch.float32)
+        rest = {k: source.get(k, v).detach().to(device=v.device, dtype=torch.float32)
+                for k, v in model.state_dict().items()
+                if v.is_floating_point() and ".parametrizations." not in f".{k}"}
+        model.load_state_dict(rest, strict=False, assign=True)
     return model

@@ -52,7 +52,8 @@ class RegisteredModel:
     ragged_fn: Callable | None = None
     # Optional serving precision policy (runtime/precision.PrecisionPolicy):
     # the channel applies its ``wire_cast`` when staging host arrays, so a
-    # bf16 model's float32 frames upload as bfloat16. None: float32.
+    # bf16 model's float32 frames upload as bfloat16 and a calibrated int8
+    # model's as int8. None: float32.
     precision: object | None = None
 
 
