@@ -19,8 +19,8 @@ same three entries, the layout and precision of examples/yolov5_crop (phase
 26), detect2d/detect3d client processes against serve (phase 27), and
 CenterPoint with velocity on nuScenes at full width with 10-sweep
 aggregation, with examples/pointpillar_wide beside it (phase 28), and every
-serving precision policy on every served family (phase 29). One JSON line
-per phase:
+serving precision policy on every served family (phase 29), and replay
+and evaluation from bags (phase 30). One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -89,16 +89,23 @@ per phase:
                  on the card against the same call on CPU copies
  18. main_path_ragged — 8 seeded KITTI-sized clouds (20,000-120,000 points)
                  through ContinuousBatchingChannel(CUDAChannel(repo)) as one
-                 packed group and as a threaded burst of 8 callers; launch
-                 counts read around this phase only, the ragged_* stats, the
+                 packed group and as a threaded burst of 8 callers, the packed
+                 route captured as CUDA graphs (one a segment bucket and
+                 packed-row bucket, each owning its kernel-6 tickets; the
+                 graphs the run needs are captured before the counted window);
+                 launch counts read around this phase only (kernel 6 counted
+                 inside replays, one a packed batch), the ragged_* stats, the
                  pool model's solo infer_fn calls (0 in the packed group: no
-                 silent fallback)
+                 silent fallback), and every packed batch's output bitwise
+                 equal to the eager route's on the same packed request
  19. check_ragged — kernel 6 on the main path's own packed rows, each
                  member against a float64 sum, packed and solo, and the card
                  against the CPU port on the same group
  20. times_ragged — kernel 6's times, its one launch's profiler time,
                  bound and index_add_ yardstick; clouds/s and p50 through
-                 the batcher beside solo requests
+                 the batcher, captured against eager (rounds interleaved; a
+                 round in which a capture happened is discarded and rerun),
+                 beside solo requests
  21. dense_batched_2d — YOLOv5n 512^2 frames through the same scheduler's
                  dense merged path: a group of 8 one-frame requests equals one
                  direct call on the 8 frames stacked, bit for bit
@@ -237,6 +244,26 @@ per phase:
                  (reported), p50 and scans/s or frames/s, device ms, busy
                  share and top device ops (torch.profiler), param_bytes and
                  graph-pool bytes; the phase's wall time
+ 30. replay    — bags written from a seed with io/synthdata in a temporary
+                 directory: 32 rgb8 512² frames with their GT, 16 KITTI
+                 scans of ~120,000 points (uncompressed and bz2) and 20
+                 nuScenes sweeps of ~30,000 points with an Odometry topic.
+                 detect2d -i <bag> on yolov5_crop's conf-0.05 copy with
+                 --gt (in-process, and as a remote client of serve with no
+                 card, running evaluate where prometheus_client is
+                 installed: its /metrics scraped once, then SIGINT), detect3d
+                 -i <bag> on pointpillar_kitti (jsonl, bz2, --sink bag) and
+                 detect3d -i <bag> --sweeps 10 --poses odom on
+                 centerpoint_nusc. Rows from a bag equal, bit for bit, those
+                 of the same frames from an image directory and of the clouds
+                 pc-extract makes of the bag (CenterPoint: --poses <jsonl> at
+                 the bag's period); the output bag holds the rows' boxes; the
+                 evaluator's summary and Summaries equal eval/detection_map
+                 on the rows; kernels 1, 3 and 4 launch once a request. Lines
+                 replay_legs (which legs ran, which package was missing) and
+                 replay: frames/s and scans/s from a bag against an image
+                 directory and .npy replay, host ms a message to read and
+                 decode, the phase's wall time
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -291,7 +318,7 @@ IOU_OPS = 14
 SECOND_SLOTS = 40000
 # the ragged path: 8 clouds a pack, each 20k (the synthetic source's
 # default) to 120k points (a full HDL-64 scan); bursts timed in phase 20
-RAGGED_CLOUDS, RAGGED_POINTS, RAGGED_ROUNDS = 8, (20000, 120000), 5
+RAGGED_CLOUDS, RAGGED_POINTS, RAGGED_ROUNDS = 8, (20000, 120000), 20
 # the 2D main path's camera frames
 FRAME_HW = (480, 640)
 # phases 22-24: replays a launch count is read over; requests a timed path;
@@ -984,6 +1011,7 @@ def main() -> int:
     run_remote(card, counters)
     record_cp = run_centerpoint(card, counters)
     precision_launches = run_precision(card, counters)
+    replay_launches = run_replay(card, counters)
     # kernel 4 also runs CenterPoint's tail, at K = 128 rows of 11 columns
     k4_row = next(row for row in record_3d if row["name"] == "suppress_pack_3d")
     k4_row["launches_by_path"]["centerpoint"] = record_cp.pop("launches")
@@ -1010,12 +1038,16 @@ def main() -> int:
         *record_second,
         *record_ragged,
     ]
-    # phase 29's paths: each precision policy on each family, counted alone
+    # phase 29's paths: each precision policy on each family, counted alone;
+    # phase 30's replays
     for row in record:
         by_path = row.setdefault("launches_by_path", {})
         for path, counts in precision_launches.items():
             if counts.get(row["name"]):
                 by_path[f"precision_{path}"] = counts[row["name"]]
+        for path, counts in replay_launches.items():
+            if counts.get(row["name"]):
+                by_path[f"replay_{path}"] = counts[row["name"]]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1717,31 +1749,68 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
 
     repo = ModelRepository()
     repo.register(pool_spec(), counted_infer_fn, ragged_fn=model.ragged_fn)
-    inner = CUDAChannel(repo)
+    inner = CUDAChannel(repo)  # the packed route captured (the default)
     inner.register_channel()
+    eager_inner = CUDAChannel(repo, capture_ragged=False)  # the comparison leg only
     cont = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS)
     burst_chan = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS, pipeline_depth=1)
+    # every packed request the captured channel runs, with its future
+    packed_runs = []
+    dispatch = inner.do_inference_async
+
+    def recorded_dispatch(request):
+        fut = dispatch(request)
+        if request.ragged is not None:
+            packed_runs.append((request, fut))
+        return fut
+
+    inner.do_inference_async = recorded_dispatch
 
     def requests():
         return [InferRequest("pool", {"points": c, "bias": b}, request_id=str(i))
                 for i, (c, b) in enumerate(zip(clouds, biases))]
 
-    def packed_group():
+    def run_group(chan, members):
         reqs = requests()
-        futs = [concurrent.futures.Future() for _ in reqs]
-        cont._run_ragged_group([(None, r, f) for r, f in zip(reqs, futs)])
+        futs = [concurrent.futures.Future() for _ in members]
+        chan._run_ragged_group([(None, reqs[i], f) for i, f in zip(members, futs)])
         return [f.result(timeout=120.0).outputs["pooled"] for f in futs]
 
+    def captures():
+        return sum(st["captures"] for st in inner.ragged_graph_stats().values())
+
+    def captured_equals_eager(label):
+        """Every recorded packed output against the eager route on the same
+        packed request, bit for bit."""
+        for request, fut in packed_runs:
+            got = fut.result().outputs["pooled"]
+            want = eager_inner.do_inference(request).outputs["pooled"]
+            check(got.tobytes() == want.tobytes(),
+                  f"{label}: a captured packed batch of {request.ragged.n_segments} differs "
+                  "from the eager route")
+        n = len(packed_runs)
+        packed_runs.clear()
+        return n
+
+    everyone = list(range(RAGGED_CLOUDS))
     try:
-        packed_group()  # warm-up, not counted
+        # warm-up, not counted: the graphs of the packed group and of the
+        # bursts' usual groups (all eight, and one lone request with the
+        # other seven packed) are captured here, outside every counted and
+        # timed window
+        run_group(cont, everyone)
+        for lone in everyone:
+            run_group(cont, [i for i in everyone if i != lone])
         inner.do_inference(requests()[0])
         burst(burst_chan, requests())
         torch.cuda.synchronize()
+        packed_runs.clear()
         base_cont, base_burst = cont.stats(), burst_chan.stats()
+        captures_before = captures()
         for counter in counters:
             counter.reset()
         solo_calls[0] = 0
-        packed = packed_group()
+        packed = run_group(cont, everyone)
         group_solo_calls = solo_calls[0]
         group_launches = gpu_segment.launches.count
         burst_out, _, _ = burst(burst_chan, requests())
@@ -1749,6 +1818,8 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
         all_launches = [c.count for c in counters[:-1]]  # each kernel once
         burst_solo_calls = solo_calls[0] - group_solo_calls
         s_cont, s_burst = cont.stats(), burst_chan.stats()
+        captures_in_window = captures() - captures_before
+        checked = captured_equals_eager("phase 18")
     finally:
         cont.close()
         burst_chan.close()
@@ -1773,9 +1844,16 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
     # no silent fallback: lone groups ran solo, every larger group packed
     check(burst_stats["ragged_batches"] == packs and burst_solo_calls == lone,
           f"burst groups {occ}: {burst_stats['ragged_batches']} packed, {burst_solo_calls} solo")
-    check(launches["segment_sum"] == group_stats["ragged_batches"] + burst_stats["ragged_batches"],
-          f"segment_sum launched {launches['segment_sum']} times for "
-          f"{group_stats['ragged_batches'] + burst_stats['ragged_batches']} packed batches")
+    # a capture inside the window (a burst grouping the warm-up did not
+    # see) adds its eager warmup calls' launches; the replays add one each
+    from triton_client_tpu_torch.runtime.graphs import WARMUP_CALLS
+
+    batches = group_stats["ragged_batches"] + burst_stats["ragged_batches"]
+    in_replays = launches["segment_sum"] - WARMUP_CALLS * captures_in_window
+    check(in_replays == batches,
+          f"segment_sum launched {in_replays} times in replays for {batches} packed batches "
+          f"({captures_in_window} captures in the window)")
+    check(checked == batches, f"{checked} packed batches recorded for {batches}")
     check(sum(all_launches) == launches["segment_sum"],
           "another kernel launched on the ragged path")
     for o in packed + [r.outputs["pooled"] for r in burst_out]:
@@ -1783,7 +1861,10 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
     emit("main_path_ragged", card, model="pool", clouds=RAGGED_CLOUDS, points=sizes,
          packed_rows=layout.padded_rows, live_rows=layout.total, seg_bucket=layout.seg_bucket,
          requests={"packed_group": RAGGED_CLOUDS, "burst": RAGGED_CLOUDS},
-         launches=launches, packed_group_stats=group_stats, burst_stats=burst_stats,
+         launches=launches, launches_in_replays=in_replays,
+         captures_in_window=captures_in_window, captured_equals_eager_bitwise=checked,
+         ragged_graphs=inner.ragged_graph_stats(),
+         packed_group_stats=group_stats, burst_stats=burst_stats,
          burst_merge_occupancy=occ, infer_fn_calls={"packed_group": group_solo_calls,
                                                     "burst": burst_solo_calls},
          pad_fraction={"packed_group": s_cont["pad_fraction"], "burst": s_burst["pad_fraction"]})
@@ -1851,24 +1932,77 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
     k6_ops = total * feat.shape[1]  # one add a kept value
     k6_bound, k6_by = roofline(k6_bytes, k6_ops)
 
-    burst_chan = ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS, pipeline_depth=1)
+    # bursts through the batcher, the captured route against the eager one,
+    # rounds interleaved, which leg goes first alternating; a round in which
+    # a capture happened is discarded and run again, so no capture lands in
+    # a timed window. The eager channel records its packed requests too, so
+    # both legs carry the same bookkeeping
+    eager_runs = []
+    eager_dispatch = eager_inner.do_inference_async
+
+    def eager_recorded(request):
+        fut = eager_dispatch(request)
+        if request.ragged is not None:
+            eager_runs.append((request, fut))
+        return fut
+
+    eager_inner.do_inference_async = eager_recorded
+    legs = {"captured": ContinuousBatchingChannel(inner, max_batch=RAGGED_CLOUDS,
+                                                  pipeline_depth=1),
+            "eager": ContinuousBatchingChannel(eager_inner, max_batch=RAGGED_CLOUDS,
+                                               pipeline_depth=1)}
+    timed = {leg: ([], 0.0) for leg in legs}
+    discarded = 0
     try:
-        burst(burst_chan, requests())  # warm-up
-        lat, wall = [], 0.0
-        for _ in range(RAGGED_ROUNDS):
-            _, ls, w = burst(burst_chan, requests())
-            lat += ls
-            wall += w
-        bs = burst_chan.stats()
+        for chan in legs.values():
+            burst(chan, requests())  # warm-up
+        rounds = 0
+        while rounds < RAGGED_ROUNDS:
+            order = list(legs.items()) if rounds % 2 == 0 else list(legs.items())[::-1]
+            c0, taken = captures(), {}
+            for leg, chan in order:
+                _, ls, w = burst(chan, requests())
+                taken[leg] = (ls, w)
+            if captures() != c0:
+                discarded += 1
+                check(discarded <= RAGGED_ROUNDS, "bursts kept capturing new graphs")
+                continue
+            for leg, (ls, w) in taken.items():
+                lat, wall = timed[leg]
+                timed[leg] = (lat + ls, wall + w)
+            rounds += 1
+        stats = {leg: chan.stats() for leg, chan in legs.items()}
     finally:
-        burst_chan.close()
-    check(bs["ragged_fallbacks"] == 0 and bs["kernel_failures"] == 0,
-          f"a timed burst fell back or failed: {bs['ragged_fallbacks']} fallbacks, "
-          f"{bs['kernel_failures']} kernel failures")
-    batched = {"clouds_per_s": len(lat) / wall, "p50_ms": float(np.median(lat)) * 1e3,
-               "requests": len(lat), "ragged_batches": bs["ragged_batches"],
-               "ragged_fallbacks": bs["ragged_fallbacks"],
-               "merge_occupancy": bs["merge_occupancy"]}
+        for chan in legs.values():
+            chan.close()
+    route_req = packed_runs[-1][0]  # a packed batch, as the batcher built it
+    checked_timed = captured_equals_eager("phase 20")
+    inner.do_inference_async, eager_inner.do_inference_async = dispatch, eager_dispatch
+    eager_runs.clear()
+    # the packed route alone, one caller, no batcher: captured against
+    # eager on one packed request (legs interleaved), and where each
+    # request's device time goes
+    route = {leg: {"p50_ms": []} for leg in ("captured", "eager")}
+    for _ in range(2):
+        for leg, chan in (("captured", inner), ("eager", eager_inner)):
+            route[leg]["p50_ms"].append(serve(lambda _r, c=chan: c.do_inference(route_req),
+                                              [None], 30, "clouds_per_s",
+                                              lambda _r: RAGGED_CLOUDS)["p50_ms"])
+    for leg, chan in (("captured", inner), ("eager", eager_inner)):
+        route[leg]["profile"] = device_profile(lambda c=chan: c.do_inference(route_req), 10)
+    batched = {}
+    for leg, (lat, wall) in timed.items():
+        bs = stats[leg]
+        check(bs["ragged_fallbacks"] == 0 and bs["kernel_failures"] == 0,
+              f"a timed {leg} burst fell back or failed: {bs['ragged_fallbacks']} fallbacks, "
+              f"{bs['kernel_failures']} kernel failures")
+        batched[leg] = {"clouds_per_s": len(lat) / wall, "p50_ms": float(np.median(lat)) * 1e3,
+                        "requests": len(lat), "ragged_batches": bs["ragged_batches"],
+                        "ragged_fallbacks": bs["ragged_fallbacks"],
+                        "merge_occupancy": bs["merge_occupancy"],
+                        "decomp_ms": bs.get("decomp_ms")}
+    batched["captured"]["rounds_discarded_for_a_capture"] = discarded
+    batched["captured"]["packed_batches_equal_eager_bitwise"] = checked_timed
     solo_e2e = serve(inner.do_inference, requests(), RAGGED_ROUNDS * RAGGED_CLOUDS,
                      "clouds_per_s")
     emit("times_ragged", card, kernel_ms={"segment_sum": k6_ms},
@@ -1879,7 +2013,10 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
          passes=k6_passes,
          bytes=k6_bytes, ops=k6_ops, rows=int(feat.shape[0]), live_rows=total, segments=s,
          features=int(feat.shape[1]),
-         in_process={"batcher_burst_of_8": batched, "solo_channel_one_caller": solo_e2e})
+         in_process={"batcher_burst_of_8": batched["captured"],
+                     "batcher_burst_of_8_eager": batched["eager"],
+                     "packed_route_alone": route,
+                     "solo_channel_one_caller": solo_e2e})
 
     return [
         {"name": "segment_sum", "route": "cuda",
@@ -1888,7 +2025,7 @@ def run_ragged(card: str, dev: torch.device, counters) -> list[dict]:
          "launches": launches["segment_sum"], "max_abs_err": k6_err, "match": True,
          "ms": k6_ms, "call_ms": k6_call_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
          "bound_by": k6_by, "passes_us": k6_passes["us"], "library_ms": library_ms,
-         "card": card},
+         "in_graph": True, "card": card},
     ]
 
 
@@ -4005,6 +4142,380 @@ def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:
 
     shutil.copytree(root / name, dest / name)
     return dest
+
+
+# phase 30: replay and evaluation from bags. 2D frames at the entry's 512²,
+# KITTI scans with the clutter raised to ~120,000 points (the full HDL-64
+# scan of phases 10 and 15), nuScenes sweeps of ~30,000 points; the scans
+# 1/8 s apart (synthdata.REPLAY_PERIOD, stamps a bag holds exactly)
+REPLAY_FRAMES, REPLAY_SCANS, REPLAY_SWEEPS, REPLAY_HW = 32, 16, 20, (512, 512)
+# ~25,000 points a sweep, so that ten fit the largest bucket (262,144) as
+# phase 28's do
+REPLAY_KITTI, REPLAY_NUSC = dict(n_clutter=118_000), dict(n_clutter=24_000, pc_range=NUSC_RANGE)
+REPLAY_READS = 3  # passes over each source for the host read-and-decode time
+
+
+def optional_package(name: str) -> bool:
+    """Whether ``name`` imports here (a package that imports and then fails
+    in a leg fails the run)."""
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def cli_in_process(main, argv: list[str]) -> dict:
+    """A CLI's ``main(argv)`` in this process, its JSON report parsed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def replay_rows(out: pathlib.Path) -> tuple[list, list]:
+    """(rows without their stamp, the stamps) of a run's detections.jsonl."""
+    rows = [json.loads(line) for line in open(out / "detections.jsonl")]
+    return [{k: v for k, v in r.items() if k != "ts"} for r in rows], [r["ts"] for r in rows]
+
+
+def read_ms(source) -> float:
+    """Host ms a message to read and decode ``source`` (median of passes)."""
+    times = []
+    for _ in range(REPLAY_READS):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in source)
+        times.append((time.perf_counter() - t0) / max(n, 1))
+    return float(np.median(times)) * 1e3
+
+
+def evaluate_remote(argv: list[str], out: pathlib.Path) -> tuple[dict, list, str]:
+    """``evaluate`` as a client process with no card: waits for it to serve
+    its Summaries, scrapes ``/metrics`` once, sends SIGINT; returns (its
+    report, its rows without stamps, the scrape)."""
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "triton_client_tpu_torch", "evaluate", *argv, "--sink", "jsonl",
+         "-o", str(out), "--prometheus-port", str(port)],
+        cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(600.0, proc.kill)
+    watchdog.start()
+    try:
+        err = []
+        for line in proc.stderr:
+            err.append(line)
+            if "serving eval metrics on" in line:
+                break
+        check(proc.poll() is None, f"evaluate exited {proc.returncode} before serving: "
+              f"{''.join(err)[-3000:]}")
+        text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30).read()
+        proc.send_signal(signal.SIGINT)
+        stdout, rest = proc.communicate(timeout=120)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"evaluate exited {proc.returncode} after SIGINT: {rest[-3000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    return report, replay_rows(out)[0], text.decode()
+
+
+def summaries(exporter_registry) -> list[str]:
+    """The five Summaries' _count and _sum samples of a registry, as text."""
+    import prometheus_client
+
+    return model_samples(prometheus_client.generate_latest(exporter_registry).decode())
+
+
+def model_samples(text: str) -> list[str]:
+    return sorted(line for line in text.splitlines()
+                  if line.startswith("model_") and ("_count " in line or "_sum " in line))
+
+
+def run_replay(card: str, counters) -> dict:
+    """Phase 30 (see the module docstring). Returns the kernels' launches by
+    replay path for the ``kernels`` record."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.cli import detect2d as detect2d_cli
+    from triton_client_tpu_torch.cli import detect3d as detect3d_cli
+    from triton_client_tpu_torch.cli import serve as serve_cli
+    from triton_client_tpu_torch.cli import tools
+    from triton_client_tpu_torch.eval.detection_map import DetectionEvaluator
+    from triton_client_tpu_torch.io import rosbag, synthdata
+    from triton_client_tpu_torch.io.bag_io import BagImageSource, BagPointCloudSource
+    from triton_client_tpu_torch.io.sources import ImageDirSource, NpyPointCloudSource
+
+    t_phase = time.perf_counter()
+    have = {name: optional_package(name) for name in ("cv2", "PIL", "prometheus_client")}
+    legs = {"2d": have["cv2"],  # the 2D frames are drawn with cv2
+            "images_sink": have["cv2"],
+            "evaluate_exporter": have["cv2"] and have["prometheus_client"],
+            "3d_kitti": True, "3d_kitti_bz2": True, "3d_bag_sink": True,
+            "centerpoint_odom": True}
+    emit("replay_legs", card, packages=have, legs=legs,
+         missing=[name for name, ok in have.items() if not ok])
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="replay_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        # -- the bags and the repositories ------------------------------------------------
+        t0 = time.perf_counter()
+        bags = tmp / "bags"
+        bags.mkdir()
+        synthdata.write_scene_bag(str(bags / "kitti.bag"), REPLAY_SCANS, seed=30, **REPLAY_KITTI)
+        synthdata.write_scene_bag(str(bags / "kitti_bz2.bag"), REPLAY_SCANS, seed=30,
+                                  compression="bz2", **REPLAY_KITTI)
+        synthdata.write_scene_bag(str(bags / "nusc.bag"), REPLAY_SWEEPS, seed=32,
+                                  odom_topic="/odom", **REPLAY_NUSC)
+        if legs["2d"]:
+            gt = synthdata.write_detection_bag(str(bags / "frames.bag"), REPLAY_FRAMES,
+                                               REPLAY_HW, seed=31)
+            images_dir, gt_ds = synthdata.write_detection_dataset(
+                str(tmp / "frames_ds"), REPLAY_FRAMES, REPLAY_HW, seed=31)
+            check(open(gt).read() == open(gt_ds).read(), "the frame bag's GT differs from "
+                  "the dataset's")
+        write_s = time.perf_counter() - t0
+        bag_bytes = {p.name: p.stat().st_size for p in bags.glob("*.bag")}
+        root_a, _ = remote_repository(tmp / "a")
+        root_b, _, _ = centerpoint_repository(tmp / "b")
+        model_2d = f"{REMOTE_2D}_c005"
+
+        # -- host read and decode a message -----------------------------------------------
+        for name, spec in (("kitti", "kitti.bag"), ("nusc", "nusc.bag")):
+            tools.pc_extract([str(bags / spec), "-o", str(tmp / f"{name}_npy")])
+        host_ms = {
+            "kitti_bag": read_ms(BagPointCloudSource(str(bags / "kitti.bag"))),
+            "kitti_bag_bz2": read_ms(BagPointCloudSource(str(bags / "kitti_bz2.bag"))),
+            "kitti_npy": read_ms(NpyPointCloudSource(str(tmp / "kitti_npy"))),
+            "nusc_bag": read_ms(BagPointCloudSource(str(bags / "nusc.bag"))),
+        }
+        if legs["2d"]:
+            host_ms["frames_bag"] = read_ms(BagImageSource(str(bags / "frames.bag")))
+            host_ms["frames_png_dir"] = read_ms(ImageDirSource(images_dir))
+        points = [len(f.data) for f in BagPointCloudSource(str(bags / "kitti.bag"))]
+        sweep_points = [len(f.data) for f in BagPointCloudSource(str(bags / "nusc.bag"))]
+        widest = max(sum(sweep_points[max(0, i - CP_SWEEPS + 1):i + 1])
+                     for i in range(len(sweep_points)))
+        check(widest <= 262144, f"{CP_SWEEPS} sweeps hold {widest} points, past the largest "
+              "bucket")
+
+        launches, runs, checks = {}, {}, {}
+
+        def launches_per_request(report, names, label, want_calls):
+            got = report["kernel_launches"]
+            for name in names:
+                check(got[name] == want_calls, f"{label}: {name} launched {got[name]} times for "
+                      f"{want_calls} requests")
+            launches[label] = {name: got[name] for name in names}
+
+        # -- 2D: a bag against an image directory, in-process, --gt -----------------------
+        if legs["2d"]:
+            common = ["-r", str(root_a), "-m", model_2d]
+            rep_bag = cli_in_process(detect2d_cli.main, [*common, "-i", str(bags / "frames.bag"),
+                                                         "--gt", gt, "--sink", "jsonl",
+                                                         "-o", str(tmp / "2d_bag")])
+            rows_bag, stamps = replay_rows(tmp / "2d_bag")
+            rep_dir = cli_in_process(detect2d_cli.main, [*common, "-i", images_dir, "--sink",
+                                                         "jsonl", "-o", str(tmp / "2d_dir")])
+            rows_dir, _ = replay_rows(tmp / "2d_dir")
+            check(rows_bag == rows_dir, "detect2d: rows from the bag differ from the image "
+                  "directory's")
+            check(stamps == [(i + 1) * synthdata.REPLAY_PERIOD for i in range(REPLAY_FRAMES)],
+                  f"detect2d: bag frames carry stamps {stamps[:3]}...")
+            kept = sum(sum(r["valid"]) for r in rows_bag)
+            check(kept > 0, "detect2d kept nothing on the replayed frames")
+            ev = DetectionEvaluator()
+            table = {json.loads(line)["frame_id"]: json.loads(line)["boxes"] for line in open(gt)}
+            for r in rows_bag:
+                ev.add_frame(np.asarray(r["detections"], np.float32), np.asarray(r["valid"]),
+                             np.asarray(table[r["frame_id"]], np.float64).reshape(-1, 5))
+            check(rep_bag["eval"] == json.loads(json.dumps(ev.summary())),
+                  f"detect2d --gt: the report's summary {rep_bag['eval']} is not "
+                  "eval/detection_map's on its rows")
+            for label, rep in (("detect2d_bag", rep_bag), ("detect2d_png_dir", rep_dir)):
+                launches_per_request(rep, ("decode_nms_2d",), label,
+                                     rep["driver"]["ticks"] + 1)  # and the driver's warmup
+            runs["detect2d_bag"] = rep_bag["driver"]
+            runs["detect2d_png_dir"] = rep_dir["driver"]
+            checks["2d"] = {"frames": REPLAY_FRAMES, "kept": kept, "bag_equals_png_dir": True,
+                            "eval": rep_bag["eval"]}
+            if legs["images_sink"]:
+                from triton_client_tpu_torch.io.draw import draw_boxes
+
+                cli_in_process(detect2d_cli.main, [*common, "-i", str(bags / "frames.bag"),
+                                                   "--sink", "images", "-o", str(tmp / "pngs")])
+                names = tuple(load_names_of(root_a / model_2d))
+                for frame, row in zip(BagImageSource(str(bags / "frames.bag")), rows_bag):
+                    png = read_png(tmp / "pngs" / f"{frame.frame_id:04d}.png")
+                    want = draw_boxes(frame.data, np.asarray(row["detections"], np.float32),
+                                      np.asarray(row["valid"]), names)
+                    check(png.tobytes() == want.tobytes(),
+                          f"--sink images: frame {frame.frame_id}'s PNG is not its rows drawn")
+                checks["images_sink"] = {"pngs": REPLAY_FRAMES, "equal_rows_drawn": True}
+
+            # -- 2D as a remote client of serve, with no card ------------------------------
+            args = serve_cli.parser().parse_args(
+                ["-r", str(_only(root_a, model_2d, tmp / "served")), "-a", "127.0.0.1:0",
+                 "--uds", "off", "--warmup", "--max-workers", "4"])
+            server = serve_cli.build_server(args)
+            repo = server.servicer._repo
+            repo.get(model_2d).infer_fn({"images": torch.zeros((1, *REPLAY_HW, 3),
+                                                               dtype=torch.uint8, device="cuda")})
+            torch.cuda.synchronize()
+            server.start()
+            try:
+                captures = repo.get(model_2d).infer_fn.graph_stats()["captures"]
+                for counter in counters:
+                    counter.reset()
+                remote_argv = ["-u", f"grpc:127.0.0.1:{server.port}", "-m", model_2d,
+                               "-i", str(bags / "frames.bag"), "--gt", gt]
+                if legs["evaluate_exporter"]:
+                    import prometheus_client
+
+                    from triton_client_tpu_torch.eval.prometheus_export import (
+                        EvalPrometheusExporter,
+                    )
+
+                    rep_remote, rows_remote, scrape = evaluate_remote(remote_argv,
+                                                                      tmp / "2d_remote")
+                    want_exporter = EvalPrometheusExporter.into(
+                        prometheus_client.CollectorRegistry())
+                    for frame_stats in ev.per_frame_summaries():
+                        want_exporter.observe(*frame_stats)
+                    got_samples = model_samples(scrape)
+                    check(got_samples == summaries(want_exporter.registry) and got_samples,
+                          f"evaluate's Summaries {got_samples[:4]} are not detection_map's")
+                    checks["evaluate_exporter"] = {"samples": len(got_samples),
+                                                   "equal_detection_map": True}
+                else:
+                    rep_remote, rows_remote = client_run("detect2d", remote_argv,
+                                                         tmp / "2d_remote", True)
+                torch.cuda.synchronize()
+                served_calls = rep_remote["driver"]["ticks"] + 1
+                check(counters[0].count == served_calls,
+                      f"serve launched decode_nms_2d {counters[0].count} times for "
+                      f"{served_calls} requests")
+                launches["detect2d_bag_remote"] = {"decode_nms_2d": counters[0].count}
+                check(repo.get(model_2d).infer_fn.graph_stats()["captures"] == captures,
+                      "a remote request captured a graph inside the counted window")
+            finally:
+                server.stop()
+            check(rows_remote == rows_bag, "the remote client's rows from the bag differ from "
+                  "the in-process run's")
+            check(rep_remote["eval"] == rep_bag["eval"], "the remote summary differs")
+            runs["detect2d_bag_remote"] = rep_remote["driver"]
+
+        # -- KITTI PointPillars: a bag, the same bag in bz2 chunks, the clouds pc-extract
+        # wrote of it, and the output bag ----------------------------------------------------
+        common = ["-r", str(root_a), "-m", REMOTE_3D]
+        rows_3d = {}
+        for label, spec in (("bag", bags / "kitti.bag"), ("bag_bz2", bags / "kitti_bz2.bag"),
+                            ("npy", tmp / "kitti_npy")):
+            rep = cli_in_process(detect3d_cli.main, [*common, "-i", str(spec), "--sink",
+                                                     "jsonl", "-o", str(tmp / f"3d_{label}")])
+            rows_3d[label] = replay_rows(tmp / f"3d_{label}")[0]
+            launches_per_request(rep, ("residual_decode_3d", "suppress_pack_3d"),
+                                 f"detect3d_{label}", rep["driver"]["ticks"] + 1)
+            runs[f"detect3d_{label}"] = rep["driver"]
+        check(rows_3d["bag"] == rows_3d["npy"] == rows_3d["bag_bz2"],
+              "detect3d: rows from the bag, its bz2 copy and its .npy clouds differ")
+        dets_3d = sum(len(r["pred_scores"]) for r in rows_3d["bag"])
+        check(dets_3d > 0, "detect3d kept nothing on the replayed scans")
+        cli_in_process(detect3d_cli.main, [*common, "-i", str(bags / "kitti.bag"), "--sink", "bag",
+                                           "-o", str(tmp / "3d_out")])
+        with rosbag.BagReader(str(tmp / "3d_out" / "kitti.bag_output.bag")) as r:
+            arrays = [m for _, m, _ in r.read_messages(topics=["/tpu_detections/boxes3d"])]
+            clouds_out = [rosbag.pointcloud2_to_xyzi(m)
+                          for _, m, _ in r.read_messages(topics=["/points"])]
+        check(len(arrays) == len(clouds_out) == REPLAY_SCANS, "the output bag's message count")
+        for arr, row, cloud, frame in zip(arrays, rows_3d["bag"], clouds_out,
+                                          BagPointCloudSource(str(bags / "kitti.bag"))):
+            boxes = np.asarray(row["pred_boxes"], np.float32).reshape(-1, 7)
+            got = np.asarray([[b.pose.position.x, b.pose.position.y, b.pose.position.z,
+                               b.dimensions.y, b.dimensions.x, b.dimensions.z]
+                              for b in arr.boxes], np.float32).reshape(-1, 6)
+            check(got.tobytes() == boxes[:, :6].tobytes()
+                  and [b.label for b in arr.boxes] == row["pred_labels"]
+                  and [np.float32(b.value) for b in arr.boxes]
+                  == [np.float32(v) for v in row["pred_scores"]],
+                  f"the output bag's boxes of scan {frame.frame_id} are not its rows'")
+            check(cloud.tobytes() == frame.data.tobytes(), "the output bag's cloud differs")
+        checks["3d_kitti"] = {"scans": REPLAY_SCANS, "detections": dets_3d,
+                              "bag_equals_npy_and_bz2": True, "output_bag_equals_rows": True}
+
+        # -- CenterPoint: 10 sweeps posed by the bag's odometry, against the clouds and
+        # the pose file at the bag's period ------------------------------------------------
+        common = ["-r", str(root_b), "-m", CP_ENTRY, "--sweeps", str(CP_SWEEPS), "--sink",
+                  "jsonl"]
+        rep_cp = cli_in_process(detect3d_cli.main, [*common, "-i", str(bags / "nusc.bag"),
+                                                    "--poses", "odom", "-o", str(tmp / "cp_bag")])
+        rep_cp_npy = cli_in_process(detect3d_cli.main, [
+            *common, "-i", str(tmp / "nusc_npy"), "--poses", str(bags / "nusc.bag.poses.jsonl"),
+            "--scan-period", str(synthdata.REPLAY_PERIOD), "-o", str(tmp / "cp_npy")])
+        rows_cp, rows_cp_npy = (replay_rows(tmp / d)[0] for d in ("cp_bag", "cp_npy"))
+        check(rows_cp == rows_cp_npy, "CenterPoint --poses odom: rows from the bag differ from "
+              "the .npy clouds' with the pose file")
+        check(rep_cp["sweeps"] == CP_SWEEPS and all(len(r["pred_velocities"]) ==
+                                                    len(r["pred_scores"]) for r in rows_cp),
+              "CenterPoint rows without velocities")
+        dets_cp = sum(len(r["pred_scores"]) for r in rows_cp)
+        check(dets_cp > 0, "CenterPoint kept nothing on the replayed sweeps")
+        for label, rep in (("centerpoint_bag_odom", rep_cp), ("centerpoint_npy_poses",
+                                                              rep_cp_npy)):
+            launches_per_request(rep, ("suppress_pack_3d",), label, rep["driver"]["ticks"] + 1)
+            runs[label] = rep["driver"]
+        checks["centerpoint_odom"] = {"scans": REPLAY_SWEEPS, "detections": dets_cp,
+                                      "bag_odom_equals_npy_pose_file": True}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp)
+        torch.cuda.empty_cache()
+
+    rates = {label: {"per_s": r["fps"], "p50_ms": r["p50_ms"], "frames": r["frames"]}
+             for label, r in runs.items()}
+    emit("replay", card, bag_bytes=bag_bytes, write_s=write_s, scan_points=points,
+         sweep_points=sweep_points, widest_aggregate=widest, period_s=synthdata.REPLAY_PERIOD, checks=checks,
+         launches=launches, rates=rates, host_read_decode_ms_per_message=host_ms,
+         wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def load_names_of(entry: pathlib.Path) -> list[str]:
+    """A repository entry's class names (its config's class_names_file)."""
+    from triton_client_tpu_torch.dataset_config import load_yaml
+    from triton_client_tpu_torch.pipelines.detect2d import load_class_names
+
+    doc = load_yaml(str(entry / "config.yaml"))
+    path = (doc.get("pipeline") or {}).get("class_names_file") or doc.get("class_names_file")
+    return list(load_class_names(path)) if path else []
+
+
+def read_png(path: pathlib.Path) -> np.ndarray:
+    """A PNG's RGB pixels (cv2 where installed, else PIL)."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        return np.asarray(Image.open(path).convert("RGB"))
+    return cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
 
 
 if __name__ == "__main__":

@@ -37,6 +37,8 @@ from triton_client_tpu_torch.runtime import faults
 from triton_client_tpu_torch.runtime.admission import DeadlineExpiredError, QueueFullError
 from triton_client_tpu_torch.runtime.batching import BatchingChannel
 from triton_client_tpu_torch.runtime.continuous import ContinuousBatchingChannel, LiveBuckets
+from triton_client_tpu_torch.parallel.ragged_kernels import ragged_row_bucket
+from triton_client_tpu_torch.runtime.padding import bucket
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
 _W = torch.from_numpy(POOL_W)
@@ -314,6 +316,64 @@ def test_ragged_group_matches_solo(pool_repo):
         s = cont.stats()
         assert (s["ragged_batches"], s["ragged_segments"], s["ragged_rows"]) == (1, 5, 67)
         assert s["ragged_pad_rows"] == 80 - 67
+    finally:
+        cont.close()
+
+
+class _RecordingBackend:
+    """Warms up and "captures" by calling the body; a replay calls it again
+    into the captured outputs, as a graph rewrites its static outputs."""
+
+    def __init__(self):
+        self.captures, self.owned = [], []
+
+    def warmup(self, fn, inputs, times):
+        for _ in range(times):
+            fn(*inputs)
+
+    def capture(self, fn, inputs, owner):
+        self.captures.append((owner.name, tuple(tuple(a.shape) for a in inputs)))
+        self.owned.append(gpu_segment._owned.tickets)
+        outputs = fn(*inputs)
+
+        def replay():
+            for k, v in fn(*inputs).items():
+                outputs[k].copy_(v)
+
+        return replay, outputs, 0
+
+
+def test_the_packed_route_captures_once_a_segment_and_row_bucket(pool_repo):
+    """The channel's packed route goes through a captured launcher per
+    segment bucket, one graph a packed-row bucket: a recording backend
+    sees one capture per (segment bucket, row bucket), inside the owned
+    ticket scope, and replays after that; members equal their solo
+    results, as on the eager route."""
+    groups = [(3, 11, 8), (3, 11, 9), (40, 5), (3, 11, 8), (3, 11, 8, 40, 5), (40, 5)]
+    inner = CUDAChannel(pool_repo, "cpu")
+    inner.graph_backend = backend = _RecordingBackend()
+    eager = CUDAChannel(pool_repo, "cpu", capture_ragged=False)
+    cont = ContinuousBatchingChannel(inner)
+    try:
+        keys = []
+        for sizes in groups:
+            clouds, futs, group = _ragged_group(sizes)
+            layout_key = (bucket(len(sizes)), ragged_row_bucket(sum(sizes)))
+            keys.append(layout_key)
+            cont._run_ragged_group(group)
+            for i, (pts, bias) in clouds.items():
+                got = futs[i].result(timeout=60.0).outputs["pooled"]
+                solo = eager.do_inference(InferRequest("pool", {"points": pts, "bias": bias}))
+                np.testing.assert_allclose(got, solo.outputs["pooled"], rtol=1e-5, atol=1e-5)
+        want = sorted(set(keys))
+        got = sorted((int(name.rsplit(":", 1)[1]), shapes[0][0])
+                     for name, shapes in backend.captures)
+        assert got == want and len(want) < len(groups)
+        assert all(isinstance(o, gpu_segment.OwnedTickets) for o in backend.owned)
+        stats = inner.ragged_graph_stats()
+        assert sum(s["captures"] for s in stats.values()) == len(want)
+        assert sum(s["replays"] for s in stats.values()) == len(groups)
+        assert sorted(stats) == sorted({k[0] for k in want})
     finally:
         cont.close()
 

@@ -200,8 +200,11 @@ def test_sinks(tmp_path):
     row = json.loads((tmp_path / "d" / "log.jsonl").read_text())
     assert row == {"frame_id": 3, "ts": 1.5, "detections": [[0, 0, 1, 1, 0.5, 0]], "n": 2}
     NullSink().write(frame, {})
-    with pytest.raises(NotImplementedError, match="io/draw.py"):
-        ImageFileSink(str(tmp_path))
+    # ImageFileSink draws the rows and writes {frame_id:04d}.png
+    images = ImageFileSink(str(tmp_path / "png"))
+    images.write(frame, {"detections": np.zeros((1, 6), np.float32), "valid": np.array([True])})
+    images.close()
+    assert [p.name for p in (tmp_path / "png").iterdir()] == ["0003.png"]
 
 
 def _jsonl(path):

@@ -231,6 +231,58 @@ def test_dict_outputs_are_cloned_too(counter):
     assert torch.equal(out["a"], x + 1) and torch.equal(out2["a"], x + 2)
 
 
+def test_the_capture_scope_wraps_warmup_and_capture_and_lives_with_the_graph(counter):
+    """``capture_scope`` is entered once a key, around its warmup calls and
+    its capture, and what it yields is kept with the key's graph."""
+    import contextlib
+
+    events = []
+
+    class Recording(StandIn):
+        def warmup(self, fn, inputs, times):
+            events.append("warmup")
+            super().warmup(fn, inputs, times)
+
+        def capture(self, fn, inputs, owner):
+            events.append("capture")
+            return super().capture(fn, inputs, owner)
+
+    @contextlib.contextmanager
+    def scope():
+        held = object()
+        events.append(("enter", id(held)))
+        yield held
+        events.append("exit")
+
+    captured = CapturedFunction(_fn_with(counter), "f", backend=Recording(_compute),
+                                capture_scope=scope)
+    x = torch.ones(2, 3)
+    for _ in range(3):
+        captured(x, x)
+    captured(torch.ones(4, 3), torch.ones(4, 3))
+    assert [e if isinstance(e, str) else e[0] for e in events] == [
+        "enter", "warmup", "capture", "exit"] * 2
+    keeps = [entry.keep for entry in captured._entries.values()]
+    assert [id(k) for k in keeps] == [e[1] for e in events if not isinstance(e, str)]
+
+
+def test_owned_tickets_are_one_a_thread_and_cleared():
+    from triton_client_tpu_torch.ops import gpu_segment
+
+    with gpu_segment.owned_tickets() as held:
+        assert gpu_segment._owned.tickets is held and held.buf is None
+        with pytest.raises(RuntimeError, match="already open"):
+            with gpu_segment.owned_tickets():
+                pass
+        seen = []
+        t = threading.Thread(target=lambda: seen.append(getattr(gpu_segment._owned, "tickets",
+                                                                 None)))
+        t.start()
+        t.join()
+        assert seen == [None]  # another thread's launches keep the per-stream buffers
+    assert gpu_segment._owned.tickets is None
+
+
 # -- on the card -------------------------------------------------------------
 
 
@@ -509,4 +561,76 @@ def test_a_device_fn_that_syncs_fails_its_capture_and_counts_a_launch_failure(cu
     with pytest.raises(cuda_build.KernelError):
         chan.do_inference(InferRequest("y", {"images": frames}))
     assert chan.stats()["launch_failures"] == 2
+    assert torch.rand(3, device=cuda_device).shape == (3,)
+
+
+def _pool_channel(cuda_device, capture):
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.models.pool import register_pool
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    repo = ModelRepository()
+    register_pool(repo, cuda_device)
+    return CUDAChannel(repo, capture_ragged=capture)
+
+
+def _packed_request(sizes, seed):
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.parallel.ragged_kernels import RaggedLayout, pack_rows
+
+    rng = np.random.default_rng(seed)
+    layout = RaggedLayout(tuple(sizes))
+    clouds = [rng.normal(0, 10, (n, 4)).astype(np.float32) for n in sizes]
+    bias = rng.normal(0, 1, (layout.seg_bucket, 1, 4)).astype(np.float32)
+    return InferRequest("pool", {"points": pack_rows(clouds, layout), "bias": bias},
+                        ragged=layout)
+
+
+@pytest.mark.cuda
+def test_ragged_route_capture_equals_eager_bitwise_on_card(cuda_device):
+    """The packed route through its graphs (one a segment bucket and
+    packed-row bucket) equals the eager route bit for bit; each replay
+    counts kernel 6's one launch; the graphs own their tickets, left at
+    zero, and the per-stream buffers gain no entry from a capture."""
+    from triton_client_tpu_torch.ops import gpu_segment
+
+    captured, eager = _pool_channel(cuda_device, True), _pool_channel(cuda_device, False)
+    groups = [(20_000, 120_000, 45_000), (3, 11, 8, 40, 5), (20_000, 119_000, 46_000),
+              (7, 9), (20_000, 120_000, 45_000)]
+    reqs = [_packed_request(sizes, seed) for seed, sizes in enumerate(groups)]
+    for req in reqs:  # every graph captured before the counted window
+        captured.do_inference(req)
+    torch.cuda.synchronize()
+    streams = set(gpu_segment._tickets_by_stream)
+    gpu_segment.launches.reset()
+    for _ in range(2):
+        for req in reqs:
+            got, want = captured.do_inference(req).outputs, eager.do_inference(req).outputs
+            assert got["pooled"].tobytes() == want["pooled"].tobytes()
+    assert gpu_segment.launches.count == 2 * 2 * len(reqs)  # replays and eager calls
+    stats = captured.ragged_graph_stats()
+    keys = {(r.ragged.seg_bucket, r.ragged.padded_rows) for r in reqs}
+    assert sum(s["captures"] for s in stats.values()) == len(keys)
+    assert sum(s["replays"] for s in stats.values()) == 3 * len(reqs)
+    assert set(gpu_segment._tickets_by_stream) <= streams | {
+        (cuda_device.index or 0, torch.cuda.current_stream().cuda_stream)}
+    for launcher in (v[1] for k, v in captured._launch_cache.items() if k[2:3] == ("ragged",)):
+        for entry in launcher.graphs._entries.values():
+            assert entry.keep.buf is not None and int(entry.keep.buf.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_kernel6_captured_without_owned_tickets_raises_on_card(cuda_device):
+    from triton_client_tpu_torch.ops import gpu_segment
+
+    def body(values, ids):
+        return (gpu_segment.segment_sum(values, ids, 4),)
+
+    values = torch.ones(3000, 4, device=cuda_device)
+    ids = torch.arange(3000, device=cuda_device, dtype=torch.int32) % 4
+    bare = CapturedFunction(body, "bare")
+    with pytest.raises(cuda_build.KernelError, match="no owned ticket buffer"):
+        bare(values, ids)
+    owned = CapturedFunction(body, "owned", capture_scope=gpu_segment.owned_tickets)
+    assert torch.equal(owned(values, ids)[0], gpu_segment.segment_sum(values, ids, 4))
     assert torch.rand(3, device=cuda_device).shape == (3,)

@@ -19,7 +19,8 @@ _BLOCKER = r"""
 import importlib, json, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "triton_client_tpu", "grpc", "google",
-           "msgpack", "onnx")
+           "msgpack", "onnx", "cv2", "PIL", "prometheus_client", "lz4", "rospy", "cv_bridge",
+           "open3d")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -42,7 +43,9 @@ print(json.dumps(sorted(names)))
 def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
     """Also grpc, protobuf, msgpack and onnx: every module imports on a host
     without them (grpc is imported where a socket opens; the weight readers
-    parse msgpack and ONNX bytes themselves)."""
+    parse msgpack and ONNX bytes themselves); and the optional packages of
+    replay and display (cv2, PIL, prometheus_client, lz4, rospy, cv_bridge,
+    open3d), which are imported inside the functions that use them."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
@@ -97,6 +100,17 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.models.centerpoint",
         "triton_client_tpu_torch.ops.sweeps",
         "triton_client_tpu_torch.io.bag_io",
+        "triton_client_tpu_torch.io.rosbag",
+        "triton_client_tpu_torch.io.sources",
+        "triton_client_tpu_torch.io.sinks",
+        "triton_client_tpu_torch.io.synthdata",
+        "triton_client_tpu_torch.io.draw",
+        "triton_client_tpu_torch.io.draw3d",
+        "triton_client_tpu_torch.io.viz3d",
+        "triton_client_tpu_torch.eval.prometheus_export",
+        "triton_client_tpu_torch.cli.evaluate",
+        "triton_client_tpu_torch.cli.tools",
+        "triton_client_tpu_torch.drivers.ros",
     ):
         assert must in names
 

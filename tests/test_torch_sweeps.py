@@ -251,8 +251,10 @@ def test_the_config_sets_nsweeps_and_the_replay_clock_repeats(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--poses", "{poses}", "--sweeps", "1"], "add --sweeps N"),
     (["--poses", "missing.jsonl", "--sweeps", "3"], "no such pose file"),
-    (["--poses", "odom", "--sweeps", "3"], "item 6 "),
-    (["--poses", "odom:/odom", "--sweeps", "3"], "item 6 "),
+    pytest.param(["--poses", "odom", "--sweeps", "3"], "the input must be a .bag",
+                 id="argv2-item 6 "),
+    pytest.param(["--poses", "odom:/odom", "--sweeps", "3"], "the input must be a .bag",
+                 id="argv3-item 6 "),
     (["-i", "ros:/points", "--sweeps", "2"], "replay-only"),
     (["--poses", "{poses}", "-m", "pointpillars", "--device", "cpu", "--pc-range",
       "0,-6.4,-3,12.8,6.4,1", "--voxel-size", "0.2,0.2,4"], "add --sweeps N"),
@@ -261,7 +263,7 @@ def test_sweep_guards_match_the_jax_cli(tmp_path, argv, match):
     """The JAX CLI's guards: --poses needs more than one sweep (decided
     early from --sweeps, later from the config's nsweeps: PointPillars'
     is 1), a pose file that exists, and live input stays single-sweep;
-    a bag's odometry names the bag reader's item."""
+    a bag's odometry (--poses odom) needs a .bag input."""
     from triton_client_tpu_torch.cli import detect3d as tcli
 
     poses = tmp_path / "p.jsonl"

@@ -24,10 +24,13 @@ at the boundary, lazily (``channel/staged.py``).
   Such a launch counts under ``donated_launches``.
 - **Packed ragged requests** (``request.ragged`` set by the continuous
   batcher): the packed inputs and the layout's (R,) int32 segment ids
-  upload, the model's ``ragged_fn`` runs eagerly at the layout's
-  ``launch_segments``, and the dead segment slots are sliced off the
-  outputs whose leading dim is the segment bucket. Their inputs skip the
-  per-tensor spec check.
+  upload, and the model's ``ragged_fn`` runs at the layout's
+  ``launch_segments`` through a ``CapturedFunction`` of its own for each
+  segment bucket (``_make_ragged_launcher``), one graph a packed-row
+  bucket, whose kernel-6 launches use a ticket buffer the graph owns
+  (``ops/gpu_segment.owned_tickets``). The dead segment slots are sliced
+  off the outputs whose leading dim is the segment bucket. Their inputs
+  skip the per-tensor spec check.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from triton_client_tpu_torch.channel.staged import (  # noqa: F401 (re-exported)
     cast_wire_input,
 )
 from triton_client_tpu_torch.device import resolve_device
+from triton_client_tpu_torch.ops.gpu_segment import owned_tickets
 from triton_client_tpu_torch.runtime.precision import host_tensor
 from triton_client_tpu_torch.runtime.graphs import CapturedFunction
 from triton_client_tpu_torch.runtime.repository import ModelRepository
@@ -87,15 +91,24 @@ class _StagingSlot:
 class CUDAChannel(StagedChannel):
     """Single-device in-process serving channel (see module docstring)."""
 
+    # what warms up and captures the launchers' graphs (runtime/graphs):
+    # None is CUDA graphs on the card and plain calls on the CPU
+    graph_backend = None
+
     def __init__(
         self,
         repository: ModelRepository,
         device: str | torch.device | None = None,
+        capture_ragged: bool = True,
         **kwargs,
     ) -> None:
-        """``device``: ``cuda`` unless the caller passes ``cpu``. The other
-        arguments are ``StagedChannel``'s (``pipeline_depth``,
-        ``shed_expired``, ``breaker_threshold``, ``breaker_reset_s``)."""
+        """``device``: ``cuda`` unless the caller passes ``cpu``.
+        ``capture_ragged=False`` runs the packed route's ``ragged_fn``
+        eagerly, the comparison leg of the tests and of the card's smoke
+        run. The other arguments are ``StagedChannel``'s
+        (``pipeline_depth``, ``shed_expired``, ``breaker_threshold``,
+        ``breaker_reset_s``)."""
+        self.capture_ragged = capture_ragged
         self._free_slots: list[_StagingSlot] = []
         self._slots_lock = threading.Lock()
         super().__init__(repository, resolve_device(device), **kwargs)
@@ -198,10 +211,54 @@ class CUDAChannel(StagedChannel):
         def body(*tensors):
             return device_fn(dict(zip(names, tensors)))
 
-        captured = CapturedFunction(body, f"{model.spec.name}:{model.spec.version}")
+        captured = CapturedFunction(body, f"{model.spec.name}:{model.spec.version}",
+                                    backend=self.graph_backend)
 
         def launcher(device_inputs):
             return captured(*(device_inputs[n] for n in names))
 
         launcher.graphs = captured
         return launcher, self._donate_names(model), _wire_dtypes(model.spec)
+
+    def _make_ragged_launcher(self, model, num_segments: int):
+        """A ``CapturedFunction`` over the model's ``ragged_fn`` at
+        ``num_segments``, called with the packed inputs in name order and
+        the segment ids last; each graph owns its kernel-6 tickets."""
+        ragged_fn = model.ragged_fn
+        names = tuple(t.name for t in model.spec.inputs)
+
+        def body(*tensors):
+            return ragged_fn(dict(zip(names, tensors)), tensors[-1], num_segments)
+
+        if not self.capture_ragged:
+            def eager(device_inputs):
+                return body(*(device_inputs[n] for n in names), device_inputs[SEGMENT_IDS_KEY])
+
+            return eager
+        captured = CapturedFunction(
+            body, f"{model.spec.name}:{model.spec.version}:ragged:{num_segments}",
+            backend=self.graph_backend, capture_scope=owned_tickets,
+        )
+
+        def launcher(device_inputs):
+            return captured(*(device_inputs[n] for n in names), device_inputs[SEGMENT_IDS_KEY])
+
+        launcher.graphs = captured
+        return launcher
+
+    def ragged_graph_stats(self) -> dict:
+        """``{segment bucket: CapturedFunction.stats()}`` of the cached
+        ragged launchers (captures, replays and keys, a key a packed-row
+        bucket), summed over models."""
+        out: dict[int, dict] = {}
+        with self._slot_cv:
+            cached = [(k[3], v[1]) for k, v in self._launch_cache.items()
+                      if len(k) == 4 and k[2] == "ragged"]
+        for segments, launcher in cached:
+            graphs = getattr(launcher, "graphs", None)
+            if graphs is None:
+                continue
+            acc = out.setdefault(segments, {})
+            for name, value in graphs.stats().items():
+                acc[name] = acc.get(name, 0) + value
+        return out

@@ -6,8 +6,9 @@
   At ``pipeline_depth`` (default 2) request N+1's host-to-device copy
   runs while request N executes; ``pipeline_depth=1`` is the serial path.
 - **launch**: enqueue the model through the launcher the subclass builds
-  in :meth:`StagedChannel._make_launcher`, cached per model identity
-  (``_launcher``) and dropped when the model is unregistered or its
+  in :meth:`StagedChannel._make_launcher` (a packed ragged request: in
+  :meth:`StagedChannel._make_ragged_launcher`, one a segment bucket),
+  cached per model identity (``_launcher``, ``_ragged_launcher``) and dropped when the model is unregistered or its
   circuit breaker opens. Outputs stay on the device; a CUDA event is
   recorded behind them.
 - **resolve**: lazy. ``launch`` returns an ``InferFuture``; the
@@ -405,14 +406,9 @@ class StagedChannel(BaseChannel):
             faults.probe("slow_launch", name)
             faults.probe("launch", name)
             if request.ragged is not None:
-                # the packed route runs eagerly: kernel 6's ticket buffer is
-                # keyed by stream, which a capture's private pool would hold
-                if model.ragged_fn is None:
-                    raise ValueError(f"model '{name}' has no ragged_fn for a packed request")
-                inputs = dict(staged.device_inputs)
-                ids = inputs.pop(SEGMENT_IDS_KEY)
-                outputs = model.ragged_fn(inputs, ids, request.ragged.launch_segments)
-                out_dtype = _wire_dtypes(model.spec)
+                launcher, out_dtype = self._ragged_launcher(
+                    model, request.ragged.launch_segments)
+                outputs = launcher(staged.device_inputs)
             else:
                 launcher, donate_names, out_dtype = self._launcher(model)
                 if launcher is not None:
@@ -474,6 +470,29 @@ class StagedChannel(BaseChannel):
         its slot."""
         self._consumed(staged)
         self._release_slot()
+
+    def _ragged_launcher(self, model, num_segments: int):
+        """(launcher, wire dtypes) of a model's packed route at one segment
+        bucket, cached per model identity and bucket as JAX caches its
+        ``_ragged_launcher``: ``launcher(device_inputs)`` takes the packed
+        inputs with the segment ids under ``SEGMENT_IDS_KEY``."""
+        if model.ragged_fn is None:
+            raise ValueError(f"model '{model.spec.name}' has no ragged_fn for a packed request")
+        key = (model.spec.name, model.spec.version, "ragged", int(num_segments))
+        with self._slot_cv:
+            cached = self._launch_cache.get(key)
+            if cached is not None and cached[0] is model:
+                return cached[1], cached[3]
+        launcher = self._make_ragged_launcher(model, int(num_segments))
+        out_dtype = _wire_dtypes(model.spec)
+        with self._slot_cv:
+            self._launch_cache[key] = (model, launcher, frozenset(), out_dtype)
+        return launcher, out_dtype
+
+    def _make_ragged_launcher(self, model, num_segments: int):
+        """``launcher(device_inputs) -> device outputs`` over the model's
+        ``ragged_fn`` at ``num_segments``."""
+        raise NotImplementedError
 
     def _launcher(self, model):
         """(launcher | None, donate names, wire dtypes), cached per model

@@ -10,9 +10,10 @@ channel, ``--shm``/``--no-shm``, ``-r`` repository, ``-b`` batch size,
 staging slots) and ``--device``.
 
 ``-u`` takes ``cuda`` (in-process, the default: the JAX CLIs' ``tpu``) or
-``grpc:<host:port>`` / ``grpc:unix:<path>``, a remote ``serve``. Still
-refused, each naming its ROADMAP.md Queue 1 item: the image and bag
-sinks, ``--prometheus-port`` and ``ros:`` input (item 6).
+``grpc:<host:port>`` / ``grpc:unix:<path>``, a remote ``serve``. ``-i``
+takes ``synthetic[:N[:HxW]]``, an image directory, a video file, a
+``.bag``, a directory of ``.npy`` clouds (3D) or ``ros:<topic>`` (a live
+topic, where rospy is installed).
 """
 
 from __future__ import annotations
@@ -24,9 +25,6 @@ import os
 from typing import Callable
 
 import numpy as np
-
-_ITEM_EVAL = "6 (eval/prometheus_export.py, io/draw.py, io/bag_io.py, drivers/ros.py)"
-
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("-m", "--model-name", default="", help="served model name")
@@ -70,19 +68,24 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "-i", "--input", default="synthetic:32",
-        help="source: synthetic[:N[:HxW]] images, or for 3D synthetic[:N] or a directory "
-        "of .npy clouds",
+        help="source: image dir | video file | rosbag (*.bag) | synthetic[:N[:HxW]] | "
+        "npy dir (3D) | ros:<topic> (live, needs rospy)",
     )
     parser.add_argument("--limit", type=int, default=0, help="max frames")
     parser.add_argument(
         "--sink", default="null", choices=("null", "images", "jsonl", "bag"),
-        help="where detections go: nowhere, or <output>/detections.jsonl (images and bag "
-        "are not ported yet)",
+        help="where detections go: nowhere, annotated PNGs in <output> (2D), "
+        "<output>/detections.jsonl, or an output bag in <output> (3D: the input clouds and "
+        "a jsk box array a frame)",
     )
     parser.add_argument("-o", "--output", default="./output_data")
     parser.add_argument("--names", default="", help="class-names file")
     parser.add_argument("--gt", default="", help="ground-truth JSONL for eval")
-    parser.add_argument("--prometheus-port", type=int, default=0, help="not ported yet")
+    parser.add_argument(
+        "--prometheus-port", type=int, default=0,
+        help="with --gt: serve the evaluator's five Summaries on this port after the run "
+        "(until interrupted)",
+    )
     parser.add_argument(
         "--async", dest="async_set", action="store_true",
         help="pipeline inference with async futures: keep --inflight requests "
@@ -113,23 +116,14 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     )
 
 
-def check_unported(args) -> None:
-    """Refuse, naming their ROADMAP item, the flags of layers the port does
-    not have yet, and ``-u`` values other than ``cuda`` and ``grpc:``."""
+def check_channel(args) -> None:
+    """Refuse ``-u`` values other than ``cuda`` and ``grpc:``."""
     if args.channel == "tpu":
         raise SystemExit("-u tpu is the JAX package's in-process channel; this port of it "
                          "runs on CUDA: use -u cuda (the default) or -u grpc:<host:port>")
     if args.channel != "cuda" and not args.channel.startswith("grpc:"):
         raise SystemExit(f"-u {args.channel}: use 'cuda' or 'grpc:<host:port>' / "
                          "'grpc:unix:<path>'")
-    if args.sink in ("images", "bag"):
-        raise SystemExit(f"--sink {args.sink} is not ported yet (ROADMAP.md Queue 1 item "
-                         f"{_ITEM_EVAL}); use --sink jsonl")
-    if args.prometheus_port:
-        raise SystemExit(f"--prometheus-port is not ported yet (ROADMAP.md Queue 1 item "
-                         f"{_ITEM_EVAL})")
-    if args.input.startswith("ros:"):
-        raise SystemExit(f"ros: input is not ported yet (ROADMAP.md Queue 1 item {_ITEM_EVAL})")
 
 
 def remote(args) -> bool:
@@ -163,15 +157,26 @@ def _check_async_flags(args) -> None:
             "--async pipelines single-frame dispatches; it does not "
             "combine with -b/--batch-size"
         )
+    if args.input.startswith("ros:"):
+        raise SystemExit("--async is replay-mode only; the live ROS driver already "
+                         "overlaps decode and compute through its bounded queue")
     if args.inflight < 2:
         raise SystemExit("--inflight must be >= 2 with --async")
 
 
-def make_sink(args):
-    from triton_client_tpu_torch.io.sinks import DetectionLogSink, NullSink
+def make_sink(args, class_names: tuple[str, ...] = ()):
+    from triton_client_tpu_torch.io.sinks import DetectionLogSink, ImageFileSink, NullSink
 
+    if args.sink == "images":
+        return ImageFileSink(args.output, class_names)
     if args.sink == "jsonl":
         return DetectionLogSink(os.path.join(args.output, "detections.jsonl"))
+    if args.sink == "bag":
+        from triton_client_tpu_torch.io.bag_io import OutputBagSink, default_output_bag
+
+        name = default_output_bag(args.input) if args.input.endswith(".bag") else "output.bag"
+        os.makedirs(args.output, exist_ok=True)
+        return OutputBagSink(os.path.join(args.output, name))
     return NullSink()
 
 
@@ -201,29 +206,6 @@ def load_gt_lookup(path: str) -> Callable:
                 continue
             row = json.loads(line)
             table[int(row["frame_id"])] = np.asarray(row["boxes"], np.float64).reshape(-1, 5)
-
-    def lookup(frame):
-        return table.get(frame.frame_id)
-
-    return lookup
-
-
-def load_gt3d_lookup(path: str) -> Callable:
-    """gt3d JSONL -> frame lookup of (n, 8|10) [cx, cy, cz, dx, dy, dz,
-    yaw, cls(, vx, vy)] arrays (the JAX package keeps this one in
-    ``io/synthdata.py``, whose other parts wait for ROADMAP.md Queue 1
-    item 6); 10-column rows carry velocity labels."""
-    table: dict[int, np.ndarray] = {}
-    with open(path) as f:
-        for line in f:
-            if not line.strip():
-                continue
-            row = json.loads(line)
-            arr = np.asarray(row["boxes"], np.float64)
-            arr = arr.reshape(len(row["boxes"]), -1) if len(row["boxes"]) else arr.reshape(0, 8)
-            if arr.shape[1] not in (8, 10):
-                raise ValueError(f"gt3d rows must have 8 or 10 columns, got {arr.shape[1]}")
-            table[int(row["frame_id"])] = arr
 
     def lookup(frame):
         return table.get(frame.frame_id)
@@ -312,13 +294,15 @@ def make_evaluator(args, kind: str):
 
     if kind == "2d":
         return DetectionEvaluator(), load_gt_lookup(args.gt)
+    from triton_client_tpu_torch.io.synthdata import load_gt3d_lookup
+
     return Detection3DEvaluator(), load_gt3d_lookup(args.gt)
 
 
 def run_driver(args, infer, source, sink, batch_size: int, kind: str):
     """The shared tail of both CLIs, local and remote: the driver over the
     source with the --gt evaluator, --profile table and --profile-trace
-    window. Returns (stats, eval summary or None)."""
+    window. Returns (stats, eval summary or None, evaluator or None)."""
     import sys
 
     from triton_client_tpu_torch.drivers.driver import InferenceDriver
@@ -341,4 +325,50 @@ def run_driver(args, infer, source, sink, batch_size: int, kind: str):
         stats = driver.run(max_frames=args.limit)
     if profiler is not None:
         print(profiler.report(), file=sys.stderr)
-    return stats, evaluator.summary() if evaluator is not None else None
+    return stats, evaluator.summary() if evaluator is not None else None, evaluator
+
+
+def serve_eval_metrics(port: int, evaluator) -> None:
+    """``--prometheus-port``: observe each evaluated frame into the five
+    Summaries of ``EvalPrometheusExporter`` on ``port``, then keep the
+    process (and its HTTP server) alive until interrupted, so a scrape can
+    happen."""
+    import sys
+    import time
+
+    from triton_client_tpu_torch.eval.prometheus_export import EvalPrometheusExporter
+
+    exporter = EvalPrometheusExporter(port)
+    for frame_stats in evaluator.per_frame_summaries():
+        exporter.observe(*frame_stats)
+    print(f"serving eval metrics on :{port}; Ctrl-C to exit", file=sys.stderr, flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+
+
+def ros_node(kind: str, infer, topic: str, class_names: tuple[str, ...] = ()):
+    """``-i ros:<topic>`` -> the live node of ``drivers/ros.py`` (SystemExit
+    with its message where ROS is not installed)."""
+    from triton_client_tpu_torch.drivers import ros
+
+    try:
+        if kind == "2d":
+            return ros.RosDetect2D(infer, sub_topic=topic, pub_topic="/tpu_detections/image",
+                                   class_names=class_names)
+        return ros.RosDetect3D(infer, sub_topic=topic, pub_topic="/tpu_detections/boxes3d")
+    except ImportError as e:
+        raise SystemExit(str(e))
+
+
+def require_ros() -> None:
+    """Fail a ``ros:`` input before any model is built where ROS is not
+    installed, with the ROS driver's own message."""
+    from triton_client_tpu_torch.drivers import ros
+
+    try:
+        ros._require_ros()
+    except ImportError as e:
+        raise SystemExit(str(e))

@@ -13,8 +13,15 @@ with ``--gt``, then the run's detections and, in-process, the kernel
 launches (counted over the driver's run, its warmup calls included) or,
 remote, the transport the channel used.
 
+The source (``-i``) is synthetic frames, an image directory, a video, a
+``.bag`` (its first Image/CompressedImage topic) or ``ros:<topic>``, a
+live camera topic (``drivers/ros.RosDetect2D``, where rospy is
+installed). ``--sink images`` writes annotated PNGs; with ``--gt``,
+``--prometheus-port`` serves the evaluator's Summaries after the run.
+
 Usage:
   python -m triton_client_tpu_torch detect2d -i synthetic:32
+  python -m triton_client_tpu_torch detect2d -i frames.bag --gt gt.jsonl --sink images -o out
   python -m triton_client_tpu_torch detect2d -i synthetic:32 -b 8 --sink jsonl -o out
   python -m triton_client_tpu_torch detect2d -r repo -m yolov5_crop --gt gt.jsonl
   python -m triton_client_tpu_torch detect2d -u grpc:127.0.0.1:8001 -m yolov5_crop --async
@@ -113,7 +120,7 @@ def build(args):
     return pipe, spec
 
 
-def _run_streaming(args, channel, spec) -> None:
+def _run_streaming(args, channel, spec, class_names) -> None:
     """Every source frame through ONE bidirectional ModelStreamInfer stream,
     responses sunk as they arrive: requests pipeline instead of waiting a
     round trip a frame."""
@@ -150,7 +157,7 @@ def _run_streaming(args, channel, spec) -> None:
             yield InferRequest(args.model_name, {"images": np.asarray(frame.data)[None]},
                                model_version=args.model_version, request_id=rid)
 
-    sink = CountingSink(make_sink(args), lambda result: result["valid"].sum())
+    sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
     latencies = []
     n = 0
     t0 = time.perf_counter()
@@ -193,40 +200,70 @@ def _check_remote(args) -> None:
                              "per-request latency is already in the report")
 
 
+def _class_names(args, spec) -> tuple[str, ...]:
+    """--names wins; else the model's own vocabulary (a repository entry's
+    class_names_file, or the served metadata's)."""
+    from triton_client_tpu_torch.cli.common import load_names
+
+    return load_names(args.names) or tuple(spec.extra.get("class_names", ()))
+
+
+def _serve_eval(args, evaluator) -> None:
+    if evaluator is not None and args.prometheus_port > 0:
+        from triton_client_tpu_torch.cli.common import serve_eval_metrics
+
+        serve_eval_metrics(args.prometheus_port, evaluator)
+
+
 def main(argv=None) -> None:
     from triton_client_tpu_torch.cli.common import (
         CountingSink,
         _check_async_flags,
-        check_unported,
+        check_channel,
         grpc_channel,
         make_sink,
         print_report,
         remote,
+        require_ros,
+        ros_node,
         run_driver,
     )
     from triton_client_tpu_torch.drivers.driver import channel_infer
     from triton_client_tpu_torch.io.sources import open_source
 
     args = parse_args(argv)
-    check_unported(args)
+    if args.sink == "bag":
+        raise SystemExit("--sink bag is 3D-only (the output bag carries point clouds and jsk "
+                         "box arrays); use --sink images or jsonl")
+    check_channel(args)
     if args.cameras > 1:
         raise SystemExit(f"--cameras is not ported yet (ROADMAP.md Queue 1 item {_ITEM_SERVING})")
     if args.async_set:
         _check_async_flags(args)
+    live = args.input.startswith("ros:")
+    if live:
+        require_ros()
 
     if remote(args):
         _check_remote(args)
         channel = grpc_channel(args)
         spec = channel.get_metadata(args.model_name, args.model_version)
+        class_names = _class_names(args, spec)
         if args.streaming:
-            _run_streaming(args, channel, spec)
+            if live:
+                raise SystemExit("--streaming is replay-mode only; drop it for ros:")
+            _run_streaming(args, channel, spec, class_names)
             channel.close()
             return
         infer = channel_infer(channel, args.model_name, model_version=args.model_version,
                               asynchronous=args.async_set)
-        sink = CountingSink(make_sink(args), lambda result: result["valid"].sum())
-        stats, summary = run_driver(args, infer, open_source(args.input, args.limit), sink,
-                                    args.batch_size, "2d")
+        if live:
+            ros_node("2d", infer, args.input[len("ros:"):], class_names).spin()
+            channel.close()
+            return
+        sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
+        stats, summary, evaluator = run_driver(args, infer, open_source(args.input, args.limit),
+                                               sink, args.batch_size, "2d")
         print_report(stats, summary, {
             "model": spec.name,
             "transport": channel.stats()["transport"],
@@ -234,6 +271,7 @@ def main(argv=None) -> None:
             "detections": sink.detections,
         })
         channel.close()
+        _serve_eval(args, evaluator)
         return
 
     if args.streaming:
@@ -246,8 +284,16 @@ def main(argv=None) -> None:
     from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     pipe, spec = build(args)
-    source = open_source(args.input, args.limit)
+    class_names = _class_names(args, spec)
     repo = ModelRepository()
+    if live:
+        # a live topic's frame size is not known before its first message
+        repo.register(spec, pipe.infer_fn())
+        channel = CUDAChannel(repo, device=pipe.device, pipeline_depth=args.pipeline_depth)
+        ros_node("2d", channel_infer(channel, spec.name), args.input[len("ros:"):],
+                 class_names).spin()
+        return
+    source = open_source(args.input, args.limit)
     # every graph the run needs, captured before traffic: the source's
     # frame size at the driver's batch size
     warmup = functools.partial(pipe.warmup, source.hw, batch_sizes=(args.batch_size,))
@@ -258,8 +304,8 @@ def main(argv=None) -> None:
 
     gpu_decode.launches.reset()
     gpu_nms.launches.reset()
-    sink = CountingSink(make_sink(args), lambda result: result["valid"].sum())
-    stats, summary = run_driver(args, infer, source, sink, args.batch_size, "2d")
+    sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
+    stats, summary, evaluator = run_driver(args, infer, source, sink, args.batch_size, "2d")
     print_report(stats, summary, {
         "model": spec.name,
         "device": str(pipe.device),
@@ -273,6 +319,7 @@ def main(argv=None) -> None:
         "graphs": pipe.graph_stats(),
         "channel": {k: v for k, v in channel.stats().items() if k != "breaker"},
     })
+    _serve_eval(args, evaluator)
 
 
 if __name__ == "__main__":

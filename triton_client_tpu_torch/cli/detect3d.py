@@ -14,13 +14,22 @@ JSON summary: the driver's stats under ``driver``, ``eval`` with
 transport. As in the JAX CLI, a 3D dispatch takes one cloud: ``-b`` does
 not batch.
 
+The source (``-i``) is synthetic clouds, a directory of ``.npy`` clouds,
+a ``.bag`` (its first PointCloud2 topic, frames stamped with their
+header stamps) or ``ros:<topic>``, a live topic
+(``drivers/ros.RosDetect3D``, where rospy is installed). ``--sink bag``
+writes each input cloud and a jsk box array of its detections into
+``<output>/<bag>_output.bag``; ``--show`` opens an Open3D window a frame.
+
 ``--sweeps N`` aggregates the last N scans of a replay into one cloud with
 a Δt column (``ops/sweeps.sweep_source``, on the client in remote mode);
-``--poses <file.jsonl>`` moves the older sweeps into the keyframe's frame.
+``--poses <file.jsonl>`` or ``--poses odom[:topic]`` (the input bag's
+odometry) moves the older sweeps into the keyframe's frame.
 N defaults to the config's ``nsweeps`` (10 for
 ``data/nusc_centerpoint.yaml``) and to 1 for ``-u grpc:``. Δt comes from the
-frames' timestamps: the wall clock at read, as in the JAX CLI, or
-``--scan-period S`` (frame i at i * S s) for a run that repeats bit for bit.
+frames' timestamps: a bag's header stamps, or for ``.npy`` clouds the
+wall clock at read, as in the JAX CLI, or ``--scan-period S`` (frame i at
+i * S s) for a run that repeats bit for bit.
 
 Usage:
   python -m triton_client_tpu_torch detect3d -i synthetic:16
@@ -30,6 +39,8 @@ Usage:
   python -m triton_client_tpu_torch detect3d -u grpc:127.0.0.1:8001 -m pointpillar_kitti
   python -m triton_client_tpu_torch detect3d --config data/nusc_centerpoint.yaml -i ./sweeps \
       --sweeps 10 --poses poses.jsonl --scan-period 0.05
+  python -m triton_client_tpu_torch detect3d --config data/nusc_centerpoint.yaml -i drive.bag \
+      --sweeps 10 --poses odom --sink bag -o out
   python -m triton_client_tpu_torch detect3d -i synthetic:2 --device cpu \
       --pc-range 0,-6.4,-3,12.8,6.4,1 --voxel-size 0.2,0.2,4
   python -m triton_client_tpu_torch detect3d -m second_iou -i synthetic:2 --device cpu \
@@ -42,9 +53,6 @@ import argparse
 import dataclasses
 
 from triton_client_tpu_torch.cli.common import add_common_flags
-
-_ITEM_BAG = "6 (io/bag_io.py: the bag reader)"
-
 
 def _floats(n: int):
     def parse(text: str) -> tuple[float, ...]:
@@ -87,9 +95,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--poses", default="",
-        help="ego poses for --sweeps > 1: a pose JSONL ({frame_id, pose: [x, y, z, qx, qy, qz, "
-        "qw]}); older sweeps move into the keyframe's sensor frame. Without it sweeps stack "
-        "untransformed (exact only for a stationary platform)",
+        help="ego poses for --sweeps > 1: 'odom[:topic]' (the input bag's nav_msgs/Odometry "
+        "topic) or a pose JSONL ({frame_id, pose: [x, y, z, qx, qy, qz, qw]}); older sweeps "
+        "move into the keyframe's sensor frame. Without it sweeps stack untransformed (exact "
+        "only for a stationary platform)",
+    )
+    parser.add_argument(
+        "--show", action="store_true",
+        help="open an interactive Open3D window a frame (close it to advance); needs open3d",
     )
     parser.add_argument(
         "--scan-period", type=float, default=None,
@@ -117,11 +130,23 @@ def _check_poses_args(args, nsweeps: int | None = None) -> None:
     if too_few:
         raise SystemExit("--poses only affects multi-sweep aggregation; add --sweeps N")
     if args.poses == "odom" or args.poses.startswith("odom:"):
-        raise SystemExit(f"--poses odom[:topic] reads an input bag's odometry topic, which is "
-                         f"not ported yet (ROADMAP.md Queue 1 item {_ITEM_BAG}); pass a pose "
-                         "JSONL")
-    if not os.path.exists(args.poses):
+        if not args.input.endswith(".bag"):
+            raise SystemExit("--poses odom[:topic] reads the INPUT bag's odometry topic; the "
+                             "input must be a .bag")
+    elif not os.path.exists(args.poses):
         raise SystemExit(f"--poses: no such pose file {args.poses!r}")
+
+
+def _build_pose_lookup(args):
+    """``--poses`` (already checked) -> pose_lookup callback."""
+    if args.poses == "odom" or args.poses.startswith("odom:"):
+        from triton_client_tpu_torch.io.bag_io import bag_pose_lookup
+
+        _, _, topic = args.poses.partition(":")
+        return bag_pose_lookup(args.input, topic or None)
+    from triton_client_tpu_torch.io.bag_io import pose_lookup_from_jsonl
+
+    return pose_lookup_from_jsonl(args.poses)
 
 
 def _build(args):
@@ -172,44 +197,76 @@ def _build(args):
     return pipe, spec
 
 
+def _make_sink(args):
+    """--show -> ShowSink3D (with --gt's boxes), else the --sink sink."""
+    from triton_client_tpu_torch.cli.common import make_sink
+
+    if not args.show:
+        return make_sink(args)
+    from triton_client_tpu_torch.io.synthdata import load_gt3d_lookup
+    from triton_client_tpu_torch.io.viz3d import ShowSink3D
+
+    try:
+        return ShowSink3D(load_gt3d_lookup(args.gt) if args.gt else None)
+    except ImportError as e:
+        raise SystemExit(str(e))
+
+
 def main(argv=None) -> None:
     from triton_client_tpu_torch.cli.common import (
         CountingSink,
         _check_async_flags,
-        check_unported,
+        check_channel,
         grpc_channel,
-        make_sink,
         print_report,
         remote,
+        require_ros,
+        ros_node,
         run_driver,
     )
     from triton_client_tpu_torch.drivers.driver import channel_infer3d
     from triton_client_tpu_torch.io.sources import open_source
 
     args = parse_args(argv)
-    if args.input.startswith("ros:") and (args.sweeps or 1) > 1:
+    if args.sink == "images":
+        raise SystemExit("--sink images is 2D-only (3D results are box arrays, not annotated "
+                         "frames); use --sink jsonl or bag")
+    live = args.input.startswith("ros:")
+    if live and (args.sweeps or 1) > 1:
         # live aggregation needs stamps and ego poses the subscribed topics
         # do not carry, as in the JAX CLI
         raise SystemExit("--sweeps > 1 is replay-only (bag/.npy sources); the live ROS path "
                          "runs single-sweep")
-    check_unported(args)
+    if live and args.show:
+        raise SystemExit("--show is replay-only (the live ROS path publishes box arrays for "
+                         "rviz instead); drop --show for ros: inputs")
+    check_channel(args)
     _check_poses_args(args)
     if args.streaming:
         raise SystemExit("--streaming is the 2D remote path (detect2d -u grpc:...)")
     if args.async_set:
         _check_async_flags(args)
+    if args.show:
+        # fail before the model build, not after
+        from triton_client_tpu_torch.io.viz3d import _require_open3d
+
+        try:
+            _require_open3d()
+        except ImportError as e:
+            raise SystemExit(str(e))
+    if live:
+        require_ros()
 
     def source_and_sink(nsweeps: int):
         _check_poses_args(args, nsweeps)
         source = open_source(args.input, args.limit, kind="pointcloud", period=args.scan_period)
         if nsweeps > 1:
-            from triton_client_tpu_torch.io.bag_io import pose_lookup_from_jsonl
             from triton_client_tpu_torch.ops.sweeps import sweep_source
 
             source = sweep_source(source, nsweeps,
-                                  pose_lookup_from_jsonl(args.poses) if args.poses else None)
+                                  _build_pose_lookup(args) if args.poses else None)
         return (source,
-                CountingSink(make_sink(args), lambda result: len(result["pred_scores"])))
+                CountingSink(_make_sink(args), lambda result: len(result["pred_scores"])))
 
     if remote(args):
         if not args.model_name:
@@ -225,8 +282,12 @@ def main(argv=None) -> None:
         infer = channel_infer3d(channel, args.model_name, model_version=args.model_version,
                                 z_offset=args.z_offset,  # None -> the served value
                                 asynchronous=args.async_set)
+        if live:
+            ros_node("3d", infer, args.input[len("ros:"):]).spin()
+            channel.close()
+            return
         source, sink = source_and_sink(args.sweeps or 1)
-        stats, summary = run_driver(args, infer, source, sink, 1, "3d")
+        stats, summary, _ = run_driver(args, infer, source, sink, 1, "3d")
         print_report(stats, summary, {
             "model": args.model_name,
             "transport": channel.stats()["transport"],
@@ -246,6 +307,9 @@ def main(argv=None) -> None:
     channel = CUDAChannel(repo, device=pipe.device, pipeline_depth=args.pipeline_depth)
     repo.get(spec.name).warmup()
     infer = channel_infer3d(channel, spec.name, asynchronous=args.async_set)
+    if live:
+        ros_node("3d", infer, args.input[len("ros:"):]).spin()
+        return
 
     counters = {
         "segment_mean": gpu_voxel.launches,
@@ -256,7 +320,7 @@ def main(argv=None) -> None:
         counter.reset()
     nsweeps = args.sweeps if args.sweeps is not None else pipe.config.nsweeps
     source, sink = source_and_sink(nsweeps)
-    stats, summary = run_driver(args, infer, source, sink, 1, "3d")
+    stats, summary, _ = run_driver(args, infer, source, sink, 1, "3d")
     print_report(stats, summary, {
         "model": spec.name,
         "sweeps": nsweeps,

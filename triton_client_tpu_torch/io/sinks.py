@@ -2,8 +2,9 @@
 
 Sinks implement one ``write(frame, result)`` protocol. ``NullSink``
 discards (benchmark mode); ``DetectionLogSink`` writes detections as
-JSON lines, the machine-readable record. ``ImageFileSink`` draws boxes
-with ``io/draw.py``, which is not ported yet.
+JSON lines, the machine-readable record; ``ImageFileSink`` draws boxes
+with ``io/draw.py`` and writes numbered PNGs (cv2 where installed, else
+PIL). The bag sink is ``io/bag_io.OutputBagSink``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Mapping, Protocol
 
 import numpy as np
 
+from triton_client_tpu_torch.io.draw import draw_boxes
 from triton_client_tpu_torch.io.sources import Frame
 
 
@@ -34,13 +36,27 @@ class NullSink:
 
 
 class ImageFileSink:
-    """Numbered annotated PNGs: needs ``io/draw.py``."""
+    """Numbered annotated PNGs, ``{frame_id:04d}.png`` in ``out_dir``."""
 
     def __init__(self, out_dir: str = "./output_data", class_names: tuple[str, ...] = ()) -> None:
-        raise NotImplementedError(
-            "ImageFileSink draws with io/draw.py, which is not ported yet "
-            "(ROADMAP.md Queue 1, 'Evaluation and replay'); use --sink jsonl"
-        )
+        self.out_dir = out_dir
+        self.class_names = class_names
+        os.makedirs(out_dir, exist_ok=True)
+
+    def write(self, frame: Frame, result: Mapping[str, Any]) -> None:
+        img = draw_boxes(frame.data, result["detections"], result.get("valid"), self.class_names)
+        path = os.path.join(self.out_dir, f"{frame.frame_id:04d}.png")
+        try:
+            import cv2
+        except ImportError:
+            from PIL import Image
+
+            Image.fromarray(img).save(path)
+            return
+        cv2.imwrite(path, img[..., ::-1])
+
+    def close(self) -> None:
+        pass
 
 
 class DetectionLogSink:

@@ -20,8 +20,11 @@ the block adds its sub-chunk sums in order; the last block to finish adds
 the chunk sums in ``GROUPS`` contiguous groups, then the group sums, in
 order. No atomics touch a sum, so the result is the same on every run
 (``index_add_`` on CUDA sums with atomics in an order that changes from
-run to run). The only atomic is a ticket a tile, in a zeroed buffer kept
-per device and stream (``_tickets``), which the kernel leaves at zero.
+run to run). The only atomic is a ticket a tile, in a zeroed buffer
+which the kernel leaves at zero: an eager launch takes the one kept per
+device and stream (``_tickets``); a launch captured into a CUDA graph
+takes the buffer its graph owns (:func:`owned_tickets`), allocated before
+the capture began, and raises if there is none.
 
 ``segment_sum_reference`` is the plain version in that order: it equals
 the kernel bit for bit. On the CPU it is what ``segment_sum`` runs.
@@ -30,6 +33,7 @@ the kernel bit for bit. On the CPU it is what ``segment_sum`` runs.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -54,6 +58,35 @@ launches = cuda_build.LaunchCounter()
 
 _tickets_lock = threading.Lock()
 _tickets_by_stream: dict[tuple[int, int], torch.Tensor] = {}
+# the ticket buffer this thread's capture owns (an OwnedTickets), if any
+_owned = threading.local()
+
+
+class OwnedTickets:
+    """The ticket buffer of one captured graph. It is sized and zeroed by
+    the eager warmup calls that precede the capture (so the allocation
+    comes from the ordinary caching allocator, never from the graph's
+    private pool), captured launches then point at it, and it lives as
+    long as the graph that holds this object."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self) -> None:
+        self.buf: torch.Tensor | None = None
+
+
+@contextlib.contextmanager
+def owned_tickets():
+    """Give this thread's launches, eager warmups and the capture after
+    them, one ticket buffer of their own; yields the ``OwnedTickets`` the
+    caller keeps beside the graph."""
+    if getattr(_owned, "tickets", None) is not None:
+        raise RuntimeError("owned_tickets is already open on this thread")
+    _owned.tickets = held = OwnedTickets()
+    try:
+        yield held
+    finally:
+        _owned.tickets = None
 
 
 def tiles(num_segments: int, f: int) -> tuple[int, int]:
@@ -78,7 +111,29 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     one stream for good and the buffers are as many as those streams. An
     external stream (``torch.cuda.ExternalStream``) destroyed while a
     launch is in flight could pass its handle, and these tickets, to a new
-    stream that runs beside that launch."""
+    stream that runs beside that launch.
+
+    Inside :func:`owned_tickets` the buffer is the owned one, grown only
+    outside a capture. A launch captured with no owned buffer, or one too
+    small, raises: a buffer allocated inside a capture would come from the
+    graph's private pool, which later eager launches must not read."""
+    held = getattr(_owned, "tickets", None)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if held is not None:
+        if held.buf is None or held.buf.numel() < n:
+            if capturing:
+                raise RuntimeError(
+                    f"segment_sum: a captured launch needs {n} tickets and its graph owns "
+                    f"{0 if held.buf is None else held.buf.numel()}; an eager call at the same "
+                    "shapes must precede the capture"
+                )
+            held.buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        return held.buf
+    if capturing:
+        raise RuntimeError(
+            "segment_sum: launched under a CUDA graph capture with no owned ticket buffer; "
+            "capture it inside gpu_segment.owned_tickets()"
+        )
     key = (device.index, stream)
     with _tickets_lock:
         buf = _tickets_by_stream.get(key)

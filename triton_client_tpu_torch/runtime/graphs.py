@@ -24,6 +24,12 @@ inputs' and no host sync (a sync cannot be captured).
   wrappers' ``LaunchCounter.add`` would not see it. A capture records,
   per counter, the launches it captured (``cuda_build.recording``; they
   do not run then and are not counted), and every replay adds them.
+- **Capture scopes.** ``capture_scope``, where given, is a context
+  manager factory entered around a key's warmup calls and its capture;
+  what it yields is kept with the key's graph for as long as the graph
+  lives (the ragged route's kernel-6 tickets, ``ops/gpu_segment.
+  owned_tickets``: a buffer the warmups allocate and the captured
+  launches use).
 - **Errors.** A capture or a replay that fails raises
   ``cuda_build.KernelError`` naming the function and the key. There is
   no eager retry: the caller fails, as on any kernel failure.
@@ -43,6 +49,7 @@ inputs' and no host sync (a sync cannot be captured).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from typing import Callable
@@ -57,13 +64,14 @@ class _Entry:
     """One key's graph: its static inputs and outputs, its replay, and the
     launches one replay makes per counter."""
 
-    __slots__ = ("replay", "inputs", "outputs", "launches")
+    __slots__ = ("replay", "inputs", "outputs", "launches", "keep")
 
-    def __init__(self, replay, inputs, outputs, launches) -> None:
+    def __init__(self, replay, inputs, outputs, launches, keep=None) -> None:
         self.replay = replay
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
+        self.keep = keep  # what the capture scope yielded, alive with the graph
 
 
 def _reserved(device: torch.device) -> int:
@@ -285,14 +293,17 @@ class CapturedFunction:
         name: str,
         static_key: Callable[[], object] | None = None,
         backend=None,
+        capture_scope: Callable | None = None,
     ) -> None:
         """``backend``: what warms up and captures; None takes CUDA graphs
         for CUDA inputs and calls ``fn`` for CPU ones. A stand-in (tests)
-        is used for inputs on any device."""
+        is used for inputs on any device. ``capture_scope``: see the
+        module docstring."""
         self._fn = fn
         self.name = name
         self._static_key = static_key
         self._backend = backend
+        self._capture_scope = capture_scope
         self._lock = threading.Lock()
         self._entries: dict[tuple, _Entry] = {}
         self._keys: set = set()
@@ -329,18 +340,20 @@ class CapturedFunction:
             return self._replay(entry, key, args)
 
     def _capture(self, backend, key, args) -> _Entry:
+        scope = self._capture_scope() if self._capture_scope else contextlib.nullcontext()
         try:
             inputs = tuple(a.clone() for a in args)
-            backend.warmup(self._fn, inputs, WARMUP_CALLS)
-            with cuda_build.recording() as rec:
-                replay, outputs, nbytes = backend.capture(self._fn, inputs, self)
+            with scope as keep:
+                backend.warmup(self._fn, inputs, WARMUP_CALLS)
+                with cuda_build.recording() as rec:
+                    replay, outputs, nbytes = backend.capture(self._fn, inputs, self)
         except Exception as e:
             raise cuda_build.KernelError(
                 f"{self.name}: capturing a CUDA graph for key {key} failed: {e!r}"
             ) from e
         self._stats["captures"] += 1
         self._stats["pool_bytes"] += int(nbytes)
-        return _Entry(replay, inputs, outputs, dict(rec.record))
+        return _Entry(replay, inputs, outputs, dict(rec.record), keep)
 
     def _replay(self, entry: _Entry, key, args):
         on_card = entry.inputs[0].device.type == "cuda"
