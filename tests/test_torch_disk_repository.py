@@ -6,8 +6,10 @@ package's, on the CPU.
   the file and line) on what is outside the subset.
 - ``dataset_config`` builds the JAX package's configs from ``data/*.yaml``.
 - ``scan_disk`` over the portable ``examples/`` entries
-  (``yolov5_crop_base``, ``pointpillar_kitti``, ``pointpillar_wide``,
-  ``second_iou``, ``centerpoint_nusc``) builds the JAX entries' specs and
+  (``yolov5_crop_base``, ``yolov4_coco``, ``retinanet_coco``, ``fcos_crop``,
+  ``pointpillar_kitti``, ``pointpillar_wide``, ``second_iou``,
+  ``centerpoint_nusc``) builds the JAX entries' specs (a 2D entry's config
+  is its own family's default under its ``pipeline:`` section) and
   serves the same ``ModelConfig`` bytes; the JAX specs come from each
   entry's builder without an init (the template's ``param_bytes`` is then
   0, so that key is compared in tests/test_torch_server.py on carried
@@ -18,6 +20,7 @@ package's, on the CPU.
 """
 
 import dataclasses
+import functools
 import math
 import pathlib
 import shutil
@@ -48,8 +51,8 @@ YAML_FILES = sorted(
     for p in (ROOT / base).rglob("*")
     if p.suffix in (".yaml", ".yml")
 )
-PORTABLE = ("yolov5_crop_base", "pointpillar_kitti", "pointpillar_wide", "second_iou",
-            "centerpoint_nusc")
+PORTABLE = ("yolov5_crop_base", "yolov4_coco", "retinanet_coco", "fcos_crop",
+            "pointpillar_kitti", "pointpillar_wide", "second_iou", "centerpoint_nusc")
 
 
 # -- yaml_subset -----------------------------------------------------------------
@@ -277,8 +280,44 @@ def test_scanned_entries_carry_a_warmup_and_serve(scanned):
     assert tuple(dets["detections"].shape) == (1, 300, 6)
 
 
+NEW_2D = ("yolov4_coco", "retinanet_coco", "fcos_crop")
+
+
+@pytest.mark.parametrize("name", ("yolov5_crop_base",) + NEW_2D)
+def test_2d_entries_take_their_familys_config(tmp_path, monkeypatch, name):
+    """Each 2D entry's pipeline config is the JAX entry's: its own family's
+    defaults (YOLOv4's conf 0.4 / IoU 0.6; the detectron family's conf
+    0.05, 100 rows, raw pixels, multi-label, scored head, 480x640) under
+    the entry's ``pipeline:`` section, never YOLOv5's."""
+    monkeypatch.chdir(ROOT)
+    root = _copy_entries(tmp_path, [name])
+    got = _fields(tdr._Entry(root / name, device="cpu").cfg)
+    want = _fields(jdr._Entry(root / name).cfg)
+    assert got == want
+    if name != "yolov5_crop_base":
+        assert got["conf_thresh"] != 0.3
+
+
+@pytest.mark.parametrize("name", NEW_2D)
+def test_new_2d_entries_answer_a_request_at_64(tmp_path, monkeypatch, name):
+    """A 64x64 copy of each entry answers a request on the CPU, in its
+    family's contract (the detectron one: INT64 classes, INT32 dims)."""
+    monkeypatch.chdir(ROOT)
+    root = _copy_entries(tmp_path, [name])
+    config = root / name / "config.yaml"
+    config.write_text(config.read_text().replace("[512, 512]", "[64, 64]")
+                      .replace("[480, 640]", "[64, 64]"))
+    model = tdr.scan_disk(root, device="cpu").get(name)
+    out = model.infer_fn({"images": torch.rand((2, 48, 80, 3)) * 255})
+    assert [k for k in out] == [t.name for t in model.spec.outputs]
+    for t in model.spec.outputs:
+        assert tuple(out[t.name].shape[1:]) == t.shape[1:], t.name
+        assert str(out[t.name].dtype) == {"FP32": "torch.float32", "BOOL": "torch.bool",
+                                          "INT64": "torch.int64", "INT32": "torch.int32"}[t.dtype]
+    assert bool(torch.isfinite(out.get("boxes", out.get("detections"))).all())
+
+
 UNPORTED = {
-    "yolov4_coco": "item 7", "retinanet_coco": "item 7", "fcos_crop": "item 7",
     "camera_preprocess": "item 7", "ensemble_crop_pipeline": "item 7",
     "ensemble_fused_pipeline": "item 7",
 }
@@ -322,6 +361,7 @@ def test_layout_entries_serve(tmp_path, monkeypatch, name):
     assert bool(torch.isfinite(out["detections"]).all())
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_init_shapes(name, root=ROOT / "examples"):
     """The JAX entry's init tree as shapes (``jax.eval_shape``: nothing is
     initialised)."""
@@ -330,15 +370,25 @@ def _jax_init_shapes(name, root=ROOT / "examples"):
 
     from triton_client_tpu.models.centerpoint import init_centerpoint
     from triton_client_tpu.models.pointpillars import init_pointpillars
+    from triton_client_tpu.models.retinanet import FCOS as JFCOS
+    from triton_client_tpu.models.retinanet import RetinaNet as JRetinaNet
     from triton_client_tpu.models.second import init_second
+    from triton_client_tpu.models.yolov4 import YoloV4 as JYoloV4
     from triton_client_tpu.models.yolov5 import YoloV5 as JYoloV5
 
     entry = jdr._Entry(root / name)
-    if entry.family == "yolov5":
+    if entry.family in ("yolov5", "yolov4", "retinanet", "fcos"):
         m = dict(entry.doc["model"])
-        model = JYoloV5(num_classes=len(entry.cfg.class_names), variant=m.get("variant", "n"),
-                        s2d=m.get("s2d", False), ch_floor=m.get("ch_floor", 0))
-        hw = tuple(m.get("input_hw", (512, 512)))
+        nc = len(entry.cfg.class_names)
+        hw = tuple(entry.cfg.input_hw)
+        if entry.family == "yolov5":
+            model = JYoloV5(num_classes=nc, variant=m.get("variant", "n"),
+                            s2d=m.get("s2d", False), ch_floor=m.get("ch_floor", 0))
+        elif entry.family == "yolov4":
+            model = JYoloV4(num_classes=nc, width=m.get("width", 1.0))
+        else:
+            cls = JRetinaNet if entry.family == "retinanet" else JFCOS
+            model = cls(num_classes=nc, depth=m.get("depth", "resnet50"), input_hw=hw)
         init = lambda k: model.init(k, jnp.zeros((1, *hw, 3)), train=False)  # noqa: E731
     else:
         init_fn = {"pointpillars": init_pointpillars, "centerpoint": init_centerpoint,

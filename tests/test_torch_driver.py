@@ -323,3 +323,88 @@ def test_pipeline_adapters_equal_the_pipelines():
     assert isinstance(fut, InferFuture)
     out = fut.result()
     assert all(np.array_equal(out[k], sync[k]) for k in sync) and len(sync["pred_scores"]) > 0
+
+
+NEW_2D_MODELS = {"yolov4": ["--width", "0.125", "--conf", "0.05"], "retinanet_tiny": [],
+                 "fcos_tiny": []}
+
+
+def run_new_family_against_the_jax_cli(name, tmp_path, call, monkeypatch, flags=()):
+    """``detect2d -m <name>`` in-process through the JAX CLI and the port's
+    on the same seeded weights (a fill of the flax tree's shapes, handed to
+    both builders) and frames: the port's report and jsonl rows, and JAX's.
+    ``call(main, argv)`` runs a CLI's ``main`` and returns its report."""
+    from triton_client_tpu.cli import detect2d as jcli
+    from triton_client_tpu.models import retinanet as jret
+    from triton_client_tpu.models import yolov4 as jv4
+    from triton_client_tpu.pipelines import detect2d as jdet
+
+    from triton_client_tpu_torch.cli import detect2d as tcli
+    from triton_client_tpu_torch.pipelines import detect2d as tdet
+    from tests.test_torch_server import seeded_variables
+
+    family = name.partition("_")[0]
+    builder = {"yolov4": "build_yolov4_pipeline", "retinanet": "build_retinanet_pipeline",
+               "fcos": "build_fcos_pipeline"}[family]
+    carried = {}
+    jbuild, tbuild = getattr(jdet, builder), getattr(tdet, builder)
+
+    def jax_builder(rng, **kw):
+        if family == "yolov4":
+            model = jv4.YoloV4(num_classes=kw["num_classes"], width=kw["width"])
+        else:
+            cls = jret.RetinaNet if family == "retinanet" else jret.FCOS
+            model = cls(num_classes=kw["num_classes"], depth=kw["depth"], input_hw=kw["input_hw"])
+        hw = kw["input_hw"]
+        carried["variables"] = jax.tree_util.tree_map(np.asarray, seeded_variables(
+            lambda k: model.init(k, jax.numpy.zeros((1, *hw, 3)), train=False), seed=31))
+        return jbuild(rng, variables=carried["variables"], **kw)
+
+    monkeypatch.setattr(jdet, builder, jax_builder)
+    monkeypatch.setattr(tdet, builder, lambda **kw: tbuild(variables=carried["variables"], **kw))
+    common = ["-m", name, *NEW_2D_MODELS[name], "-c", "2", "--input-size", "64", "-i",
+              "synthetic:3:48x80", "--sink", "jsonl", *flags]
+    jreport = call(jcli.main, [*common, "-o", str(tmp_path / "jax")])
+    report = call(tcli.main, [*common, "--device", "cpu", "-o", str(tmp_path / "port")])
+    return (report, _jsonl(tmp_path / "port" / "detections.jsonl"), jreport,
+            _jsonl(tmp_path / "jax" / "detections.jsonl"))
+
+
+def assert_rows_match_jax(got, want):
+    """The pipeline tests' bars (tests/test_torch_yolov4.py,
+    tests/test_torch_retinanet.py): valid or dims, labels and order equal,
+    scores within 2e-5, boxes within 5e-5 of each box's largest coordinate."""
+    assert [r["frame_id"] for r in got] == [r["frame_id"] for r in want]
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        if "detections" in w:
+            gd, wd = np.asarray(g["detections"]), np.asarray(w["detections"])
+            np.testing.assert_array_equal(g["valid"], w["valid"])
+            gb, wb, gs, ws, gl, wl = (a[..., cols] for cols in (slice(0, 4), 4, 5)
+                                      for a in (gd, wd))
+        else:
+            assert g["dims"] == w["dims"]
+            gb, wb, gs, ws, gl, wl = (np.asarray(r[k]) for k in ("boxes", "scores", "classes")
+                                      for r in (g, w))
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_allclose(gs, ws, rtol=0, atol=2e-5)
+        scale = np.maximum(np.abs(wb).max(-1, keepdims=True), 1.0)
+        assert np.all(np.abs(gb - wb) <= 5e-5 * scale)
+
+
+@pytest.mark.parametrize("name", sorted(NEW_2D_MODELS))
+def test_cli_detect2d_new_families_match_the_jax_cli(tmp_path, capsys, monkeypatch, name):
+    """``-m yolov4`` (``--width``), ``retinanet_tiny`` and ``fcos_tiny``: the
+    JAX CLI's rows on the same weights and frames; a detectron model's rows
+    are the detectron contract (boxes, scores, classes, dims) as in JAX."""
+    def call(main, argv):
+        main(argv)
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    report, got, jreport, want = run_new_family_against_the_jax_cli(name, tmp_path, call,
+                                                                    monkeypatch)
+    assert report["driver"]["frames"] == jreport["driver"]["frames"] == 3
+    assert_rows_match_jax(got, want)
+    dets = sum(sum(r["valid"]) if "valid" in r else sum(r["dims"]) for r in got)
+    assert report["detections"] == dets > 0
+    assert report["model"] == jreport["model"] == name

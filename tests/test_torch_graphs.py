@@ -370,6 +370,37 @@ def test_2d_capture_equals_eager_bitwise_on_card(cuda_device, fused, route, batc
             os.environ["TRITON_CLIENT_TPU_NMS"] = old
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,route", [("auto", None), ("off", None), ("off", "pallas")])
+@pytest.mark.parametrize("family", ["yolov4", "retinanet", "fcos"])
+def test_new_2d_families_capture_equals_eager_bitwise_on_card(cuda_device, family, fused, route):
+    """YOLOv4 (width 0.25) and the detectron family (``resnet18``) at
+    128x128: kernel 1 on the fused route (the scored head: multi-label
+    xyxy, max_det 100), kernel 2 under the ``pallas`` route, the captured
+    body bitwise equal to the eager one."""
+    import dataclasses
+
+    from triton_client_tpu_torch.pipelines import detect2d
+
+    cfg = dataclasses.replace(detect2d.default_config(family, 3, (128, 128)), fused=fused,
+                              conf_thresh=0.05 if family == "yolov4" else 0.0)
+    extra = {"width": 0.25} if family == "yolov4" else {"depth": "resnet18"}
+    pipe, _, _ = detect2d.BUILDERS_2D[family](num_classes=3, input_hw=(128, 128), config=cfg,
+                                             device="cuda", seed=0, **extra)
+    rng = np.random.default_rng(3)
+    frames = [torch.from_numpy(rng.integers(0, 255, (2, 96, 160, 3), dtype=np.uint8))
+              .to(cuda_device) for _ in range(2)]
+    old = os.environ.pop("TRITON_CLIENT_TPU_NMS", None)
+    try:
+        if route:
+            os.environ["TRITON_CLIENT_TPU_NMS"] = route
+        _hold_captured_to_eager(pipe, (frames[0],), (frames[1],))
+    finally:
+        os.environ.pop("TRITON_CLIENT_TPU_NMS", None)
+        if old is not None:
+            os.environ["TRITON_CLIENT_TPU_NMS"] = old
+
+
 TINY_3D = {"point_cloud_range": (0.0, -6.4, -3.0, 12.8, 6.4, 1.0)}
 
 

@@ -387,3 +387,228 @@ def test_pth_reaches_both_3d_families(tmp_path):
     assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="unrecognized weight artifact"):
         tdr.load_weights(tmp_path / "weights.bin", "second_iou", smodel)
+
+
+# -- the detectron family and YOLOv4 -------------------------------------------------------
+
+
+def _flax_small_detectron(head_cls, nc):
+    """The JAX package's ResNetFPN ``tiny`` with FPN and head width 32 under
+    a head, as tests/test_import_fidelity_families.py builds it."""
+    from flax import linen as nn
+
+    from triton_client_tpu.models.retinanet import ResNetFPN
+
+    class Small(nn.Module):
+        @nn.compact
+        def __call__(self, x, train=False):
+            pyr = ResNetFPN("tiny", fpn_width=32, name="backbone")(x, train)
+            return head_cls(nc, width=32, name="head")(pyr)
+
+    return Small()
+
+
+def _port_small_detectron(head):
+    from triton_client_tpu_torch.models.retinanet import _Detectron
+
+    return _Detectron(head, "tiny", HW, torch.float32, 32).eval()
+
+
+def _equal_state(got: dict, want: dict) -> None:
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(torch.as_tensor(got[k]), torch.as_tensor(want[k])), k
+
+
+def test_retinanet_import_equals_the_jax_import():
+    """detectron2 names (tests/test_import_fidelity_families.TRetinaNetD2)
+    through the port's importer equal, tensor for tensor, the JAX import
+    carried across by the converter; the imported model's heads equal the
+    mirror's own forward at the fidelity bar (the NCHW head flattened in
+    the mirror's permute order)."""
+    from tests.test_import_fidelity_families import TRetinaNetD2
+
+    from triton_client_tpu.models.retinanet import RetinaNetHead as JHead
+
+    from triton_client_tpu_torch.models import convert
+    from triton_client_tpu_torch.models.retinanet import RetinaNetHead
+
+    nc = 4
+    mirror = TRetinaNetD2(nc).eval()
+    _randomize(mirror, 41)
+    jtree = jimp.load_retinanet(_state(mirror), _template(_flax_small_detectron(JHead, nc)),
+                                strict=True)
+    model = _port_small_detectron(RetinaNetHead(nc, 32, 32))
+    got = timp.load_retinanet({f"model.{k}": v for k, v in mirror.state_dict().items()}, model)
+    _equal_state(got, convert.retinanet_state_dict_from_flax(_numpy_tree(jtree), model))
+    model.load_state_dict(got)
+    x = np.random.default_rng(43).uniform(0, 1, (2, *HW, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = mirror(torch.from_numpy(x.transpose(0, 3, 1, 2)))
+        heads = model(torch.from_numpy(x))
+    for g, w in zip(heads, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **BAR)
+
+
+def _numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _fcos_state(nc, seed):
+    """RetinaNet's detectron2 names with FCOS's outputs: cls_score at nc a
+    location, bbox_pred 4, ctrness 1 (as the fidelity test builds them)."""
+    from tests.test_import_fidelity_families import TRetinaNetD2
+
+    mirror = TRetinaNetD2(nc, fpn=32).eval()
+    _randomize(mirror, seed)
+    state = _state(mirror)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for name, cout in (("cls_score", nc), ("bbox_pred", 4), ("ctrness", 1)):
+        state[f"head.{name}.weight"] = torch.randn(cout, 32, 3, 3, generator=gen).numpy() * 0.1
+        state[f"head.{name}.bias"] = torch.randn(cout, generator=gen).numpy() * 0.1
+    return state
+
+
+@pytest.mark.parametrize("scales", ["stock", "adelaidet"])
+def test_fcos_import_equals_jax_and_missing_scales_are_one(scales):
+    """Stock detectron2 FCOS has no ``head.scales.{l}.scale``: both importers
+    fill 1.0; AdelaiDet's scales land on ``head.scale{l}``."""
+    from triton_client_tpu.models.retinanet import FCOSHead as JHead
+
+    from triton_client_tpu_torch.models import convert
+    from triton_client_tpu_torch.models.retinanet import FCOSHead
+
+    nc = 3
+    state = _fcos_state(nc, 51)
+    if scales == "adelaidet":
+        for level in range(5):
+            state[f"head.scales.{level}.scale"] = np.array([0.5 + level], np.float32)
+    jtree = jimp.load_fcos(state, _template(_flax_small_detectron(JHead, nc)), strict=True)
+    model = _port_small_detectron(FCOSHead(nc, 32, 32))
+    got = timp.load_fcos(state, model)
+    _equal_state(got, convert.fcos_state_dict_from_flax(_numpy_tree(jtree), model))
+    want = [1.0] * 5 if scales == "stock" else [0.5 + level for level in range(5)]
+    assert [float(got[f"head.scale{level}.weight"]) for level in range(5)] == want
+    del state["head.ctrness.bias"]
+    with pytest.raises(KeyError, match="missing"):
+        timp.load_fcos(state, model)
+
+
+def _yolov4_mirror(nc, width, seed):
+    from tests.test_import_fidelity_families import TYoloV4
+
+    mirror = TYoloV4(nc, width).eval()
+    _randomize(mirror, seed)
+    return mirror
+
+
+def test_yolov4_import_equals_the_jax_import():
+    """pytorch-YOLOv4 names (tests/test_import_fidelity_families.TYoloV4)
+    through the port's importer equal the JAX import carried across, the
+    SPP merge conv's input blocks reversed on axis 1 (upstream's [p13, p9,
+    p5, x] onto [x, p5, p9, p13]); the imported heads equal the mirror's
+    forward at the fidelity test's relative bar (mish is unbounded, and
+    seeded activations reach O(1e3))."""
+    from triton_client_tpu.models.yolov4 import YoloV4 as JYoloV4
+
+    from triton_client_tpu_torch.models import convert
+    from triton_client_tpu_torch.models.yolov4 import YoloV4
+
+    nc, width = 3, 0.25
+    mirror = _yolov4_mirror(nc, width, 61)
+    jtree = jimp.load_yolov4(_state(mirror), _template(JYoloV4(num_classes=nc, width=width)),
+                             strict=True)
+    model = YoloV4(num_classes=nc, width=width).eval()
+    got = timp.load_yolov4(mirror.state_dict(), model)
+    _equal_state(got, convert.yolov4_state_dict_from_flax(_numpy_tree(jtree), model))
+    upstream = mirror.state_dict()["neek.conv4.conv.0.weight"]
+    blocks = upstream.shape[1] // 4
+    merge = got["spp.merge.conv.weight"]
+    for i in range(4):  # port block i is upstream block 3 - i
+        assert torch.equal(merge[:, i * blocks:(i + 1) * blocks],
+                           upstream[:, (3 - i) * blocks:(4 - i) * blocks])
+    assert not torch.equal(merge, upstream)
+    model.load_state_dict(got)
+    x = np.random.default_rng(63).uniform(0, 1, (1, *HW, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = mirror(torch.from_numpy(x.transpose(0, 3, 1, 2)))
+        heads = model(torch.from_numpy(x))
+    for h, w in zip(heads, want):
+        b, ch, hh, ww = w.shape
+        ref = w.numpy().reshape(b, 3, ch // 3, hh, ww).transpose(0, 3, 4, 1, 2)
+        np.testing.assert_allclose(h.numpy(), ref, atol=5e-2, rtol=1e-3)
+
+
+def test_yolov4_import_accepts_neck_and_refuses_a_wrong_width():
+    from triton_client_tpu_torch.models.yolov4 import YoloV4
+
+    mirror = _yolov4_mirror(2, 0.25, 71)
+    state = {("neck." + k[len("neek."):] if k.startswith("neek.") else k): v
+             for k, v in mirror.state_dict().items()}
+    assert any(k.startswith("neck.") for k in state)
+    model = YoloV4(num_classes=2, width=0.25)
+    _equal_state(timp.load_yolov4(state, model), timp.load_yolov4(mirror.state_dict(), model))
+    with pytest.raises(ValueError, match=r"yolov4 import: stem\.conv\.weight .* does not fit"):
+        timp.load_yolov4(mirror.state_dict(), YoloV4(num_classes=2, width=0.5))
+    with pytest.raises(ValueError, match="detect0.weight .* does not fit"):
+        timp.load_yolov4(mirror.state_dict(), YoloV4(num_classes=5, width=0.25))
+
+
+TINY_V4 = """family: yolov4
+model:
+  width: 0.25
+  input_hw: [64, 64]
+pipeline:
+  class_names_file: data/crop.names
+  conf_thresh: 0.05
+"""
+TINY_RETINA = """family: retinanet
+model:
+  depth: tiny
+  input_hw: [64, 64]
+pipeline:
+  class_names_file: data/crop.names
+"""
+
+
+def test_new_families_version_dirs_serve_identically(tmp_path, monkeypatch):
+    """A YOLOv4 entry's weights.pth, weights.onnx and weights.msgpack (the
+    JAX import of the same checkpoint, written by flax) serve the same
+    detections; a RetinaNet entry's detectron2 ``.pt`` serves as
+    ``load_pipeline`` gives it in-process."""
+    from tests.test_import_fidelity_families import TRetinaNetD2
+
+    from triton_client_tpu.models.yolov4 import YoloV4 as JYoloV4
+
+    monkeypatch.chdir(ROOT)
+    v4 = tmp_path / "v4"
+    for v in ("1", "2", "3"):
+        (v4 / v).mkdir(parents=True)
+    (v4 / "config.yaml").write_text(TINY_V4)
+    mirror = _yolov4_mirror(NC, 0.25, 81)
+    state = {k: v for k, v in mirror.state_dict().items() if "num_batches_tracked" not in k}
+    torch.save(state, v4 / "1" / "weights.pth")
+    (v4 / "2" / "weights.onnx").write_bytes(_onnx_bytes(state))
+    jtree = jimp.load_yolov4(_state(mirror), _template(JYoloV4(num_classes=NC, width=0.25)),
+                             strict=True)
+    (v4 / "3" / "weights.msgpack").write_bytes(flax.serialization.to_bytes(jtree))
+    retina = tmp_path / "retina"
+    (retina / "1").mkdir(parents=True)
+    (retina / "config.yaml").write_text(TINY_RETINA)
+    rmirror = TRetinaNetD2(NC, fpn=256).eval()
+    _randomize(rmirror, 82)
+    torch.save({"model": {f"model.{k}": v for k, v in rmirror.state_dict().items()}},
+               retina / "1" / "weights.pt")
+    repo = tdr.scan_disk(tmp_path, device="cpu")
+    frames = torch.rand((2, *HW, 3)) * 255
+    outs = [repo.get("v4", v).infer_fn({"images": frames}) for v in ("1", "2", "3")]
+    assert bool(outs[0]["valid"].any())
+    for out in outs[1:]:
+        for k in ("detections", "valid"):
+            assert torch.equal(out[k], outs[0][k])
+    served = repo.get("retina").infer_fn({"images": frames})
+    pipe, _ = tdr.load_pipeline(retina, device="cpu")
+    direct = pipe.infer_fn()({"images": frames})
+    assert int(served["dims"].sum()) > 0
+    for k in ("boxes", "scores", "classes", "dims"):
+        assert torch.equal(served[k], direct[k])

@@ -50,7 +50,7 @@ DECODE_CASES = [
 ]
 
 
-def _jax_decode(boxes, scores, classes, valid, max_det, fmt, agnostic):
+def _jax_decode(boxes, scores, classes, valid, max_det, fmt, agnostic, iou=0.45):
     import jax.numpy as jnp
     from triton_client_tpu.ops.pallas_decode import fused_decode_nms_2d as jax_fused
 
@@ -58,7 +58,7 @@ def _jax_decode(boxes, scores, classes, valid, max_det, fmt, agnostic):
     for i in range(boxes.shape[0]):
         r, k = jax_fused(
             jnp.asarray(boxes[i]), jnp.asarray(scores[i]), jnp.asarray(classes[i]),
-            jnp.asarray(valid[i]), iou_thresh=0.45, max_det=max_det, box_format=fmt,
+            jnp.asarray(valid[i]), iou_thresh=iou, max_det=max_det, box_format=fmt,
             class_agnostic=agnostic, interpret=True,
         )
         rows.append(np.asarray(r))
@@ -82,6 +82,25 @@ def test_decode_nms_2d_plain_matches_tpu_kernel_bitwise(kind, k, max_det, fmt, a
     elif kind == "chain":
         # greedy keeps every second box of the chain
         assert want_keep.sum(1).tolist() == [50, 50]
+
+
+@pytest.mark.parametrize("nc,iou", [(80, 0.5), (2, 0.6)], ids=["retinanet_coco", "fcos_crop"])
+def test_decode_nms_2d_plain_matches_tpu_kernel_on_the_scored_tail(nc, iou):
+    """The detectron family's tail (``kernel_cases.scored_candidates``):
+    multi-label xyxy candidates, class-aware over 80 or 2 classes, max_det
+    100, K = 1024, with boxes past the decode's clamp whose class offsets
+    reach ~1e7: rows and keep bitwise equal to the Pallas kernel's."""
+    arrays = kernel_cases.scored_candidates(B, 1024, nc, seed=31)
+    boxes, scores, classes, valid = arrays
+    assert np.abs(boxes[valid]).max() > 1e4 and len(np.unique(classes)) == nc
+    want_rows, want_keep = _jax_decode(*arrays, 100, "xyxy", False, iou)
+    rows, keep = gpu_decode.decode_nms_2d_reference(
+        *(torch.from_numpy(a) for a in arrays), iou_thresh=iou, max_det=100, box_format="xyxy",
+        class_agnostic=False,
+    )
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    np.testing.assert_array_equal(rows.numpy(), want_rows)
+    assert want_keep.sum(1).min() == 100 and np.abs(want_rows[..., :4]).max() > 1e4
 
 
 NMS_CASES = [
@@ -393,14 +412,14 @@ def test_decode_nms_2d_kernel_matches_plain_on_card(cuda_device, kind, k, max_de
     assert torch.equal(rows, want_rows)
 
 
-def _decode_on_card(arrays, device, max_det=300, **kw):
+def _decode_on_card(arrays, device, max_det=300, iou=0.45, **kw):
     """Kernel 1 against its plain version on the card, bitwise, with one
     launch count per call."""
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
     before = gpu_decode.launches.count
-    rows, keep = gpu_decode.fused_decode_nms_2d(*args, iou_thresh=0.45, max_det=max_det, **kw)
+    rows, keep = gpu_decode.fused_decode_nms_2d(*args, iou_thresh=iou, max_det=max_det, **kw)
     want_rows, want_keep = gpu_decode.decode_nms_2d_reference(
-        *args, iou_thresh=0.45, max_det=max_det, **kw
+        *args, iou_thresh=iou, max_det=max_det, **kw
     )
     torch.cuda.synchronize()
     assert gpu_decode.launches.count == before + 1
@@ -416,6 +435,16 @@ def test_decode_nms_2d_kernel_on_sorted_candidates_on_card(cuda_device, kind):
     topk_candidates hands them over, are taken as they stand."""
     arrays = kernel_cases.score_sorted(*kernel_cases.batch(kind, 8, 1024, seed=26))
     _decode_on_card(arrays, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,iou", [(80, 0.5), (2, 0.6)], ids=["retinanet_coco", "fcos_crop"])
+def test_decode_nms_2d_kernel_on_the_scored_tail_on_card(cuda_device, nc, iou):
+    """The detectron family's multi-label xyxy candidates (B = 4, K = 1024,
+    max_det 100, class-aware, boxes past the clamp) on the card."""
+    keep = _decode_on_card(kernel_cases.scored_candidates(4, 1024, nc, seed=32), cuda_device,
+                           max_det=100, iou=iou, box_format="xyxy", class_agnostic=False)
+    assert int(keep.sum()) == 400
 
 
 @pytest.mark.cuda

@@ -111,6 +111,12 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.cli.evaluate",
         "triton_client_tpu_torch.cli.tools",
         "triton_client_tpu_torch.drivers.ros",
+        "triton_client_tpu_torch.models.retinanet",
+        "triton_client_tpu_torch.models.yolov4",
+        "triton_client_tpu_torch.models.layers",
+        "triton_client_tpu_torch.ops.anchor_decode",
+        "triton_client_tpu_torch.ops.detect_postprocess",
+        "triton_client_tpu_torch.models.convert",
     ):
         assert must in names
 

@@ -26,6 +26,8 @@ import pathlib
 import subprocess
 import sys
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -468,6 +470,18 @@ def _serves_metrics(cli, argv, served, tmp_path, monkeypatch):
         assert f"model_{name}_count" in scraped[0]
 
 
+def _runs_yolov4(cli, argv, served, tmp_path, monkeypatch):
+    """-m yolov4 runs (it exited naming item 7 before the family was
+    ported): its rows equal the JAX CLI's on the same weights and frames."""
+    from tests.test_torch_driver import assert_rows_match_jax, run_new_family_against_the_jax_cli
+
+    report, got, jreport, want = run_new_family_against_the_jax_cli(
+        "yolov4", tmp_path, lambda main, a: _quiet(types.SimpleNamespace(main=main), a),
+        monkeypatch, argv)
+    assert report["frames"] == 3 and report["driver"]["ticks"] == jreport["driver"]["ticks"] == 2
+    assert_rows_match_jax(got, want)
+
+
 def _runs_on_a_bag(cli, argv, served, tmp_path, monkeypatch):
     """--poses odom on a bag with odometry runs: the sweeps move by the
     bag's poses (rows differ from the untransformed stack's)."""
@@ -500,7 +514,7 @@ _ID = "triton_client_tpu_torch.cli.{}-argv{}-{}"
                  id=_ID.format("detect2d", 5, "item 6 ")),
     (detect2d, ["--cameras", "2"], "item 8 "),
     (detect2d, ["--mesh", "data=2", "--device", "cpu"], "item 8 "),
-    (detect2d, ["-m", "yolov4", "--device", "cpu"], "item 7 "),
+    pytest.param(detect2d, ["-b", "2"], _runs_yolov4, id=_ID.format("detect2d", 8, "item 7 ")),
     pytest.param(detect3d, ["--poses", "odom:/odom"], "the input must be a .bag",
                  id=_ID.format("detect3d", 9, "item 6 ")),
     pytest.param(detect3d, ["--poses", "odom"], _runs_on_a_bag,
@@ -514,7 +528,8 @@ def test_unported_options_exit_naming_their_item(cli, argv, match, served, tmp_p
     cases that named item 6 (replay and evaluation) keep their ids and now
     hold the behaviour: the image and bag sinks, --prometheus-port and
     --poses odom on a bag run; ros: without ROS and --poses odom on a
-    non-bag input exit with the JAX CLIs' messages."""
+    non-bag input exit with the JAX CLIs' messages. So does the case that
+    named item 7: -m yolov4 runs, its rows the JAX CLI's."""
     if callable(match):
         match(cli, argv, served, tmp_path, monkeypatch)
         return
@@ -536,3 +551,65 @@ def test_stage_profiler_equals_jax():
     assert profilers[0].summary() == profilers[1].summary()
     assert profilers[0].report() == profilers[1].report()
     assert StageProfiler().report() == JStageProfiler().report()
+
+
+CONFIG_V4 = f"""family: yolov4
+model:
+  width: 0.125
+  input_hw: [64, 64]
+pipeline:
+  class_names_file: {ROOT}/data/crop.names
+  conf_thresh: 0.05
+max_batch_size: 4
+"""
+CONFIG_RETINA = f"""family: retinanet
+model:
+  depth: tiny
+  input_hw: [64, 64]
+pipeline:
+  class_names_file: {ROOT}/data/crop.names
+max_batch_size: 4
+"""
+
+
+def test_remote_clients_of_the_new_families(tmp_path):
+    """``detect2d -u grpc:`` against a YOLOv4 and a RetinaNet entry of
+    ``serve``: the YOLOv4 entry answers ``detections``/``valid`` and the
+    RetinaNet entry the detectron contract (``boxes``, ``scores``, INT64
+    ``classes``, INT32 ``dims``), which the client passes through untouched,
+    as the JAX client does (``drivers/driver.channel_infer``). The port's
+    remote rows equal its in-process ``-r`` rows bit for bit, and the JAX
+    client's rows against the same server equal the port client's."""
+    from triton_client_tpu.cli import detect2d as jdetect2d
+
+    repo = tmp_path / "repo"
+    for name, config, key in (("tinyv4", CONFIG_V4, importers.yolov4_torch_key),
+                              ("tinyretina", CONFIG_RETINA, importers.detectron_torch_key)):
+        (repo / name / "1").mkdir(parents=True)
+        (repo / name / "config.yaml").write_text(config)
+        _, _, model = _Entry(repo / name, device="cpu")._build()  # seeded
+        torch.save({key(k): v for k, v in model.state_dict().items()
+                    if not k.endswith("num_batches_tracked")}, repo / name / "1" / "weights.pth")
+    args = serve.parser().parse_args(["-r", str(repo), "-a", "127.0.0.1:0", "--device", "cpu",
+                                      "--max-workers", "4", "--uds", "off"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        server = serve.build_server(args)
+    server.start()
+    try:
+        endpoint = ["-u", f"grpc:127.0.0.1:{server.port}", "--no-shm"]
+        for name, keys in (("tinyv4", ["detections", "valid"]),
+                           ("tinyretina", ["boxes", "scores", "classes", "dims"])):
+            argv = ["-m", name, "-i", "synthetic:3:48x80"]
+            local_report, local = run(detect2d, [*argv, "-r", str(repo), "--device", "cpu"],
+                                      tmp_path / f"local_{name}")
+            report, rows = run(detect2d, [*argv, *endpoint], tmp_path / f"remote_{name}")
+            _, jrows = run(jdetect2d, [*argv, "-u", f"grpc:127.0.0.1:{server.port}", "--no-shm"],
+                           tmp_path / f"jax_{name}")
+            assert rows == local and jrows == rows
+            assert sorted(rows[0]) == sorted(["frame_id", *keys])
+            assert report["detections"] == local_report["detections"] > 0
+            if name == "tinyretina":  # batched as served: (1, 100, ...) a frame
+                assert np.asarray(rows[0]["boxes"]).shape == (1, 100, 4)
+                assert isinstance(rows[0]["classes"][0][0], int) and rows[0]["dims"][0] > 0
+    finally:
+        server.stop()

@@ -152,6 +152,27 @@ def test_evaluate_requires_gt_and_defaults_the_port(monkeypatch):
                     ["--gt", "gt.jsonl", "--prometheus-port", "9100"]]
 
 
+def test_evaluate_takes_the_jax_width_flag(monkeypatch):
+    """``evaluate`` parses JAX's flags: ``--width`` (YOLOv4) is taken and
+    forwarded to detect2d as typed; ``--mxu-opt``, which it never had, is
+    refused by both parsers."""
+    from triton_client_tpu.cli import detect2d as jdetect2d
+    from triton_client_tpu.cli import evaluate as jevaluate
+
+    from triton_client_tpu_torch.cli import detect2d, evaluate
+
+    seen = []
+    monkeypatch.setattr(detect2d, "main", seen.append)
+    monkeypatch.setattr(jdetect2d, "main", seen.append)
+    argv = ["--gt", "gt.jsonl", "-m", "yolov4", "--width", "0.5", "--prometheus-port", "9100"]
+    evaluate.main(argv)
+    jevaluate.main(argv)
+    assert seen == [argv, argv]
+    for cli in (evaluate, jevaluate):
+        with pytest.raises(SystemExit):
+            cli.main(["--gt", "gt.jsonl", "--mxu-opt"])
+
+
 def test_detect2d_image_sink_draws_the_rows(bags, capsys, yolo_weights):
     from PIL import Image
 

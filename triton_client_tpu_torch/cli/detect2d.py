@@ -1,7 +1,10 @@
 """2D detection entry point (the port's copy of ``cli/detect2d.py``).
 
-In-process (``-u cuda``, the default): build YOLOv5 (or load it from a
-repository entry with ``-r``), register it with its warmup, and run
+In-process (``-u cuda``, the default): build the model (``-m``:
+``yolov5[nsmlx]``, ``yolov4`` with ``--width``, ``retinanet[_<depth>]`` or
+``fcos[_<depth>]``, depth ``tiny``/``resnet18``/``resnet34``/``resnet50``),
+or load it from a repository entry with ``-r``, register it with its
+warmup, and run
 ``InferenceDriver`` over ``CUDAChannel``, as the JAX CLI wires
 ``InferenceDriver`` over ``TPUChannel``. Remote (``-u grpc:<host:port>``
 or ``grpc:unix:<path>``): the reference's topology, the model in a
@@ -11,7 +14,10 @@ auto by default); the client builds no model and does no device work.
 Prints one JSON summary: the driver's stats under ``driver``, ``eval``
 with ``--gt``, then the run's detections and, in-process, the kernel
 launches (counted over the driver's run, its warmup calls included) or,
-remote, the transport the channel used.
+remote, the transport the channel used. A detectron model (RetinaNet,
+FCOS) answers with the reference's detectron contract (``boxes``,
+``scores``, ``classes``, ``dims``), in-process and remote alike, and the
+summary counts its ``dims``.
 
 The source (``-i``) is synthetic frames, an image directory, a video, a
 ``.bag`` (its first Image/CompressedImage topic) or ``ros:<topic>``, a
@@ -27,6 +33,8 @@ Usage:
   python -m triton_client_tpu_torch detect2d -u grpc:127.0.0.1:8001 -m yolov5_crop --async
   python -m triton_client_tpu_torch detect2d -u grpc:unix:/tmp/s.sock -m yolov5_crop --streaming
   python -m triton_client_tpu_torch detect2d -i synthetic:2:48x80 --input-size 64 --device cpu
+  python -m triton_client_tpu_torch detect2d -m yolov4 --width 0.125 -i synthetic:2 --input-size 64
+  python -m triton_client_tpu_torch detect2d -m retinanet_tiny -i synthetic:2 --input-size 64
 """
 
 from __future__ import annotations
@@ -37,7 +45,6 @@ import functools
 from triton_client_tpu_torch.cli.common import add_common_flags
 
 # the ROADMAP.md Queue 1 items of the JAX CLI's options the port lacks
-_ITEM_FAMILIES = "7 (models/yolov4.py, models/retinanet.py)"
 _ITEM_SERVING = "8 (drivers/multicam.py, channel/sharded_channel.py)"
 
 
@@ -52,9 +59,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="whole-stream deadline for --streaming (0 = unbounded)",
     )
     parser.add_argument("--input-size", type=int, default=512, help="model input H=W")
-    # None: the model's defaults (yolov5: 0.3 / 0.45)
+    # None: the model's defaults (yolov5: 0.3 / 0.45; yolov4: 0.4 / 0.6;
+    # detectron: 0.05 / 0.5 retinanet, 0.6 fcos)
     parser.add_argument("--conf", type=float, default=None)
     parser.add_argument("--iou", type=float, default=None)
+    parser.add_argument("--width", type=float, default=1.0, help="YOLOv4 width multiple")
     parser.add_argument(
         "--mxu-opt", action="store_true",
         help="yolov5: the s2d stem and 32-channel floor of examples/yolov5_crop (the same "
@@ -68,10 +77,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def detections_of(result) -> int:
+    """Detections in one result: the valid rows of the YOLO contract, the
+    ``dims`` of the detectron one."""
+    import numpy as np
+
+    return int(np.sum(result["valid"] if "valid" in result else result["dims"]))
+
+
 def build(args):
-    """-> (pipeline, spec): ``yolov5[nsmlx]`` with seeded weights, or with
-    ``--repo`` the repository entry's trained weights and config.yaml
-    (``--conf``/``--iou`` still override)."""
+    """-> (pipeline, spec): ``yolov5[nsmlx]``, ``yolov4``, ``retinanet[_<depth>]``
+    or ``fcos[_<depth>]`` with seeded weights, or with ``--repo`` the
+    repository entry's trained weights and config.yaml (``--conf``/``--iou``
+    still override)."""
     if args.repo:
         from triton_client_tpu_torch.cli.common import flags_given, load_repo_pipeline
 
@@ -85,38 +103,49 @@ def build(args):
             conflicts={
                 "--input-size": flags_given(args.argv, "--input-size"),
                 "--classes": flags_given(args.argv, "-c", "--classes"),
+                "--width": flags_given(args.argv, "--width"),
                 "--scaling": flags_given(args.argv, "-s", "--scaling"),
                 "--dtype": flags_given(args.argv, "--dtype"),
                 "--mxu-opt": args.mxu_opt,
             },
         )
+    import dataclasses
+
     from triton_client_tpu_torch.cli.common import load_names, parse_dtype
-    from triton_client_tpu_torch.pipelines.detect2d import Detect2DConfig, build_yolov5_pipeline
+    from triton_client_tpu_torch.models.retinanet import RESNET_DEPTHS
+    from triton_client_tpu_torch.pipelines import detect2d as det
 
     name = args.model_name or "yolov5n"
-    if not name.startswith("yolov5"):
-        raise SystemExit(f"unknown 2D model '{name}': only yolov5[nsmlx] is ported (the other "
-                         f"families are ROADMAP.md Queue 1 item {_ITEM_FAMILIES})")
+    family = "yolov5" if name.startswith("yolov5") else name.partition("_")[0]
+    if family != "yolov5" and args.mxu_opt:
+        raise SystemExit("--mxu-opt is yolov5-only")
+    if family not in ("yolov5", "retinanet", "fcos") and name != "yolov4":
+        raise SystemExit(f"unknown 2D model '{name}' "
+                         "(yolov5[nsmlx] | yolov4 | retinanet[_depth] | fcos[_depth])")
+    if family == "yolov5":
+        kw = dict(variant=name[len("yolov5"):] or "n", s2d=args.mxu_opt,
+                  ch_floor=32 if args.mxu_opt else 0)
+    elif family == "yolov4":
+        kw = dict(width=args.width)
+    else:
+        kw = dict(depth=name.partition("_")[2] or "resnet50")
+        if kw["depth"] not in RESNET_DEPTHS:
+            raise SystemExit(f"unknown backbone depth '{kw['depth']}' "
+                             f"(choose from {sorted(RESNET_DEPTHS)})")
     hw = (args.input_size, args.input_size)
-    cfg = Detect2DConfig(
-        model_name=name,
-        input_hw=hw,
-        num_classes=args.classes,
-        conf_thresh=0.3 if args.conf is None else args.conf,
-        iou_thresh=0.45 if args.iou is None else args.iou,
-        scaling=args.scaling,
-        class_names=load_names(args.names),
+    # the family's defaults (the detectron family: raw pixels, detectron2's
+    # test-time thresholds, 100 rows, multi-label), --conf/--iou/-s over them
+    cfg = det.default_config(family, args.classes, hw, kw.get("variant", "n"))
+    cfg = dataclasses.replace(
+        cfg, model_name=name, class_names=load_names(args.names),
+        conf_thresh=cfg.conf_thresh if args.conf is None else args.conf,
+        iou_thresh=cfg.iou_thresh if args.iou is None else args.iou,
+        scaling=cfg.scaling if cfg.head_style == "scored" else args.scaling,
     )
-    pipe, spec, _ = build_yolov5_pipeline(
-        variant=name[len("yolov5"):] or "n",
-        num_classes=args.classes,
-        input_hw=hw,
-        config=cfg,
-        device=args.device,
-        dtype=parse_dtype(args.dtype),
-        s2d=args.mxu_opt,
-        ch_floor=32 if args.mxu_opt else 0,
-    )
+    # looked up when called, so a replaced module builder is the one used
+    build_pipeline = getattr(det, f"build_{family}_pipeline")
+    pipe, spec, _ = build_pipeline(num_classes=args.classes, input_hw=hw, config=cfg,
+                                   device=args.device, dtype=parse_dtype(args.dtype), **kw)
     return pipe, spec
 
 
@@ -157,7 +186,7 @@ def _run_streaming(args, channel, spec, class_names) -> None:
             yield InferRequest(args.model_name, {"images": np.asarray(frame.data)[None]},
                                model_version=args.model_version, request_id=rid)
 
-    sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
+    sink = CountingSink(make_sink(args, class_names), detections_of)
     latencies = []
     n = 0
     t0 = time.perf_counter()
@@ -261,7 +290,7 @@ def main(argv=None) -> None:
             ros_node("2d", infer, args.input[len("ros:"):], class_names).spin()
             channel.close()
             return
-        sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
+        sink = CountingSink(make_sink(args, class_names), detections_of)
         stats, summary, evaluator = run_driver(args, infer, open_source(args.input, args.limit),
                                                sink, args.batch_size, "2d")
         print_report(stats, summary, {
@@ -304,7 +333,7 @@ def main(argv=None) -> None:
 
     gpu_decode.launches.reset()
     gpu_nms.launches.reset()
-    sink = CountingSink(make_sink(args, class_names), lambda result: result["valid"].sum())
+    sink = CountingSink(make_sink(args, class_names), detections_of)
     stats, summary, evaluator = run_driver(args, infer, source, sink, args.batch_size, "2d")
     print_report(stats, summary, {
         "model": spec.name,

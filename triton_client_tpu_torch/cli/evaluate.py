@@ -29,7 +29,7 @@ def main(argv=None) -> None:
     parser.add_argument("--input-size", type=int, default=512)
     parser.add_argument("--conf", type=float, default=None)
     parser.add_argument("--iou", type=float, default=None)
-    parser.add_argument("--mxu-opt", action="store_true")
+    parser.add_argument("--width", type=float, default=1.0)
     args = parser.parse_args(argv)
     if not args.gt:
         parser.error("--gt <file.jsonl> is required for evaluation")

@@ -187,3 +187,35 @@ def centerpoint_state_dict_from_flax(
     port's ``CenterPoint`` of the same config; the submodules carry the
     flax names."""
     return state_dict_from_flax(variables, model)
+
+
+def retinanet_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``RetinaNet`` tree (``backbone/stem``, ``backbone/s{i}b{j}/
+    c1..c3|down``, ``backbone/lat3..5``, ``out3..5``, ``p6``, ``p7``,
+    ``head/cls{i}``, ``box{i}``, ``cls_out``, ``box_out``) -> a
+    ``state_dict`` for the port's ``RetinaNet`` of the same depth and
+    classes; the submodules carry the flax names."""
+    return state_dict_from_flax(variables, model)
+
+
+def fcos_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``FCOS`` tree -> a ``state_dict`` for the port's ``FCOS``.
+    The tree is RetinaNet's with ``head/reg{i}``, ``reg_out``, ``ctr_out``
+    and one bare ``(1,)`` leaf a level, ``params/head/scale{l}``, which
+    lands on the port's ``head.scale{l}.weight``."""
+    params = dict(variables.get("params", {}))
+    head = dict(params.get("head", {}))
+    for name in [k for k in head if re.fullmatch(r"scale\d+", str(k))]:
+        head[name] = {"scale": head[name]}  # a leaf -> the module holding it
+    params["head"] = head
+    return state_dict_from_flax({**variables, "params": params}, model)
+
+
+def yolov4_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX ``YoloV4`` tree (``stem``, ``stage{k}/down|split_main|
+    split_short|res{i}_cv{1,2}|post|merge``, ``spp/merge``, ``pre_spp*``,
+    ``post_spp*``, ``td4_*``, ``td3_*``, ``bu4_*``, ``bu5_*``,
+    ``head{i}_cv``, ``detect{i}``) -> a ``state_dict`` for the port's
+    ``YoloV4`` of the same width and classes; the submodules carry the flax
+    names."""
+    return state_dict_from_flax(variables, model)

@@ -19,9 +19,29 @@ def autopad(kernel: int, padding: int | None = None) -> int:
     return kernel // 2 if padding is None else padding
 
 
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish (YOLOv4's backbone) by the JAX package's formula,
+    ``x * tanh(softplus(x))`` with flax's softplus ``logaddexp(x, 0)``,
+    not ``F.softplus``'s thresholded ``log1p(exp(x))``."""
+    softplus = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    return x * torch.tanh(softplus)
+
+
+# ConvBnAct's named activations: True is silu (YOLOv5), False none; YOLOv4
+# runs mish in its backbone and leaky (slope 0.1) in its neck and heads
+_ACTS = {
+    "silu": F.silu,
+    "mish": mish,
+    "leaky": lambda x: F.leaky_relu(x, 0.1),
+}
+
+
 class ConvBnAct(nn.Module):
-    """Conv2D (no bias) + BatchNorm (eps 1e-3, as ultralytics YOLOv5) +
-    SiLU, or no activation with ``act=False``."""
+    """Conv2D (no bias) + BatchNorm + activation. ``eps`` follows the
+    source framework, so imported running statistics give the upstream
+    function: 1e-3 for ultralytics YOLOv5 (the default), PyTorch's 1e-5
+    for pytorch-YOLOv4. ``act``: True (SiLU), False (none) or a name of
+    ``_ACTS``."""
 
     def __init__(
         self,
@@ -30,7 +50,7 @@ class ConvBnAct(nn.Module):
         kernel: int = 1,
         stride: int = 1,
         padding: int | None = None,
-        act: bool = True,
+        act: bool | str = True,
         eps: float = 1e-3,
     ) -> None:
         super().__init__()
@@ -38,11 +58,13 @@ class ConvBnAct(nn.Module):
             cin, cout, kernel, stride=stride, padding=autopad(kernel, padding), bias=False
         )
         self.bn = nn.BatchNorm2d(cout, eps=eps, momentum=0.03)
-        self.act = act
+        if act and act is not True and act not in _ACTS:
+            raise ValueError(f"unknown activation {act!r} (of {sorted(_ACTS)})")
+        self.act = _ACTS["silu" if act is True else act] if act else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+        return self.act(x) if self.act is not None else x
 
 
 class Bottleneck(nn.Module):
@@ -99,11 +121,12 @@ class SPPF(nn.Module):
 
 
 def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 output head in float32 on float32 features, whatever the body's
-    dtype and the weights' storage (bfloat16, or int8 dequantized): the
-    JAX models' ``nn.Conv(..., dtype=jnp.float32)`` heads."""
+    """An output head (1x1, or the detectron heads' 3x3) in float32 on
+    float32 features, whatever the body's dtype and the weights' storage
+    (bfloat16, or int8 dequantized): the JAX models'
+    ``nn.Conv(..., dtype=jnp.float32)`` heads."""
     bias = None if conv.bias is None else conv.bias.float()
-    return F.conv2d(x.float(), conv.weight.float(), bias)
+    return F.conv2d(x.float(), conv.weight.float(), bias, conv.stride, conv.padding)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

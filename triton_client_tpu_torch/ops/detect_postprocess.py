@@ -135,3 +135,53 @@ def extract_boxes(
         conf_thresh, iou_thresh, max_det, max_nms,
         class_agnostic, box_format=fmt, fused=fused,
     )
+
+
+def extract_boxes_yolov4(
+    boxes: torch.Tensor,
+    confs: torch.Tensor,
+    conf_thresh: float = 0.4,
+    iou_thresh: float = 0.6,
+    max_det: int = 300,
+    max_nms: int = 1024,
+    fused: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """YOLOv4's two-output wire contract -> packed detections: ``boxes``
+    (B, N, 1, 4) or (B, N, 4) normalised xyxy, ``confs`` (B, N, nc) obj *
+    cls; the best class a box, the gate, class-aware NMS. Rows are in the
+    boxes' units."""
+    if boxes.ndim == 4:
+        boxes = boxes[:, :, 0, :]
+    return _gate_topk_nms(
+        boxes, confs.amax(dim=-1), confs.argmax(dim=-1),
+        conf_thresh, iou_thresh, max_det, max_nms, fused=fused,
+    )
+
+
+def extract_boxes_scored(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    conf_thresh: float = 0.05,
+    iou_thresh: float = 0.5,
+    max_det: int = 100,
+    max_nms: int = 1024,
+    class_agnostic: bool = False,
+    multi_label: bool = True,
+    fused: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Detectors that decode their own boxes (RetinaNet, FCOS): ``boxes``
+    (B, N, 4) xyxy in input pixels, ``scores`` (B, N, nc) per-class
+    probabilities -> packed detections. Multi-label by default (every
+    (box, class) pair over the gate is a candidate, detectron2's test-time
+    rule); the best class a box with ``multi_label=False`` or one class.
+    ``fused`` sends the tail through kernel 1 in its xyxy form."""
+    nc = scores.shape[-1]
+    if multi_label and nc > 1:
+        return _multilabel_topk_nms(
+            boxes, scores, conf_thresh, iou_thresh, max_det, max_nms,
+            class_agnostic, fused=fused,
+        )
+    return _gate_topk_nms(
+        boxes, scores.amax(dim=-1), scores.argmax(dim=-1),
+        conf_thresh, iou_thresh, max_det, max_nms, class_agnostic, fused=fused,
+    )

@@ -12,9 +12,10 @@ IoU round coarsely) and ``nan`` (three live NaN scores among ordinary
 ones: the loop's argmax ranks a NaN first and takes it as an invalid
 pick, so nothing is kept and greedy NMS's indices are the first NaN's).
 The random kinds are not in score order; the main paths hand the kernels
-sorted candidates. The 3D kinds are described at ``decode3d_inputs``
-and ``suppress3d_inputs``, the segment kinds at ``segment_inputs`` and
-``segsum_inputs``.
+sorted candidates. ``scored_candidates`` is the detectron family's
+multi-label xyxy candidate set, with boxes past the decode's clamp. The 3D
+kinds are described at ``decode3d_inputs`` and ``suppress3d_inputs``, the
+segment kinds at ``segment_inputs`` and ``segsum_inputs``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,52 @@ def batch(kind: str, b: int, k: int, nc: int = 2, seed: int = 0, box_format: str
     stacked on a leading batch axis."""
     parts = [candidates(kind, k, nc, seed + i, box_format) for i in range(b)]
     return tuple(np.stack(p) for p in zip(*parts))
+
+
+def scored_candidates(b: int, k: int, nc: int = 80, seed: int = 0,
+                      input_hw: tuple[int, int] = (480, 640)):
+    """Kernel 1's candidates on the detectron family's scored tail, as
+    ``_multilabel_topk_nms`` hands them over: RetinaNet's anchors at
+    ``input_hw`` decoded from seeded deltas (a third of P6's and P7's
+    anchors, and a five-hundredth of the others, with dw/dh at 10, past
+    the clamp log(1000/16): boxes up to ~50,000 pixels wide, which put the
+    class offset near 1e7, where a float32 ulp is 1; each such box scores
+    in (0.9, 1) under one class, over every other pair's (0, 0.9)), every
+    (box, class) pair scored, the top ``k`` of the N * nc pairs in
+    descending order (ties by index) with their box and class
+    (``idx // nc``, ``idx % nc``), the last tenth invalid (score 0) as
+    under a gate. xyxy boxes (k, 4) float32, scores, int32 classes, valid,
+    each with a leading batch axis ``b``."""
+    from triton_client_tpu_torch.ops.anchor_decode import SCALE_CLAMP, pyramid_anchors
+
+    rng = np.random.default_rng(seed)
+    anchors = pyramid_anchors(input_hw)
+    n = len(anchors)
+    deltas = rng.normal(0.0, 0.5, (b, n, 4)).astype(np.float32)
+    top_levels = n - sum(-(-input_hw[0] // st) * -(-input_hw[1] // st) * 9 for st in (64, 128))
+    hot = rng.random((b, n)) < np.where(np.arange(n) >= top_levels, 1 / 3, 1 / 500)
+    deltas[..., 2:][hot] = 10.0
+    # decode_deltas' operations in float32 (inputs only; the kernel is
+    # held to its plain version on them, not to the decode)
+    aw, ah = anchors[:, 2] - anchors[:, 0], anchors[:, 3] - anchors[:, 1]
+    ax, ay = anchors[:, 0] + np.float32(0.5) * aw, anchors[:, 1] + np.float32(0.5) * ah
+    dw = np.minimum(deltas[..., 2], np.float32(SCALE_CLAMP))
+    dh = np.minimum(deltas[..., 3], np.float32(SCALE_CLAMP))
+    cx, cy = deltas[..., 0] * aw + ax, deltas[..., 1] * ah + ay
+    w, h = np.exp(dw) * aw, np.exp(dh) * ah
+    half = np.float32(0.5)
+    boxes = np.stack([cx - half * w, cy - half * h, cx + half * w, cy + half * h], -1)
+    scores = rng.random((b, n, nc), dtype=np.float32) ** 4 * np.float32(0.9)
+    bi, ni = np.nonzero(hot)
+    scores[bi, ni, rng.integers(0, nc, len(bi))] = rng.uniform(0.9, 1.0, len(bi))
+    flat = scores.reshape(b, n * nc)
+    order = np.argsort(-flat, axis=1, kind="stable")[:, :k]
+    top = np.take_along_axis(flat, order, 1)
+    valid = np.ones((b, k), bool)
+    valid[:, k - k // 10:] = False
+    return (np.take_along_axis(boxes, (order // nc)[..., None], 1).astype(np.float32),
+            np.where(valid, top, np.float32(0)).astype(np.float32),
+            (order % nc).astype(np.int32), valid)
 
 
 def score_sorted(boxes, scores, classes, valid):

@@ -7,13 +7,18 @@
         2/weights.pt       # or an upstream .pt/.pth/.onnx, imported
 
 :func:`scan_disk` builds every entry's pipeline with the port's builders
-(``build_yolov5_pipeline``, ``build_pointpillars_pipeline``,
-``build_second_pipeline``, ``build_centerpoint_pipeline``) and registers it (name, version) into a
+(``build_yolov5_pipeline``, ``build_yolov4_pipeline``,
+``build_retinanet_pipeline``, ``build_fcos_pipeline``,
+``build_pointpillars_pipeline``, ``build_second_pipeline``,
+``build_centerpoint_pipeline``) and registers it (name, version) into a
 ``ModelRepository`` for ``CUDAChannel`` and the serving façade. Each entry
 registers its pipeline's captured body (``infer_fn``) with a ``warmup``
 that captures the graph real traffic uses: batch 1 of FP32 frames at the
-model's input size (2D), or every point bucket (3D). ``config.yaml`` and
-the dataset files it names are read with the port's ``yaml_subset``.
+model's input size (2D), or every point bucket (3D). A 2D entry's
+``pipeline:`` section overlays its family's default config (YOLOv5's,
+YOLOv4's, or the detectron family's thresholds, head and scaling).
+``config.yaml`` and the dataset files it names are read with the port's
+``yaml_subset``.
 
 Weights (:func:`load_weights`, no JAX needed): a version dir's
 ``weights.msgpack`` is read by ``runtime/flax_msgpack`` and carried across
@@ -33,8 +38,8 @@ calibration scales, so it stages float32 as ``int8w`` does, as in the JAX
 package. Broken or unported entries raise, so a serving process fails at
 startup instead of skipping models:
 
-- the families not ported (yolov4, retinanet, fcos, preprocess and
-  ensembles: ROADMAP.md Queue 1 item 7);
+- the families not ported (preprocess and ensembles: ROADMAP.md Queue 1
+  item 7);
 - ``export_model`` (item 12).
 """
 
@@ -65,9 +70,6 @@ _WEIGHT_NAMES = ("weights.msgpack", "weights.pt", "weights.pth", "weights.onnx",
 
 # family -> the ROADMAP.md Queue 1 item that ports it
 _UNPORTED_FAMILIES = {
-    "yolov4": "7 (models/yolov4.py)",
-    "retinanet": "7 (models/retinanet.py)",
-    "fcos": "7 (models/retinanet.py, ops/anchor_decode.py)",
     "preprocess": "7 (pipelines/preprocess2d.py)",
     "ensemble": "7 (runtime/ensemble.py)",
 }
@@ -90,6 +92,9 @@ def _from_flax(family: str):
     from triton_client_tpu_torch.models import convert
 
     return {"yolov5": convert.yolov5_state_dict_from_flax,
+            "yolov4": convert.yolov4_state_dict_from_flax,
+            "retinanet": convert.retinanet_state_dict_from_flax,
+            "fcos": convert.fcos_state_dict_from_flax,
             "pointpillars": convert.pointpillars_state_dict_from_flax,
             "second_iou": convert.second_state_dict_from_flax,
             "centerpoint": convert.centerpoint_state_dict_from_flax}[family]
@@ -141,6 +146,11 @@ def _resolve(path_str: str, model_dir: pathlib.Path) -> str:
     )
 
 
+# the model keys of each 2D family beside num_classes, input_hw and dtype
+_FAMILY_KEYS = {"yolov5": {"variant", "s2d", "ch_floor"}, "yolov4": {"width"},
+                "retinanet": {"depth"}, "fcos": {"depth"}}
+
+
 def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, device):
     from triton_client_tpu_torch.pipelines import detect2d
 
@@ -156,18 +166,18 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     names = detect2d.load_class_names(_resolve(names_file, model_dir)) if names_file else None
     if names:
         model_kwargs.setdefault("num_classes", len(names))
-    known = {"variant", "num_classes", "input_hw", "s2d", "ch_floor", "dtype"}
+    known = {"num_classes", "input_hw", "dtype"} | _FAMILY_KEYS[family]
     if set(model_kwargs) - known:
         raise KeyError(f"{model_dir / 'config.yaml'}: unknown model keys "
                        f"{sorted(set(model_kwargs) - known)}; known: {sorted(known)}")
     # the family's default config, then the pipeline section over it
-    cfg = detect2d.default_detect2d_config(
-        model_kwargs.get("variant", "n"), model_kwargs.get("num_classes", 80),
-        model_kwargs.get("input_hw", (512, 512)),
-    )
+    cfg = detect2d.default_config(family, model_kwargs.get("num_classes", 80),
+                                  model_kwargs.get("input_hw"), model_kwargs.get("variant", "n"))
     cfg = _apply_overrides(cfg, pipe_d, _SEQ_KEYS)
     if names:
         cfg = dataclasses.replace(cfg, class_names=names, num_classes=model_kwargs["num_classes"])
+    if "input_hw" in model_kwargs:
+        cfg = dataclasses.replace(cfg, input_hw=model_kwargs["input_hw"])
 
     def build(variables=None, state_dict=None, config=None):
         return detect2d.BUILDERS_2D[family](

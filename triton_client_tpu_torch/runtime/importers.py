@@ -1,18 +1,22 @@
 """Upstream checkpoints onto the port's models (port of
-``runtime/importers.py``: YOLOv5, PointPillars, SECOND-IoU, CenterPoint).
+``runtime/importers.py``: YOLOv5, PointPillars, SECOND-IoU, CenterPoint,
+RetinaNet, FCOS, YOLOv4).
 
 Each importer maps the published checkpoint naming (ultralytics YOLOv5
 ``model.N.*``; OpenPCDet PointPillars and SECOND ``vfe.pfn_layers``/
 ``backbone_3d``/``backbone_2d.blocks``/``dense_head.*``; det3d CenterPoint
-``reader.pfn_layers``/``neck.blocks``/``bbox_head.*``; an ONNX export's
-initializers, read by ``runtime/onnx_reader``) onto the port's
+``reader.pfn_layers``/``neck.blocks``/``bbox_head.*``; detectron2
+RetinaNet/FCOS ``backbone.bottom_up.res{2-5}``/``fpn_lateral``/
+``head.cls_subnet``; pytorch-YOLOv4 ``down1-5``/``neek``/``head``; an ONNX
+export's initializers, read by ``runtime/onnx_reader``) onto the port's
 ``state_dict`` names, through ``runtime/checkpoint.convert_state_dict``.
 Both sides are PyTorch layouts, so the JAX importer's transposes vanish
 (the ``ConvTranspose2d`` deblocks and SECOND's ``Conv3d`` stages copy as
 they are). What remains is det3d's shared-conv bias, folded exactly into
-the BatchNorm mean (:func:`load_centerpoint`), and YOLOv5's layout of
-``examples/yolov5_crop``, imported exactly from the plain upstream
-weights:
+the BatchNorm mean (:func:`load_centerpoint`), FCOS's missing per-level
+scales (:func:`load_fcos`), the block order of YOLOv4's SPP merge conv
+(:func:`load_yolov4`), and YOLOv5's layout of ``examples/yolov5_crop``,
+imported exactly from the plain upstream weights:
 
 - the ``s2d`` stem: the 6x6 stride-2 kernel (out, 3, 6, 6) reshaped to
   the 3x3 stride-1 kernel (out, 12, 3, 3) over the space-to-depth input
@@ -33,7 +37,11 @@ from typing import Any, Mapping
 
 import torch
 
-from triton_client_tpu_torch.runtime.checkpoint import convert_state_dict, load_torch_checkpoint
+from triton_client_tpu_torch.runtime.checkpoint import (
+    as_tensor,
+    convert_state_dict,
+    load_torch_checkpoint,
+)
 
 # The port's YOLOv5 module -> the ultralytics layer index ("model.N"); the
 # layout of models/yolov5n.yaml, fixed across variants n/s/m/l/x: backbone
@@ -263,6 +271,180 @@ def load_centerpoint(path_or_state: Any, model: torch.nn.Module) -> dict:
     return convert_state_dict(state, model.state_dict(), centerpoint_torch_key)
 
 
+# --- RetinaNet / FCOS (detectron2 naming, the reference's libtorch export
+#     lineage: examples/RetinaNet_detectron/config.pbtxt) ---------------------
+
+_D2_BLOCK = re.compile(r"^s(\d+)b(\d+)$")
+_D2_CONV = {"c1": "conv1", "c2": "conv2", "c3": "conv3", "down": "shortcut"}
+_D2_LAT = re.compile(r"^lat(\d)$")
+_D2_OUT = re.compile(r"^out(\d)$")
+_D2_SUBNET = re.compile(r"^(cls|box|reg)(\d+)$")
+_D2_SCALE = re.compile(r"^scale(\d+)$")
+_D2_OUTPUTS = {"cls_out": "cls_score", "box_out": "bbox_pred", "reg_out": "bbox_pred",
+               "ctr_out": "ctrness"}
+
+
+def _d2_norm(base: str, sub: str, leaf: str) -> str:
+    # a _ConvBnRelu's conv is the detectron2 conv, its bn the conv's .norm
+    return f"{base}.{leaf}" if sub == "conv" else f"{base}.norm.{leaf}"
+
+
+def detectron_torch_key(key: str) -> str:
+    """Port key -> detectron2 key: ``backbone.bottom_up.stem.conv1`` and
+    ``res{2-5}.{i}.conv{1-3}``/``.shortcut`` (norms as ``.norm``
+    children), ``backbone.fpn_lateral{l}``/``fpn_output{l}``/
+    ``top_block.p6|p7``, ``head.cls_subnet.{2i}``/``bbox_subnet.{2i}`` (ReLU
+    at the odd indices), ``head.cls_score``/``bbox_pred``/``ctrness``, and
+    AdelaiDet's ``head.scales.{l}.scale``. The residual stride is on
+    conv2 (torchvision's layout; caffe-style checkpoints put it on conv1,
+    which no key reveals, and are out of contract, as in the JAX
+    package)."""
+    head, name, rest = (key.split(".", 2) + [""])[:3]
+    if head == "backbone":
+        if name == "stem":
+            sub, leaf = rest.split(".", 1)
+            return _d2_norm("backbone.bottom_up.stem.conv1", sub, leaf)
+        m = _D2_BLOCK.match(name)
+        if m:
+            conv, sub, leaf = rest.split(".", 2)
+            base = f"backbone.bottom_up.res{int(m.group(1)) + 2}.{m.group(2)}.{_D2_CONV[conv]}"
+            return _d2_norm(base, sub, leaf)
+        m = _D2_LAT.match(name) or _D2_OUT.match(name)
+        if m:
+            kind = "lateral" if name.startswith("lat") else "output"
+            return f"backbone.fpn_{kind}{m.group(1)}.{rest}"
+        if name in ("p6", "p7"):
+            return f"backbone.top_block.{name}.{rest}"
+    if head == "head":
+        m = _D2_SCALE.match(name)
+        if m:
+            return f"head.scales.{m.group(1)}.scale"
+        m = _D2_SUBNET.match(name)
+        if m:
+            sub = "cls_subnet" if m.group(1) == "cls" else "bbox_subnet"
+            return f"head.{sub}.{2 * int(m.group(2))}.{rest}"
+        if name in _D2_OUTPUTS:
+            return f"head.{_D2_OUTPUTS[name]}.{rest}"
+    raise KeyError(f"unmapped detectron key: {key}")
+
+
+def _d2_state(path_or_state: Any) -> dict:
+    return {k.removeprefix("model."): v for k, v in _as_state_dict(path_or_state).items()}
+
+
+def load_retinanet(path_or_state: Any, model: torch.nn.Module) -> dict:
+    """A detectron2-named RetinaNet checkpoint -> a ``state_dict`` for the
+    port's ``model``."""
+    return convert_state_dict(_d2_state(path_or_state), model.state_dict(), detectron_torch_key)
+
+
+def load_fcos(path_or_state: Any, model: torch.nn.Module) -> dict:
+    """A detectron2/AdelaiDet-named FCOS checkpoint -> a ``state_dict`` for
+    the port's ``model``. Stock detectron2 FCOS has no per-level scales
+    (it predicts unscaled distances); AdelaiDet's checkpoints carry
+    ``head.scales.{l}.scale``. A missing scale is the neutral 1.0, which
+    is stock detectron2's function; every other missing key raises."""
+    state = _d2_state(path_or_state)
+    template = model.state_dict()
+    for key in template:
+        m = _D2_SCALE.match(key.split(".")[1]) if key.startswith("head.") else None
+        if m:
+            state.setdefault(f"head.scales.{m.group(1)}.scale", torch.ones(1))
+    return convert_state_dict(state, template, detectron_torch_key)
+
+
+# --- YOLOv4 (pytorch-YOLOv4 naming, the torch source of the ONNX the
+#     reference serves: examples/YOLOv4/config.pbtxt) -------------------------
+
+# Tianxiaomo/pytorch-YOLOv4's layout: DownSample1..5 ("down{k}"), the neck
+# ("neek" [sic]) and the head. Every Conv_Bn_Activation keeps its layers in
+# a ModuleList "conv": the conv at .conv.0, the BN at .conv.1. DownSample1
+# inlines the first CSP stage as conv1..conv8; DownSample2-5 hold conv1..5
+# and a ResBlock ("resblock.module_list.{i}.{0,1}").
+_V4_DOWN1 = {"stem": 1, "down": 2, "split_short": 3, "split_main": 4, "res0_cv1": 5,
+             "res0_cv2": 6, "post": 7, "merge": 8}
+_V4_STAGE = {"down": 1, "split_short": 2, "split_main": 3, "post": 4, "merge": 5}
+_V4_RES = re.compile(r"^res(\d+)_cv([12])$")
+_V4_TOP = {
+    "pre_spp0": "neek.conv1", "pre_spp1": "neek.conv2", "pre_spp2": "neek.conv3",
+    "post_spp0": "neek.conv5", "post_spp1": "neek.conv6", "td4_up": "neek.conv7",
+    "td4_lat": "neek.conv8", "td3_up": "neek.conv14", "td3_lat": "neek.conv15",
+    "head0_cv": "head.conv1", "detect0": "head.conv2", "bu4_down": "head.conv3",
+    "head1_cv": "head.conv9", "detect1": "head.conv10", "bu5_down": "head.conv11",
+    "head2_cv": "head.conv17", "detect2": "head.conv18",
+}
+# the neck's 1-3-1-3-1 blocks: {name}_cv{i} -> {module}.conv{base + i}
+_V4_CONV5 = {"td4": ("neek", 9), "td3": ("neek", 16), "bu4": ("head", 4), "bu5": ("head", 12)}
+_V4_CV = re.compile(r"^(td4|td3|bu4|bu5)_cv(\d)$")
+# upstream's SPP merge conv: pytorch-YOLOv4 concatenates [p13, p9, p5, x]
+_V4_SPP_MERGE = "neek.conv4.conv.0.weight"
+
+
+def yolov4_torch_key(key: str) -> str:
+    """Port key -> pytorch-YOLOv4 key."""
+    parts = key.split(".")
+
+    def cba(mod: str, sub: str, leaf: str) -> str:
+        return f"{mod}.conv.{0 if sub == 'conv' else 1}.{leaf}"
+
+    head = parts[0]
+    if head == "stem":
+        return cba("down1.conv1", parts[1], parts[2])
+    if head == "stage1" and parts[1] in _V4_DOWN1:
+        return cba(f"down1.conv{_V4_DOWN1[parts[1]]}", parts[2], parts[3])
+    if head.startswith("stage") and head != "stage1":
+        k, name = head[len("stage"):], parts[1]
+        if name in _V4_STAGE:
+            return cba(f"down{k}.conv{_V4_STAGE[name]}", parts[2], parts[3])
+        m = _V4_RES.match(name)
+        if m:
+            return cba(f"down{k}.resblock.module_list.{m.group(1)}.{int(m.group(2)) - 1}",
+                       parts[2], parts[3])
+    if head == "spp":
+        return cba("neek.conv4", parts[2], parts[3])
+    if head in _V4_TOP:
+        if head.startswith("detect"):  # a bare Conv2d with a bias
+            return f"{_V4_TOP[head]}.conv.0.{parts[1]}"
+        return cba(_V4_TOP[head], parts[1], parts[2])
+    m = _V4_CV.match(head)
+    if m:
+        mod, base = _V4_CONV5[m.group(1)]
+        return cba(f"{mod}.conv{base + int(m.group(2))}", parts[1], parts[2])
+    raise KeyError(f"unmapped YOLOv4 key: {key}")
+
+
+def spp_blocks_reversed(weight: torch.Tensor) -> torch.Tensor:
+    """The SPP merge conv's (cout, cin, kh, kw) kernel with its four
+    input-channel blocks in reverse order: upstream's [p13, p9, p5, x]
+    columns onto the port's [x, p5, p9, p13] (the same function; only the
+    concatenation's bookkeeping differs). Axis 1 in PyTorch's OIHW, where
+    the JAX importer flips axis 2 of flax's HWIO."""
+    cout, cin, kh, kw = weight.shape
+    return weight.reshape(cout, 4, cin // 4, kh, kw).flip(1).reshape(cout, cin, kh, kw)
+
+
+def load_yolov4(path_or_state: Any, model: torch.nn.Module) -> dict:
+    """A pytorch-YOLOv4 checkpoint (``.pth``, or its ONNX export's
+    initializers) -> a ``state_dict`` for the port's ``model``. ``neck.``
+    (ONNX initializer names, some forks) is read as upstream's ``neek.``;
+    the SPP merge conv's input blocks are reversed
+    (:func:`spp_blocks_reversed`). A tensor that does not fit (another
+    width multiple or class count) raises, naming the key."""
+    state = {("neek." + k[len("neck."):] if k.startswith("neck.") else k): v
+             for k, v in _as_state_dict(path_or_state).items()}
+    if _V4_SPP_MERGE in state:
+        w = as_tensor(state[_V4_SPP_MERGE])
+        if w.ndim == 4 and w.shape[1] % 4 == 0:
+            state[_V4_SPP_MERGE] = spp_blocks_reversed(w)
+
+    def transform(key: str, nat: torch.Tensor, target: tuple) -> torch.Tensor:
+        raise ValueError(f"yolov4 import: {key} {tuple(nat.shape)} does not fit the template "
+                         f"{target} (wrong width multiple or num_classes?)")
+
+    return convert_state_dict(state, model.state_dict(), yolov4_torch_key,
+                              leaf_transform=transform)
+
+
 def _as_state_dict(path_or_state: Any) -> Mapping[str, Any]:
     if isinstance(path_or_state, Mapping):
         return path_or_state
@@ -287,4 +469,7 @@ IMPORTERS = {
     "pointpillars": load_pointpillars,
     "second_iou": load_second,
     "centerpoint": load_centerpoint,
+    "retinanet": load_retinanet,
+    "fcos": load_fcos,
+    "yolov4": load_yolov4,
 }
