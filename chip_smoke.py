@@ -3,7 +3,16 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phase ensemble     # one group of phases (repeatable)
+
+``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
+3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
+centerpoint, precision, replay, detectron_v4, ensemble, loadgen), with the
+groups whose served models they reuse run first; an unknown name exits 2.
+A named run ends as a whole run does, with the ``{"kernels": [...]}``
+record (the rows of the kernels its groups measured) and the ``{"ok":
+true, ...}`` line.
 
 It builds the hand-written CUDA kernels from ``triton_client_tpu_torch/
 csrc/`` and drives the port's four main paths, each served in-process
@@ -19,8 +28,10 @@ same three entries, the layout and precision of examples/yolov5_crop (phase
 26), detect2d/detect3d client processes against serve (phase 27), and
 CenterPoint with velocity on nuScenes at full width with 10-sweep
 aggregation, with examples/pointpillar_wide beside it (phase 28), and every
-serving precision policy on every served family (phase 29), and replay
-and evaluation from bags (phase 30). One JSON line per phase:
+serving precision policy on every served family (phase 29), replay
+and evaluation from bags (phase 30), YOLOv4, RetinaNet and FCOS from disk
+(phase 31), server-side preprocess and ensembles (phase 32) and the load
+generator against `serve` (phase 33). One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -285,15 +296,39 @@ and evaluation from bags (phase 30). One JSON line per phase:
                  at the scored shapes) and detectron_v4: GFLOPs a frame, p50
                  and frames/s at batch 1 and 4, device ms, busy share and top
                  device ops a request, graph-pool bytes, the wall time
+ 32. ensemble  — scan_disk of examples/camera_preprocess, yolov5_crop (at
+                 conf 0.05: seeded weights keep nothing at 0.3),
+                 yolov5_crop_base, ensemble_crop_pipeline and
+                 ensemble_fused_pipeline, and a fuse: never copy of the fused
+                 one, served by CUDAChannel; a device-resident DAG (the fused
+                 ensemble, then a host-only member registered here). Seeded
+                 480x640 frames at batch 1 and 8: the fused DAG (one CUDA
+                 graph over preprocess and yolov5_crop, kernel 1 inside it)
+                 equals the host path, the chain run by hand through the
+                 channel, ensemble_crop_pipeline and the mixed DAG, rows bit
+                 for bit; one kernel-1 launch a fused request counted
+                 through graph replays and no other kernel, no capture in
+                 the counted window. p50, frames/s, device ms, host-device
+                 bytes a request and graph-pool bytes of the fused, host and
+                 hand-chained paths, and the fused warmup's 64x64 graph
+ 33. loadgen   — `serve` over the phase-32 repository in a process of its
+                 own, and utils/loadgen on loopback against yolov5_crop and
+                 ensemble_fused_pipeline: run_pool with 4 clients for 5 s in
+                 the unary, stream and async modes, run_open_loop at half
+                 the unary frames/s for 5 s, slo_capacity_search at a 33 ms
+                 SLO with 2 s probes and 4 bisections; frames/s, p50, p99,
+                 errors (none allowed) and capacity
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
-It imports nothing of JAX. Without a CUDA device it exits 2 and prints
-no result.
+It imports nothing of JAX. Without a CUDA device, or run from a directory
+that holds this script and not the package, it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
@@ -681,39 +716,78 @@ def candidate_stage(model, heads, top_idx, reps: int = 200) -> dict:
     return out
 
 
-def main() -> int:
+# the phases a run can name (``--phase NAME``), in the order a whole run takes
+# them: name -> (the phase numbers of the module docstring, the groups whose
+# served models it reuses and which run before it)
+PHASES = {
+    "yolov5": ("2-6", ()),
+    "3d": ("7-11", ()),
+    "second": ("12-16", ()),
+    "ragged": ("17-20", ()),
+    "dense_batched": ("21", ("yolov5",)),
+    "graphs": ("22-23", ("yolov5", "3d", "second")),
+    "driver": ("24", ("yolov5", "3d")),
+    "facade": ("25", ()),
+    "layout": ("26", ()),
+    "remote": ("27", ()),
+    "centerpoint": ("28", ()),
+    "precision": ("29", ()),
+    "replay": ("30", ()),
+    "detectron_v4": ("31", ()),
+    "ensemble": ("32", ()),
+    "loadgen": ("33", ()),
+}
+
+
+def parse_args(argv: list[str]) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="On-card smoke test of the PyTorch/CUDA port (module docstring).")
+    p.add_argument("--phase", action="append", default=[], metavar="NAME",
+                   help="run only this group of phases, and the groups it needs (repeatable; "
+                   f"default: every group). Groups: {', '.join(PHASES)}")
+    args = p.parse_args(argv)
+    unknown = [name for name in args.phase if name not in PHASES]
+    if unknown:
+        p.error(f"unknown phase {unknown[0]!r} (known: {', '.join(PHASES)})")
+    return args
+
+
+def selected(names: list[str]) -> list[str]:
+    """The named groups and the groups they need, in the run's order; every
+    group when none is named."""
+    if not names:
+        return list(PHASES)
+    want, stack = set(), list(names)
+    while stack:
+        name = stack.pop()
+        if name not in want:
+            want.add(name)
+            stack.extend(PHASES[name][1])
+    return [name for name in PHASES if name in want]
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-
-    from triton_client_tpu_torch.channel.base import InferRequest
-    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
-    from triton_client_tpu_torch.io.sources import SyntheticImageSource
-    from triton_client_tpu_torch.ops import (
-        cuda_build,
-        gpu_decode,
-        gpu_decode3d,
-        gpu_nms,
-        gpu_suppress3d,
-        gpu_voxel,
-        kernel_cases,
-        mask_scan,
-    )
-    from triton_client_tpu_torch.ops import nms as tnms
-    from triton_client_tpu_torch.ops.boxes import xywh2xyxy
-    from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes, topk_candidates
-    from triton_client_tpu_torch.ops.nms import class_offset_boxes
-    from triton_client_tpu_torch.ops.preprocess import normalize_image, resize_bilinear
-    from triton_client_tpu_torch.pipelines.detect2d import (
-        Detect2DConfig,
-        build_yolov5_pipeline,
-        load_class_names,
-    )
-    from triton_client_tpu_torch.runtime.repository import ModelRepository
+    try:
+        from triton_client_tpu_torch.ops import (
+            cuda_build,
+            gpu_decode,
+            gpu_decode3d,
+            gpu_nms,
+            gpu_segment,
+            gpu_suppress3d,
+            gpu_voxel,
+        )
+    except ModuleNotFoundError as e:
+        # run from a directory that holds this script and not the package
+        print(f"chip_smoke: the port's package is not importable from {ROOT} ({e}); "
+              "run the script from the root of a checkout; nothing run", file=sys.stderr)
+        return 2
 
     dev = torch.device("cuda")
-    from triton_client_tpu_torch.ops import gpu_segment
-
     # each kernel's launches, then kernel 3's in its gathered form (also
     # counted in gpu_decode3d.launches)
     counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,
@@ -730,6 +804,102 @@ def main() -> int:
     build_s = cuda_build.build_all()
     emit("card", card, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), build_s=build_s)
+
+    groups = selected(args.phase)
+    emit("phases", card, run=groups, named=args.phase)
+
+    record = []  # the kernels' rows, in the order 1-6, of the groups that ran
+    if "yolov5" in groups:
+        record += run_yolov5(card, dev, counters)
+    if "3d" in groups:
+        record_3d = run_3d(card, dev, counters)
+        for row in record_3d:  # kernels 3-4 run on both 3D paths
+            row["launches_by_path"] = {"pointpillars": row["launches"]}
+        record += record_3d
+    if "second" in groups:
+        record_second, second_launches = run_second(card, dev, counters)
+        for row in record:
+            if row["name"] in second_launches:
+                row["launches_by_path"]["second_iou"] = second_launches[row["name"]]
+        record += record_second
+    if "ragged" in groups:
+        record += run_ragged(card, dev, counters)
+    rows = {row["name"]: row for row in record}
+    for row in record:
+        row.setdefault("launches_by_path", {})
+    if "dense_batched" in groups:
+        served = SERVED["yolov5n"]
+        run_dense_batched(card, counters, served["repo"], served["channel"], served["frames"])
+    if "graphs" in groups:
+        run_graphs(card, dev, counters)
+    if "driver" in groups:
+        run_driver(card)
+    if "facade" in groups:
+        run_facade(card, counters)
+    if "layout" in groups:
+        run_layout(card, counters)
+    if "remote" in groups:
+        run_remote(card, counters)
+    if "centerpoint" in groups:
+        record_cp = run_centerpoint(card, counters)
+        # kernel 4 also runs CenterPoint's tail, at K = 128 rows of 11 columns
+        if "suppress_pack_3d" in rows:
+            rows["suppress_pack_3d"]["launches_by_path"]["centerpoint"] = record_cp.pop(
+                "launches")
+            rows["suppress_pack_3d"]["centerpoint_shape"] = record_cp
+    # phase 29's paths: each precision policy on each family, counted alone;
+    # phase 30's replays
+    if "precision" in groups:
+        for path, counts in run_precision(card, counters).items():
+            for name, n in counts.items():
+                if n and name in rows:
+                    rows[name]["launches_by_path"][f"precision_{path}"] = n
+    if "replay" in groups:
+        for path, counts in run_replay(card, counters).items():
+            for name, n in counts.items():
+                if n and name in rows:
+                    rows[name]["launches_by_path"][f"replay_{path}"] = n
+    # phase 31: kernel 1 on the detectron family's scored tail and YOLOv4's
+    if "detectron_v4" in groups:
+        detectron_v4 = run_detectron_v4(card, counters)
+        if "decode_nms_2d" in rows:
+            for path, n in detectron_v4["launches"].items():
+                rows["decode_nms_2d"]["launches_by_path"][f"detectron_v4_{path}"] = n
+            rows["decode_nms_2d"]["scored_shape"] = detectron_v4["scored_shape"]
+    # phase 32: kernel 1 inside the fused ensemble's one graph
+    if "ensemble" in groups:
+        ensemble_launches = run_ensemble(card, counters)
+        if "decode_nms_2d" in rows:
+            rows["decode_nms_2d"]["launches_by_path"]["ensemble_fused"] = ensemble_launches
+    if "loadgen" in groups:
+        run_loadgen(card)
+    print(json.dumps({"kernels": record}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def run_yolov5(card: str, dev: torch.device, counters) -> list[dict]:
+    """Phases 2-6: kernels 1 and 2 against their plain versions, YOLOv5n
+    served through ``CUDAChannel`` (``SERVED["yolov5n"]``, which phases 21-24
+    reuse), its checks, times and profile. Returns kernels 1 and 2's rows."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource
+    from triton_client_tpu_torch.ops import gpu_decode, gpu_nms, kernel_cases, mask_scan
+    from triton_client_tpu_torch.ops import nms as tnms
+    from triton_client_tpu_torch.ops.boxes import xywh2xyxy
+    from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes, topk_candidates
+    from triton_client_tpu_torch.ops.nms import class_offset_boxes
+    from triton_client_tpu_torch.ops.preprocess import normalize_image, resize_bilinear
+    from triton_client_tpu_torch.pipelines.detect2d import (
+        Detect2DConfig,
+        build_yolov5_pipeline,
+        load_class_names,
+    )
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
 
     # -- 2. kernels against their plain versions, on the card -------------------
     def to_dev(arrays):
@@ -1017,29 +1187,7 @@ def main() -> int:
     for batch in (b1[0], b8[0]):
         emit("profile", card, batch=batch.shape[0],
              **device_profile(lambda: ask("yolov5n", batch), PROFILE_REQUESTS))
-
-    record_3d = run_3d(card, dev, counters)
-    record_second, second_launches = run_second(card, dev, counters)
-    for row in record_3d:  # kernels 3-4 run on both 3D paths
-        row["launches_by_path"] = {"pointpillars": row["launches"],
-                                   "second_iou": second_launches[row["name"]]}
-    record_ragged = run_ragged(card, dev, counters)
-    run_dense_batched(card, counters, repo, channel, frames)
-    run_graphs(card, dev, counters)
-    run_driver(card)
-    run_facade(card, counters)
-    run_layout(card, counters)
-    run_remote(card, counters)
-    record_cp = run_centerpoint(card, counters)
-    precision_launches = run_precision(card, counters)
-    replay_launches = run_replay(card, counters)
-    detectron_v4 = run_detectron_v4(card, counters)
-    # kernel 4 also runs CenterPoint's tail, at K = 128 rows of 11 columns
-    k4_row = next(row for row in record_3d if row["name"] == "suppress_pack_3d")
-    k4_row["launches_by_path"]["centerpoint"] = record_cp.pop("launches")
-    k4_row["centerpoint_shape"] = record_cp
-
-    record = [
+    return [
         {"name": "decode_nms_2d", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/decode_nms_2d.cu",
          "replaces": "triton_client_tpu/ops/pallas_decode.py:155",
@@ -1056,31 +1204,7 @@ def main() -> int:
          "bound_by": k2_by, "passes_us": k2_passes["us"],
          "workspace_bytes": k2_workspace_bytes,
          "library_ms": None, "card": card},
-        *record_3d,
-        *record_second,
-        *record_ragged,
     ]
-    # phase 29's paths: each precision policy on each family, counted alone;
-    # phase 30's replays
-    for row in record:
-        by_path = row.setdefault("launches_by_path", {})
-        for path, counts in precision_launches.items():
-            if counts.get(row["name"]):
-                by_path[f"precision_{path}"] = counts[row["name"]]
-        for path, counts in replay_launches.items():
-            if counts.get(row["name"]):
-                by_path[f"replay_{path}"] = counts[row["name"]]
-    # phase 31: kernel 1 on the detectron family's scored tail and YOLOv4's
-    k1_row = record[0]
-    for path, n in detectron_v4["launches"].items():
-        k1_row["launches_by_path"][f"detectron_v4_{path}"] = n
-    k1_row["scored_shape"] = detectron_v4["scored_shape"]
-    print(json.dumps({"kernels": record}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
 
 
 def run_3d(card: str, dev: torch.device, counters) -> list[dict]:
@@ -4907,6 +5031,317 @@ def read_png(path: pathlib.Path) -> np.ndarray:
 
         return np.asarray(Image.open(path).convert("RGB"))
     return cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+
+
+
+# phase 32: server-side preprocess and ensembles. The examples/ entries that
+# chain them, yolov5_crop at conf 0.05 (its seeded weights keep nothing at
+# 0.3, as phase 27's copy), and a fuse: never copy of the fused ensemble
+ENSEMBLE_ENTRIES = ("camera_preprocess", "yolov5_crop", "yolov5_crop_base",
+                    "ensemble_crop_pipeline", "ensemble_fused_pipeline")
+ENSEMBLE_HOST = "ensemble_fused_never"
+ENSEMBLE_BATCHES = 4  # requests a batch size (1 and 8) in the counted window
+ENSEMBLE_REQUESTS = 20  # requests a timed path at batch 1 (batch 8: half)
+
+
+def ensemble_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """The phase-32 repository root (configs only; data/ resolves from the
+    checkout, the working directory)."""
+    for name in ENSEMBLE_ENTRIES:
+        (tmp / name).mkdir()
+        (tmp / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    crop = (tmp / "yolov5_crop" / "config.yaml").read_text()
+    check("conf_thresh: 0.3" in crop, "examples/yolov5_crop changed its conf_thresh")
+    (tmp / "yolov5_crop" / "config.yaml").write_text(
+        crop.replace("conf_thresh: 0.3", "conf_thresh: 0.05"))
+    fused = (tmp / "ensemble_fused_pipeline" / "config.yaml").read_text()
+    check("fuse: always" in fused, "examples/ensemble_fused_pipeline is not fuse: always")
+    (tmp / ENSEMBLE_HOST).mkdir()
+    (tmp / ENSEMBLE_HOST / "config.yaml").write_text(fused.replace("fuse: always",
+                                                                     "fuse: never"))
+    return tmp
+
+
+def run_ensemble(card: str, counters) -> int:
+    """Phase 32: ``scan_disk`` of the ensemble repository on the card, served
+    by ``CUDAChannel``: the fused DAG (preprocess -> yolov5_crop, one graph
+    over both pipelines), its host path (``fuse: never``: each step's
+    outputs read back, then uploaded again), the chain run by hand (each
+    entry through the channel), ``ensemble_crop_pipeline`` on the
+    preprocessed frames, and a device-resident DAG (the fused ensemble, then
+    a host-only member registered here) on seeded 480x640 camera frames at
+    batch 1 and 8. Holds their rows bitwise equal, one kernel-1 launch a
+    fused request (through graph replays) and no other kernel, no capture in
+    the counted window. Reports p50, frames/s and device ms a request,
+    host-device bytes a request and graph-pool bytes of each path, and the
+    fused warmup's nominal 64x64 graph. Returns the counted kernel-1
+    launches."""
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.config import ModelSpec, TensorSpec
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource
+    from triton_client_tpu_torch.ops import gpu_decode
+    from triton_client_tpu_torch.runtime.disk_repository import scan_disk
+    from triton_client_tpu_torch.runtime.ensemble import EnsembleStep, build_ensemble
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ensemble_repo_") as tmp:
+        repo = scan_disk(ensemble_repository(pathlib.Path(tmp)))
+    fused_rm = repo.get("ensemble_fused_pipeline")
+    paths_of = {name: repo.get(name).spec.extra["data_path"]
+                for name in ("ensemble_fused_pipeline", ENSEMBLE_HOST, "ensemble_crop_pipeline")}
+    check(paths_of == {"ensemble_fused_pipeline": "fused", ENSEMBLE_HOST: "host",
+                       "ensemble_crop_pipeline": "host"}, f"data paths {paths_of}")
+    check(fused_rm.device_fn is not None, "the fused ensemble registered no device form")
+    for name in ("camera_preprocess", "yolov5_crop", "yolov5_crop_base"):
+        check(repo.get(name).device_fn is None and repo.get(name).member_device_fn is not None,
+              f"{name}: the plain entry's route changed")
+    # the mixed DAG: the fused ensemble, then a host-only member
+    max_det = fused_rm.spec.outputs[1].shape[1]
+    repo.register(ModelSpec("valid_count", inputs=(TensorSpec("valid", (-1, max_det), "BOOL"),),
+                             outputs=(TensorSpec("count", (-1,), "INT32"),), max_batch_size=8),
+                  lambda inputs: {"count": inputs["valid"].sum(-1).to(torch.int32)})
+    mixed = build_ensemble(
+        repo, "ensemble_mixed",
+        [EnsembleStep("ensemble_fused_pipeline", {"camera_raw": "camera_raw"},
+                      {"boxes": "boxes", "valid": "valid"}),
+         EnsembleStep("valid_count", {"valid": "valid"}, {"count": "count"})],
+        outputs=["boxes", "valid", "count"], max_batch_size=8)
+    check(mixed.spec.extra["data_path"] == "device-resident",
+          f"the mixed DAG's data path is {mixed.spec.extra['data_path']}")
+    repo.register(mixed.spec, mixed.infer_fn, warmup=mixed.warmup)
+    channel = CUDAChannel(repo)
+
+    frames = np.stack([f.data for f in SyntheticImageSource(4 + 8 * ENSEMBLE_BATCHES, FRAME_HW,
+                                                            seed=32)])
+    b1 = [frames[i:i + 1] for i in range(ENSEMBLE_BATCHES)]
+    b8 = [frames[4 + 8 * i: 12 + 8 * i] for i in range(ENSEMBLE_BATCHES)]
+
+    def ask(name, inputs):
+        return channel.do_inference(InferRequest(name, inputs)).outputs
+
+    def hand(batch):
+        pre = ask("camera_preprocess", {"images": batch})["preprocessed"]
+        out = ask("yolov5_crop", {"images": pre})
+        return {"boxes": out["detections"], "valid": out["valid"]}
+
+    paths = {"fused": lambda b: ask("ensemble_fused_pipeline", {"camera_raw": b}),
+             "host": lambda b: ask(ENSEMBLE_HOST, {"camera_raw": b}),
+             "hand_chain": hand}
+    # every graph the window and the timed paths use, captured before them
+    for batch in (b1[0], b8[0]):
+        for run in paths.values():
+            run(batch)
+        ask("ensemble_mixed", {"camera_raw": batch})
+    launcher = channel._launch_cache[("ensemble_fused_pipeline", "1")][1]
+    before = launcher.graphs.stats()
+    torch.cuda.synchronize()
+    for counter in counters:
+        counter.reset()
+    fused = [paths["fused"](b) for b in b1 + b8]
+    torch.cuda.synchronize()
+    counts = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+    after = launcher.graphs.stats()
+    n_fused = len(fused)
+    k1 = gpu_decode.launches.count
+    check(k1 == n_fused and sum(c.count for c in counters[:-1]) == n_fused,
+          f"{n_fused} fused requests launched {counts}")
+    check(after["captures"] == before["captures"], "a fused request captured in the window")
+    check(after["replays"] - before["replays"] == n_fused,
+          f"{after['replays'] - before['replays']} replays for {n_fused} fused requests")
+
+    kept = 0
+    for i, batch in enumerate(b1 + b8):
+        want = fused[i]
+        n = batch.shape[0]
+        check(want["boxes"].shape == (n, max_det, 6) and want["valid"].shape == (n, max_det),
+              f"fused shapes {want['boxes'].shape}")
+        check(bool(np.isfinite(want["boxes"]).all()), "non-finite fused rows")
+        pre = ask("camera_preprocess", {"images": batch})["preprocessed"]
+        others = {"host": paths["host"](batch), "hand_chain": hand(batch),
+                  "ensemble_crop_pipeline": ask("ensemble_crop_pipeline", {"camera": pre}),
+                  "mixed": ask("ensemble_mixed", {"camera_raw": batch})}
+        for label, got in others.items():
+            check(np.array_equal(got["valid"], want["valid"]),
+                  f"{label}: valid differs from the fused path (request {i})")
+            check(np.array_equal(got["boxes"].view(np.int32), want["boxes"].view(np.int32)),
+                  f"{label}: rows differ from the fused path (request {i})")
+        check(np.array_equal(others["mixed"]["count"], want["valid"].sum(-1)),
+              "the host-only member's counts differ")
+        kept += int(want["valid"].sum())
+    check(kept > 0, "the fused path kept no detection")
+
+    # times, bytes and pools of each path
+    host_rm = repo.get(ENSEMBLE_HOST)
+    out_hw = repo.get("camera_preprocess").spec.extra["out_hw"]
+    report = {}
+    for label, run in paths.items():
+        row = {}
+        for name, batches, reps in (("batch1", b1, ENSEMBLE_REQUESTS),
+                                    ("batch8", b8, ENSEMBLE_REQUESTS // 2)):
+            timed = serve(run, batches, reps, "frames_per_s", lambda b: b.shape[0])
+            prof = device_profile(lambda: run(batches[0]), PROFILE_REQUESTS)
+            n = batches[0].shape[0]
+            frame_bytes = batches[0].nbytes
+            out_bytes = n * max_det * (6 * 4 + 1)
+            pre_bytes = n * int(np.prod(out_hw)) * 3 * 4
+            if label == "fused":
+                h2d, d2h = frame_bytes, out_bytes
+            elif label == "host":
+                t0 = host_rm.infer_fn.transfer_stats()
+                run(batches[0])
+                t1 = host_rm.infer_fn.transfer_stats()
+                # the channel stages the frame; the ensemble's own hops move
+                # the rest, its last readback being the outputs'
+                h2d = frame_bytes + t1["h2d_bytes"] - t0["h2d_bytes"]
+                d2h = t1["d2h_bytes"] - t0["d2h_bytes"]
+            else:  # two requests: the frame in, the preprocessed frame out and in again
+                h2d, d2h = frame_bytes + pre_bytes, pre_bytes + out_bytes
+            row[name] = {**timed, "device_ms_per_request": prof["device_ms_per_request"],
+                         "device_busy_share": prof["device_busy_share"],
+                         "h2d_bytes_per_request": h2d, "d2h_bytes_per_request": d2h}
+        report[label] = row
+    pipe_pools = sum(repo.get(name).infer_fn.graph_stats()["pool_bytes"]
+                     for name in ("camera_preprocess", "yolov5_crop"))
+    report["fused"]["graph_pool_bytes"] = launcher.graphs.stats()["pool_bytes"]
+    report["host"]["graph_pool_bytes"] = report["hand_chain"]["graph_pool_bytes"] = pipe_pools
+    saved = {b: report["host"][b]["h2d_bytes_per_request"] + report["host"][b][
+        "d2h_bytes_per_request"] - report["fused"][b]["h2d_bytes_per_request"] - report[
+        "fused"][b]["d2h_bytes_per_request"] for b in ("batch1", "batch8")}
+    fused_rm.warmup()  # the DAG on a nominal batch: wildcard dims 64, batch 1
+    warm = fused_rm.infer_fn.graph_stats()
+    emit("ensemble", card, entries=sorted(n for n, _ in repo.list_models()),
+         data_paths={**paths_of, "ensemble_mixed": mixed.spec.extra["data_path"]},
+         step_precision=fused_rm.spec.extra["step_precision"],
+         requests={"batch1": len(b1), "batch8": len(b8)}, frame_hw=list(FRAME_HW),
+         launches=counts, graph_replays=after["replays"] - before["replays"],
+         fused_equals={"host": True, "hand_chain": True, "ensemble_crop_pipeline": True,
+                       "mixed": True}, kept=kept, paths=report,
+         host_minus_fused_bytes_per_request=saved,
+         warmup_graph={"shape": [1, 64, 64, 3], "keys": warm["keys"],
+                       "pool_bytes": warm["pool_bytes"]},
+         wall_s=time.perf_counter() - t_phase)
+    return k1
+
+
+# phase 33: the load generator against `serve` in a process of its own
+LOADGEN_CLIENTS, LOADGEN_WINDOW_S, LOADGEN_STAGGER_S = 4, 5.0, 0.1
+LOADGEN_SLO_MS, LOADGEN_PROBE_S, LOADGEN_ITERS = 33.0, 2.0, 4  # a 30 fps camera
+LOADGEN_MODELS = (("yolov5_crop", "images"), ("ensemble_fused_pipeline", "camera_raw"))
+
+
+def start_serve(root: pathlib.Path, timeout_s: float = 180.0):
+    """``python -m triton_client_tpu_torch serve -r root`` on a loopback port
+    of its choosing: (process, address, its output lines so far). A reader
+    thread drains its output."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "triton_client_tpu_torch", "serve", "-r", str(root),
+         "-a", "127.0.0.1:0", "--uds", "off"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+    ports: queue.Queue = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "listening on port" in line:
+                ports.put(int(line.split()[-1]))
+        ports.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        port = ports.get(timeout=timeout_s)
+    except queue.Empty:
+        port = None
+    if port is None:
+        stop_serve(proc, reader)
+        fail(f"serve did not start: {lines[-20:]}")
+    return proc, f"127.0.0.1:{port}", lines, reader
+
+
+def stop_serve(proc, reader) -> int:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    reader.join(timeout=30)
+    return proc.returncode
+
+
+def run_loadgen(card: str) -> None:
+    """Phase 33: ``serve`` on the phase-32 repository in a process of its
+    own, and ``utils/loadgen`` driving ``yolov5_crop`` and
+    ``ensemble_fused_pipeline`` on loopback with one seeded 480x640 frame a
+    request: ``run_pool`` with 4 clients for 5 s in each mode (unary;
+    stream and async with 2 in flight), ``run_open_loop`` at half the
+    unary closed loop's frames/s for 5 s, and ``slo_capacity_search`` at a
+    33 ms SLO (a 30 fps camera) with 2 s probes and 4 bisections. Every run
+    must end with no error and no unanswered request; reports frames/s,
+    p50, p99, errors and capacity."""
+    import tempfile
+
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource
+    from triton_client_tpu_torch.utils import loadgen
+
+    t_phase = time.perf_counter()
+    frame = next(iter(SyntheticImageSource(1, FRAME_HW, seed=33))).data[None]
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="loadgen_repo_") as tmp:
+        proc, address, lines, reader = start_serve(ensemble_repository(pathlib.Path(tmp)))
+        t_ready = time.perf_counter() - t_phase
+        try:
+            for model, key in LOADGEN_MODELS:
+                scenario = [(model, {key: frame})]
+                row = {}
+                for mode in ("unary", "stream", "async"):
+                    res = loadgen.run_pool(address, model, {key: frame}, LOADGEN_CLIENTS,
+                                           LOADGEN_WINDOW_S, deadline_s=120.0,
+                                           stagger_s=LOADGEN_STAGGER_S, mode=mode,
+                                           inflight=1 if mode == "unary" else 2)
+                    check(not res.errors and res.served_frames > 0,
+                          f"{model} {mode}: {res.served_frames} frames, errors {res.errors[:3]}")
+                    lat = np.asarray(res.latencies_ms)
+                    row[mode] = {"frames_per_s": res.fps, "p50_ms": float(np.percentile(lat, 50)),
+                                 "p99_ms": float(np.percentile(lat, 99)),
+                                 "frames": res.served_frames, "errors": len(res.errors)}
+                rate = row["unary"]["frames_per_s"] / 2
+                res = loadgen.run_open_loop(address, scenario, rate_qps=rate,
+                                            duration_s=LOADGEN_WINDOW_S, seed=33)
+                check(not res.errors and res.completed == res.scheduled > 0,
+                      f"{model} open loop: {res.completed} of {res.scheduled}, "
+                      f"errors {res.errors[:3]}")
+                row["open_loop"] = {"offered_qps": rate, "achieved_qps": res.achieved_qps,
+                                    "scheduled": res.scheduled, "completed": res.completed,
+                                    "p50_ms": res.percentile(50), "p99_ms": res.percentile(99),
+                                    "errors": len(res.errors)}
+                cap = loadgen.slo_capacity_search(
+                    address, scenario, LOADGEN_SLO_MS, duration_s=LOADGEN_PROBE_S, seed=33,
+                    qps_lo=rate / 2, qps_hi=8 * rate, iters=LOADGEN_ITERS)
+                errors = sum(p["errors"] for p in cap["probes"])
+                unanswered = sum(p["scheduled"] - p["completed"] for p in cap["probes"])
+                check(errors == 0 and unanswered == 0,
+                      f"{model} capacity search: {errors} errors, {unanswered} unanswered")
+                row["slo_capacity"] = {**cap, "errors": errors}
+                results[model] = row
+        finally:
+            code = stop_serve(proc, reader)
+    check(code is not None, "serve did not stop")
+    emit("loadgen", card, address=address, clients=LOADGEN_CLIENTS, window_s=LOADGEN_WINDOW_S,
+         frame_hw=list(FRAME_HW), slo_ms=LOADGEN_SLO_MS, probe_s=LOADGEN_PROBE_S,
+         serve_ready_s=t_ready, serve_exit=code, models=results,
+         wall_s=time.perf_counter() - t_phase)
 
 
 if __name__ == "__main__":

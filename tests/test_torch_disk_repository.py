@@ -14,8 +14,9 @@ package's, on the CPU.
   entry's builder without an init (the template's ``param_bytes`` is then
   0, so that key is compared in tests/test_torch_server.py on carried
   weights, and here against the bytes of the JAX init's tree, traced with
-  ``jax.eval_shape``, for the entries this file adds). Unported families and
-  ``export_model`` raise naming their ROADMAP item; the ``s2d``/``ch_floor``
+  ``jax.eval_shape``, for the entries this file adds). The preprocess and
+  ensemble entries serve a request at 64; ``export_model`` raises naming its
+  ROADMAP item; the ``s2d``/``ch_floor``
   /bf16 entries serve, and a version dir's ``weights.pt`` loads.
 """
 
@@ -53,6 +54,7 @@ YAML_FILES = sorted(
 )
 PORTABLE = ("yolov5_crop_base", "yolov4_coco", "retinanet_coco", "fcos_crop",
             "pointpillar_kitti", "pointpillar_wide", "second_iou", "centerpoint_nusc")
+EXAMPLES = sorted(p.name for p in (ROOT / "examples").iterdir() if (p / "config.yaml").exists())
 
 
 # -- yaml_subset -----------------------------------------------------------------
@@ -174,11 +176,11 @@ def _copy_entries(tmp, names):
 
 @pytest.fixture(scope="module")
 def scanned(tmp_path_factory, monkeypatch_module):
-    """The port's scan of the portable entries (config.yaml only; the
+    """The port's scan of every ``examples/`` entry (config.yaml only; the
     names and dataset files resolve from the checkout) beside the JAX
-    entries' specs."""
+    specs of the portable entries."""
     monkeypatch_module.chdir(ROOT)
-    root = _copy_entries(tmp_path_factory.mktemp("repo"), PORTABLE)
+    root = _copy_entries(tmp_path_factory.mktemp("repo"), EXAMPLES)
     repo = tdr.scan_disk(root, device="cpu")
     jspecs = {}
     for name in PORTABLE:
@@ -213,6 +215,20 @@ def test_scan_disk_builds_the_jax_specs(scanned, name):
         if key != "param_bytes":
             assert want.extra[key] == value, key
     assert got.extra["param_bytes"] > 0
+
+
+def test_scan_disk_builds_every_example_entry(scanned):
+    """``scan_disk`` registers all 14 ``examples/`` entries (on the CPU here;
+    chip_smoke.py phase 32 on the card): the fused ensemble fused, the crop
+    pipeline on the host path (its member serves through its captured
+    body), and the fused one answers a camera frame."""
+    repo, _ = scanned
+    assert len(EXAMPLES) == 14 and repo.names() == EXAMPLES
+    assert repo.get("ensemble_fused_pipeline").spec.extra["fused"] is True
+    assert repo.get("ensemble_crop_pipeline").spec.extra["data_path"] == "host"
+    out = repo.get("ensemble_fused_pipeline").infer_fn(
+        {"camera_raw": np.zeros((1, 96, 128, 3), np.uint8)})
+    assert out["boxes"].shape == (1, 300, 6) and bool(torch.isfinite(out["boxes"]).all())
 
 
 @pytest.mark.parametrize("name", PORTABLE)
@@ -317,19 +333,39 @@ def test_new_2d_entries_answer_a_request_at_64(tmp_path, monkeypatch, name):
     assert bool(torch.isfinite(out.get("boxes", out.get("detections"))).all())
 
 
+# the entries that raised naming ROADMAP item 7 until it was ported: each
+# with the entries it is served over, its input and its first output
 UNPORTED = {
-    "camera_preprocess": "item 7", "ensemble_crop_pipeline": "item 7",
-    "ensemble_fused_pipeline": "item 7",
+    "camera_preprocess": ((), "images", "preprocessed"),
+    "ensemble_crop_pipeline": (("yolov5_crop",), "camera", "boxes"),
+    "ensemble_fused_pipeline": (("camera_preprocess", "yolov5_crop"), "camera_raw", "boxes"),
 }
 LAYOUT_ENTRIES = ("yolov5_crop", "yolov5_crop_mxu", "yolov5l_crop")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_entries_raise_naming_their_item(tmp_path, monkeypatch, name):
+    """These entries raised naming ROADMAP item 7; they now serve. A 64x64
+    copy of each, with the entries it chains, answers a request of two
+    48x80 frames on the CPU in its spec's contract (the preprocess step at
+    raw pixel scale; the ensembles the detector's rows)."""
     monkeypatch.chdir(ROOT)
-    root = _copy_entries(tmp_path, [name])
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-        tdr.scan_disk(root, device="cpu")
+    members, key, first = UNPORTED[name]
+    root = _copy_entries(tmp_path, [name, *members])
+    for entry in (name, *members):
+        config = root / entry / "config.yaml"
+        config.write_text(config.read_text().replace("[512, 512]", "[64, 64]"))
+    model = tdr.scan_disk(root, device="cpu").get(name)
+    assert [t.name for t in model.spec.inputs] == [key]
+    frames = np.random.default_rng(3).integers(0, 256, (2, 48, 80, 3), dtype=np.uint8)
+    out = model.infer_fn({key: torch.from_numpy(frames)})
+    assert list(out) == [t.name for t in model.spec.outputs] and list(out)[0] == first
+    for t in model.spec.outputs:
+        assert tuple(out[t.name].shape) == (2, *t.shape[1:]), t.name
+    got = torch.as_tensor(out[first])
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    if name == "camera_preprocess":
+        assert got.max() > 200  # raw pixel scale
 
 
 @pytest.mark.parametrize("name", LAYOUT_ENTRIES)

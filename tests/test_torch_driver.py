@@ -13,6 +13,8 @@ pipeline tests' bars.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 
 import jax
@@ -211,36 +213,83 @@ def _jsonl(path):
     return [json.loads(line) for line in open(path)]
 
 
-@pytest.mark.parametrize("flags", [["--async", "--inflight", "2"], ["-b", "2"]])
-def test_cli_detect2d_jsonl_matches_the_jax_cli(tmp_path, capsys, monkeypatch, flags):
+CLI_FLAGS = [["--async", "--inflight", "2"], ["-b", "2"]]
+
+
+def _jax_cli_runs(tmp_path_factory, jcli, module, attr, common, keep):
+    """The JAX CLI run once per ``CLI_FLAGS`` case on one JAX pipeline: the
+    builder ``module.attr`` (a function, or a ``BUILDERS_3D`` key) is
+    wrapped so the first run's pipeline, its weights and its compiled
+    programs serve the second run too. ``keep(kw)`` adjusts the builder's
+    arguments. Returns (the weights as numpy, {flags: (report, rows)})."""
+    built = {}
+    table = isinstance(module, dict)
+    jbuild = module[attr] if table else getattr(module, attr)
+
+    def jax_builder(*args, **kw):
+        if "pipeline" not in built:
+            built["pipeline"] = jbuild(*args, **keep(kw))
+            built["variables"] = jax.tree_util.tree_map(
+                np.asarray, jax.device_get(built["pipeline"][2]))
+        return built["pipeline"]
+
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        (mp.setitem if table else mp.setattr)(module, attr, jax_builder)
+        for flags in CLI_FLAGS:
+            out = tmp_path_factory.mktemp("jax")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                jcli.main([*common, *flags, "-o", str(out)])
+            report = json.loads(buf.getvalue().strip().splitlines()[-1])
+            runs[tuple(flags)] = (report, _jsonl(out / "detections.jsonl"))
+    return built["variables"], runs
+
+
+@pytest.fixture(scope="module")
+def jax_cli_2d(tmp_path_factory):
     from triton_client_tpu.cli import detect2d as jcli
     from triton_client_tpu.pipelines import detect2d as jdet
 
+    return _jax_cli_runs(tmp_path_factory, jcli, jdet, "build_yolov5_pipeline", CLI_2D,
+                         lambda kw: kw)
+
+
+@pytest.fixture(scope="module")
+def jax_cli_3d(tmp_path_factory):
+    from test_torch_pointpillars import tiny_configs
+
+    from triton_client_tpu.cli import detect3d as jcli
+    from triton_client_tpu.pipelines import detect3d as jdet
+
+    jcfg, _ = tiny_configs()
+    return _jax_cli_runs(tmp_path_factory, jcli, jdet.BUILDERS_3D, "pointpillars", CLI_3D,
+                         lambda kw: {**kw, "model_cfg": jcfg})
+
+
+CLI_2D = ["-c", "2", "--input-size", "64", "-i", "synthetic:5:48x80", "--conf", "0.05",
+          "--sink", "jsonl"]
+CLI_3D = ["-i", "synthetic:3", "--sink", "jsonl"]
+
+
+@pytest.mark.parametrize("flags", CLI_FLAGS)
+def test_cli_detect2d_jsonl_matches_the_jax_cli(tmp_path, capsys, monkeypatch, flags, jax_cli_2d):
+    """The JAX CLI's runs come from ``jax_cli_2d`` (one JAX pipeline for
+    both cases)."""
     from triton_client_tpu_torch.cli import detect2d as tcli
     from triton_client_tpu_torch.pipelines import detect2d as tdet
 
-    carried = {}
-    jbuild = jdet.build_yolov5_pipeline
-
-    def jax_builder(*args, **kw):  # the JAX CLI's weights, carried across
-        pipe, spec, variables = jbuild(*args, **kw)
-        carried["variables"] = jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
-        return pipe, spec, variables
-
-    monkeypatch.setattr(jdet, "build_yolov5_pipeline", jax_builder)
-    common = ["-c", "2", "--input-size", "64", "-i", "synthetic:5:48x80", "--conf", "0.05",
-              "--sink", "jsonl", *flags]
-    jcli.main([*common, "-o", str(tmp_path / "jax")])
-    jreport = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    variables, runs = jax_cli_2d
+    jreport, want = runs[tuple(flags)]
     build = tdet.build_yolov5_pipeline
     monkeypatch.setattr(tdet, "build_yolov5_pipeline",
-                        lambda **kw: build(**kw, variables=carried["variables"]))
-    tcli.main([*common, "--device", "cpu", "--pipeline-depth", "2", "-o", str(tmp_path / "port")])
+                        lambda **kw: build(**kw, variables=variables))
+    tcli.main([*CLI_2D, *flags, "--device", "cpu", "--pipeline-depth", "2",
+               "-o", str(tmp_path / "port")])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["driver"]["frames"] == jreport["driver"]["frames"] == 5
     assert report["driver"]["ticks"] == jreport["driver"]["ticks"]
-    got, want = _jsonl(tmp_path / "port" / "detections.jsonl"), _jsonl(
-        tmp_path / "jax" / "detections.jsonl")
+    got = _jsonl(tmp_path / "port" / "detections.jsonl")
     assert [r["frame_id"] for r in got] == [r["frame_id"] for r in want] == list(range(5))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g["valid"], w["valid"])
@@ -250,37 +299,25 @@ def test_cli_detect2d_jsonl_matches_the_jax_cli(tmp_path, capsys, monkeypatch, f
     assert report["graphs"]["calls"] == report["channel"]["launched"] + 1
 
 
-@pytest.mark.parametrize("flags", [["--async", "--inflight", "2"], ["-b", "2"]])
-def test_cli_detect3d_jsonl_matches_the_jax_cli(tmp_path, capsys, monkeypatch, flags):
+@pytest.mark.parametrize("flags", CLI_FLAGS)
+def test_cli_detect3d_jsonl_matches_the_jax_cli(tmp_path, capsys, monkeypatch, flags, jax_cli_3d):
+    """The JAX CLI's runs come from ``jax_cli_3d`` (one JAX pipeline for
+    both cases)."""
     from test_torch_pointpillars import tiny_configs
-
-    from triton_client_tpu.cli import detect3d as jcli
-    from triton_client_tpu.pipelines import detect3d as jdet
 
     from triton_client_tpu_torch.cli import detect3d as tcli
     from triton_client_tpu_torch.pipelines import detect3d as tdet
 
-    jcfg, tcfg = tiny_configs()
-    carried = {}
-    jbuild = jdet.BUILDERS_3D["pointpillars"]
-
-    def jax_builder(rng, model_cfg=None, **kw):
-        pipe, spec, variables = jbuild(rng, model_cfg=jcfg, **kw)
-        carried["variables"] = jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
-        return pipe, spec, variables
-
-    monkeypatch.setitem(jdet.BUILDERS_3D, "pointpillars", jax_builder)
-    common = ["-i", "synthetic:3", "--sink", "jsonl", *flags]
-    jcli.main([*common, "-o", str(tmp_path / "jax")])
-    jreport = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    _, tcfg = tiny_configs()
+    variables, runs = jax_cli_3d
+    jreport, want = runs[tuple(flags)]
     tbuild = tdet.BUILDERS_3D["pointpillars"]
     monkeypatch.setitem(tdet.BUILDERS_3D, "pointpillars", lambda model_cfg=None, **kw: tbuild(
-        model_cfg=tcfg, variables=carried["variables"], **kw))
-    tcli.main([*common, "--device", "cpu", "-o", str(tmp_path / "port")])
+        model_cfg=tcfg, variables=variables, **kw))
+    tcli.main([*CLI_3D, *flags, "--device", "cpu", "-o", str(tmp_path / "port")])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["driver"]["frames"] == jreport["driver"]["frames"] == 3
-    got, want = _jsonl(tmp_path / "port" / "detections.jsonl"), _jsonl(
-        tmp_path / "jax" / "detections.jsonl")
+    got = _jsonl(tmp_path / "port" / "detections.jsonl")
     assert [r["frame_id"] for r in got] == [r["frame_id"] for r in want] == [0, 1, 2]
     for g, w in zip(got, want):
         assert g["pred_labels"] == w["pred_labels"]

@@ -665,3 +665,67 @@ def test_kernel6_captured_without_owned_tickets_raises_on_card(cuda_device):
     owned = CapturedFunction(body, "owned", capture_scope=gpu_segment.owned_tickets)
     assert torch.equal(owned(values, ids)[0], gpu_segment.segment_sum(values, ids, 4))
     assert torch.rand(3, device=cuda_device).shape == (3,)
+
+
+def _fused_ensemble_repo(fuse: str):
+    """preprocess (128x128) -> YOLOv5n 128x128 (conf 0.05, seeded) as an
+    ensemble over members that serve through their ``infer_fn`` and offer
+    their device forms aside, as disk entries do."""
+    import dataclasses
+
+    from triton_client_tpu_torch.pipelines.detect2d import Detect2DConfig, build_yolov5_pipeline
+    from triton_client_tpu_torch.pipelines.preprocess2d import build_preprocess_pipeline
+    from triton_client_tpu_torch.runtime.ensemble import EnsembleStep, build_ensemble
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    repo = ModelRepository()
+    pre, spec, _ = build_preprocess_pipeline(input_hw=(128, 128), device="cuda")
+    repo.register(dataclasses.replace(spec, name="pre"), pre.infer_fn(),
+                  member_device_fn=pre.device_fn())
+    cfg = Detect2DConfig(model_name="det", input_hw=(128, 128), num_classes=2,
+                         conf_thresh=0.05, max_det=100)
+    det, spec, _ = build_yolov5_pipeline(num_classes=2, config=cfg, device="cuda", seed=0)
+    repo.register(spec, det.infer_fn(), member_device_fn=det.device_fn())
+    steps = [EnsembleStep("pre", {"images": "raw"}, {"preprocessed": "frame"}),
+             EnsembleStep("det", {"images": "frame"}, {"detections": "boxes", "valid": "valid"})]
+    ens = build_ensemble(repo, "ens", steps, outputs=["boxes", "valid"], fuse=fuse, device="cuda")
+    repo.register(ens.spec, ens.infer_fn, device_fn=ens.device_fn)
+    return repo, ens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fused_ensemble_capture_equals_eager_bitwise_on_card(cuda_device, batch):
+    """The channel captures the fused DAG as one graph: each request replays
+    exactly one kernel-1 launch and no other counted kernel, and its rows
+    equal the eager composition's and the host path's bit for bit."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.ops import gpu_decode
+
+    repo, ens = _fused_ensemble_repo("always")
+    host_repo, host = _fused_ensemble_repo("never")
+    assert ens.spec.extra["data_path"] == "fused" and host.spec.extra["data_path"] == "host"
+    rng = np.random.default_rng(batch)
+    frames = [rng.integers(0, 255, (batch, 96, 160, 3), dtype=np.uint8) for _ in range(2)]
+    chan, host_chan = CUDAChannel(repo), CUDAChannel(host_repo)
+    eager = [ens.device_fn({"raw": torch.from_numpy(f).to(cuda_device)}) for f in frames]
+    chan.do_inference(InferRequest("ens", {"raw": frames[0]}))  # captures
+    torch.cuda.synchronize()
+    k1 = list(cuda_build.all_counters()).index(gpu_decode.launches)
+    c0 = _counts()
+    got = [chan.do_inference(InferRequest("ens", {"raw": f})).outputs for f in frames * 2]
+    torch.cuda.synchronize()
+    delta = [b - a for a, b in zip(c0, _counts())]
+    assert delta[k1] == len(got) and sum(delta) == len(got), delta
+    graphs = chan._launch_cache[("ens", "1")][1].graphs.stats()
+    assert graphs["captures"] == 1 and graphs["replays"] == 1 + len(got)
+    for i, out in enumerate(got):
+        want = eager[i % 2]
+        _assert_outputs_equal((torch.from_numpy(out["boxes"]), torch.from_numpy(out["valid"])),
+                              (want["boxes"].cpu(), want["valid"].cpu()), f"request {i}")
+        hosted = host_chan.do_inference(InferRequest("ens", {"raw": frames[i % 2]})).outputs
+        _assert_outputs_equal((torch.from_numpy(out["boxes"]), torch.from_numpy(out["valid"])),
+                              (torch.from_numpy(hosted["boxes"]), torch.from_numpy(hosted["valid"])),
+                              f"request {i} against the host path")
+    assert any(int(out["valid"].sum()) > 0 for out in got)

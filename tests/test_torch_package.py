@@ -117,6 +117,9 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.ops.anchor_decode",
         "triton_client_tpu_torch.ops.detect_postprocess",
         "triton_client_tpu_torch.models.convert",
+        "triton_client_tpu_torch.pipelines.preprocess2d",
+        "triton_client_tpu_torch.runtime.ensemble",
+        "triton_client_tpu_torch.utils.loadgen",
     ):
         assert must in names
 

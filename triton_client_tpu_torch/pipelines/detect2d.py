@@ -248,7 +248,12 @@ def default_config(family: str, num_classes: int = 80, input_hw=None,
     builders' defaults): YOLOv5 conf 0.3 / IoU 0.45 at 512x512; YOLOv4 conf
     0.4 / IoU 0.6 at 512x512; RetinaNet and FCOS (detectron2's test-time
     settings) conf 0.05, IoU 0.5 and 0.6, 100 rows, raw pixels, multi-label,
-    the scored head, at 480x640."""
+    the scored head, at 480x640; the preprocess family its output size,
+    512x512 by default."""
+    if family == "preprocess":
+        from triton_client_tpu_torch.pipelines.preprocess2d import Preprocess2DConfig
+
+        return Preprocess2DConfig(input_hw=tuple(input_hw or (512, 512)))
     if family == "yolov5":
         return Detect2DConfig(model_name=f"yolov5{variant}",
                               input_hw=tuple(input_hw or (512, 512)), num_classes=num_classes)
@@ -425,11 +430,17 @@ def detectron_infer_fn(pipeline: Detect2DPipeline):
     return pipeline.infer_fn()
 
 
-# family name -> builder, shared by the CLI and the disk repository (the
-# JAX table's preprocess family is not ported yet)
+def _build_preprocess(**kwargs):
+    from triton_client_tpu_torch.pipelines.preprocess2d import build_preprocess_pipeline
+
+    return build_preprocess_pipeline(**kwargs)
+
+
+# family name -> builder, shared by the CLI and the disk repository
 BUILDERS_2D = {
     "yolov5": build_yolov5_pipeline,
     "yolov4": build_yolov4_pipeline,
     "retinanet": build_retinanet_pipeline,
     "fcos": build_fcos_pipeline,
+    "preprocess": _build_preprocess,
 }

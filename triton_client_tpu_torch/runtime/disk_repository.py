@@ -35,12 +35,21 @@ or ``scan_disk(..., precision=...)`` (``serve --precision``) over every
 entry, selects the policy (``runtime/precision.py``). A 3D entry stages
 ``points`` float32 under any policy; an ``int8`` entry carries no
 calibration scales, so it stages float32 as ``int8w`` does, as in the JAX
-package. Broken or unported entries raise, so a serving process fails at
-startup instead of skipping models:
+package. A ``preprocess`` entry (``pipelines/preprocess2d.py``) has no
+parameters: it registers with no version dir, and a repository-wide
+precision passes it by, as the JAX package's does.
 
-- the families not ported (preprocess and ensembles: ROADMAP.md Queue 1
-  item 7);
-- ``export_model`` (item 12).
+Ensembles (``family: ensemble``, ``runtime/ensemble.py``) register after
+every plain entry, in dependency order (a fixpoint over the steps' models;
+a cycle raises). Each plain entry also offers its pipeline's device form as
+``member_device_fn``, which ``fuse: always`` composes; its own route stays
+the captured ``infer_fn``. A fused ensemble registers its composition as its
+``device_fn``, so ``CUDAChannel`` captures the whole DAG as one graph and a
+parent ensemble can fuse over it.
+
+Broken entries raise, so a serving process fails at startup instead of
+skipping models; so does ``export_model``, which is not ported (ROADMAP.md
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -68,11 +77,6 @@ log = logging.getLogger(__name__)
 _WEIGHT_NAMES = ("weights.msgpack", "weights.pt", "weights.pth", "weights.onnx", "model.pt",
                  "model.pth", "model.onnx")
 
-# family -> the ROADMAP.md Queue 1 item that ports it
-_UNPORTED_FAMILIES = {
-    "preprocess": "7 (pipelines/preprocess2d.py)",
-    "ensemble": "7 (runtime/ensemble.py)",
-}
 _EXPORT_ITEM = "12 (export_model with a flax msgpack writer)"
 
 
@@ -148,7 +152,7 @@ def _resolve(path_str: str, model_dir: pathlib.Path) -> str:
 
 # the model keys of each 2D family beside num_classes, input_hw and dtype
 _FAMILY_KEYS = {"yolov5": {"variant", "s2d", "ch_floor"}, "yolov4": {"width"},
-                "retinanet": {"depth"}, "fcos": {"depth"}}
+                "retinanet": {"depth"}, "fcos": {"depth"}, "preprocess": set()}
 
 
 def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, device):
@@ -159,6 +163,9 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     if "dtype" in model_kwargs:
         model_kwargs["dtype"] = parse_compute_dtype(model_kwargs["dtype"])
     policy = PrecisionPolicy.parse(model_kwargs.pop("precision", None))
+    # the paramless preprocess step has nothing to cast or quantize: a
+    # policy (a repository-wide --precision too) passes it by
+    policy_kw = {} if family == "preprocess" else {"precision": policy}
     if "input_hw" in model_kwargs:
         model_kwargs["input_hw"] = tuple(model_kwargs["input_hw"])
     pipe_d = dict(doc.get("pipeline", {}))
@@ -182,15 +189,15 @@ def _build_2d(family: str, doc: Mapping[str, Any], model_dir: pathlib.Path, devi
     def build(variables=None, state_dict=None, config=None):
         return detect2d.BUILDERS_2D[family](
             variables=variables, state_dict=state_dict, config=config or cfg, device=device,
-            precision=policy, **model_kwargs
+            **policy_kw, **model_kwargs
         )
 
     def warmup(pipe):
         # batch 1 of FP32 frames at the model's input size, as the JAX
         # entry compiles it (other shapes capture on first use), in the
         # dtype the channel stages them in (bfloat16 under the bf16 policy)
-        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,),
-                    dtype=pipe.precision.wire_dtype("images"))
+        staged = (getattr(pipe, "precision", None) or PrecisionPolicy()).wire_dtype("images")
+        pipe.warmup(tuple(cfg.input_hw), batch_sizes=(1,), dtype=staged)
 
     return build, cfg, warmup
 
@@ -244,11 +251,6 @@ class _Entry:
         if precision:
             doc["model"] = {**dict(doc.get("model", {})), "precision": precision}
         self.family = doc.get("family")
-        if self.family in _UNPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{self.model_dir}: family {self.family!r} is not ported yet "
-                f"(ROADMAP.md Queue 1 item {_UNPORTED_FAMILIES[self.family]})"
-            )
         unknown = set(doc) - _TOP_KEYS
         if unknown:
             raise KeyError(f"{self.model_dir / 'config.yaml'}: unknown keys {sorted(unknown)}; "
@@ -270,12 +272,15 @@ class _Entry:
         """The entry's pipeline as a RegisteredModel. ``weights``: a version
         dir's artifact (:func:`load_weights`). ``variables``: a flax variable
         tree carried across by ``models/convert.py`` (tests). Neither: seeded
-        random weights."""
+        random weights. The pipeline serves through its captured
+        ``infer_fn``; its ``device_fn`` is offered to fused ensembles only
+        (``member_device_fn``)."""
         pipeline, spec = self.pipeline(version, weights, variables)
         return RegisteredModel(
             spec=spec, infer_fn=pipeline.infer_fn(),
             warmup=lambda p=pipeline: self._warmup(p),
             precision=getattr(pipeline, "precision", None),
+            member_device_fn=pipeline.device_fn(),
         )
 
     def pipeline(self, version: str, weights=None, variables=None, config=None):
@@ -355,22 +360,52 @@ def scan_disk(
     for ``serve --warmup``. Broken and unported entries raise (module
     docstring). ``device``: cuda unless the caller passes cpu.
     ``precision``: a policy for every entry, over each ``model.precision``
-    (``serve --precision``)."""
+    (``serve --precision``); ensembles take their members' policies, or a
+    step's own ``precision``."""
     root = pathlib.Path(root)
     repo = repository or ModelRepository()
+    ensembles: dict[str, dict] = {}
     for model_dir in sorted(p for p in root.iterdir() if p.is_dir()):
         if not (model_dir / "config.yaml").exists():
             log.info("skipping %s (no config.yaml)", model_dir)
             continue
-        entry = _Entry(model_dir, device=device, precision=precision)
+        doc = dict(load_yaml(str(model_dir / "config.yaml")))
+        if doc.get("family") == "ensemble":
+            ensembles[model_dir.name] = doc  # composed over members: after them all
+            continue
+        entry = _Entry(model_dir, doc=doc, device=device, precision=precision)
         versions = version_dirs(model_dir)
         pairs = [(v.name, find_weights(v)) for v in versions] if versions else [("1", None)]
         for version, weights in pairs:
             rm = entry.registered(version, weights)
-            repo.register(rm.spec, rm.infer_fn, warmup=rm.warmup, precision=rm.precision)
+            repo.register(rm.spec, rm.infer_fn, warmup=rm.warmup, precision=rm.precision,
+                          member_device_fn=rm.member_device_fn)
             if entry.doc.get("warmup"):
                 rm.warmup()
+    _register_ensembles(repo, ensembles, device)
     return repo
+
+
+def _register_ensembles(repo: ModelRepository, pending: dict[str, dict], device) -> None:
+    """Register ``pending`` ({name: config.yaml doc}) in dependency order: an
+    ensemble whose step names a pending sibling waits for the next round,
+    so nesting does not depend on directory order."""
+    from triton_client_tpu_torch.runtime.ensemble import build_ensemble_doc
+
+    pending = dict(pending)
+    while pending:
+        ready = [name for name, doc in pending.items()
+                 if not any(s.get("model") in pending for s in doc.get("steps", []))]
+        if not ready:
+            raise ValueError(f"ensemble dependency cycle among {sorted(pending)}")
+        for name in ready:
+            doc = pending.pop(name)
+            rm = build_ensemble_doc(repo, name, doc, device=device)
+            # the device form travels along, so a fused ensemble can be a
+            # member of a parent fused ensemble
+            repo.register(rm.spec, rm.infer_fn, warmup=rm.warmup, device_fn=rm.device_fn)
+            if doc.get("warmup"):
+                rm.warmup()
 
 
 def export_model(root, name: str, config_doc: Mapping[str, Any], variables=None,

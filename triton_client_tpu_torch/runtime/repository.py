@@ -55,6 +55,12 @@ class RegisteredModel:
     # bf16 model's float32 frames upload as bfloat16 and a calibrated int8
     # model's as int8. None: float32.
     precision: object | None = None
+    # Optional device form (device_fn's contract) that the model offers an
+    # ensemble's ``fuse: always`` path without serving through it: a disk
+    # entry keeps its captured infer_fn route, launch counts and graphs,
+    # and a fused ensemble over it still runs on the card
+    # (runtime/ensemble.py). The channel never reads it.
+    member_device_fn: InferFn | None = None
 
 
 class ModelRepository:
@@ -81,10 +87,11 @@ class ModelRepository:
         warmup: Callable[[], None] | None = None,
         device_fn: InferFn | None = None,
         precision=None,
+        member_device_fn: InferFn | None = None,
     ) -> None:
         with self._lock:
             self._models.setdefault(spec.name, {})[spec.version] = RegisteredModel(
-                spec, infer_fn, warmup, device_fn, ragged_fn, precision
+                spec, infer_fn, warmup, device_fn, ragged_fn, precision, member_device_fn
             )
 
     def unregister(self, name: str, version: str = "") -> None:
