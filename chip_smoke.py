@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
-centerpoint, precision, replay, detectron_v4, ensemble, loadgen), with the
+centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
+second_sparse), with the
 groups whose served models they reuse run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
 record (the rows of the kernels its groups measured) and the ``{"ok":
@@ -30,8 +31,9 @@ CenterPoint with velocity on nuScenes at full width with 10-sweep
 aggregation, with examples/pointpillar_wide beside it (phase 28), and every
 serving precision policy on every served family (phase 29), replay
 and evaluation from bags (phase 30), YOLOv4, RetinaNet and FCOS from disk
-(phase 31), server-side preprocess and ensembles (phase 32) and the load
-generator against `serve` (phase 33). One JSON line per phase:
+(phase 31), server-side preprocess and ensembles (phase 32), the load
+generator against `serve` (phase 33) and SECOND-IoU's sparse middle at the
+reference's 0.05 m grid (phase 34). One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -318,6 +320,28 @@ generator against `serve` (phase 33). One JSON line per phase:
                  the unary frames/s for 5 s, slo_capacity_search at a 33 ms
                  SLO with 2 s probes and 4 bisections; frames/s, p50, p99,
                  errors (none allowed) and capacity
+ 34. second_sparse — SECOND-IoU with the sparse middle built from
+                 data/kitti_second_sparse005.yaml (1408 x 1600 x 40 cells,
+                 seeded, full width) on phases 12-16's synthetic scans of
+                 20,000 and 120,000 points. Lines second_sparse_levels (each
+                 sparse level's live sites against its budget and whether the
+                 cap bound, the card's sites equal to the CPU's; the captured
+                 body bitwise equal to the eager one at both buckets, an eager
+                 scan launching kernels 3 and 4 once and kernel 5 never),
+                 second_sparse_check (the card's rows against the port's CPU
+                 rows on the same weights: the tests' golden config at 1e-5
+                 and full width at SPARSE_FULL_TOL, labels and order equal;
+                 the heads' largest difference), second_sparse_main_path
+                 (scans through CUDAChannel: one launch of kernels 3 and 4 a
+                 request and no other, no capture in the window, rows equal
+                 to the in-process pipeline's bit for bit),
+                 second_sparse_times (p50 and scans/s over 50 captured
+                 requests a size, device ms, busy share and top device ops a
+                 request, the sparse VFE's and the middle's own device ms,
+                 the graph pool's bytes) and second_sparse_cli (detect3d
+                 --config in-process equal, row for row, to a detect3d -u
+                 grpc: client process with no card against serve over a
+                 disk entry whose dataset: is the YAML; its launches)
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -736,6 +760,7 @@ PHASES = {
     "detectron_v4": ("31", ()),
     "ensemble": ("32", ()),
     "loadgen": ("33", ()),
+    "second_sparse": ("34", ()),
 }
 
 
@@ -873,6 +898,11 @@ def main(argv: list[str] | None = None) -> int:
             rows["decode_nms_2d"]["launches_by_path"]["ensemble_fused"] = ensemble_launches
     if "loadgen" in groups:
         run_loadgen(card)
+    # phase 34: kernels 3 and 4 on the sparse SECOND's tail
+    if "second_sparse" in groups:
+        for name, n in run_second_sparse(card, counters).items():
+            if name in rows:
+                rows[name]["launches_by_path"]["second_sparse005"] = n
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5342,6 +5372,292 @@ def run_loadgen(card: str) -> None:
          frame_hw=list(FRAME_HW), slo_ms=LOADGEN_SLO_MS, probe_s=LOADGEN_PROBE_S,
          serve_ready_s=t_ready, serve_exit=code, models=results,
          wall_s=time.perf_counter() - t_phase)
+
+
+# phase 34: SECOND-IoU's sparse middle at the reference's 0.05 m grid
+SPARSE_YAML = "data/kitti_second_sparse005.yaml"
+SPARSE_ENTRY = "second_sparse005"
+SPARSE_REQUESTS = 50  # captured requests a scan size for p50 and scans/s
+SPARSE_TINY_SCANS = 3  # golden-config scans held card against CPU at the tests' bars
+# the full-width card against CPU: labels and order equal, boxes and scores
+# within SPARSE_FULL_TOL of the CPU's (both float32, TF32 off; cuDNN and the
+# CPU sum the 320-channel BEV convolutions in other orders)
+SPARSE_FULL_TOL = 1e-4
+
+
+def sparse_levels(model, pts, cnt) -> tuple[list[dict], list[tuple]]:
+    """The sparse middle's levels for one padded scan, as its encoder builds
+    them (``ops/sparse_conv``): each level's live sites against its budget,
+    the cells it would hold without the cap (the level-0 occupancy, then
+    the unique coarse cells of the level above), whether the cap bound, and
+    the level's sites (for the card-against-CPU comparison)."""
+    from triton_client_tpu_torch.ops import sparse_conv as sp
+
+    cfg = model.cfg
+    budget = model.sparse_budget
+    nx, ny, nz = cfg.voxel.grid_size
+    with torch.no_grad():
+        vs = sp.points_to_voxelset(pts, cnt, cfg.voxel, budget)
+        ijk, valid = sp.assign_cells(pts, cnt, cfg.voxel)
+        ids = sp.linear_ids(ijk.flip(1), valid, (nz, ny, nx))
+        want = int(torch.unique(ids[ids < nz * ny * nx]).numel())
+        levels = [{"level": 0, "grid": list(vs.grid), "budget": budget,
+                   "live": int(vs.valid.sum()), "cells": want}]
+        sets = [(vs.ijk, vs.valid)]
+        for si in range(1, len(cfg.middle_filters)):
+            if cfg.sparse_dense_tail_from and si >= cfg.sparse_dense_tail_from:
+                break
+            budget = max(budget // 2, 8192)
+            free = sp.downsample_sites(vs, vs.ijk.shape[0])  # no cap: every coarse cell
+            vs = sp.downsample_sites(vs, budget)
+            levels.append({"level": si, "grid": list(vs.grid), "budget": budget,
+                           "live": int(vs.valid.sum()), "cells": int(free.valid.sum())})
+            sets.append((vs.ijk, vs.valid))
+    for lv in levels:
+        lv["cap_bound"] = lv["cells"] > lv["budget"]
+        check(lv["live"] == min(lv["cells"], lv["budget"]),
+              f"level {lv['level']}: {lv['live']} live sites for {lv['cells']} cells")
+    return levels, sets
+
+
+def run_second_sparse(card: str, counters) -> dict:
+    """Phase 34: SECOND-IoU with the sparse middle at the reference's 0.05 m
+    grid (``data/kitti_second_sparse005.yaml``: 1408 x 1600 x 40 cells,
+    budgets 65,536 / 32,768 / 16,384, a dense tail from stage 3, a 320-channel
+    BEV at 200 x 176, 211,200 anchors), seeded, on the synthetic KITTI scans
+    of phases 12-16 (20,000 and 120,000 points). Held: the captured body
+    bitwise equal to the eager one at both buckets, one launch each of
+    kernels 3 and 4 and none of kernel 5 an eager scan; each level's sites
+    on the card equal to the CPU's; the card's rows against the port's CPU
+    run on the same weights (the golden config of the tests at their 1e-5
+    bars, and full width at SPARSE_FULL_TOL); through CUDAChannel one launch
+    of kernels 3 and 4 a request and no other, no capture in the counted
+    window, rows equal to the in-process pipeline's bit for bit; and
+    ``detect3d --config`` in-process equal to ``detect3d -u grpc:`` against
+    ``serve`` over a disk entry whose ``dataset:`` is the YAML. Prints each
+    level's live sites against its budget, p50 and scans/s over
+    SPARSE_REQUESTS captured requests a size, device ms, busy share and the
+    top device ops a request, the middle's own device ms and the graph
+    pool's bytes. Returns the main path's launches of kernels 3 and 4."""
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.cli import detect3d as detect3d_cli
+    from triton_client_tpu_torch.cli import serve as serve_cli
+    from triton_client_tpu_torch.dataset_config import detect3d_from_yaml
+    from triton_client_tpu_torch.drivers.driver import channel_infer3d
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.ops import sparse_conv as sp
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig
+    from triton_client_tpu_torch.pipelines.detect3d import (
+        Detect3DConfig,
+        build_second_pipeline,
+        prepare_points,
+    )
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    _, model_cfg, cfg = detect3d_from_yaml(str(ROOT / SPARSE_YAML))
+    t0 = time.perf_counter()
+    pipe, spec, model = build_second_pipeline(model_cfg=model_cfg, config=cfg, device="cuda",
+                                              seed=0)
+    cpu_pipe, _, _ = build_second_pipeline(model_cfg=model_cfg, config=cfg, device="cpu",
+                                           seed=0)
+    build_s = time.perf_counter() - t0
+    mc = model.cfg
+    check(mc.middle == "sparse" and mc.voxel.grid_size == (1408, 1600, 40)
+          and model.sparse_budget == 65536 and mc.sparse_dense_tail_from == 3
+          and mc.sparse_stride_kernel == 2 and mc.middle_filters == (16, 32, 64, 64)
+          and mc.head_hw == (200, 176) and mc.bev_channels == 320
+          and model.anchors.shape[0] == 211200 and cfg.pre_max == 256
+          and cfg.point_buckets[-1] == 131072, "not the reference's 0.05 m SECOND")
+    check(pipe.fused_stages == ("decode_nms",) and pipe.use_scatter,
+          f"the sparse SECOND's fused stages are {pipe.fused_stages}")
+    scans = {n: [f.data for f in SyntheticPointCloudSource(3, points=n, seed=20 + i)]
+             for i, n in enumerate(SCAN_POINTS)}
+
+    def on_card(pc):
+        padded, m = prepare_points(pc, 4, cfg.point_buckets)
+        return (torch.from_numpy(padded).to(dev), torch.tensor(m, dtype=torch.int32).to(dev))
+
+    # -- the levels, on the card against the CPU ------------------------------------------
+    levels = {}
+    for n, pcs in scans.items():
+        pts, cnt = on_card(pcs[0])
+        card_levels, card_sets = sparse_levels(model, pts, cnt)
+        cpu_levels, cpu_sets = sparse_levels(cpu_pipe.model, pts.cpu(), cnt.cpu())
+        check(card_levels == cpu_levels, f"{n} points: the card's levels {card_levels} differ "
+              f"from the CPU's {cpu_levels}")
+        for (ijk, valid), (cijk, cvalid) in zip(card_sets, cpu_sets):
+            check(torch.equal(ijk.cpu(), cijk) and torch.equal(valid.cpu(), cvalid),
+                  f"{n} points: a level's sites on the card differ from the CPU's")
+        levels[n] = card_levels
+    check(not levels[SCAN_POINTS[0]][0]["cap_bound"], "the 20k scan overflowed level 0")
+    check(levels[SCAN_POINTS[1]][0]["cap_bound"], "the 120k scan did not fill level 0")
+
+    # -- captured against eager at both buckets ------------------------------------------
+    capture = {}
+    for n, pcs in scans.items():
+        a, b = on_card(pcs[0]), on_card(pcs[1])
+        per_call, _, _ = hold_captured_to_eager(pipe, a, b, counters, f"sparse SECOND {n}")
+        capture[n] = {c_name: k for c_name, k in zip(COUNTER_NAMES, per_call) if k}
+        check(capture[n] == {"residual_decode_3d": 1, "suppress_pack_3d": 1,
+                             "residual_decode_3d_gathered": 1},
+              f"one eager sparse SECOND scan at {n} points launched {capture[n]}")
+    emit("second_sparse_levels", card, yaml=SPARSE_YAML, grid=list(mc.voxel.grid_size),
+         budget=model.sparse_budget, levels={str(n): lv for n, lv in levels.items()},
+         card_equals_cpu=True, captured_equals_eager=True, eager_launches_per_scan=capture,
+         replays=GRAPH_REPLAYS, build_s=build_s)
+
+    # -- the card against the CPU: the tests' golden config, then full width --------------
+    tiny_cfg = SECONDConfig(
+        voxel=VoxelConfig(point_cloud_range=(0.0, -12.8, -2.0, 25.6, 12.8, 2.0),
+                          voxel_size=(0.4, 0.4, 0.5), max_voxels=2048, max_points_per_voxel=8),
+        middle="sparse", sparse_budget=2048, sparse_dense_tail_from=2, middle_filters=(8, 8, 8),
+        backbone_layers=(1,), backbone_strides=(1,), backbone_filters=(16,),
+        upsample_strides=(1,), upsample_filters=(16,))
+    tiny_pipe = Detect3DConfig(model_name="second_iou", point_buckets=(8192,), max_det=16,
+                               pre_max=64)
+    tiny = {d: build_second_pipeline(model_cfg=tiny_cfg, config=tiny_pipe, device=d, seed=0)[0]
+            for d in ("cuda", "cpu")}
+    tiny_err, tiny_kept = card_vs_cpu(
+        tiny["cuda"], tiny["cpu"],
+        uniform_clouds(34, (0.0, -12.8, -1.8, 25.6, 12.8, 1.8), 3000, SPARSE_TINY_SCANS))
+    full = {}
+    for n, pcs in scans.items():
+        g, c = pipe.infer(pcs[0]), cpu_pipe.infer(pcs[0])
+        k = len(g["pred_scores"])
+        check(k == len(c["pred_scores"]) > 0, f"{n} points: the card keeps {k} rows, the CPU "
+              f"{len(c['pred_scores'])}")
+        check(np.array_equal(g["pred_labels"], c["pred_labels"]),
+              f"{n} points: the card's labels or order differ from the CPU's")
+        err = max(float(np.abs(g[key] - c[key]).max()) for key in ("pred_boxes", "pred_scores"))
+        check(err <= SPARSE_FULL_TOL, f"{n} points: card and CPU rows differ by {err}")
+        with torch.no_grad():
+            hg = pipe.heads(*on_card(pcs[0]))
+            hc = cpu_pipe.heads(*(t.cpu() for t in on_card(pcs[0])))
+        head_err = {key: float((hg[key].cpu() - hc[key]).abs().max()) for key in hc}
+        head_max = {key: float(hc[key].abs().max()) for key in hc}
+        full[str(n)] = {"rows": k, "max_abs_err": err, "heads_max_abs_err": head_err,
+                        "heads_max_abs": head_max}
+    emit("second_sparse_check", card, tiny={"config": "tests/test_torch_second_sparse.GOLDEN",
+                                            "scans": SPARSE_TINY_SCANS, "rows": tiny_kept,
+                                            "max_abs_err": tiny_err, "bar": 1e-5},
+         full_width=full, full_width_bar=SPARSE_FULL_TOL, labels_and_order_equal=True)
+
+    # -- the main path: scans through CUDAChannel, counted ---------------------------------
+    repo = ModelRepository()
+    repo.register(spec, pipe.infer_fn(), warmup=pipe.warmup)
+    repo.get(spec.name).warmup()  # a graph a point bucket
+    channel = CUDAChannel(repo)
+    channel.register_channel()
+    infer = channel_infer3d(channel, spec.name)
+    for pcs in scans.values():  # warm-up, not counted
+        infer(pcs[0])
+    torch.cuda.synchronize()
+    captures = repo.get(spec.name).infer_fn.graph_stats()["captures"]
+    requests = [pc for pcs in scans.values() for pc in pcs]
+    for counter in counters:
+        counter.reset()
+    outs = [infer(pc) for pc in requests]
+    torch.cuda.synchronize()
+    launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+    want_launches = {name: 0 for name in COUNTER_NAMES}
+    for name in ("residual_decode_3d", "suppress_pack_3d", "residual_decode_3d_gathered"):
+        want_launches[name] = len(requests)
+    check(launches == want_launches, f"sparse SECOND launches {launches}, want {want_launches}")
+    check(repo.get(spec.name).infer_fn.graph_stats()["captures"] == captures,
+          "a request captured a graph inside the counted window")
+    for pc, o in zip(requests, outs):
+        k = len(o["pred_scores"])
+        check(0 < k <= cfg.max_det and o["pred_boxes"].shape == (k, 7), "misshapen rows")
+        check(all(bool(np.isfinite(v).all()) for v in o.values()), "non-finite rows")
+        check(1 <= o["pred_labels"].min() and o["pred_labels"].max() <= 3, "labels")
+        want = pipe.infer(pc)
+        check(all(o[key].tobytes() == want[key].tobytes() for key in want),
+              "the served rows differ from the in-process pipeline's")
+    graphs = repo.get(spec.name).infer_fn.graph_stats()
+    emit("second_sparse_main_path", card, model=SPARSE_ENTRY, points=list(SCAN_POINTS),
+         requests=len(requests), kept=[len(o["pred_scores"]) for o in outs],
+         launches=launches, no_capture_in_window=True, bitwise_equal_in_process=True,
+         graphs=graphs, param_bytes=spec.extra["param_bytes"])
+
+    # -- times on the card's clock --------------------------------------------------------
+    e2e = {f"points{n}": serve(infer, pcs, SPARSE_REQUESTS) for n, pcs in scans.items()}
+    profiles = {f"points{n}": device_profile(lambda pc=pcs[0]: infer(pc), PROFILE_REQUESTS)
+                for n, pcs in scans.items()}
+    middle = {}
+    with torch.no_grad():
+        for n, pcs in scans.items():
+            pts, cnt = on_card(pcs[0])
+            vs = sp.points_to_voxelset(pts, cnt, mc.voxel, model.sparse_budget)
+            middle[f"points{n}"] = {
+                "vfe": device_profile(lambda: sp.points_to_voxelset(
+                    pts, cnt, mc.voxel, model.sparse_budget), PROFILE_REQUESTS),
+                "middle": device_profile(lambda: model.middle(vs.ijk, vs.feats, vs.valid),
+                                         PROFILE_REQUESTS)}
+    emit("second_sparse_times", card, in_process=e2e, profile=profiles, middle_eager=middle,
+         graph_pool_bytes=graphs["pool_bytes"], graph_captures=graphs["captures"])
+
+    # -- detect3d --config in-process and -u grpc: against serve ----------------------------
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="second_sparse_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        clouds = tmp / "clouds"
+        clouds.mkdir()
+        for i, pc in enumerate((scans[SCAN_POINTS[0]][0], scans[SCAN_POINTS[1]][0],
+                                scans[SCAN_POINTS[1]][1])):
+            np.save(clouds / f"{i:03d}.npy", pc)
+        root = tmp / "repo"
+        (root / SPARSE_ENTRY).mkdir(parents=True)
+        (root / SPARSE_ENTRY / "config.yaml").write_text(
+            f"family: second_iou\ndataset: {ROOT / SPARSE_YAML}\n")
+        for counter in counters:
+            counter.reset()
+        report = cli_in_process(detect3d_cli.main, [
+            "--config", SPARSE_YAML, "-i", str(clouds), "--sink", "jsonl", "-o",
+            str(tmp / "config_run")])
+        local, _ = replay_rows(tmp / "config_run")
+        cli_launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        args = serve_cli.parser().parse_args(["-r", str(root), "-a", "127.0.0.1:0", "--uds",
+                                              "off", "--warmup", "--max-workers", "4"])
+        server = serve_cli.build_server(args)
+        server.start()
+        try:
+            for counter in counters:
+                counter.reset()
+            remote_report, remote = client_run(
+                "detect3d", ["-m", SPARSE_ENTRY, "-i", str(clouds), "-u",
+                             f"grpc:127.0.0.1:{server.port}", "--no-shm"], tmp / "remote", True)
+            torch.cuda.synchronize()
+            remote_launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        finally:
+            server.stop()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp)
+    check(len(local) == 3 and all(len(r["pred_scores"]) > 0 for r in local),
+          f"detect3d --config kept {[len(r['pred_scores']) for r in local]}")
+    check(remote == local, "detect3d -u grpc: rows differ from detect3d --config in-process")
+    check(remote_report["transport"] == "grpc", f"transport {remote_report['transport']}")
+    remote_requests = remote_report["driver"]["ticks"] + 1  # and the driver's warmup call
+    check(remote_launches["suppress_pack_3d"] == remote_launches["residual_decode_3d"]
+          == remote_requests and remote_launches["segment_mean"] == 0,
+          f"remote launches {remote_launches} for {remote_requests} requests")
+    emit("second_sparse_cli", card, config_run={"scans": report["scans"],
+                                                "detections": report["detections"],
+                                                "scans_per_s": report["driver"]["fps"],
+                                                "launches": cli_launches},
+         remote={"scans_per_s": remote_report["driver"]["fps"],
+                 "p50_ms": remote_report["driver"]["p50_ms"], "launches": remote_launches,
+                 "requests": remote_requests, "transport": remote_report["transport"]},
+         remote_equals_config_run=True, wall_s=time.perf_counter() - t_phase)
+    return {"residual_decode_3d": launches["residual_decode_3d"],
+            "suppress_pack_3d": launches["suppress_pack_3d"]}
 
 
 if __name__ == "__main__":

@@ -520,6 +520,90 @@ def test_centerpoint_capture_equals_eager_bitwise_on_card(cuda_device, points, f
     _hold_captured_to_eager(pipe, *inputs)
 
 
+def _sparse_second_inputs(cuda_device, spec, points, seeds=(1, 2)):
+    from triton_client_tpu_torch.io.sources import SyntheticPointCloudSource
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    inputs = []
+    for seed in seeds:
+        pc = next(iter(SyntheticPointCloudSource(1, points=points, seed=seed))).data
+        padded, m = prepare_points(pc, 4, spec.extra["point_buckets"])
+        inputs.append((torch.from_numpy(padded).to(cuda_device),
+                       torch.tensor(m, dtype=torch.int32).to(cuda_device)))
+    return inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["auto", "off"])
+@pytest.mark.parametrize("points", [20000, 120000], ids=["bucket32768", "bucket131072"])
+def test_sparse_second_capture_equals_eager_bitwise_on_card(cuda_device, points, fused):
+    """SECOND-IoU's sparse middle at the reference's 0.05 m grid
+    (data/kitti_second_sparse005.yaml, full width, seeded) on synthetic KITTI
+    scans: the captured body bitwise equal to the eager one; an eager scan
+    launches kernels 3 (gathered form) and 4 once on the fused route, no
+    kernel on the unfused one, and kernel 5 never (no voxelize_scatter)."""
+    import dataclasses
+    import pathlib
+
+    from triton_client_tpu_torch.dataset_config import detect3d_from_yaml
+    from triton_client_tpu_torch.pipelines.detect3d import build_second_pipeline
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "data" / "kitti_second_sparse005.yaml"
+    _, model_cfg, cfg = detect3d_from_yaml(str(path))
+    pipe, spec, _ = build_second_pipeline(
+        model_cfg=model_cfg, config=dataclasses.replace(cfg, fused=fused), device="cuda", seed=0)
+    assert model_cfg.voxel.grid_size == (1408, 1600, 40)
+    assert pipe.fused_stages == (("decode_nms",) if fused == "auto" else ())
+    from triton_client_tpu_torch.ops import gpu_decode3d, gpu_suppress3d
+
+    inputs = _sparse_second_inputs(cuda_device, spec, points)
+    pipe.run(*inputs[0])
+    torch.cuda.synchronize()
+    c0 = _counts()
+    k3, k3g, k4 = (c.count for c in (gpu_decode3d.launches, gpu_decode3d.gathered_launches,
+                                      gpu_suppress3d.launches))
+    pipe.run(*inputs[0])
+    torch.cuda.synchronize()
+    want = 1 if fused == "auto" else 0
+    assert (gpu_decode3d.launches.count - k3, gpu_decode3d.gathered_launches.count - k3g,
+            gpu_suppress3d.launches.count - k4) == (want, want, want)
+    assert sum(b - a for a, b in zip(c0, _counts())) == 3 * want  # kernels 3 (twice) and 4 only
+    _hold_captured_to_eager(pipe, *inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16", "int8w"])
+def test_sparse_second_capture_under_each_policy_on_card(cuda_device, policy):
+    """The sparse middle's bfloat16 body and its int8 (k^3, cin, cout)
+    weights dequantized inside the graph, at the tests' golden config: the
+    captured body bitwise equal to the eager one."""
+    from triton_client_tpu_torch.models.second import SECONDConfig
+    from triton_client_tpu_torch.ops.voxelize import VoxelConfig
+    from triton_client_tpu_torch.pipelines.detect3d import Detect3DConfig, build_second_pipeline
+
+    model_cfg = SECONDConfig(
+        voxel=VoxelConfig(point_cloud_range=(0.0, -12.8, -2.0, 25.6, 12.8, 2.0),
+                          voxel_size=(0.4, 0.4, 0.5), max_voxels=2048, max_points_per_voxel=8),
+        middle="sparse", sparse_budget=2048, sparse_dense_tail_from=2, middle_filters=(8, 8, 8),
+        backbone_layers=(1,), backbone_strides=(1,), backbone_filters=(16,),
+        upsample_strides=(1,), upsample_filters=(16,))
+    pipe, spec, model = build_second_pipeline(
+        model_cfg=model_cfg, config=Detect3DConfig(model_name="second_iou",
+                                                   point_buckets=(8192,)),
+        device="cuda", seed=0, precision=policy)
+    assert spec.extra["precision"] == policy
+    rng = np.random.default_rng(4)
+    inputs = []
+    for _ in range(2):
+        pc = np.column_stack([rng.uniform(0, 25.6, 3000), rng.uniform(-12.8, 12.8, 3000),
+                              rng.uniform(-1.8, 1.8, 3000), rng.uniform(0, 1, 3000)])
+        padded = np.zeros((8192, 4), np.float32)
+        padded[:3000] = pc
+        inputs.append((torch.from_numpy(padded).to(cuda_device),
+                       torch.tensor(3000, dtype=torch.int32).to(cuda_device)))
+    _hold_captured_to_eager(pipe, *inputs)
+
+
 @pytest.mark.cuda
 def test_a_host_sync_in_the_body_fails_its_capture_on_card(cuda_device):
     def body(x):

@@ -65,6 +65,7 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.drivers.driver",
         "triton_client_tpu_torch.cli.detect3d",
         "triton_client_tpu_torch.models.second",
+        "triton_client_tpu_torch.ops.sparse_conv",
         "triton_client_tpu_torch.ops.gpu_voxel",
         "triton_client_tpu_torch.ops.gpu_segment",
         "triton_client_tpu_torch.parallel.ragged_kernels",

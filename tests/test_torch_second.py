@@ -122,8 +122,13 @@ def test_conv3d_kernel_layout():
 
 
 def test_sparse_middle_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        tsec.SECONDIoU(tsec.SECONDConfig(middle="sparse"))
+    """The sparse middle is ported now (tests/test_torch_second_sparse.py
+    holds it to JAX): the config builds the sparse encoder, and a middle of
+    neither kind still raises."""
+    model = tsec.SECONDIoU(dataclasses.replace(port_config(), middle="sparse"))
+    assert isinstance(model.middle, tsec.SparseMiddleEncoder)
+    with pytest.raises(ValueError, match="'dense' or 'sparse'"):
+        tsec.SECONDIoU(tsec.SECONDConfig(middle="hash"))
 
 
 def test_middle_encoder_folds_z_as_jax(carried):

@@ -12,6 +12,8 @@ arrays or anything ``np.asarray`` takes) maps onto a model's
   * ``ConvTranspose`` kernel (kh, kw, cin, cout) -> flipped in both
     spatial axes, then ``weight`` (cin, cout, kh, kw): flax's transposed
     convolution does not flip its kernel, PyTorch's does
+  * a module with ``weight_out_axis = -1`` (SECOND's sparse stages, whose
+    weight keeps the JAX layout (k^3, cin, cout)) takes its kernel as it is
   * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``; conv and dense ``bias`` -> ``bias``
 
@@ -63,6 +65,8 @@ def _leaf_f32(leaf) -> np.ndarray:
 
 
 def _kernel_to_torch(module: nn.Module, arr: np.ndarray) -> np.ndarray:
+    if getattr(module, "weight_out_axis", None) == -1:
+        return arr
     if isinstance(module, nn.Linear):
         return arr.T
     if isinstance(module, nn.ConvTranspose2d):
@@ -169,12 +173,22 @@ def pointpillars_state_dict_from_flax(
 
 
 def second_state_dict_from_flax(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
-    """The JAX ``SECONDIoU`` tree with the dense middle (``init_second``:
-    ``middle/conv{i}`` 3D kernels, ``middle/bn{i}``, ``backbone/...`` as
-    PointPillars', ``cls_head``, ``box_head``, ``dir_head``, ``iou_head``;
-    the mean VFE has no parameters) -> a ``state_dict`` for the port's
-    ``SECONDIoU`` of the same config; the submodules carry the flax names."""
-    return state_dict_from_flax(variables, model)
+    """The JAX ``SECONDIoU`` tree (``init_second``: ``middle/conv{i}`` 3D
+    kernels, ``middle/bn{i}``, ``backbone/...`` as PointPillars',
+    ``cls_head``, ``box_head``, ``dir_head``, ``iou_head``; the mean VFE has
+    no parameters) -> a ``state_dict`` for the port's ``SECONDIoU`` of the
+    same config; the submodules carry the flax names. The sparse middle's
+    stages hold a bare ``params/middle/conv{i}`` leaf (k^3, cin, cout),
+    which lands on ``middle.conv{i}.weight`` as it is; its dense-tail
+    stages' ``conv{i}/kernel`` are 3D kernels as the dense middle's."""
+    params = dict(variables.get("params", {}))
+    middle = dict(params.get("middle", {}))
+    for name in [k for k in middle if re.fullmatch(r"conv\d+", str(k))]:
+        if not isinstance(middle[name], Mapping):
+            middle[name] = {"kernel": middle[name]}  # a leaf -> the module holding it
+    if middle:
+        params["middle"] = middle
+    return state_dict_from_flax({**variables, "params": params}, model)
 
 
 def centerpoint_state_dict_from_flax(

@@ -129,6 +129,20 @@ def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.float(), conv.weight.float(), bias, conv.stride, conv.padding)
 
 
+class GemmConv2d(nn.Conv2d):
+    """A ``Conv2d`` that runs PyTorch's own im2col + matrix-product
+    convolution on the card, not cuDNN's (``torch._convolution`` with
+    ``cudnn_enabled=False``, per call: the process-wide cuDNN flags stay as
+    they are). On the CPU it is ``Conv2d``. For a shape where cuDNN's
+    heuristics choose badly from call to call (SECOND's sparse BEV input:
+    ``models/second.py``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch._convolution(x, self.weight, self.bias, self.stride, self.padding,
+                                  self.dilation, False, (0, 0), self.groups, False, False,
+                                  False, False)
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (NCHW)."""
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
@@ -162,4 +176,6 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
                 mod.bias.zero_()
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_parameters()
+        elif hasattr(mod, "init_random_"):  # a module that draws its own (SECOND's sparse)
+            mod.init_random_(gen)
     return model

@@ -1,13 +1,22 @@
-"""SECOND-IoU with the dense middle encoder as an ``nn.Module`` (port of
-``models/second.py``, the dense parts).
+"""SECOND-IoU as an ``nn.Module`` (port of ``models/second.py``), with
+either middle encoder.
 
-Mean VFE -> dense (nz, ny, nx, F) mean volume -> three 3x3x3 conv stages
-(the later two stride 2) -> z folded into channels -> the PointPillars
+Mean VFE -> middle encoder -> z folded into channels -> the PointPillars
 BEV backbone -> anchor heads plus a per-anchor IoU-quality head, whose
-prediction rectifies the class score: ``score = cls^(1-a) * q^a``. The
-settings are the reference's ``examples/second_iou``
-(``data/kitti_second.yaml``) on the JAX package's coarser 0.2 x 0.2 x
-0.4 m grid (352 x 400 x 10), where the dense volume fits in memory.
+prediction rectifies the class score: ``score = cls^(1-a) * q^a``. Two
+middle encoders, as in the JAX package:
+
+  * ``middle="dense"``: a dense (nz, ny, nx, F) mean volume and 3x3x3 conv
+    stages (the later ones stride 2). The settings are the reference's
+    ``examples/second_iou`` (``data/kitti_second.yaml``) on the JAX
+    package's coarser 0.2 x 0.2 x 0.4 m grid (352 x 400 x 10), where the
+    dense volume fits in memory;
+  * ``middle="sparse"``: the reference's own 0.05 m grid (1408 x 1600 x
+    40, ``data/kitti_second_sparse005.yaml``) through
+    ``ops/sparse_conv.py``: a submanifold stage, then stride-2 sparse
+    stages over fixed occupancy budgets, and from
+    ``sparse_dense_tail_from`` on a densified level and real stride-2 3D
+    convs (:class:`SparseMiddleEncoder`).
 
 Public functions keep the JAX package's layouts: volumes are
 (nz, ny, nx, F) or (B, nz, ny, nx, F), heads (B, h, w, A, c); the
@@ -18,15 +27,16 @@ Submodules carry the flax names (``middle.conv0``, ``middle.bn0``,
 ``models/convert.second_state_dict_from_flax`` maps by path.
 
 Three ways in over the same weights: ``forward`` takes the grouped
-(V, K, F) voxel contract, ``from_points`` the sort-free scatter of one
-padded cloud (every occupied cell kept), ``from_volume`` a mean volume
-built elsewhere (the fused stage, ``ops/gpu_voxel.fused_mean_volume``,
-which caps cells at ``max_voxels``). The sparse middle encoder and the
-training path are not ported.
+(V, K, F) voxel contract, ``from_points`` one padded cloud (the dense
+middle: the sort-free scatter, every occupied cell kept; the sparse one:
+``points_to_voxelset``, the ``sparse_budget`` lowest cells kept),
+``from_volume`` a mean volume built elsewhere (the fused stage,
+``ops/gpu_voxel.fused_mean_volume``, which caps cells at ``max_voxels``;
+dense middle only). The training path is not ported.
 
 ``dtype`` is the body's compute dtype, as in the JAX module: the mean VFE
-and the mean volume stay float32 up to the middle encoder, which casts the
-volume to ``dtype`` and runs its Conv3d and BatchNorm3d stages in it, as
+and the mean volume (or the voxel set's features) stay float32 up to the
+middle encoder, which casts them to ``dtype`` and runs its stages in it, as
 does the shared BEV backbone; the four heads, ``iou_head`` included,
 compute in float32 on float32 features.
 """
@@ -53,7 +63,8 @@ from triton_client_tpu_torch.models.pointpillars import (
     pillar_sums,
     validate_bev_divisible,
 )
-from triton_client_tpu_torch.models.layers import conv_f32
+from triton_client_tpu_torch.models.layers import GemmConv2d, conv_f32
+from triton_client_tpu_torch.ops import sparse_conv as sp
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
 from triton_client_tpu_torch.ops.voxelize import VoxelConfig, assign_cells, linearize_zyx
 
@@ -67,8 +78,18 @@ class SECONDConfig:
         max_points_per_voxel=5,
     )
     middle_filters: tuple[int, ...] = (16, 32, 64)
-    # "dense" only: the sparse middle of the JAX package is not ported
+    # "dense" (stride-2 3D convs over the densified volume: a coarse grid)
+    # or "sparse" (submanifold gather convs over a fixed occupancy budget,
+    # ops/sparse_conv.py: the reference's 0.05 m grid)
     middle: str = "dense"
+    # sparse: occupied voxels kept at level 0 (0 -> voxel.max_voxels);
+    # each later level halves it, to no less than 8192
+    sparse_budget: int = 0
+    # sparse: densify from this stage on and run real 3D convs (stage i
+    # reads level i - 1); 0: no dense tail
+    sparse_dense_tail_from: int = 0
+    # sparse: the strided stages' kernel, 2 (2^3 offsets) or 3 (spconv's 3^3)
+    sparse_stride_kernel: int = 2
     # BEVBackbone fields, duck-typed as PointPillarsConfig's
     backbone_layers: tuple[int, ...] = (5, 5)
     backbone_strides: tuple[int, ...] = (1, 2)
@@ -119,12 +140,7 @@ class SECONDConfig:
         return ny // s, nx // s
 
     def validate(self) -> None:
-        if self.middle == "sparse":
-            raise NotImplementedError(
-                "the sparse middle encoder is not ported yet (ROADMAP Queue 1 item 5); "
-                "use middle='dense'"
-            )
-        if self.middle != "dense":
+        if self.middle not in ("dense", "sparse"):
             raise ValueError(
                 f"SECONDConfig.middle must be 'dense' or 'sparse', got {self.middle!r}"
             )
@@ -208,6 +224,95 @@ class DenseMiddleEncoder(nn.Module):
         return x.permute(0, 2, 1, 3, 4).reshape(b, d * c, h, w)
 
 
+class SparseConv3d(nn.Module):
+    """The weight of one sparse stage, (k^3, Cin, Cout) in the JAX
+    package's layout (the first axis in ``ops/sparse_conv.kernel_offsets``
+    order), and its conv: submanifold without a budget, stride 2 with one.
+    ``weight_out_axis`` tells ``models/convert`` that the flax leaf carries
+    across as it is and ``runtime/precision`` which axis is the output
+    channel."""
+
+    weight_out_axis = -1
+
+    def __init__(self, k3: int, cin: int, cout: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(k3, cin, cout))
+
+    def init_random_(self, gen: torch.Generator) -> None:
+        """Seeded weights as flax's ``he_normal`` draws them: N(0, 2/fan_in),
+        fan_in = k^3 * Cin (the moments; ``models/layers.init_random_``)."""
+        w = self.weight
+        w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / w[:, :, 0].numel()) ** 0.5)
+
+    def forward(self, vs: sp.VoxelSet, table: torch.Tensor, budget: int | None = None
+                ) -> sp.VoxelSet:
+        if budget is None:
+            return vs._replace(feats=sp.subm_conv(vs, table, self.weight))
+        return sp.sparse_strided_conv(vs, table, self.weight, budget)
+
+
+class SparseMiddleEncoder(nn.Module):
+    """The sparse sibling of :class:`DenseMiddleEncoder` (JAX
+    ``SparseMiddleEncoder``): stage 0 a submanifold conv, each later stage
+    a stride-2 sparse conv whose budget halves (to no less than 8192),
+    each followed by BatchNorm (eps 1e-3) and ReLU with the padding rows
+    set to 0; from ``dense_tail_from`` on the level is densified and the
+    stages are stride-2 3x3x3 ``Conv3d`` (NCDHW inside). A level's slot
+    table is built once and serves every stage that reads the level. Ends
+    in the same z fold, channel ``d * C + c``."""
+
+    def __init__(self, in_channels: int, filters: tuple[int, ...], grid: tuple[int, int, int],
+                 budget: int, dense_tail_from: int = 0, stride_kernel: int = 2,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.filters, self.grid, self.budget = filters, grid, budget
+        self.dense_tail_from = dense_tail_from
+        self.dtype = dtype
+        cin, dense = in_channels, False
+        for si, f in enumerate(filters):
+            if dense:
+                self.add_module(f"conv{si}", nn.Conv3d(cin, f, 3, stride=2, padding=1,
+                                                       bias=False))
+                self.add_module(f"bn{si}", nn.BatchNorm3d(f, eps=1e-3))
+            else:
+                k3 = 27 if si == 0 else stride_kernel**3
+                self.add_module(f"conv{si}", SparseConv3d(k3, cin, f))
+                self.add_module(f"bn{si}", nn.BatchNorm1d(f, eps=1e-3))
+            dense = dense or self._densify_after(si)
+            cin = f
+        self.to(dtype)
+
+    def _densify_after(self, si: int) -> bool:
+        return bool(self.dense_tail_from) and self.dense_tail_from <= si + 1 < len(self.filters)
+
+    def forward(self, ijk: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor
+                ) -> torch.Tensor:
+        """One sample's voxels, ijk (V, 3) [z, y, x], feats (V, F), valid (V,)
+        -> (1, D*C, H, W) NCHW BEV canvas with channel d*C + c."""
+        m = self._modules
+        vs = sp.VoxelSet(ijk.to(torch.int32), feats.to(self.dtype), valid, self.grid)
+        budget, table, volume = self.budget, None, None
+        for si in range(len(self.filters)):
+            conv, bn = m[f"conv{si}"], m[f"bn{si}"]
+            if volume is not None:  # a dense tail stage
+                volume = F.relu(bn(conv(volume)))
+                continue
+            if table is None:
+                table = sp.slot_table(vs)
+            if si == 0:
+                vs = conv(vs, table)
+            else:
+                budget = max(budget // 2, 8192)
+                vs, table = conv(vs, table, budget), None  # a new level
+            vs = vs._replace(feats=torch.where(vs.valid[:, None], F.relu(bn(vs.feats)), 0.0))
+            if self._densify_after(si):
+                volume = sp.densify(vs).permute(3, 0, 1, 2)[None]  # NCDHW
+        if volume is None:
+            volume = sp.densify(vs).permute(3, 0, 1, 2)[None]
+        b, c, d, h, w = volume.shape
+        return volume.permute(0, 2, 1, 3, 4).reshape(b, d * c, h, w)
+
+
 class SECONDIoU(nn.Module):
     """Mean VFE -> dense volume -> middle encoder -> BEV backbone -> anchor
     and IoU-quality heads. ``dtype``: the body's (module docstring)."""
@@ -223,8 +328,25 @@ class SECONDIoU(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.vfe = MeanVFE()
-        self.middle = DenseMiddleEncoder(cfg.voxel.point_features, cfg.middle_filters, dtype)
+        if cfg.middle == "sparse":
+            nx, ny, nz = cfg.voxel.grid_size
+            self.middle = SparseMiddleEncoder(
+                cfg.voxel.point_features, cfg.middle_filters, (nz, ny, nx), self.sparse_budget,
+                cfg.sparse_dense_tail_from, cfg.sparse_stride_kernel, dtype,
+            )
+        else:
+            self.middle = DenseMiddleEncoder(cfg.voxel.point_features, cfg.middle_filters, dtype)
         self.backbone = BEVBackbone(cfg, cfg.bev_channels, dtype)
+        if cfg.middle == "sparse":
+            # the first BEV conv of the 0.05 m grid (320 channels in, 200 x
+            # 176, fp32 with TF32 off): cuDNN's heuristics pick, from call to
+            # call, an FFT engine (146 of a request's 182 device ms on an
+            # H100, chip_smoke.py phase 34) or an implicit GEMM, so a captured
+            # replay and an eager call ran different algorithms (1 ulp apart)
+            down = self.backbone.block0_down
+            self.backbone.block0_down = GemmConv2d(
+                down.in_channels, down.out_channels, 3, stride=down.stride, padding=1,
+                bias=False).to(dtype)
         a, c = cfg.anchors_per_loc, sum(cfg.upsample_filters)
         self.cls_head = nn.Conv2d(c, a * cfg.num_classes, 1)
         self.box_head = nn.Conv2d(c, a * 7, 1)
@@ -233,33 +355,52 @@ class SECONDIoU(nn.Module):
         # (h*w*A, 7), on the model's device: built once, not per scan
         self.register_buffer("anchors", generate_anchors(cfg).reshape(-1, 7), persistent=False)
 
+    @property
+    def sparse_budget(self) -> int:
+        """Occupied voxels the sparse middle keeps at level 0."""
+        return self.cfg.sparse_budget or self.cfg.voxel.max_voxels
+
     def forward(
         self,
         voxels: torch.Tensor,      # (B, V, K, F)
         num_points: torch.Tensor,  # (B, V)
         coords: torch.Tensor,      # (B, V, 3) [z, y, x]
     ) -> dict[str, torch.Tensor]:
-        """The grouped voxel contract: mean VFE, then the volume."""
+        """The grouped voxel contract: mean VFE, then the volume (dense
+        middle) or each sample's voxel set (sparse; valid where z >= 0)."""
         nx, ny, nz = self.cfg.voxel.grid_size
         b, v, k, f = voxels.shape
         feats = self.vfe(voxels.reshape(b * v, k, f), num_points.reshape(b * v)).reshape(b, v, f)
+        if self.cfg.middle == "sparse":
+            valid = coords[..., 0] >= 0
+            return self._heads_from_bev(
+                torch.cat([self.middle(coords[i], feats[i], valid[i]) for i in range(b)]))
         volume = torch.stack(
             [scatter_to_volume(feats[i], coords[i], (nz, ny, nx)) for i in range(b)]
         )
-        return self._heads(volume)
+        return self._heads_from_bev(self.middle(volume))
 
     def from_points(self, points: torch.Tensor, count: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Sort-free scatter path, batch 1: every occupied cell kept."""
-        return self._heads(scatter_mean_volume(points, count, self.cfg.voxel)[None])
+        """One padded cloud, batch 1: the sort-free scatter (dense middle,
+        every occupied cell kept) or the sparse mean VFE (the
+        ``sparse_budget`` lowest cells kept)."""
+        if self.cfg.middle == "sparse":
+            vs = sp.points_to_voxelset(points, count, self.cfg.voxel, self.sparse_budget)
+            return self._heads_from_bev(self.middle(vs.ijk, vs.feats, vs.valid))
+        return self._heads_from_bev(
+            self.middle(scatter_mean_volume(points, count, self.cfg.voxel)[None]))
 
     def from_volume(self, volume: torch.Tensor) -> dict[str, torch.Tensor]:
-        """A (nz, ny, nx, F) mean volume built elsewhere, batch 1."""
-        return self._heads(volume[None])
+        """A (nz, ny, nx, F) mean volume built elsewhere, batch 1 (dense
+        middle only)."""
+        if self.cfg.middle == "sparse":
+            raise ValueError("from_volume requires the dense middle encoder")
+        return self._heads_from_bev(self.middle(volume[None]))
 
-    def _heads(self, volume: torch.Tensor) -> dict[str, torch.Tensor]:
-        """(B, nz, ny, nx, F) volume -> heads (B, h, w, A, c); iou (B, h, w, A)."""
+    def _heads_from_bev(self, bev: torch.Tensor) -> dict[str, torch.Tensor]:
+        """(B, C, H, W) BEV canvas -> heads (B, h, w, A, c); iou (B, h, w, A)."""
         cfg = self.cfg
-        spatial = self.backbone(self.middle(volume)).to(torch.float32)
+        spatial = self.backbone(bev).to(torch.float32)
         a = cfg.anchors_per_loc
 
         def head(conv, *c):

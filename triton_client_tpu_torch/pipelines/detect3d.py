@@ -1,6 +1,6 @@
 """3D detection pipeline: raw point cloud in, packed 3D boxes out (port
-of ``pipelines/detect3d.py``: PointPillars, SECOND-IoU's dense middle and
-CenterPoint).
+of ``pipelines/detect3d.py``: PointPillars, SECOND-IoU with either middle
+encoder and CenterPoint).
 
 padded cloud -> voxel features (the sort-free scatter VFE, the fused
 voxelize->scatter stage, or the grouped voxelizer) -> backbone -> heads ->
@@ -8,7 +8,8 @@ for the anchor models, gate + top-k -> residual decode of the K survivors;
 for CenterPoint, the centre decode (peak test, top-K, gathers) and the
 gate + top-k of ``extract_boxes_3d`` -> rotated-BEV NMS + pack. Three
 stages are hand-written kernels: SECOND's per-cell mean
-(``ops/gpu_voxel``, with the ``voxelize_scatter`` stage fused), and the
+(``ops/gpu_voxel``, with the ``voxelize_scatter`` stage fused; the dense
+middle only), and the
 residual decode and the suppress+pack (``ops/gpu_decode3d``,
 ``ops/gpu_suppress3d``, with ``decode_nms`` fused); CenterPoint's tail
 runs the suppress+pack kernel alone. The host only pads the raw cloud to a
@@ -30,7 +31,9 @@ before every tail, so the kernels receive float32 as they do at ``f32``.
 
 The defaults are the reference's ``examples/pointpillar_kitti``
 (``data/kitti_pointpillars.yaml``), ``examples/second_iou``
-(``data/kitti_second.yaml``) and ``examples/centerpoint_nusc``'s model
+(``data/kitti_second.yaml``; ``data/kitti_second_sparse005.yaml`` the
+sparse middle at the reference's 0.05 m grid) and
+``examples/centerpoint_nusc``'s model
 (``models/centerpoint.CenterPointConfig``); ``dataset_config`` reads the
 ``data/*.yaml`` files over them.
 """
@@ -185,10 +188,12 @@ class Detect3DPipeline:
                 config.model_name,
             )
         # voxelize_scatter replaces the scatter VFE of a model that takes a
-        # mean volume (SECOND's dense middle; its config refuses any other),
-        # as the JAX package routes it; decode_nms fits every tail
+        # mean volume (SECOND's dense middle: a sparse middle would need a
+        # dense volume of its whole grid), as the JAX package routes it;
+        # decode_nms fits every tail
         candidates = ("decode_nms",)
-        if self.use_scatter and hasattr(model, "from_volume"):
+        if (self.use_scatter and getattr(model.cfg, "middle", None) == "dense"
+                and hasattr(model, "from_volume")):
             candidates = ("voxelize_scatter",) + candidates
         self.fused_stages = resolve_fused_stages(config.fused, candidates, self.device)
         self._jit = CapturedFunction(self.run, config.model_name)
@@ -430,7 +435,7 @@ def build_second_pipeline(
     dtype: torch.dtype | str = torch.float32,
     precision: PrecisionPolicy | str | None = None,
 ) -> tuple[Detect3DPipeline, ModelSpec, SECONDIoU]:
-    """SECOND-IoU (dense middle) over the same seam as PointPillars, with
+    """SECOND-IoU (either middle) over the same seam as PointPillars, with
     the same arguments; flax variables carry across through
     ``models/convert.second_state_dict_from_flax``. The spec's extra
     carries ``iou_alpha``."""

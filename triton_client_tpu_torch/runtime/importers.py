@@ -202,9 +202,9 @@ _MIDDLE = re.compile(r"^(conv|bn)(\d+)$")
 
 
 def second_torch_key(key: str) -> str:
-    """Port key -> OpenPCDet key. The middle's stage i (Conv3d, BN) sits
-    at ``backbone_3d.conv{i}.0`` / ``.1``, spconv's SparseSequential
-    indexing; MeanVFE has no parameters."""
+    """Port key -> OpenPCDet key. The middle's stage i (its conv, dense or
+    sparse, and its BN) sits at ``backbone_3d.conv{i}.0`` / ``.1``,
+    spconv's SparseSequential indexing; MeanVFE has no parameters."""
     head, rest = key.split(".", 1)
     if head == "middle":
         name, leaf = rest.split(".", 1)
@@ -214,12 +214,34 @@ def second_torch_key(key: str) -> str:
     return _head_or_backbone_key(head, rest, key, "SECOND")
 
 
+def sparse_weight_from_conv3d(key: str, natural: torch.Tensor, target: tuple) -> torch.Tensor:
+    """An OpenPCDet ``Conv3d`` kernel (out, in, kd, kh, kw) -> the sparse
+    middle's (k^3, in, out) gather weight: (kd, kh, kw, in, out), reshaped
+    row-major, the order of ``ops/sparse_conv.kernel_offsets``. A 2^3
+    stride stage has no 3^3 source and raises, as any other mismatch."""
+    if natural.ndim == 5 and len(target) == 3:
+        w = natural.permute(2, 3, 4, 1, 0)
+        k3 = w.shape[0] * w.shape[1] * w.shape[2]
+        if (k3, *w.shape[3:]) == tuple(target):
+            return w.reshape(target).contiguous()
+        raise ValueError(
+            f"sparse middle stage {key} expects {tuple(target)}; the checkpoint's "
+            f"{tuple(natural.shape)} kernel does not reshape to it: stride_kernel=2 stages "
+            "have no upstream 3^3 source; import into a dense-middle template or serve "
+            "with sparse_stride_kernel=3")
+    raise ValueError(f"cannot map torch tensor {tuple(natural.shape)} onto '{key}' "
+                     f"{tuple(target)} (wrong grid, filters or classes?)")
+
+
 def load_second(path_or_state: Any, model: torch.nn.Module) -> dict:
     """An OpenPCDet-named SECOND(-IoU) checkpoint -> a ``state_dict`` for the
-    port's ``model`` (the dense middle: ``Conv3d`` kernels copy as they
-    are)."""
+    port's ``model``, with either middle encoder: the dense middle's (and a
+    sparse middle's dense-tail) ``Conv3d`` kernels copy as they are, the
+    sparse stages' (k^3, in, out) weights are the row-major reshape of the
+    same 3^3 kernels (:func:`sparse_weight_from_conv3d`), so one checkpoint
+    serves both encoders."""
     return convert_state_dict(_as_state_dict(path_or_state), model.state_dict(),
-                              second_torch_key)
+                              second_torch_key, leaf_transform=sparse_weight_from_conv3d)
 
 
 # --- CenterPoint (det3d naming, data/nusc_centerpoint_pp_02voxel_...py) ------------

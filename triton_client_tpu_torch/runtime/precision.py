@@ -463,8 +463,9 @@ def apply_cast_params(
     a copy into the old ones). ``int8w``/``int8``: every weight of two or
     more dimensions (the kernels of ``Linear``, ``Conv*`` and
     ``ConvTranspose*``: exactly the flax leaves the JAX policy quantizes;
-    a buffer such as the anchors is no parameter) quantized over its
-    output-channel axis behind a :class:`Dequantize` parametrization that
+    a buffer such as the anchors is no parameter; and SECOND's sparse
+    ``(k^3, cin, cout)`` weights, whose module names the axis in
+    ``weight_out_axis``) quantized over its output-channel axis behind a :class:`Dequantize` parametrization that
     yields the module's own compute dtype; every other float tensor stored
     in float32, as the JAX tree keeps its 1-D leaves. ``source``: the
     float32 state_dict the model was filled from, quantized in place of a
@@ -485,8 +486,11 @@ def apply_cast_params(
             full = source.get(key, w).detach().to(device=w.device, dtype=torch.float32)
             mod.weight = torch.nn.Parameter(full, requires_grad=False)
             # the output channel: axis 1 of a transposed convolution's
-            # (cin, cout, ...) weight, 0 of the others'
-            axis = 1 if isinstance(mod, torch.nn.modules.conv._ConvTransposeNd) else 0
+            # (cin, cout, ...) weight, the last of a weight in the JAX layout
+            # (SECOND's sparse (k^3, cin, cout)), 0 of the others'
+            axis = getattr(mod, "weight_out_axis", None)
+            if axis is None:
+                axis = 1 if isinstance(mod, torch.nn.modules.conv._ConvTransposeNd) else 0
             # a bfloat16 module's parametrization yields bfloat16 from the
             # float32 it was registered over: "unsafe" is that dtype change
             parametrize.register_parametrization(
