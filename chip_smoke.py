@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
 centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
-second_sparse), with the
+second_sparse, telemetry), with the
 groups whose served models they reuse run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
 record (the rows of the kernels its groups measured) and the ``{"ok":
@@ -32,8 +32,10 @@ aggregation, with examples/pointpillar_wide beside it (phase 28), and every
 serving precision policy on every served family (phase 29), replay
 and evaluation from bags (phase 30), YOLOv4, RetinaNet and FCOS from disk
 (phase 31), server-side preprocess and ensembles (phase 32), the load
-generator against `serve` (phase 33) and SECOND-IoU's sparse middle at the
-reference's 0.05 m grid (phase 34). One JSON line per phase:
+generator against `serve` (phase 33), SECOND-IoU's sparse middle at the
+reference's 0.05 m grid (phase 34) and the measurement units: the
+device-time ledger, the roofline, op attribution and the tools (phase 35).
+One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -342,6 +344,22 @@ reference's 0.05 m grid (phase 34). One JSON line per phase:
                  --config in-process equal, row for row, to a detect3d -u
                  grpc: client process with no card against serve over a
                  disk entry whose dataset: is the YAML; its launches)
+ 35. telemetry — the measurement units (obs/device_time, obs/roofline,
+                 obs/opstats and the trace-dump / roofline tools) on
+                 examples/yolov5_crop, pointpillar_kitti and second_iou
+                 served from a disk repository through CUDAChannel: 20
+                 requests each without and with a DeviceTimeLedger and 20
+                 under torch.profiler. Held: one ledger launch a request,
+                 each CUDA-event window within its request's wall,
+                 flops_per_call equal to the network's FlopCounterMode count,
+                 the kernel time opstats attributes to a model at most its
+                 ledger time + 2%, kernels 1, 3, 4 and 5 under their models
+                 with occurrences equal to launches, under 5% of device time
+                 unattributed; detect2d --profile-trace then trace-dump --ops
+                 as processes (kernel 1 under yolov5_crop). Lines telemetry
+                 (per model: busy share, MFU, p50 with and without the
+                 ledger, the measured cost and its roofline row, the op
+                 attribution) and telemetry_cli
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -761,6 +779,7 @@ PHASES = {
     "ensemble": ("32", ()),
     "loadgen": ("33", ()),
     "second_sparse": ("34", ()),
+    "telemetry": ("35", ()),
 }
 
 
@@ -903,6 +922,8 @@ def main(argv: list[str] | None = None) -> int:
         for name, n in run_second_sparse(card, counters).items():
             if name in rows:
                 rows[name]["launches_by_path"]["second_sparse005"] = n
+    if "telemetry" in groups:
+        run_telemetry(card, counters)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5658,6 +5679,323 @@ def run_second_sparse(card: str, counters) -> dict:
          remote_equals_config_run=True, wall_s=time.perf_counter() - t_phase)
     return {"residual_decode_3d": launches["residual_decode_3d"],
             "suppress_pack_3d": launches["suppress_pack_3d"]}
+
+
+# phase 35: the three served entries of the façade (examples/), requests
+# each with and without a ledger and in the profiler window, the slack of
+# the CUPTI kernel time over the ledger's windows, the share of device time
+# no model may own, the frames of the profiled detect2d run
+TELEMETRY_ENTRIES = ("yolov5_crop", "pointpillar_kitti", "second_iou")
+TELEMETRY_REQUESTS, TELEMETRY_SLACK, TELEMETRY_UNATTRIBUTED = 20, 0.02, 0.05
+TELEMETRY_CLI_FRAMES = 8
+# the kernels each entry's path launches once a request (COUNTER_NAMES),
+# and the CUDA functions each kernel runs (obs/opstats.KERNEL_STAGES)
+TELEMETRY_PATHS = {"yolov5_crop": ("decode_nms_2d",),
+                   "pointpillar_kitti": ("residual_decode_3d", "suppress_pack_3d"),
+                   "second_iou": ("residual_decode_3d", "suppress_pack_3d", "segment_mean")}
+KERNEL_FUNCTIONS = {
+    "decode_nms_2d": ("decode_nms_2d_order", "decode_nms_2d_mask", "decode_nms_2d_scan"),
+    "residual_decode_3d": ("residual_decode_3d_kernel",),
+    "suppress_pack_3d": ("suppress_pack_3d_order", "suppress_pack_3d_mask",
+                         "suppress_pack_3d_scan"),
+    "segment_mean": ("segment_mean_zero", "segment_mean_walk"),
+}
+
+
+def telemetry_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """The phase-35 repository root: copies of the three entries'
+    ``config.yaml``, ``yolov5_crop`` with a seeded ultralytics checkpoint in
+    a version dir (``detect2d -r`` reads trained artifacts only), the 3D
+    entries seeded at build."""
+    for name in TELEMETRY_ENTRIES:
+        (tmp / name).mkdir(parents=True)
+        (tmp / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    (tmp / "yolov5_crop" / "1").mkdir()
+    torch.save({"model": upstream_yolov5("n", 35)}, tmp / "yolov5_crop" / "1" / "weights.pt")
+    return tmp
+
+
+def network_flops(name: str, pipe, inputs: dict) -> int:
+    """FlopCounterMode's flops of one request's network: YOLOv5's forward on
+    the frames at its input size (``forward_gflops`` x batch), or a 3D
+    pipeline's voxel stage and model (``heads``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if name == "yolov5_crop":
+        model = _model_of(pipe)
+        x = torch.zeros((inputs["images"].shape[0], *pipe.config.input_hw, 3),
+                        dtype=next(model.parameters()).dtype, device="cuda")
+        return round(forward_gflops(model, x) * 1e9 * x.shape[0])
+    points = torch.from_numpy(inputs["points"]).cuda()
+    count = torch.from_numpy(inputs["num_points"]).cuda()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        pipe.heads(points, count)
+    return counter.get_total_flops()
+
+
+def window_ledger():
+    """A ``DeviceTimeLedger`` that also keeps each window it records (its
+    ``windows``)."""
+    from triton_client_tpu_torch.obs.device_time import DeviceTimeLedger
+
+    class Ledger(DeviceTimeLedger):
+        def __init__(self) -> None:
+            super().__init__()
+            self.windows: list[float] = []
+
+        def record(self, model, duration_s, spec_extra=None, tenant=None) -> None:
+            self.windows.append(duration_s)
+            super().record(model, duration_s, spec_extra, tenant)
+
+    return Ledger()
+
+
+def profiled_requests(channel, name: str, requests: list, counters, tmp: pathlib.Path,
+                      sessions: int = 3) -> tuple:
+    """``requests`` through ``channel`` under torch.profiler with a fresh
+    ledger attached, the trace exported and summarized by ``obs/opstats``:
+    (summary, ledger, launches by kernel). torch.profiler has dropped
+    records of µs-long kernels on the card before (pass_split), so up to
+    ``sessions`` windows are taken until one saw every launch of the path's
+    kernels."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.obs import opstats
+
+    for session in range(1, sessions + 1):
+        ledger = window_ledger()
+        channel.attach_device_time(ledger)
+        torch.cuda.synchronize()
+        for counter in counters:
+            counter.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for inputs in requests:
+                channel.do_inference(InferRequest(name, inputs))
+            torch.cuda.synchronize()
+        launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        path = tmp / f"{name}.{session}.trace.json"
+        prof.export_chrome_trace(str(path))
+        summary = opstats.summarize(opstats.load_trace(str(path)))
+        seen = kernel_rows(summary, name)
+        if all(seen.get(fn, 0) == launches[k] for k in TELEMETRY_PATHS[name]
+               for fn in KERNEL_FUNCTIONS[k]):
+            summary["sessions"] = session
+            return summary, ledger, launches
+    fail(f"{name}: in {sessions} profiler sessions the last saw kernel rows {seen} "
+         f"for launches {launches}")
+
+
+def kernel_rows(summary: dict, model: str) -> dict:
+    """{CUDA function: occurrences} of the hand kernels' rows under ``model``."""
+    from triton_client_tpu_torch.obs import opstats
+
+    out: dict[str, int] = {}
+    for row in summary["ops"]:
+        fn = opstats.kernel_function(row["op"])
+        if fn in opstats.KERNEL_STAGES and row["model"] == model:
+            out[fn] = out.get(fn, 0) + row["occurrences"]
+    return out
+
+
+def run_telemetry(card: str, counters) -> None:
+    """Phase 35: the measurement units on the card. ``scan_disk`` builds
+    copies of examples/yolov5_crop (a seeded checkpoint), pointpillar_kitti
+    and second_iou at full width, served by CUDAChannel; each entry takes
+    TELEMETRY_REQUESTS serial requests (YOLOv5 a uint8 camera frame at its
+    512² input, the 3D
+    entries 20,000- and 120,000-point scans in turn) with no ledger, then
+    with a ``DeviceTimeLedger`` attached (its first launch measures the
+    model's flops and bytes, outside the counted windows), then again under
+    torch.profiler with a fresh ledger. Held: the ledger counts one launch a
+    request; each request's CUDA-event window is at most its host wall;
+    ``flops_per_call`` equals FlopCounterMode's count of the network
+    (``forward_gflops`` x batch for YOLOv5); the kernel time obs/opstats
+    attributes to the model over the profiler window is at most the
+    ledger's device time + TELEMETRY_SLACK; every CUDA function of the
+    path's kernels (1; 3 and 4; 3, 4 and 5) has a row under the model with
+    occurrences equal to the kernel's launches; the unattributed share of
+    device time is below TELEMETRY_UNATTRIBUTED. Then ``detect2d -r
+    --profile-trace`` and ``trace-dump --ops`` as processes of their own
+    (kernel 1's rows under yolov5_crop) and the ``roofline`` tool on a model
+    snapshot of the three. Lines telemetry (per model: busy share, MFU over
+    the wall and over the busy time, p50 with and without the ledger, the
+    measured cost and its roofline row, the op attribution) and
+    telemetry_cli."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.cli import tools
+    from triton_client_tpu_torch.obs import opstats
+    from triton_client_tpu_torch.obs import roofline as roof
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.disk_repository import scan_disk
+
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="telemetry_"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+    try:
+        root = telemetry_repository(tmp / "repo")
+        t0 = time.perf_counter()
+        repo = scan_disk(root)
+        for name, _ in repo.list_models():
+            repo.get(name).warmup()
+        build_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check(sorted(repo.names()) == sorted(TELEMETRY_ENTRIES), f"scanned {repo.names()}")
+    channel = CUDAChannel(repo)
+    rng = np.random.default_rng(35)
+    hw = tuple(repo.metadata("yolov5_crop").extra["model_input_hw"])
+    requests = {"yolov5_crop": [{"images": rng.integers(0, 256, (1, *hw, 3), dtype=np.uint8)}
+                                for _ in range(TELEMETRY_REQUESTS)]}
+    for name in TELEMETRY_ENTRIES[1:]:
+        extra = repo.metadata(name).extra
+        clouds = [uniform_clouds(350 + i, (0.0, -39.68, -3.0, 69.12, 39.68, 1.0), n, 1)[0]
+                  for i, n in enumerate(SCAN_POINTS)]
+        scans = []
+        for pc in clouds:
+            padded, m = prepare_points(pc, 4, extra["point_buckets"], extra["z_offset"])
+            scans.append({"points": padded, "num_points": np.asarray(m, np.int32)})
+        requests[name] = [scans[i % len(scans)] for i in range(TELEMETRY_REQUESTS)]
+
+    def timed(name: str) -> list[float]:
+        walls = []
+        for inputs in requests[name]:
+            t = time.perf_counter()
+            out = channel.do_inference(InferRequest(name, inputs)).outputs
+            walls.append(time.perf_counter() - t)
+            check(bool(np.isfinite(out["detections"]).all()), f"{name}: non-finite detections")
+        return walls
+
+    rows, snapshot_models = {}, []
+    for name in TELEMETRY_ENTRIES:
+        spec = repo.metadata(name)
+        pipe = pipeline_of(repo.get(name))
+        channel.attach_device_time(None)
+        channel.do_inference(InferRequest(name, requests[name][0]))  # any capture: here
+        off = timed(name)
+        # the first launch with a ledger measures the cost (an eager run)
+        channel.attach_device_time(window_ledger())
+        channel.do_inference(InferRequest(name, requests[name][0]))
+        torch.cuda.synchronize()
+        flops = network_flops(name, pipe, requests[name][0])
+        check(spec.extra.get("flops_per_call") == spec.extra.get("measured_flops_per_call")
+              == flops > 0, f"{name}: flops_per_call {spec.extra.get('flops_per_call')}, "
+              f"the network's {flops}")
+        check(spec.extra["launch_annotation"] == f"launch:{name}:1", f"{name}: annotation")
+
+        ledger = window_ledger()
+        channel.attach_device_time(ledger)
+        for counter in counters:
+            counter.reset()
+        t0 = time.perf_counter()
+        on = timed(name)
+        wall_s = time.perf_counter() - t0
+        snap = ledger.snapshot()
+        launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+        check(snap["launches"] == {name: TELEMETRY_REQUESTS},
+              f"{name}: the ledger counted {snap['launches']}")
+        check(len(ledger.windows) == len(on) and all(0 < w <= h for w, h in
+                                                     zip(ledger.windows, on)),
+              f"{name}: a CUDA-event window past its request's wall: "
+              f"{list(zip(ledger.windows, on))}")
+        want = {k: TELEMETRY_REQUESTS if k in TELEMETRY_PATHS[name] else 0
+                for k in COUNTER_NAMES if k != "residual_decode_3d_gathered"}
+        check({k: launches[k] for k in want} == want, f"{name}: launches {launches}")
+        device_s = sum(ledger.windows)
+        precision = spec.extra.get("compute_precision") or spec.extra.get("precision")
+        peak = roof.peak_flops(precision)
+        mfu_busy = flops * TELEMETRY_REQUESTS / device_s / peak
+
+        summary, pledger, plaunches = profiled_requests(channel, name, requests[name],
+                                                        counters, tmp)
+        model_us = summary["models"].get(name, 0.0)
+        ledger_us = sum(pledger.windows) * 1e6
+        total_us = summary["total_op_time_us"]
+        check(model_us > 0 and model_us <= ledger_us * (1 + TELEMETRY_SLACK),
+              f"{name}: opstats attributes {model_us:.1f} µs of kernels, the ledger's "
+              f"windows sum to {ledger_us:.1f} µs")
+        unattributed = summary["unattributed_us"] / max(total_us, 1e-9)
+        check(unattributed < TELEMETRY_UNATTRIBUTED,
+              f"{name}: {unattributed:.2%} of device time unattributed")
+        check(set(summary["models"]) == {name}, f"{name}: models {summary['models']}")
+        seen = kernel_rows(summary, name)
+        stages = {fn: next(r["stage"] for r in summary["ops"]
+                           if opstats.kernel_function(r["op"]) == fn) for fn in seen}
+        roofline_row = roof.model_row(spec.extra, TELEMETRY_REQUESTS / wall_s)
+        snapshot_models.append({"model": name, "version": spec.version,
+                                "roofline": roofline_row})
+        rows[name] = {
+            "precision": spec.extra.get("precision", "f32"),
+            "compute_precision": precision,
+            "requests": TELEMETRY_REQUESTS,
+            "busy_share": snap["busy_fraction"],
+            "mfu": snap["window"]["mfu"].get(name),
+            "mfu_busy": mfu_busy,
+            "peak_flops": peak,
+            "device_ms_per_request": device_s / TELEMETRY_REQUESTS * 1e3,
+            "p50_ms_ledger": float(np.median(on)) * 1e3,
+            "p50_ms_no_ledger": float(np.median(off)) * 1e3,
+            "gflops_per_request": flops / 1e9,
+            "measured_bytes_per_call": spec.extra["measured_bytes_per_call"],
+            "roofline": roofline_row,
+            "opstats": {"model_us": model_us, "ledger_us": ledger_us,
+                        "kernel_over_ledger": model_us / ledger_us,
+                        "unattributed_share": unattributed, "total_op_us": total_us,
+                        "op_count": summary["op_count"], "sessions": summary["sessions"],
+                        "kernel_rows": seen, "kernel_stages": stages,
+                        "launches": {k: v for k, v in plaunches.items() if v},
+                        "top_ops_us": [(r["op"][:60], r["time_us"]) for r in
+                                       summary["ops"][:5]]},
+        }
+        emit("telemetry", card, model=name, **rows[name])
+    channel.attach_device_time(None)
+
+    # -- the tools as a user runs them -------------------------------------------------
+    prof_dir, out = tmp / "prof", tmp / "cli"
+    proc = subprocess.run(
+        [sys.executable, "-m", "triton_client_tpu_torch", "detect2d", "-r", str(root),
+         "-m", "yolov5_crop", "-i", f"synthetic:{TELEMETRY_CLI_FRAMES}:512x512",
+         "--profile-trace", str(prof_dir), "--sink", "jsonl", "-o", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"detect2d --profile-trace exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    ops_json = tmp / "ops.json"
+    dump = subprocess.run(
+        [sys.executable, "-m", "triton_client_tpu_torch", "trace-dump", "--ops", str(prof_dir),
+         "--top-k", "0", "-o", str(ops_json)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(dump.returncode == 0, f"trace-dump --ops exited {dump.returncode}: "
+          f"{dump.stderr[-3000:]}")
+    cli_summary = json.loads(ops_json.read_text())
+    cli_rows = kernel_rows(cli_summary, "yolov5_crop")
+    cli_launches = report["kernel_launches"]["decode_nms_2d"]
+    check(set(cli_rows) == set(KERNEL_FUNCTIONS["decode_nms_2d"])
+          and all(v == cli_launches for v in cli_rows.values()),
+          f"trace-dump --ops: kernel 1's rows under yolov5_crop {cli_rows}, "
+          f"{cli_launches} launches")
+    snapshot = tmp / "models.json"
+    snapshot.write_text(json.dumps({"models": snapshot_models}))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        tools.roofline([str(snapshot), "--json"])
+    roof_rows = json.loads(text.getvalue())["rows"]
+    check([r["model"] for r in roof_rows] == [f"{n}:1" for n in TELEMETRY_ENTRIES],
+          f"roofline rows {roof_rows}")
+    emit("telemetry_cli", card, detect2d={"frames": report["frames"],
+                                          "kernel_launches": cli_launches},
+         trace_dump={"models_us": cli_summary["models"],
+                     "unattributed_us": cli_summary["unattributed_us"],
+                     "kernel_rows": cli_rows,
+                     "trace_file": pathlib.Path(cli_summary["trace_file"]).name},
+         roofline=roof_rows, build_s=build_s, wall_s=time.perf_counter() - t_phase)
+    shutil.rmtree(tmp)
 
 
 if __name__ == "__main__":

@@ -312,11 +312,24 @@ def test_a_fault_fails_only_its_own_future(point):
     assert chan.stats()["breaker"] == {"staged": {"state": 0, "opens": 0, "consecutive": 0}}
 
 
-def test_slot_buffers_and_hooks_not_ported():
+@pytest.mark.parametrize("hook", ["attach_lifecycle", "attach_device_time", "attach_sessions"])
+def test_slot_buffers_and_hooks_not_ported(hook):
+    """The lifecycle and sessions hooks still raise naming ROADMAP; the
+    device-time hook is ported: it takes a ledger, which then accounts
+    one launch a request (tests/test_torch_device_time.py holds the rest)."""
+    from triton_client_tpu_torch.obs.device_time import DeviceTimeLedger
+
     _, chan = _port()
-    for attach in (chan.attach_lifecycle, chan.attach_device_time, chan.attach_sessions):
+    attach = getattr(chan, hook)
+    if hook != "attach_device_time":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(object())
+        return
+    ledger = DeviceTimeLedger()
+    attach(ledger)
+    assert chan.device_time is ledger
+    chan.do_inference(InferRequest("staged", {"x": _frame(0)}))
+    assert ledger.snapshot()["launches"] == {"staged": 1}
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,12 @@ Commands ported so far:
   bag-stitch — copy the first N messages of a bag into a new bag
   bag-info   — topics, types and counts of a bag
   repo-index — list a model repository (local dir or grpc:<addr>)
+  trace-dump — --ops PATH ranks the card's ops by device time with their
+               owning model, from a --profile-trace capture
+  trace-join — merge Chrome-trace dumps onto one timeline (per-source pid
+               rows + --offset clock offsets)
+  roofline   — per-model compute-/bandwidth-bound classification with the
+               attainable-fps ceiling (a results JSON or a model snapshot)
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import sys
 
 COMMANDS = ("detect2d", "detect3d", "evaluate", "serve", "pc-extract", "bag-stitch",
-            "bag-info", "repo-index")
+            "bag-info", "repo-index", "trace-dump", "trace-join", "roofline")
 
 
 def main() -> None:
@@ -45,6 +51,12 @@ def main() -> None:
         from triton_client_tpu_torch.cli.tools import bag_info as run
     elif cmd == "repo-index":
         from triton_client_tpu_torch.cli.tools import repo_index as run
+    elif cmd == "trace-dump":
+        from triton_client_tpu_torch.cli.tools import trace_dump as run
+    elif cmd == "trace-join":
+        from triton_client_tpu_torch.cli.tools import trace_join as run
+    elif cmd == "roofline":
+        from triton_client_tpu_torch.cli.tools import roofline as run
     else:
         print(f"unknown command '{cmd}'; commands: {', '.join(COMMANDS)}")
         raise SystemExit(2)

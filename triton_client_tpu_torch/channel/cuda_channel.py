@@ -195,6 +195,28 @@ class CUDAChannel(StagedChannel):
         event.record(torch.cuda.current_stream(self.device))
         return event
 
+    def _begin_window(self):
+        """A timing event on the launch stream, just before the launcher
+        (only while a ledger is attached): the launch's window starts when
+        the card reaches it, so queueing behind an earlier launch is not in
+        it. Every route goes through here: graph replays, the ragged
+        route's graphs, a fused ensemble's one graph."""
+        if self.device.type != "cuda":
+            return super()._begin_window()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(self.device))
+        return start
+
+    def _end_window(self, start):
+        """A timing event behind the launch, which is also the event its
+        resolve waits on; the window is ``start.elapsed_time(end)``, on the
+        card's clock."""
+        if self.device.type != "cuda":
+            return super()._end_window(start)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(self.device))
+        return end, lambda: start.elapsed_time(end) / 1e3
+
     # -- launcher ---------------------------------------------------------------
 
     def _donate_names(self, model) -> frozenset:

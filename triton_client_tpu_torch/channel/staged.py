@@ -21,14 +21,26 @@
 ``do_inference`` is stage -> launch -> result; ``do_inference_async``
 defers the readback, and any dispatch error, to ``result()``.
 
-The JAX engine's lifecycle, device-time and sessions hooks are not
-ported: ``attach_lifecycle``, ``attach_device_time`` and
-``attach_sessions`` raise ``NotImplementedError``.
+Every launcher call runs inside a ``torch.profiler.record_function``
+named ``launch:<model>:<version>`` (``obs/roofline.launcher_name``), by
+which ``obs/opstats`` attributes the card's ops to the model.
+``attach_device_time`` attaches an ``obs/device_time.DeviceTimeLedger``:
+each launch then records its device window (see
+:meth:`StagedChannel._begin_window`) into it when it resolves, and the
+first launch of each model identity measures its flops and bytes
+(``obs/roofline.record_launch_cost``) into ``spec.extra``. With no ledger
+attached neither happens.
+
+The JAX engine's lifecycle and sessions hooks are not ported:
+``attach_lifecycle`` and ``attach_sessions`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+import logging
 import threading
 import time
 
@@ -42,6 +54,7 @@ from triton_client_tpu_torch.channel.base import (
     InferResponse,
 )
 from triton_client_tpu_torch.config import ModelSpec
+from triton_client_tpu_torch.obs.roofline import launcher_name, record_launch_cost
 from triton_client_tpu_torch.parallel.ragged_kernels import RaggedLayout
 from triton_client_tpu_torch.runtime import faults
 from triton_client_tpu_torch.runtime.admission import (
@@ -59,6 +72,22 @@ _NOT_PORTED = (
     "the {} hook of the staged channel is not ported yet "
     "(ROADMAP.md Queue 1, 'Serving breadth')"
 )
+
+log = logging.getLogger(__name__)
+
+
+def _batch_rows(device_inputs: dict) -> int:
+    """Frames in one dense launch: the largest leading dim among the staged
+    tensors (shape metadata only), as JAX counts them; but a request that
+    carries a 0-d tensor (the 3D contract's point count beside its padded
+    cloud) is one scan, where JAX counts the cloud's padded points."""
+    if any(getattr(v, "ndim", 1) == 0 for v in device_inputs.values()):
+        return 1
+    rows = 1
+    for v in device_inputs.values():
+        if getattr(v, "ndim", 0) >= 1:
+            rows = max(rows, int(v.shape[0]))
+    return rows
 
 
 def cast_wire_input(model, name: str, arr: np.ndarray) -> np.ndarray:
@@ -181,6 +210,8 @@ class StagedChannel(BaseChannel):
         self._shed: collections.Counter = collections.Counter()
         # (name, version) -> (model identity, launcher, donate names, wire dtypes)
         self._launch_cache: dict = {}
+        self._device_time = None  # obs/device_time.DeviceTimeLedger
+        self._cost_measured: set = set()  # model identities whose cost is recorded
         repository.add_unregister_listener(self._on_unregister)
         self.register_channel()
 
@@ -236,6 +267,21 @@ class StagedChannel(BaseChannel):
         """An event behind the launch (None where there is nothing to wait
         on)."""
         return None
+
+    def _begin_window(self):
+        """Open a launch's device window, just before its launcher runs
+        (only while a ledger is attached). Here, off the card, the launch
+        has finished when the launcher returns, so the window is the
+        launcher call's own wall time; ``CUDAChannel`` records a timing CUDA
+        event on the launch stream instead. Returns what
+        :meth:`_end_window` takes."""
+        return time.perf_counter()
+
+    def _end_window(self, start):
+        """Close the window behind the launcher: ``(done event, seconds)``,
+        ``seconds()`` the window's length, read once the event is done."""
+        elapsed = time.perf_counter() - start
+        return self._record_done(), lambda: elapsed
 
     def _host_outputs(self, outputs, out_dtype, meta) -> dict:
         """Device outputs -> host numpy at the wire dtypes: the designed
@@ -402,20 +448,31 @@ class StagedChannel(BaseChannel):
                 )
             )
         donate_names = frozenset()
+        ledger = self._device_time
+        device_seconds = None
         try:
+            from torch.profiler import record_function
+
             faults.probe("slow_launch", name)
             faults.probe("launch", name)
             if request.ragged is not None:
                 launcher, out_dtype = self._ragged_launcher(
                     model, request.ragged.launch_segments)
-                outputs = launcher(staged.device_inputs)
+                call = functools.partial(launcher, staged.device_inputs)
+                if ledger is not None:
+                    self._ensure_launch_cost(model, staged.device_inputs, request.ragged)
             else:
                 launcher, donate_names, out_dtype = self._launcher(model)
-                if launcher is not None:
-                    outputs = launcher(staged.device_inputs)
-                else:
-                    outputs = model.infer_fn(staged.device_inputs)
-            event = self._record_done()
+                call = functools.partial(launcher or model.infer_fn, staged.device_inputs)
+                if ledger is not None:
+                    self._ensure_launch_cost(model, staged.device_inputs)
+            window = self._begin_window() if ledger is not None else None
+            with record_function(launcher_name(model)):
+                outputs = call()
+            if window is None:
+                event = self._record_done()
+            else:
+                event, device_seconds = self._end_window(window)
         except Exception as e:
             # the error goes to THIS request's future only; the slot frees
             # and the channel stays serviceable (the breaker decides whether
@@ -444,6 +501,8 @@ class StagedChannel(BaseChannel):
                 t_ready = time.perf_counter()
                 if tr is not None:
                     tr.add("device_execute", t_launched, t_ready)
+                if device_seconds is not None:
+                    ledger.record(name, device_seconds(), model.spec.extra)
                 faults.probe("readback", name)
                 host = self._host_outputs(outputs, out_dtype, staged.meta)
                 if tr is not None:
@@ -510,13 +569,60 @@ class StagedChannel(BaseChannel):
             self._launch_cache[key] = (model, launcher, donate_names, out_dtype)
         return launcher, donate_names, out_dtype
 
+    def _ensure_launch_cost(self, model, device_inputs: dict, ragged=None) -> None:
+        """Record the model's measured flops/bytes into ``spec.extra``
+        (``obs/roofline.record_launch_cost``) once per model identity, at
+        its first launch with a ledger attached, from one eager run of its
+        body on this launch's inputs: ``device_fn``, else the
+        ``member_device_fn`` a disk entry offers, else (a host-side
+        ``infer_fn`` alone) nothing; a packed launch runs ``ragged_fn`` at
+        its segment bucket. JAX counts at the same point from XLA's cost
+        model, a trace it pays anyway; the port's count costs an eager run
+        and its kernels' launches, so it runs only when a ledger reads it.
+        Never under a graph capture, and never fails the launch."""
+        key = (model.spec.name, model.spec.version)
+        with self._slot_cv:
+            if key in self._cost_measured:
+                return
+        if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return
+        if ragged is not None:
+            if model.ragged_fn is None:
+                return
+            inputs = {k: v for k, v in device_inputs.items() if k != SEGMENT_IDS_KEY}
+            body = functools.partial(model.ragged_fn, inputs, device_inputs[SEGMENT_IDS_KEY],
+                                     ragged.launch_segments)
+            rows = ragged.n_segments
+        else:
+            fn = model.device_fn or model.member_device_fn
+            if fn is None:
+                return
+            body = functools.partial(fn, device_inputs)
+            rows = _batch_rows(device_inputs)
+        with self._slot_cv:
+            if key in self._cost_measured:
+                return
+            self._cost_measured.add(key)
+        try:
+            record_launch_cost(model, body, batch_rows=rows)
+        except Exception:  # the roofline is observability, not serving
+            log.debug("launch-cost measurement failed for %s:%s", *key, exc_info=True)
+
+    # -- device-time attribution (obs/device_time.py) ---------------------------
+
+    def attach_device_time(self, ledger) -> None:
+        """Attach a ``DeviceTimeLedger`` (None detaches): every later launch
+        records its device window into it from the resolve path."""
+        self._device_time = ledger
+
+    @property
+    def device_time(self):
+        return self._device_time
+
     # -- hooks of layers not ported -------------------------------------------
 
     def attach_lifecycle(self, manager) -> None:
         raise NotImplementedError(_NOT_PORTED.format("model lifecycle"))
-
-    def attach_device_time(self, ledger) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("device-time ledger"))
 
     def attach_sessions(self, manager) -> None:
         raise NotImplementedError(_NOT_PORTED.format("streaming sessions"))

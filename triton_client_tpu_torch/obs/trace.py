@@ -15,9 +15,11 @@ ones; it adopts the caller's W3C-style :class:`TraceContext` from the
 request's ``traceparent`` parameter, and sends a compact span summary
 back in the response's ``trace_summary`` parameter
 (:func:`encode_span_summary`), which a client grafts onto its own clock
-(:func:`graft_span_summary`). The JAX module's Chrome-trace export and
-its profiler and histogram feeds are not ported (ROADMAP.md Queue 1
-item 8, the telemetry plane).
+(:func:`graft_span_summary`). :func:`chrome_trace` (``Tracer.chrome_trace``)
+exports traces in the Chrome trace format that Perfetto and
+``chrome://tracing`` load, one row a request. The JAX ``Tracer``'s
+``profiler=`` and ``histograms=`` feeds wait for the telemetry plane
+(ROADMAP.md Queue 1 item 8, step 3).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import itertools
 import json
 import threading
 import time
+import uuid
 from typing import Iterator
 
 
@@ -46,6 +49,16 @@ class TraceContext:
         self.trace_id = trace_id
         self.parent_span_id = parent_span_id
         self.sampled = bool(sampled)
+
+    @classmethod
+    def new(cls, sampled: bool = True) -> "TraceContext":
+        """Originate a fresh context (the front door's role)."""
+        return cls(uuid.uuid4().hex, uuid.uuid4().hex[:16], sampled)
+
+    def child(self) -> "TraceContext":
+        """Same trace, fresh parent span id: one per retry or hedge attempt,
+        so sibling attempts are told apart on the server."""
+        return TraceContext(self.trace_id, uuid.uuid4().hex[:16], self.sampled)
 
     def encode(self) -> str:
         flags = "01" if self.sampled else "00"
@@ -141,6 +154,49 @@ class RequestTrace:
         end = self.t_end if self.t_end is not None else time.perf_counter()
         return end - self.t_start
 
+    def span_coverage(self) -> float:
+        """Fraction of [t_start, t_end] covered by the union of the spans:
+        the gauge of time no span accounts for."""
+        wall = self.wall_s()
+        if wall <= 0:
+            return 1.0
+        with self._lock:
+            ivals = sorted((s.t0, s.t1) for s in self.spans)
+        covered, cur0, cur1 = 0.0, None, None
+        for t0, t1 in ivals:
+            if cur1 is None or t0 > cur1:
+                if cur1 is not None:
+                    covered += cur1 - cur0
+                cur0, cur1 = t0, t1
+            else:
+                cur1 = max(cur1, t1)
+        if cur1 is not None:
+            covered += cur1 - cur0
+        return min(1.0, covered / wall)
+
+    def summary(self) -> dict:
+        with self._lock:
+            spans = [
+                {
+                    "name": s.name,
+                    "t0_s": s.t0 - self.t_start,
+                    "dur_ms": s.duration_s * 1e3,
+                    **({"attrs": s.attrs} if s.attrs else {}),
+                }
+                for s in sorted(self.spans, key=lambda s: s.t0)
+            ]
+        out = {
+            "trace_id": self.trace_id,
+            "model": self.model,
+            "request_id": self.request_id,
+            "status": self.status,
+            "wall_ms": self.wall_s() * 1e3,
+            "spans": spans,
+        }
+        if self.context is not None:
+            out["context"] = self.context.encode()
+        return out
+
 
 class MultiTrace:
     """Fan-out proxy for merged device batches: a span added to it lands
@@ -154,6 +210,16 @@ class MultiTrace:
     def add(self, name: str, t0: float, t1: float) -> None:
         for m in self.members:
             m.add(name, t0, t1)
+
+    @contextlib.contextmanager
+    def span(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            t1 = time.perf_counter()
+            for m in self.members:
+                m.add(name, t0, t1)
 
     def begin(self, name: str) -> None:
         for m in self.members:
@@ -206,6 +272,58 @@ class Tracer:
         with self._lock:
             return {"finished": self._finished, "buffered": len(self._ring),
                     "capacity": self.capacity}
+
+    def chrome_trace(self, n: int = 0) -> dict:
+        return chrome_trace(self.recent(n))
+
+
+def chrome_trace(traces) -> dict:
+    """Chrome trace ('Trace Event Format') JSON for a list of traces.
+
+    Complete ('X') events with microsecond timestamps, one tid (row) per
+    request, the whole request as a parent event so its spans nest inside
+    it. Timestamps rebase onto the earliest trace start, so the viewer
+    opens at t=0."""
+    traces = [t for t in traces if t is not None]
+    if not traces:
+        return {"traceEvents": [], "displayTimeUnit": "ms"}
+    base = min(t.t_start for t in traces)
+
+    def us(t: float) -> float:
+        return round((t - base) * 1e6, 3)
+
+    events: list[dict] = [
+        {"ph": "M", "name": "process_name", "pid": 1, "tid": 0,
+         "args": {"name": "tpu_serving"}}
+    ]
+    for tr in traces:
+        tid = tr.trace_id
+        label = f"req {tr.trace_id} {tr.model}".strip()
+        events.append({"ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
+                       "args": {"name": label}})
+        t_end = tr.t_end if tr.t_end is not None else time.perf_counter()
+        req_args = {"model": tr.model, "request_id": tr.request_id, "status": tr.status}
+        ctx = getattr(tr, "context", None)
+        if ctx is not None:
+            req_args["traceparent"] = ctx.encode()
+        events.append({
+            "ph": "X", "name": "request", "cat": "request", "pid": 1, "tid": tid,
+            "ts": us(tr.t_start), "dur": max(0.0, (t_end - tr.t_start) * 1e6),
+            "args": req_args,
+        })
+        for s in sorted(tr.spans, key=lambda s: s.t0):
+            ev = {"ph": "X", "name": s.name, "cat": "span", "pid": 1, "tid": tid,
+                  "ts": us(s.t0), "dur": max(0.0, s.duration_s * 1e6)}
+            if s.attrs:
+                ev["args"] = dict(s.attrs)
+            events.append(ev)
+    events.sort(key=lambda e: (e.get("ts", -1.0), e["tid"]))
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def dump_chrome_trace(traces, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(chrome_trace(traces), f)
 
 
 # -- cross-process span summaries ---------------------------------------------

@@ -59,7 +59,9 @@ class RegisteredModel:
     # ensemble's ``fuse: always`` path without serving through it: a disk
     # entry keeps its captured infer_fn route, launch counts and graphs,
     # and a fused ensemble over it still runs on the card
-    # (runtime/ensemble.py). The channel never reads it.
+    # (runtime/ensemble.py). The channel serves nothing through it: it runs
+    # it once, eagerly, to measure the model's flops and bytes while a
+    # device-time ledger is attached (channel/staged._ensure_launch_cost).
     member_device_fn: InferFn | None = None
 
 
