@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
 centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
-second_sparse, telemetry), with the
+second_sparse, telemetry, telemetry_plane), with the
 groups whose served models they reuse run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
 record (the rows of the kernels its groups measured) and the ``{"ok":
@@ -360,6 +360,20 @@ One JSON line per phase:
                  (per model: busy share, MFU, p50 with and without the
                  ledger, the measured cost and its roofline row, the op
                  attribution) and telemetry_cli
+ 36. telemetry_plane — serve on copies of examples/yolov5_crop and
+                 pointpillar_kitti in a process of its own, without and with
+                 --metrics-port auto --slo-ms 33 --op-sample-interval 2
+                 --history-interval 1; utils/loadgen.run_pool with 4 clients
+                 for 3 s an entry (a seeded 480x640 frame, 20,000- and
+                 120,000-point scans). Held: every METRIC_TYPES family on
+                 /metrics, each model's e2e histogram count equal to the
+                 requests it answered, SLO met + missed equal to them, the
+                 busy share in (0, 1], a /profile?seconds=1 capture under
+                 load with kernel 1 under yolov5_crop and kernels 3 and 4
+                 under pointpillar_kitti, /history holding both models, no
+                 server thread alive after stop. Line telemetry_plane:
+                 frames/s, p50, p99 with and without telemetry, attainment
+                 at 33 ms, the sampler's duty cycle and captures
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -780,6 +794,7 @@ PHASES = {
     "loadgen": ("33", ()),
     "second_sparse": ("34", ()),
     "telemetry": ("35", ()),
+    "telemetry_plane": ("36", ()),
 }
 
 
@@ -924,6 +939,8 @@ def main(argv: list[str] | None = None) -> int:
                 rows[name]["launches_by_path"]["second_sparse005"] = n
     if "telemetry" in groups:
         run_telemetry(card, counters)
+    if "telemetry_plane" in groups:
+        run_telemetry_plane(card)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5284,16 +5301,16 @@ LOADGEN_SLO_MS, LOADGEN_PROBE_S, LOADGEN_ITERS = 33.0, 2.0, 4  # a 30 fps camera
 LOADGEN_MODELS = (("yolov5_crop", "images"), ("ensemble_fused_pipeline", "camera_raw"))
 
 
-def start_serve(root: pathlib.Path, timeout_s: float = 180.0):
-    """``python -m triton_client_tpu_torch serve -r root`` on a loopback port
-    of its choosing: (process, address, its output lines so far). A reader
-    thread drains its output."""
+def start_serve(root: pathlib.Path, flags=(), timeout_s: float = 180.0):
+    """``python -m triton_client_tpu_torch serve -r root [flags]`` on a
+    loopback port of its choosing: (process, address, its output lines so
+    far, the reader thread that drains its output)."""
     import queue
     import threading
 
     proc = subprocess.Popen(
         [sys.executable, "-m", "triton_client_tpu_torch", "serve", "-r", str(root),
-         "-a", "127.0.0.1:0", "--uds", "off"],
+         "-a", "127.0.0.1:0", "--uds", "off", *flags],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: list[str] = []
     ports: queue.Queue = queue.Queue()
@@ -5996,6 +6013,261 @@ def run_telemetry(card: str, counters) -> None:
                      "trace_file": pathlib.Path(cli_summary["trace_file"]).name},
          roofline=roof_rows, build_s=build_s, wall_s=time.perf_counter() - t_phase)
     shutil.rmtree(tmp)
+
+
+# phase 36: the telemetry and SLO planes served: `serve` in a process of its
+# own without and with them, 4 closed-loop clients an entry, the endpoint
+# read while it serves
+PLANE_ENTRIES = ("yolov5_crop", "pointpillar_kitti")
+PLANE_CLIENTS, PLANE_WINDOW_S, PLANE_SLO_MS = 4, 3.0, 33.0
+PLANE_FLAGS = ("--metrics-port", "auto", "--slo-ms", "33", "--op-sample-interval", "2",
+               "--history-interval", "1")
+PLANE_PROFILE_TRIES = 3
+# the hand kernels each entry's path runs once a request
+PLANE_KERNELS = {"yolov5_crop": ("decode_nms_2d",),
+                 "pointpillar_kitti": ("residual_decode_3d", "suppress_pack_3d")}
+
+
+def plane_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """Copies of examples/yolov5_crop (at conf 0.05: seeded weights keep
+    nothing at 0.3) and pointpillar_kitti."""
+    for name in PLANE_ENTRIES:
+        (tmp / name).mkdir()
+        (tmp / name / "config.yaml").write_bytes(
+            (ROOT / "examples" / name / "config.yaml").read_bytes())
+    crop = tmp / "yolov5_crop" / "config.yaml"
+    check("conf_thresh: 0.3" in crop.read_text(), "examples/yolov5_crop changed its conf_thresh")
+    crop.write_text(crop.read_text().replace("conf_thresh: 0.3", "conf_thresh: 0.05"))
+    return tmp
+
+
+def plane_workload(address: str) -> list[tuple]:
+    """(label, model, inputs) of the phase: a seeded 480x640 frame, and
+    20,000- and 120,000-point scans padded to the served entry's buckets."""
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    chan = GRPCChannel(address)
+    try:
+        extra = chan.get_metadata("pointpillar_kitti").extra
+    finally:
+        chan.close()
+    out = [("yolov5_crop", "yolov5_crop",
+            {"images": next(iter(SyntheticImageSource(1, FRAME_HW, seed=36))).data[None]})]
+    for i, n in enumerate(SCAN_POINTS):
+        pc = uniform_clouds(360 + i, (0.0, -39.68, -3.0, 69.12, 39.68, 1.0), n, 1)[0]
+        padded, m = prepare_points(pc, 4, extra["point_buckets"], extra["z_offset"])
+        out.append((f"pointpillar_kitti_{n}", "pointpillar_kitti",
+                    {"points": padded, "num_points": np.asarray(m, np.int32)}))
+    return out
+
+
+def plane_pool(address: str, workload: list[tuple], lines: list) -> dict:
+    """``run_pool`` with PLANE_CLIENTS clients for PLANE_WINDOW_S an entry:
+    frames/s, p50, p99, the frames answered in the window and the pool's
+    wall (its warm requests included)."""
+    from triton_client_tpu_torch.utils import loadgen
+
+    rows = {}
+    for label, model, inputs in workload:
+        t0 = time.perf_counter()
+        res = loadgen.run_pool(address, model, inputs, PLANE_CLIENTS, PLANE_WINDOW_S,
+                               deadline_s=120.0, stagger_s=0.1)
+        wall = time.perf_counter() - t0
+        check(not res.errors and res.served_frames > 0,
+              f"{label}: {res.served_frames} frames in {wall:.1f} s, errors "
+              f"{[e[:160] for e in res.errors[:3]]}; serve said {lines[-8:]}")
+        lat = np.asarray(res.latencies_ms)
+        rows[label] = {"frames_per_s": res.fps, "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99)), "frames": res.served_frames,
+                       "pool_wall_s": wall}
+    return rows
+
+
+def http_json(url: str, timeout: float = 60.0):
+    """(status, parsed JSON body or None) of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def plane_profile(base: str, address: str, workload: list[tuple]) -> dict:
+    """``/profile?seconds=1`` while one client an entry drives yolov5_crop
+    and the 20k scans: up to PLANE_PROFILE_TRIES captures (a 409 from the
+    sampler's window, or a window that dropped a kernel's records, takes
+    another) until kernel 1's functions sit under yolov5_crop and kernels 3
+    and 4's under pointpillar_kitti. Returns the kernel rows by model, the
+    tries and the capture's wall (the window, the session's stop and the
+    parse)."""
+    import threading
+
+    from triton_client_tpu_torch.obs import opstats
+    from triton_client_tpu_torch.utils import loadgen
+
+    want = {model: {fn for k in kernels for fn in KERNEL_FUNCTIONS[k]}
+            for model, kernels in PLANE_KERNELS.items()}
+    rows: dict = {}
+    for attempt in range(1, PLANE_PROFILE_TRIES + 1):
+        errors: list = []
+
+        def drive(model, inputs):
+            res = loadgen.run_pool(address, model, inputs, 1, 2.0, deadline_s=120.0,
+                                   stagger_s=0.0)
+            errors.extend(res.errors)
+
+        threads = [threading.Thread(target=drive, args=(model, inputs))
+                   for _, model, inputs in workload[:2]]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        code, doc = http_json(base + "/profile?seconds=1&top_k=0", timeout=300.0)
+        wall = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=120)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"load under /profile: errors {errors[:3]}")
+        if code == 409:
+            continue
+        check(code == 200 and doc and "op_summary" in doc,
+              f"/profile answered {code}: {doc and doc.get('op_summary_error')}")
+        rows = {model: kernel_rows(doc["op_summary"], model) for model in PLANE_KERNELS}
+        if all(want[m] <= set(rows[m]) for m in want):
+            return {"kernel_rows": rows, "tries": attempt, "capture_wall_s": wall,
+                    "launch_log_windows": doc["op_summary"].get("launch_log_windows"),
+                    "models_us": doc["op_summary"]["models"],
+                    "unattributed_us": doc["op_summary"]["unattributed_us"],
+                    "stages_us": doc["op_summary"]["stages"]}
+    fail(f"/profile: in {PLANE_PROFILE_TRIES} captures the last saw kernel rows {rows}; "
+         f"models_us {doc['op_summary']['models']}, unattributed_us "
+         f"{doc['op_summary']['unattributed_us']}, launch-log windows "
+         f"{doc['op_summary'].get('launch_log_windows')}")
+
+
+def run_telemetry_plane(card: str) -> None:
+    """Phase 36: ``serve`` on copies of examples/yolov5_crop and
+    pointpillar_kitti in a process of its own, once without telemetry and
+    once with ``--metrics-port auto --slo-ms 33 --op-sample-interval 2
+    --history-interval 1``; in each, ``utils/loadgen.run_pool`` with 4
+    clients for 3 s an entry (a seeded 480x640 frame; 20,000- and
+    120,000-point scans). With telemetry, held: every METRIC_TYPES family on
+    /metrics; each model's e2e latency histogram count equal to the
+    requests it answered (the ledger's launches, one a request); SLO met +
+    missed equal to the requests answered; /snapshot's busy share in
+    (0, 1]; a /profile?seconds=1 capture under load with kernel 1's
+    functions under yolov5_crop and kernels 3 and 4's under
+    pointpillar_kitti (obs/opstats.KERNEL_STAGES); /history with an entry of
+    each model; no thread of the server alive once it stops. Line
+    telemetry_plane: frames/s, p50 and p99 an entry with and without
+    telemetry, attainment at 33 ms, the sampler's duty cycle, captures and
+    whether its windows (not the process's first profiler session) saw the
+    hand kernels."""
+    import tempfile
+
+    from triton_client_tpu_torch.obs import opstats
+    from triton_client_tpu_torch.obs.collector import METRIC_TYPES
+
+    t_phase = time.perf_counter()
+    runs: dict = {}
+    with tempfile.TemporaryDirectory(prefix="plane_repo_") as tmp:
+        root = plane_repository(pathlib.Path(tmp))
+        for mode, flags in (("off", ()), ("on", PLANE_FLAGS)):
+            t0 = time.perf_counter()
+            proc, address, lines, reader = start_serve(root, flags)
+            ready_s = time.perf_counter() - t0
+            report = {"serve_ready_s": ready_s}
+            try:
+                workload = plane_workload(address)
+                print(f"telemetry_plane: serve ({mode}) ready in {ready_s:.1f} s", flush=True)
+                report["load"] = plane_pool(address, workload, lines)
+                if mode == "on":
+                    report.update(plane_checks(lines, address, workload, METRIC_TYPES, opstats))
+            finally:
+                code = stop_serve(proc, reader)
+            stopped = [line for line in lines if line.startswith("serve stopped")]
+            check(code is not None and stopped, f"serve ({mode}) did not stop: {lines[-5:]}")
+            report["threads_after_stop"] = stopped[-1].split(":", 1)[1].strip()
+            check(report["threads_after_stop"] == "[]",
+                  f"serve ({mode}) left threads alive: {stopped[-1]}")
+            runs[mode] = report
+    cost = {label: {"p50_ms": runs["on"]["load"][label]["p50_ms"]
+                    - runs["off"]["load"][label]["p50_ms"],
+                    "frames_per_s": runs["on"]["load"][label]["frames_per_s"]
+                    - runs["off"]["load"][label]["frames_per_s"]}
+            for label in runs["off"]["load"]}
+    emit("telemetry_plane", card, flags=list(PLANE_FLAGS), clients=PLANE_CLIENTS,
+         window_s=PLANE_WINDOW_S, frame_hw=list(FRAME_HW), scan_points=list(SCAN_POINTS),
+         runs=runs, telemetry_cost=cost, wall_s=time.perf_counter() - t_phase)
+
+
+def plane_checks(lines: list, address: str, workload: list, metric_types, opstats) -> dict:
+    """The telemetry run's reads of its endpoint (run_telemetry_plane)."""
+    deadline = time.perf_counter() + 30
+    port = None
+    while port is None and time.perf_counter() < deadline:
+        port = next((int(line.split(":")[1].split()[0]) for line in lines
+                     if line.startswith("telemetry on :")), None)
+        if port is None:
+            time.sleep(0.1)
+    check(port is not None, f"serve printed no telemetry port: {lines[-5:]}")
+    base = f"http://127.0.0.1:{port}"
+    profile = plane_profile(base, address, workload)
+    import urllib.request
+
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    missing = [n for n, kind in metric_types.items() if f"# TYPE {n} {kind}" not in text]
+    check(not missing, f"/metrics lacks {missing}")
+    code, snap = http_json(base + "/snapshot")
+    check(code == 200, f"/snapshot answered {code}")
+    launches = snap["device_time"]["launches"]
+    answered = {}
+    for model in PLANE_ENTRIES:
+        count = snap["histograms"][f"{model}|e2e"]["count"]
+        check(count == launches.get(model) and count > 0,
+              f"{model}: e2e histogram count {count}, launches {launches.get(model)}")
+        answered[model] = count
+    slo = snap["slo"]
+    check(slo["met"] + slo["missed"] == sum(answered.values()),
+          f"SLO met {slo['met']} + missed {slo['missed']} != answered {answered}")
+    busy = snap["device_time"]["busy_fraction"]
+    check(0 < busy <= 1, f"busy share {busy}")
+    code, history = http_json(base + "/history")
+    seen = {key.split("|")[0] for e in history["snapshots"] for key in e["models"]}
+    check(code == 200 and set(PLANE_ENTRIES) <= seen, f"/history models {seen}")
+    sampler = snap["sampler"]
+    check(sampler["failures"] == 0 and sampler["captures"] > 0, f"sampler {sampler}")
+    # the sampler's last window (a later profiler session of the process)
+    sampled = {}
+    for row in snap["op_sample"]["rows"]:
+        fn = opstats.kernel_function(row["op"])
+        if fn in opstats.KERNEL_STAGES:
+            sampled.setdefault(row.get("model") or "unattributed", []).append(fn)
+    code, tail = http_json(base + "/traces?slo_violations=1&n=5")
+    check(code == 200, f"/traces?slo_violations=1 answered {code}")
+    return {
+        "answered": answered, "attainment": slo["met"] / max(1, slo["met"] + slo["missed"]),
+        "slo": {"met": slo["met"], "missed": slo["missed"], "tail_retained": slo["tail_retained"]},
+        "busy_fraction": busy, "device_time_s": snap["device_time"]["device_seconds"],
+        "compile": snap["compile"], "memory": snap["memory"],
+        "sampler": sampler, "sampler_last_window_kernels": sampled,
+        "history_entries": len(history["snapshots"]), "profile": profile,
+        "quantiles_ms": {key: {"p50": 1e3 * _hist_q(h, 0.5), "p99": 1e3 * _hist_q(h, 0.99),
+                               "count": h["count"]}
+                         for key, h in snap["histograms"].items()},
+    }
+
+
+def _hist_q(h, q: float) -> float:
+    from triton_client_tpu_torch.obs.histogram import quantile_from_snapshot
+
+    return quantile_from_snapshot(h or {}, q)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from triton_client_tpu_torch.io import bag_io as tbag
 from triton_client_tpu_torch.io import rosbag as trb
 from triton_client_tpu_torch.io import sources as tsources
 from triton_client_tpu_torch.io import synthdata
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from triton_client_tpu_torch.ops import gpu_decode3d
 from triton_client_tpu_torch.pipelines import detect3d as tdet
 from tests.test_torch_pointpillars import cloud, tiny_configs
 from tests.test_torch_second import port_config, second_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(point_buckets=(1024,), max_det=16, pre_max=64)
 

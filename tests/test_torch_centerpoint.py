@@ -43,6 +43,7 @@ from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_import_fidelity import _randomize, _state
 from tests.test_import_fidelity_families import TCenterPoint, _voxel_inputs
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RANGE = (-6.4, -6.4, -5.0, 6.4, 6.4, 3.0)
 TINY_VOXEL = dict(point_cloud_range=RANGE, voxel_size=(0.2, 0.2, 8.0), max_voxels=512,

@@ -40,6 +40,7 @@ from triton_client_tpu_torch.runtime.continuous import ContinuousBatchingChannel
 from triton_client_tpu_torch.parallel.ragged_kernels import ragged_row_bucket
 from triton_client_tpu_torch.runtime.padding import bucket
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 _W = torch.from_numpy(POOL_W)
 

@@ -21,6 +21,7 @@ from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes
 from triton_client_tpu_torch.pipelines import detect2d as tdet
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"

@@ -31,6 +31,7 @@ from triton_client_tpu_torch.ops import detect3d_postprocess as tpost
 from triton_client_tpu_torch.pipelines import detect3d as tdet
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_torch_pointpillars import TINY_VOXEL, cloud, tiny_configs
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CFG = dict(point_buckets=(1024,), max_det=16, pre_max=64)

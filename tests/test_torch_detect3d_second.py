@@ -30,6 +30,7 @@ from triton_client_tpu_torch.pipelines import detect3d as tdet
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_fused_parity import TINY_SECOND
 from tests.test_torch_second import TINY_RANGE, port_config, second_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CFG = dict(model_name="second_iou", point_buckets=(1024,), max_det=16, pre_max=64)

@@ -27,6 +27,7 @@ from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
 from triton_client_tpu_torch.obs import device_time as tdt
 from triton_client_tpu_torch.obs import roofline as troof
 from tests.test_torch_staged import _frame, _jax, _port
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: (model, seconds, spec.extra, tenant, clock advance before the record)
 RECORDS = (

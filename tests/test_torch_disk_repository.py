@@ -44,6 +44,7 @@ from triton_client_tpu_torch.models.yolov5 import YoloV5
 from triton_client_tpu_torch.runtime.precision import stored_params, tree_bytes
 from triton_client_tpu_torch.runtime.server import _Servicer
 from tests.test_torch_server import yolo_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 YAML_FILES = sorted(

@@ -19,6 +19,7 @@ from triton_client_tpu_torch.io import draw as tdraw
 from triton_client_tpu_torch.io import draw3d as tdraw3d
 from triton_client_tpu_torch.io import sinks as tsinks
 from triton_client_tpu_torch.io import sources as tsources
+from torch_threads import one_torch_thread  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "viz3d_fakes", pathlib.Path(__file__).with_name("test_viz3d.py"))

@@ -28,6 +28,7 @@ from triton_client_tpu_torch.channel.base import InferFuture
 from triton_client_tpu_torch.drivers import driver as tdriver
 from triton_client_tpu_torch.io import sources as tsources
 from triton_client_tpu_torch.io.sinks import DetectionLogSink, ImageFileSink, NullSink
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _infer(data):

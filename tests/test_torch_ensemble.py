@@ -42,6 +42,7 @@ from triton_client_tpu_torch.runtime import disk_repository as tdr
 from triton_client_tpu_torch.runtime import ensemble as tens
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_torch_server import yolo_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

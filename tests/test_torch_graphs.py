@@ -22,6 +22,7 @@ import torch
 
 from triton_client_tpu_torch.ops import cuda_build
 from triton_client_tpu_torch.runtime.graphs import WARMUP_CALLS, CapturedFunction
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class StandIn:

@@ -29,6 +29,7 @@ from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
 from triton_client_tpu_torch.config import ModelSpec, TensorSpec
 from triton_client_tpu_torch.runtime import server as tserver
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 # a 2048^2 x 3 FP32 frame at batch 8: 805 MB of payload, past the 64 MiB floor
 BIG = ((8, 2048, 2048, 3), "FP32")

@@ -49,6 +49,7 @@ from tests.test_import_fidelity import TPointPillars, TYoloV5N, _randomize, _sta
 from tests.test_import_fidelity_families import TSECONDDense, _second_cfg, _voxel_inputs
 from tests.test_importers import _ld, _tag, _tensor_raw, _varint
 from tests.test_torch_second import port_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HW = (64, 64)

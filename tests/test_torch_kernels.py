@@ -33,6 +33,7 @@ from triton_client_tpu_torch.ops import (
     gpu_voxel,
     kernel_cases,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 2
 

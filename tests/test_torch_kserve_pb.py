@@ -19,6 +19,7 @@ from triton_client_tpu.channel.kserve import pb as J
 
 from triton_client_tpu_torch.channel.kserve import codec, pb as P
 from triton_client_tpu_torch.config import config_dtypes
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _message_paths():

@@ -27,6 +27,7 @@ from triton_client_tpu.utils import loadgen as jlg
 from triton_client_tpu_torch.channel.base import InferFuture, InferResponse
 from triton_client_tpu_torch.cli import serve
 from triton_client_tpu_torch.utils import loadgen as tlg
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = """family: yolov5

@@ -20,6 +20,7 @@ from triton_client_tpu.ops import voxelize as jvox
 from triton_client_tpu_torch.ops import kernel_cases
 from triton_client_tpu_torch.ops import voxelize as tvox
 from tests.test_torch_pointpillars import TINY_VOXEL, cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_cast_follows_xla_on_special_and_random_values():

@@ -22,6 +22,7 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from triton_client_tpu_torch.ops import gpu_decode, gpu_nms, gpu_suppress3d, kernel_cases, mask_scan
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

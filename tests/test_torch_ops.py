@@ -23,6 +23,7 @@ from triton_client_tpu_torch.ops import nms as tnms
 from triton_client_tpu_torch.ops import preprocess as tpre
 from triton_client_tpu_torch.ops import yolo_decode as tdecode
 from triton_client_tpu_torch.ops.detect_postprocess import stable_top_k
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the module: the package's __init__ re-exports a function of this name
 jnms = importlib.import_module("triton_client_tpu.ops.nms")

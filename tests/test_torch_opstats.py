@@ -28,6 +28,7 @@ from triton_client_tpu_torch.channel.base import InferRequest
 from triton_client_tpu_torch.cli import tools as ttools
 from triton_client_tpu_torch.obs import opstats as tops
 from tests.test_torch_staged import _frame, _port
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -215,10 +216,33 @@ def test_trace_dump_ops_prints_jax_table(tmp_path, capsys):
     assert json.loads((tmp_path / "ops.json").read_text())["models"]["pillars"] == 110.0
 
 
-@pytest.mark.parametrize("argv", [[], ["--ops"], ["--url", "http://127.0.0.1:1", "--top-k", "5"]])
-def test_trace_dump_live_forms_are_not_ported(argv):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 8 \(obs/"):
-        ttools.trace_dump(argv)
+@pytest.mark.parametrize("argv", [[], ["--ops", "--seconds", "0.05"], ["-n", "2", "--top-k", "5"]])
+def test_trace_dump_live_forms_match_jax(argv, capsys):
+    """The live forms against a port telemetry endpoint (port 0) holding
+    three finished traces: the JAX tool and the port's print the same (the
+    trace ring's Chrome JSON; bare ``--ops``: a /profile capture's table,
+    empty off the card)."""
+    from triton_client_tpu_torch.obs.http import TelemetryServer
+    from triton_client_tpu_torch.obs.trace import Tracer
+
+    tracer = Tracer(capacity=8)
+    for i in range(3):
+        tr = tracer.start(model="m", request_id=f"r{i}")
+        tr.add("device_execute", tr.t_start, tr.t_start + 0.001)
+        tracer.finish(tr)
+    server = TelemetryServer(port=0, host="127.0.0.1", tracer=tracer)
+    try:
+        url = ["--url", f"http://127.0.0.1:{server.port}"]
+        jtools.trace_dump(url + argv)
+        jout = capsys.readouterr().out
+        ttools.trace_dump(url + argv)
+        tout = capsys.readouterr().out
+    finally:
+        server.close()
+    assert tout == jout
+    if "--ops" not in argv:
+        events = json.loads(tout)["traceEvents"]
+        assert sum(e.get("name") == "request" for e in events) == (2 if "-n" in argv else 3)
 
 
 def test_launches_carry_their_annotation_in_a_real_profiler_trace(tmp_path):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from triton_client_tpu_torch.ops import cuda_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -75,6 +76,12 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.runtime.batching",
         "triton_client_tpu_torch.runtime.continuous",
         "triton_client_tpu_torch.obs.trace",
+        "triton_client_tpu_torch.obs.collector",
+        "triton_client_tpu_torch.obs.histogram",
+        "triton_client_tpu_torch.obs.history",
+        "triton_client_tpu_torch.obs.http",
+        "triton_client_tpu_torch.obs.sampler",
+        "triton_client_tpu_torch.obs.slo",
         "triton_client_tpu_torch.models.pool",
         "triton_client_tpu_torch.ops.mask_scan",
         "triton_client_tpu_torch.channel.kserve.pb",

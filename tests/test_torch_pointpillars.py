@@ -31,6 +31,7 @@ from triton_client_tpu_torch.models.convert import (
 from triton_client_tpu_torch.ops import boxes3d as tb3
 from triton_client_tpu_torch.ops import kernel_cases
 from triton_client_tpu_torch.ops import voxelize as tvox
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY_VOXEL = dict(
     point_cloud_range=(0.0, -6.4, -3.0, 12.8, 6.4, 1.0),

@@ -25,6 +25,7 @@ from triton_client_tpu_torch.channel.kserve import codec
 from triton_client_tpu_torch.config import BF16, ModelSpec, TensorSpec
 from triton_client_tpu_torch.runtime import precision as tprec
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 TORCH_OF = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

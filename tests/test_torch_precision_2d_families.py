@@ -37,6 +37,7 @@ from triton_client_tpu_torch.runtime import precision as tprec
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_torch_precision import quantized_leaves_equal_jax
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, HW = 3, (64, 64)
 FAMILIES = ("yolov4", "retinanet", "fcos")

@@ -62,6 +62,7 @@ from tests.test_torch_pointpillars import cloud
 from tests.test_torch_pointpillars import tiny_configs as pp_configs
 from tests.test_torch_precision import quantized_leaves_equal_jax
 from tests.test_torch_second import TINY_RANGE, port_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FAMILIES = ("pointpillars", "second_iou", "centerpoint")

@@ -27,6 +27,7 @@ from triton_client_tpu_torch.runtime import precision as tprec
 from tests.test_torch_pointpillars import cloud
 from tests.test_torch_pointpillars import tiny_configs as pp_configs
 from tests.test_torch_precision_3d import flax_init_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jsonl(path):

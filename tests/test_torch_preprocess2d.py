@@ -16,6 +16,7 @@ from triton_client_tpu.pipelines import preprocess2d as jpre
 
 from triton_client_tpu_torch.pipelines import detect2d as tdet2d
 from triton_client_tpu_torch.pipelines import preprocess2d as tpre
+from torch_threads import one_torch_thread  # noqa: F401
 
 OUT_HW = (64, 64)
 

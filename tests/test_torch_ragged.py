@@ -30,6 +30,7 @@ from triton_client_tpu.runtime import padding as jpad
 from triton_client_tpu_torch.ops import gpu_segment, kernel_cases
 from triton_client_tpu_torch.parallel import ragged_kernels as trk
 from triton_client_tpu_torch.runtime import padding as tpad
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (R, F, S) for the Pallas comparison: small enough for interpret mode
 SHAPES = [(2500, 4, 8), (131, 130, 64), (1, 1, 1), (7, 64, 8)]

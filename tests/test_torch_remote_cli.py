@@ -40,6 +40,7 @@ from triton_client_tpu_torch.models.layers import init_random_
 from triton_client_tpu_torch.models.yolov5 import YoloV5
 from triton_client_tpu_torch.runtime import importers
 from triton_client_tpu_torch.runtime.disk_repository import _Entry
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIG_2D = f"""family: yolov5

@@ -29,6 +29,7 @@ from triton_client_tpu.eval.detection_map import DetectionEvaluator as JDetectio
 
 from triton_client_tpu_torch.io import rosbag as trb
 from triton_client_tpu_torch.io import synthdata
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = pathlib.Path(__file__).resolve().parent.parent / "data" / "crop.names"
 KITTI_TINY = dict(pc_range=(0.0, -6.4, -3.0, 12.8, 6.4, 1.0), n_clutter=800, n_objects=2)

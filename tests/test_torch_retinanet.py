@@ -47,6 +47,7 @@ from triton_client_tpu_torch.ops import anchor_decode as tanc
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes_scored
 from triton_client_tpu_torch.pipelines import detect2d as tdet
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC = 3
 FAMILIES = {

@@ -41,6 +41,7 @@ from tests.test_torch_server import (
     scan,
     yolo_variables,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: port / JAX counts of one call, found on this tree (CPU, the tiny models):
 #: (flops, bytes). The port counts 2 x MACs of every convolution and matrix
@@ -234,9 +235,27 @@ def test_roofline_tool_reads_a_model_snapshot_file(tmp_path, capsys):
     assert "yolov5_crop:1" in capsys.readouterr().out
 
 
-def test_roofline_tool_live_url_is_not_ported_and_empty_file_exits(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        ttools.roofline(["http://127.0.0.1:8002"])
+def test_roofline_tool_reads_a_live_snapshot_and_empty_file_exits(tmp_path, capsys):
+    """``roofline <url>`` reads a port endpoint's /snapshot (port 0) and
+    prints what the JAX tool prints from it; an empty file exits."""
+    from triton_client_tpu_torch.obs.http import TelemetryServer
+    from triton_client_tpu_torch.obs.roofline import model_row
+
+    extra = {"measured_flops_per_call": 3.0e9, "measured_bytes_per_call": 2.0e7,
+             "measured_batch": 1, "compute_precision": "bf16"}
+    rows = [{"model": "yolov5_crop", "version": "1", "roofline": model_row(extra)}]
+    snapshot = types.SimpleNamespace(snapshot=lambda: {"models": rows})
+    server = TelemetryServer(port=0, host="127.0.0.1", collector=snapshot)
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        out = []
+        for mod in (jtools, ttools):
+            for argv in ([url, "--timeout", "10"], [url, "--json"]):
+                mod.roofline(argv)
+                out.append(capsys.readouterr().out)
+    finally:
+        server.close()
+    assert out[2:] == out[:2] and "yolov5_crop:1" in out[0]
     path = tmp_path / "empty.json"
     path.write_text("{}")
     with pytest.raises(SystemExit, match="no roofline rows"):

@@ -11,6 +11,7 @@ import pytest
 from test_ros_driver import _ns, ros_env  # noqa: F401 (the fake ROS fixture)
 
 from triton_client_tpu_torch.drivers import ros as tros
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _infer2d(rgb):

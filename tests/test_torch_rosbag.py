@@ -14,6 +14,7 @@ import pytest
 from triton_client_tpu.io import rosbag as jrb
 
 from triton_client_tpu_torch.io import rosbag as trb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _messages(rb, seed: int = 0):

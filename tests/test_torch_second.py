@@ -39,6 +39,7 @@ from triton_client_tpu_torch.ops import gpu_voxel, kernel_cases
 from triton_client_tpu_torch.ops import voxelize as tvox
 from tests.test_fused_parity import TINY_SECOND
 from tests.test_torch_pointpillars import cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY_RANGE = TINY_SECOND.voxel.point_cloud_range
 

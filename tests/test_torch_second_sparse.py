@@ -54,6 +54,7 @@ from tests.test_import_fidelity_families import TSECONDDense, _second_cfg
 from tests.test_torch_disk_repository import _fields
 from tests.test_torch_precision_3d import flax_init_variables
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ATOL = 1e-5

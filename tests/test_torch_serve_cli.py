@@ -7,6 +7,7 @@ ROADMAP item (tests/test_serve_cli.py drives the JAX command)."""
 import argparse
 import contextlib
 import io
+import json
 import logging
 import pathlib
 import re
@@ -21,6 +22,7 @@ from triton_client_tpu_torch.channel.base import InferRequest
 from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
 from triton_client_tpu_torch.cli import serve
 from triton_client_tpu_torch.runtime import faults
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = """family: yolov5
@@ -115,24 +117,63 @@ def test_batch_timeout_warns_once_on_continuous(repo_root, caplog):
 
 NON_DEFAULT = {
     "mesh": ["--mesh", "data=-1"],
-    "metrics_port": ["--metrics-port", "8002"], "op_sample_interval": ["--op-sample-interval", "2"],
-    "op_sample_window": ["--op-sample-window", "0.5"],
-    "history_interval": ["--history-interval", "10"],
-    "history_capacity": ["--history-capacity", "10"], "history_path": ["--history-path", "h"],
     "canary": ["--canary", "x=0.1"], "quality_sample": ["--quality-sample", "0.5"],
     "quality_window": ["--quality-window", "8"],
     "quality_promote_after": ["--quality-promote-after", "1"],
-    "quality_pin_fused_off": ["--quality-pin-fused-off"], "slo_ms": ["--slo-ms", "50"],
-    "slo_tail_capacity": ["--slo-tail-capacity", "8"], "hbm_budget": ["--hbm-budget", "256"],
+    "quality_pin_fused_off": ["--quality-pin-fused-off"],
+    "hbm_budget": ["--hbm-budget", "256"],
     "tenants": ["--tenants", "t.yaml"], "max_sessions": ["--max-sessions", "64"],
     "session_ttl_s": ["--session-ttl-s", "5"],
     "session_id_namespace": ["--session-id-namespace", "3"],
     "temporal_reuse": ["--temporal-reuse", "on"], "temporal_k_max": ["--temporal-k-max", "4"],
     "temporal_tile": ["--temporal-tile", "4"], "temporal_forced_k": ["--temporal-forced-k", "3"],
     "replica_of": ["--replica-of", "cell0/pool"],
-    "admission_concurrency": ["--admission-concurrency", "8"],
-    "shed_expired": ["--shed-expired"],
 }
+
+# the telemetry and SLO flags (served since they left UNPORTED): flags ->
+# what the built server shows for them
+_METRICS = ["--metrics-port", "auto"]
+SERVED = {
+    "metrics_port": (_METRICS, lambda s: s.metrics_enabled and s.metrics_port > 0),
+    "op_sample_interval": (_METRICS + ["--op-sample-interval", "2"],
+                           lambda s: s.sampler.interval_s == 2.0),
+    "op_sample_window": (_METRICS + ["--op-sample-interval", "100", "--op-sample-window", "0.5"],
+                         lambda s: s.sampler.window_s == 0.5),
+    "history_interval": (_METRICS + ["--history-interval", "10"],
+                         lambda s: s.history.interval_s == 10.0),
+    "history_capacity": (_METRICS + ["--history-capacity", "10"],
+                         lambda s: s.history.capacity == 10),
+    "history_path": (_METRICS + ["--history-path", "HISTORY"], None),
+    "slo_ms": (_METRICS + ["--slo-ms", "50"], lambda s: s.slo.slo_s("tiny") == 0.05),
+    "slo_tail_capacity": (_METRICS + ["--slo-tail-capacity", "8"],
+                          lambda s: s.slo._tail.maxlen == 8),
+    "admission_concurrency": (["--admission", "2", "--admission-concurrency", "8"],
+                              lambda s: s.admission.stats()["concurrency"] == 8),
+    "shed_expired": (["--shed-expired"], lambda s: s.channel._shed_expired),
+}
+
+
+def test_every_served_flag_has_a_case():
+    ours = {a.dest for a in serve.parser()._actions}
+    assert set(SERVED) <= ours and not set(SERVED) & set(serve.UNPORTED)
+
+
+@pytest.mark.parametrize("dest", sorted(SERVED))
+def test_telemetry_and_slo_flags_are_served(tmp_path, monkeypatch, dest):
+    """Each flag that left UNPORTED builds a server that carries it (an empty
+    repository: the flags act on the planes, not the models); the history
+    path holds the persisted ring once the server stops."""
+    monkeypatch.chdir(ROOT)
+    flags, holds = SERVED[dest]
+    history = tmp_path / "history.json"
+    flags = [str(history) if f == "HISTORY" else f for f in flags]
+    server = serve.build_server(_args(tmp_path, *flags))
+    try:
+        assert holds is None or holds(server)
+    finally:
+        server.stop()
+    if dest == "history_path":
+        assert json.loads(history.read_text())["snapshots"]
 
 
 def test_every_unported_flag_has_a_case():

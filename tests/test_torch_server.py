@@ -59,6 +59,7 @@ from triton_client_tpu_torch.runtime import faults as tfaults
 from triton_client_tpu_torch.runtime import server as tserver
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 from tests.test_torch_pointpillars import cloud, tiny_configs
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HW = (64, 64)
@@ -531,12 +532,34 @@ def test_grpc_code_mapping_agrees(name):
 
 def test_unported_options_raise_naming_their_item():
     repo = ModelRepository()
-    for kw in ({"metrics_port": 8002}, {"slo_ms": 5.0},
-               {"tenants": object()}, {"lifecycle": object()}, {"quality": object()},
-               {"temporal": object()}, {"history_path": "h.json"},
-               {"op_sample_interval_s": 1.0}):
+    for kw in ({"tenants": object()}, {"lifecycle": object()}, {"quality": object()},
+               {"temporal": object()}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 8"):
             tserver.InferenceServer(repo, None, address="127.0.0.1:0", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"metrics_port": "auto"}, {"metrics_port": "auto", "slo_ms": 5.0},
+    {"metrics_port": "auto", "history_path": "HISTORY"},
+    {"metrics_port": "auto", "op_sample_interval_s": 1.0},
+], ids=["metrics_port", "slo_ms", "history_path", "op_sample_interval_s"])
+def test_telemetry_options_build_their_planes(tmp_path, kw):
+    """The options that raised before the telemetry and SLO planes were
+    ported build them: the endpoint on an ephemeral port, the SLO budget,
+    the history persisted on stop, the sampler on the endpoint's guard."""
+    kw = {k: str(tmp_path / "h.json") if v == "HISTORY" else v for k, v in kw.items()}
+    repo = ModelRepository()
+    server = tserver.InferenceServer(repo, CUDAChannel(repo, device="cpu"),
+                                     address="127.0.0.1:0", **kw)
+    try:
+        assert server.metrics_port > 0 and server.collector is not None
+        assert server.slo.slo_s("m") == kw.get("slo_ms", 0.0) / 1e3
+        if "op_sample_interval_s" in kw:
+            assert server.sampler.interval_s == 1.0
+    finally:
+        server.stop()
+    if "history_path" in kw:
+        assert json.loads(pathlib.Path(kw["history_path"]).read_text())["snapshots"]
 
 
 def test_content_encoding_is_unimplemented(pair):

@@ -26,6 +26,7 @@ from triton_client_tpu.ops import voxelize as jvox
 
 from triton_client_tpu_torch.ops import sparse_conv as tsp
 from triton_client_tpu_torch.ops import voxelize as tvox
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRID = (4, 6, 8)  # (nz, ny, nx)
 RTOL, ATOL = 1e-5, 1e-6

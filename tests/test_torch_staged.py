@@ -39,6 +39,7 @@ from triton_client_tpu_torch.runtime.admission import (
     DeadlineExpiredError,
 )
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 _W = np.linspace(-1.0, 1.0, 16, dtype=np.float32).reshape(4, 4)
 STAT_KEYS = ("staged", "launched", "donated_launches", "stage_slot_waits", "slot_occupancy",

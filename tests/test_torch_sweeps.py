@@ -25,6 +25,7 @@ from triton_client_tpu_torch.io import bag_io as tbag
 from triton_client_tpu_torch.io.sources import Frame
 from triton_client_tpu_torch.ops import sweeps as tsw
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIOD = 0.05
 

@@ -9,6 +9,7 @@ from triton_client_tpu.io import synthdata as jsyn
 
 from triton_client_tpu_torch.io import synthdata as tsyn
 from triton_client_tpu_torch.io.sources import open_source
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("hw,classes,objects,distractors", [

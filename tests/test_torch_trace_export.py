@@ -18,6 +18,7 @@ from triton_client_tpu.obs import trace as jtrace
 
 from triton_client_tpu_torch.cli import tools as ttools
 from triton_client_tpu_torch.obs import trace as ttrace
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: (name, t0, t1, attrs) of one request's spans, seconds after its start
 SPANS = (
@@ -126,7 +127,49 @@ def test_trace_join_output_is_jax_identical(tmp_path, capsys, offsets):
     assert {e["pid"] for e in doc["traceEvents"]} == {1, 2}
 
 
-def test_trace_join_probe_is_not_ported(tmp_path):
+def test_trace_join_probe_shifts_by_half_the_probe_round_trip(tmp_path, capsys):
+    """``--probe NAME=URL`` against a port telemetry endpoint (port 0, no
+    server behind it): NAME's events move by half the best round trip, as
+    JAX's tool moves them, on top of its ``--offset``; the other source's
+    stay where the offset-only join puts them."""
+    from triton_client_tpu_torch.obs.http import TelemetryServer
+
+    client, replica = _write_dumps(tmp_path)
+    argv = [f"client={client}", f"replica={replica}", "--offset", "replica=40000"]
+    plain, probed = tmp_path / "plain.json", tmp_path / "probed.json"
+    telemetry = TelemetryServer(port=0, host="127.0.0.1")
+    try:
+        url = f"http://127.0.0.1:{telemetry.port}/"
+        ttools.trace_join(argv + ["-o", str(plain)])
+        ttools.trace_join(argv + ["--probe", f"replica={url}", "--timeout", "10",
+                                  "-o", str(probed)])
+    finally:
+        telemetry.close()
+    err = capsys.readouterr().err
+    rtt_ms = float(err.split("probe replica: rtt ")[1].split(" ms")[0])
+    shift_us = rtt_ms / 2.0 * 1e3
+    a = json.loads(plain.read_text())["traceEvents"]
+    b = json.loads(probed.read_text())["traceEvents"]
+    assert len(a) == len(b)
+    key = lambda e: (e["pid"], e.get("name"), e.get("tid"), e.get("ph"))  # noqa: E731
+    shifts = {1: set(), 2: set()}
+    for ea, eb in zip(sorted(a, key=key), sorted(b, key=key)):
+        if "ts" in ea:
+            shifts[ea["pid"]].add(round(eb["ts"] - ea["ts"], 2))
+    assert shifts[1] == {0.0}
+    # one shift for every replica event (each ts is rounded to 1e-3 us), the
+    # printed half round trip (printed to 1e-3 ms)
+    assert max(shifts[2]) - min(shifts[2]) <= 0.01 and min(shifts[2]) > 0
+    assert abs(min(shifts[2]) - shift_us) <= 1.0
+
+
+def test_trace_join_probe_failure_exits_as_jax(tmp_path):
+    """A probe that cannot connect exits with JAX's message."""
     client, _ = _write_dumps(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        ttools.trace_join([str(client), "--probe", "client=http://127.0.0.1:1"])
+    msgs = []
+    for mod in (jtools, ttools):
+        with pytest.raises(SystemExit) as e:
+            mod.trace_join([str(client), "--probe", "client=http://127.0.0.1:1",
+                            "--timeout", "5"])
+        msgs.append(str(e.value).split(":")[0])
+    assert msgs[0] == msgs[1] == "probe against http"

@@ -45,6 +45,7 @@ from triton_client_tpu_torch.runtime import server as tserver
 from triton_client_tpu_torch.runtime import shared_memory as tshm
 from triton_client_tpu_torch.runtime import wire_encoding as twe
 from triton_client_tpu_torch.runtime.repository import ModelRepository
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the endpoints of tests/test_transport.py's negotiation tests, and more
 ENDPOINTS = ["unix:/tmp/s.sock", "unix:///tmp/s.sock", "unix-abstract:kserve",

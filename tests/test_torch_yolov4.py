@@ -36,6 +36,7 @@ from triton_client_tpu_torch.models.layers import ConvBnAct, mish
 from triton_client_tpu_torch.ops.detect_postprocess import extract_boxes, extract_boxes_yolov4
 from triton_client_tpu_torch.pipelines import detect2d as tdet
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, WIDTH, HW = 3, 0.125, (64, 64)
 

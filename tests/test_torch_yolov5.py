@@ -17,6 +17,7 @@ from triton_client_tpu.models.yolov5 import init_yolov5
 
 from triton_client_tpu_torch.models.convert import yolov5_state_dict_from_flax
 from triton_client_tpu_torch.models.yolov5 import YoloV5, num_predictions
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _to_numpy(tree):

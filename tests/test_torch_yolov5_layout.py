@@ -43,6 +43,7 @@ from triton_client_tpu_torch.runtime.importers import load_yolov5
 from triton_client_tpu_torch.runtime.precision import MAP_BUDGETS
 from tests.test_import_fidelity import TYoloV5N, _randomize
 from tests.test_torch_server import seeded_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HW = (64, 64)

@@ -22,8 +22,10 @@
 defers the readback, and any dispatch error, to ``result()``.
 
 Every launcher call runs inside a ``torch.profiler.record_function``
-named ``launch:<model>:<version>`` (``obs/roofline.launcher_name``), by
-which ``obs/opstats`` attributes the card's ops to the model.
+named ``launch:<model>:<version>`` (``obs/roofline.launcher_name``,
+through ``obs/profiling.launch_scope``, which also logs the window for a
+profiler window opened on another thread), by which ``obs/opstats``
+attributes the card's ops to the model.
 ``attach_device_time`` attaches an ``obs/device_time.DeviceTimeLedger``:
 each launch then records its device window (see
 :meth:`StagedChannel._begin_window`) into it when it resolves, and the
@@ -54,6 +56,7 @@ from triton_client_tpu_torch.channel.base import (
     InferResponse,
 )
 from triton_client_tpu_torch.config import ModelSpec
+from triton_client_tpu_torch.obs.profiling import launch_scope
 from triton_client_tpu_torch.obs.roofline import launcher_name, record_launch_cost
 from triton_client_tpu_torch.parallel.ragged_kernels import RaggedLayout
 from triton_client_tpu_torch.runtime import faults
@@ -451,8 +454,6 @@ class StagedChannel(BaseChannel):
         ledger = self._device_time
         device_seconds = None
         try:
-            from torch.profiler import record_function
-
             faults.probe("slow_launch", name)
             faults.probe("launch", name)
             if request.ragged is not None:
@@ -466,8 +467,10 @@ class StagedChannel(BaseChannel):
                 call = functools.partial(launcher or model.infer_fn, staged.device_inputs)
                 if ledger is not None:
                     self._ensure_launch_cost(model, staged.device_inputs)
-            window = self._begin_window() if ledger is not None else None
-            with record_function(launcher_name(model)):
+            with launch_scope(launcher_name(model)):
+                # the window opens past the launch gate, which a profiler
+                # session closes while it starts and stops
+                window = self._begin_window() if ledger is not None else None
                 outputs = call()
             if window is None:
                 event = self._record_done()

@@ -15,16 +15,24 @@ scanning, as ``detect2d``/``detect3d`` do.
 socket, printed at startup; same-host clients dial ``grpc:unix:<path>``
 and negotiate shared memory there.
 
+``--metrics-port`` (a port, or ``auto`` for an ephemeral one) serves the
+telemetry endpoint: ``/metrics``, ``/traces``, ``/snapshot``, ``/profile``
+and ``/history`` (``obs/http.py``), with the SLO plane (``--slo-ms``), the
+metric history (``--history-*``) and the continuous op sampler
+(``--op-sample-*``) behind it.
+
 The JAX CLI's flags for layers the port does not serve yet keep their
 off values here and raise at any other value, naming the ROADMAP item
-(:data:`UNPORTED`). Two of them default differently from the JAX CLI,
-which turns them on: ``--metrics-port`` (0) and ``--max-sessions`` (0).
+(:data:`UNPORTED`). Two flags default differently from the JAX CLI,
+which turns them on: ``--metrics-port`` (0: off) and ``--max-sessions``
+(0).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import threading
 
 log = logging.getLogger(__name__)
 
@@ -35,22 +43,11 @@ _timeout_warned = False
 # runtime/server.ROADMAP_ITEMS
 UNPORTED = {
     "mesh": ("--mesh", "", "mesh"),
-    "metrics_port": ("--metrics-port", 0, "telemetry"),
-    "op_sample_interval": ("--op-sample-interval", 0.0, "telemetry"),
-    "op_sample_window": ("--op-sample-window", 0.2, "telemetry"),
-    "history_interval": ("--history-interval", 0.0, "telemetry"),
-    "history_capacity": ("--history-capacity", 360, "telemetry"),
-    "history_path": ("--history-path", "", "telemetry"),
     "canary": ("--canary", [], "quality"),
     "quality_sample": ("--quality-sample", 0.0, "quality"),
     "quality_window": ("--quality-window", 32, "quality"),
     "quality_promote_after": ("--quality-promote-after", 3, "quality"),
     "quality_pin_fused_off": ("--quality-pin-fused-off", False, "quality"),
-    "slo_ms": ("--slo-ms", 0.0, "slo"),
-    # deadlines come only from the SLO plane: without it these shed nothing
-    "admission_concurrency": ("--admission-concurrency", 4, "slo"),
-    "shed_expired": ("--shed-expired", False, "slo"),
-    "slo_tail_capacity": ("--slo-tail-capacity", 64, "slo"),
     "hbm_budget": ("--hbm-budget", 0.0, "lifecycle"),
     "tenants": ("--tenants", "", "tenants"),
     "max_sessions": ("--max-sessions", 0, "sessions"),
@@ -62,6 +59,11 @@ UNPORTED = {
     "temporal_forced_k": ("--temporal-forced-k", 0, "temporal"),
     "replica_of": ("--replica-of", "", "router"),
 }
+
+
+def _metrics_port(value: str):
+    """``auto`` (an ephemeral port) or a port number (0: off)."""
+    return "auto" if value == "auto" else int(value)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -96,9 +98,50 @@ def parser() -> argparse.ArgumentParser:
                    help="window batcher: hold a dispatch this long on a shallow queue")
     p.add_argument("--pad-buckets", action="store_true",
                    help="window batcher: pad each device batch to the next power of two")
+    p.add_argument("--metrics-port", type=_metrics_port, default=0,
+                   help="telemetry endpoint: Prometheus metrics on /metrics (Triton :8002 "
+                   "parity), Chrome-trace JSON on /traces, raw collector state on /snapshot, "
+                   "a torch.profiler window on /profile, the metric history on /history "
+                   "('auto': an ephemeral port, printed at startup; 0 disables)")
+    p.add_argument("--op-sample-interval", type=float, default=0.0,
+                   help="continuous op-level sampling: take a short torch.profiler window "
+                   "every this many seconds and export top-K per-op device time at "
+                   "tpu_serving_op_device_seconds{model,op,kind} (obs/sampler.py; capture "
+                   "share of wall time is structurally capped at 1%%). 0 disables. Requires "
+                   "--metrics-port")
+    p.add_argument("--op-sample-window", type=float, default=0.2,
+                   help="length of one sampler capture window in seconds (clamped so "
+                   "window/interval never exceeds the 1%% duty-cycle budget)")
+    p.add_argument("--history-interval", type=float, default=10.0,
+                   help="metric-history ring spacing in seconds: per-model×tenant "
+                   "launch/device-time rates, utilization and MFU snapshots served at "
+                   "/history (0 disables)")
+    p.add_argument("--history-capacity", type=int, default=360,
+                   help="metric-history ring depth (default 360 x 10s = 1h)")
+    p.add_argument("--history-path", default="",
+                   help="persist the metric-history ring to this JSON file on stop and "
+                   "restore from it on startup (empty disables)")
+    p.add_argument("--slo-ms", type=float, default=0.0,
+                   help="per-request latency SLO: requests are deadline-stamped at admission "
+                   "and scored met/missed per model+priority (tpu_serving_slo_requests_total); "
+                   "violating traces export at /traces?slo_violations=1. 0 disables scoring "
+                   "(latency histograms still export). Requires --metrics-port.")
+    p.add_argument("--slo-tail-capacity", type=int, default=64,
+                   help="bounded ring of SLO-violating / p99+ exemplar traces")
     p.add_argument("--admission", type=int, default=0,
-                   help="per-model admitted-but-unfinished request cap (RESOURCE_EXHAUSTED "
-                   "beyond it, before parse). 0: off")
+                   help="per-model admitted-but-unfinished request cap: beyond it (or when "
+                   "the estimated queue wait already exceeds a request's deadline budget) new "
+                   "requests are rejected with RESOURCE_EXHAUSTED before parse. Enabling "
+                   "admission also arms deadline shedding in the batcher and the channel (see "
+                   "--shed-expired). 0 = no admission control")
+    p.add_argument("--admission-concurrency", type=int, default=4,
+                   help="assumed per-model service concurrency for the estimated-wait "
+                   "admission math (batcher width x pipeline depth, roughly)")
+    p.add_argument("--shed-expired", action="store_true",
+                   help="fail requests whose deadline already expired at batcher-merge and "
+                   "pre-launch with DEADLINE_EXCEEDED instead of executing them "
+                   "(deadline_expired_launches stays 0 while tpu_serving_shed_total grows); "
+                   "implied by --admission > 0")
     p.add_argument("--breaker-threshold", type=int, default=5,
                    help="consecutive launch/readback failures that open a model's circuit "
                    "breaker (UNAVAILABLE until a timed probe); 0 disables")
@@ -156,6 +199,9 @@ def main(argv=None) -> None:
     print(f"KServe v2 gRPC server listening on port {server.port}", flush=True)
     if server.uds_address:
         print(f"unix socket: {server.uds_address}", flush=True)
+    if server.metrics_enabled:
+        print(f"telemetry on :{server.metrics_port} (/metrics /traces /snapshot /profile "
+              "/history)", flush=True)
 
     import signal
 
@@ -169,6 +215,9 @@ def main(argv=None) -> None:
         server.wait()
     except KeyboardInterrupt:
         server.stop()
+    # a clean stop leaves none of the server's threads behind
+    alive = sorted(t.name for t in threading.enumerate() if t is not threading.current_thread())
+    print(f"serve stopped; threads alive: {alive}", flush=True)
 
 
 def build_server(args):
@@ -201,8 +250,12 @@ def build_server(args):
         print(f"FAULT PLAN ACTIVE (seed {plan.seed}, {len(plan.rules)} rule(s)) — chaos "
               "testing only", flush=True)
 
+    # admission implies deadline shedding: an overload plane that rejects at
+    # the door but still executes expired work would shed the wrong requests
+    shed = bool(getattr(args, "shed_expired", False)) or getattr(args, "admission", 0) > 0
     channel = CUDAChannel(
         repo, device=device, pipeline_depth=getattr(args, "pipeline_depth", 2),
+        shed_expired=shed,
         breaker_threshold=getattr(args, "breaker_threshold", 5),
         breaker_reset_s=getattr(args, "breaker_reset_s", 10.0),
     )
@@ -215,7 +268,7 @@ def build_server(args):
 
         timeout_us = getattr(args, "batch_timeout_us", None)
         common = dict(max_batch=args.max_batch, pipeline_depth=args.pipeline_depth,
-                      max_merge=getattr(args, "max_merge", None))
+                      max_merge=getattr(args, "max_merge", None), shed_expired=shed)
         if batcher == "continuous":
             if timeout_us is not None:
                 global _timeout_warned
@@ -242,8 +295,17 @@ def build_server(args):
         address=args.address,
         uds_address=None if uds == "off" else uds,
         max_workers=args.max_workers,
+        metrics_port=getattr(args, "metrics_port", 0),
         trace_capacity=getattr(args, "trace_capacity", 256),
+        slo_ms=getattr(args, "slo_ms", 0.0),
+        slo_tail_capacity=getattr(args, "slo_tail_capacity", 64),
         admission_max_queue=getattr(args, "admission", 0),
+        admission_concurrency=getattr(args, "admission_concurrency", 4),
+        op_sample_interval_s=getattr(args, "op_sample_interval", 0.0),
+        op_sample_window_s=getattr(args, "op_sample_window", 0.2),
+        history_interval_s=getattr(args, "history_interval", 10.0),
+        history_capacity=getattr(args, "history_capacity", 360),
+        history_path=getattr(args, "history_path", "") or None,
     )
 
 

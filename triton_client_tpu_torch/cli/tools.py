@@ -10,21 +10,21 @@ the bag tools, ``repo-index``, ``trace-dump``, ``trace-join`` and
                 equivalent, for hosts with no ROS tooling).
   repo-index  — list a model repository: a local directory (parsed, not
                 built) or a live server's RepositoryIndex over gRPC.
-  trace-dump  — ``--ops PATH``: rank the card's ops by device time with
-                their owning model, from a ``--profile-trace`` directory or
-                a ``.json[.gz]`` trace file (``obs/opstats.py``).
+  trace-dump  — a live server's recent request traces (its telemetry
+                ``/traces``) as Chrome-trace JSON; ``--ops PATH``: rank the
+                card's ops by device time with their owning model, from a
+                ``--profile-trace`` directory or a ``.json[.gz]`` trace file
+                (``obs/opstats.py``); bare ``--ops``: the same from a live
+                capture through ``/profile``.
   trace-join  — merge several Chrome-trace files onto one timeline, each
-                source its own process row, shifted by ``--offset NAME=US``.
+                source its own process row, shifted by ``--offset NAME=US``
+                or by half the best probe round trip of ``--probe
+                NAME=URL``.
   roofline    — per-model roofline report (compute- or bandwidth-bound,
                 the attainable-fps ceiling, ``obs/roofline.py``) from a
-                results JSON carrying the ``roofline_*`` columns or a model
-                snapshot file (``{"models": [{"model", "version",
-                "roofline"}]}``).
-
-The forms that read a live serving process's telemetry port (``trace-dump``
-without a path, ``trace-join --probe``, ``roofline <url>``) raise
-``NotImplementedError`` until that port is ported (ROADMAP.md Queue 1 item
-8, step 3).
+                live server's ``/snapshot`` URL, a results JSON carrying the
+                ``roofline_*`` columns or a model snapshot file
+                (``{"models": [{"model", "version", "roofline"}]}``).
 
 Usage:
   python -m triton_client_tpu_torch pc-extract scans.bag -o clouds
@@ -35,9 +35,12 @@ Usage:
   python -m triton_client_tpu_torch detect2d -r examples -m yolov5_crop \
       -i synthetic:8:512x512 --profile-trace prof
   python -m triton_client_tpu_torch trace-dump --ops prof -o ops.json
+  python -m triton_client_tpu_torch trace-dump --url http://127.0.0.1:8002 -n 50 -o t.json
+  python -m triton_client_tpu_torch trace-dump --url http://127.0.0.1:8002 --ops --seconds 2
   python -m triton_client_tpu_torch trace-join client=a.json server=b.json \
       --offset server=1500 -o joined.json
   python -m triton_client_tpu_torch roofline models.json
+  python -m triton_client_tpu_torch roofline http://127.0.0.1:8002
 """
 
 from __future__ import annotations
@@ -167,41 +170,65 @@ def repo_index(argv=None) -> None:
             )
 
 
-def _live(option: str) -> NotImplementedError:
-    from triton_client_tpu_torch.runtime.server import not_ported
-
-    return not_ported("telemetry", option)
-
-
 def trace_dump(argv=None) -> None:
-    """``--ops PATH``: a per-op device-time report of a ``torch.profiler``
-    capture, offline. Pulling a live server's trace ring (no ``--ops``) or
-    taking a live capture (bare ``--ops``) needs its telemetry port."""
-    p = argparse.ArgumentParser(description="per-op device-time report of a profiler capture")
-    p.add_argument(
-        "--url", default="http://127.0.0.1:8002",
-        help="telemetry endpoint of a serving process (not ported yet)",
-    )
+    """Fetch a live server's recent request traces from its telemetry port
+    and write Chrome-trace JSON (the face of ``/traces``), or, with
+    ``--ops``, a per-op device-time report of a ``torch.profiler``
+    capture: a saved one (a path) or a live one through ``/profile``."""
+    p = argparse.ArgumentParser(description="dump recent request traces as Chrome-trace JSON")
+    p.add_argument("--url", default="http://127.0.0.1:8002",
+                   help="telemetry endpoint of the serving process (serve --metrics-port)")
+    p.add_argument("-n", "--count", type=int, default=0,
+                   help="most recent N traces (0 = everything buffered)")
     p.add_argument("-o", "--output", default="-",
-                   help="write the op summary JSON here ('-' = print the table only)")
+                   help="output file ('-' = stdout); load in Perfetto or chrome://tracing")
+    p.add_argument("--timeout", type=float, default=10.0)
     p.add_argument(
         "--ops", nargs="?", const="", default=None, metavar="TRACE",
-        help="summarize this torch.profiler capture (a --profile-trace dir or a "
-        ".json[.gz] trace file); bare --ops would take a live capture",
+        help="per-op device-time report instead of a raw trace dump: with a PATH, "
+        "summarize that torch.profiler capture (a --profile-trace dir or a .json[.gz] "
+        "trace file) offline; bare --ops takes a live capture through <url>/profile first",
     )
+    p.add_argument("--seconds", type=float, default=1.0,
+                   help="live capture window for bare --ops (the /profile knob)")
     p.add_argument("--top-k", type=int, default=20, help="op rows to keep in the --ops report")
     args = p.parse_args(argv)
 
     import json
     import sys
+    import urllib.request
 
     if args.ops is None:
-        raise _live("trace-dump from a live server (--url)")
-    if not args.ops:
-        raise _live("trace-dump --ops without a path (a live capture)")
-    from triton_client_tpu_torch.obs import opstats
+        url = args.url.rstrip("/") + "/traces"
+        if args.count:
+            url += f"?n={args.count}"
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            doc = json.load(resp)
+        events = doc.get("traceEvents")
+        if events is None:
+            raise SystemExit(f"{url} returned no traceEvents (not a trace dump?)")
+        body = json.dumps(doc)
+        if args.output == "-":
+            print(body)
+        else:
+            with open(args.output, "w") as f:
+                f.write(body)
+            n_req = sum(1 for e in events if e.get("ph") == "X" and e.get("name") == "request")
+            print(f"wrote {n_req} request traces ({len(events)} events) -> {args.output}",
+                  file=sys.stderr)
+        return
+    if args.ops:
+        from triton_client_tpu_torch.obs import opstats
 
-    summary = opstats.summarize_profile_dir(args.ops, top_k=args.top_k)
+        summary = opstats.summarize_profile_dir(args.ops, top_k=args.top_k)
+    else:
+        url = args.url.rstrip("/") + f"/profile?seconds={args.seconds}&top_k={args.top_k}"
+        with urllib.request.urlopen(url, timeout=args.timeout + args.seconds) as resp:
+            doc = json.load(resp)
+        if "op_summary" not in doc:
+            raise SystemExit(f"{url} returned no op summary "
+                             f"({doc.get('op_summary_error', 'unknown failure')})")
+        summary = doc["op_summary"]
     total_us = summary.get("total_op_time_us", 0.0) or 0.0
     print(f"{summary.get('op_count', 0)} distinct ops, "
           f"{total_us / 1e3:.3f} ms total device op time")
@@ -246,23 +273,43 @@ def trace_join(argv=None) -> None:
     )
     p.add_argument(
         "--probe", action="append", default=[], metavar="NAME=URL",
-        help="estimate NAME's offset from a probe of its telemetry URL (not ported yet)",
+        help="estimate NAME's offset as half the best-of-3 HTTP probe round-trip against "
+        "its telemetry URL (repeatable)",
     )
     p.add_argument("-o", "--output", default="-",
                    help="output file ('-' = stdout); load in Perfetto")
+    p.add_argument("--timeout", type=float, default=5.0)
     args = p.parse_args(argv)
 
     import json
     import sys
+    import time
+    import urllib.request
 
-    if args.probe:
-        raise _live("trace-join --probe")
-    offsets = {}
-    for item in args.offset:
-        name, sep, value = item.partition("=")
-        if not sep:
-            raise SystemExit(f"--offset wants NAME=VALUE, got {item!r}")
-        offsets[name] = float(value)
+    def parse_kv(items, what):
+        out = {}
+        for item in items:
+            name, sep, value = item.partition("=")
+            if not sep:
+                raise SystemExit(f"--{what} wants NAME=VALUE, got {item!r}")
+            out[name] = value
+        return out
+
+    offsets = {name: float(us) for name, us in parse_kv(args.offset, "offset").items()}
+    for name, url in parse_kv(args.probe, "probe").items():
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(url, timeout=args.timeout):
+                    pass
+            except Exception as e:
+                raise SystemExit(f"probe against {url} failed: {e}")
+            rtt = time.perf_counter() - t0
+            best = rtt if best is None else min(best, rtt)
+        offsets[name] = offsets.get(name, 0.0) + best / 2.0 * 1e6
+        print(f"probe {name}: rtt {best * 1e3:.3f} ms -> offset {best / 2.0 * 1e3:.3f} ms",
+              file=sys.stderr)
 
     events: list[dict] = []
     for i, item in enumerate(args.inputs):
@@ -305,25 +352,31 @@ def trace_join(argv=None) -> None:
 def roofline(argv=None) -> None:
     """Per-model roofline report: measured flops/bytes, arithmetic intensity
     against the H100's knee, the binding ceiling and the attainable-fps
-    ceiling beside the measured rate, from a file (a live server's
-    ``/snapshot`` needs its telemetry port)."""
+    ceiling beside the measured rate, from a live server's ``/snapshot`` or
+    a file."""
     p = argparse.ArgumentParser(
         description="per-model roofline classification "
         "(compute- vs bandwidth-bound, attainable-fps ceiling)")
     p.add_argument(
         "source", nargs="?", default="http://127.0.0.1:8002",
-        help="a results JSON with the roofline_* columns, or a model snapshot file "
+        help="telemetry URL of a serving process (reads /snapshot), a results JSON with "
+        "the roofline_* columns, or a model snapshot file "
         "({\"models\": [{\"model\", \"version\", \"roofline\"}]})",
     )
+    p.add_argument("--timeout", type=float, default=10.0)
     p.add_argument("--json", action="store_true", help="machine-readable JSON output")
     args = p.parse_args(argv)
 
     import json
+    import urllib.request
 
-    if not os.path.exists(args.source):
-        raise _live(f"roofline from a live server's /snapshot ({args.source})")
-    with open(args.source) as f:
-        doc = json.load(f)
+    if os.path.exists(args.source):
+        with open(args.source) as f:
+            doc = json.load(f)
+    else:
+        url = args.source.rstrip("/") + "/snapshot"
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            doc = json.load(resp)
     rows = []
     # results rows carry the roofline columns directly
     for r in doc.get("rows") or doc.get("results") or []:

@@ -47,6 +47,16 @@ import re
 #: annotation prefix StagedChannel.launch emits around every launch
 LAUNCH_ANNOTATION_PREFIX = "launch:"
 
+#: host annotation that ties a trace's clock to ``time.perf_counter``
+#: (``obs/profiling.device_trace`` opens one as its window starts)
+CLOCK_SYNC = "clock_sync"
+
+#: the launch windows of other threads beside a trace
+#: (``obs/profiling.device_trace``): ``{"t_sync", "sync_thread": [native
+#: tid, thread ident], "windows": [[native tid, thread ident, t0, t1, name],
+#: ...]}``, ``perf_counter`` seconds
+LAUNCH_LOG = "launch_log.json"
+
 #: scope prefix of a fused stage's annotation window (``fused:<stage>``)
 FUSED_SCOPE_PREFIX = "fused:"
 
@@ -369,12 +379,109 @@ def _attribute_windows(midpoints: list, windows: dict[str, list]) -> str | None:
     return max(votes.items(), key=lambda kv: kv[1])[0]
 
 
+#: the runtime calls :data:`CLOCK_SYNC` makes on a card (``Stream.query``,
+#: :data:`CLOCK_SYNC_CALLS` times in a row: a run the profiler's own start
+#: does not make on that thread; ``t_sync`` is read just before the last)
+CLOCK_SYNC_CALL = "cudaStreamQuery"
+CLOCK_SYNC_CALLS = 3
+
+
+def _thread_keys(native: int, ident: int) -> tuple:
+    """The ids a trace may name a thread by: its native id, or its
+    ``pthread_t`` (``threading.get_ident``), whole or cut to 32 bits, as
+    the card's traces name the runtime calls of some threads."""
+    low = ident & 0xFFFFFFFF
+    return (native, ident, low, low - (1 << 32) if low >= 1 << 31 else low)
+
+
+def _clock_sync(events, thread: list | None) -> dict | None:
+    """The event whose ``ts`` the launch log's ``t_sync`` names: the last of
+    a run of :data:`CLOCK_SYNC_CALLS` or more consecutive
+    :data:`CLOCK_SYNC_CALL` runtime calls of the tracing thread
+    (``thread``: its native id and ident), made inside the
+    :data:`CLOCK_SYNC` annotation, on the runtime calls' own clock (the
+    card's traces put it ~1 ms off the host ops'); else the annotation
+    itself (no card)."""
+    mark = next((e for e in events if e.get("name") == CLOCK_SYNC and e.get("ph") == "X"), None)
+    if mark is None:
+        return None
+    keys = set(_thread_keys(*thread)) if thread else {mark.get("tid")}
+    calls = sorted((e for e in events if e.get("ph") == "X" and e.get("tid") in keys
+                    and not _is_device_op(e) and e.get("cat") != _DEVICE_ANNOTATION
+                    and (e.get("args") or {}).get("correlation") is not None),
+                   key=lambda e: float(e["ts"]))
+    run = 0
+    for i, e in enumerate(calls + [None]):
+        if e is not None and e.get("name") == CLOCK_SYNC_CALL:
+            run += 1
+            continue
+        if run >= CLOCK_SYNC_CALLS:
+            return calls[i - 1]
+        run = 0
+    return mark
+
+
+def merge_launch_log(doc: dict, log: dict) -> int:
+    """Add the launch windows other threads logged beside a trace
+    (:data:`LAUNCH_LOG`) to its events as host annotations on the thread id
+    the trace gives that thread's runtime calls (:func:`_thread_keys`).
+
+    On a card each window is bracketed by one :data:`CLOCK_SYNC_CALL` of
+    its thread on either side (``obs/profiling.launch_scope``): where a
+    thread's calls hold two a window, the window spans its pair, on the
+    runtime calls' own clock. Otherwise (no card, or a call the profiler
+    dropped) it is placed by ``perf_counter``, offset by
+    :func:`_clock_sync`. Returns the count added (0 without a sync
+    event)."""
+    events = doc.setdefault("traceEvents", [])
+    sync = _clock_sync(events, log.get("sync_thread"))
+    if sync is None:
+        return 0
+    offset_us = float(sync["ts"]) - float(log["t_sync"]) * 1e6
+    calls_by_tid: dict = {}
+    for e in events:
+        if (e.get("ph") == "X" and not _is_device_op(e)
+                and (e.get("args") or {}).get("correlation") is not None):
+            calls_by_tid.setdefault(e.get("tid"), []).append(e)
+    by_thread: dict = {}
+    for window in log.get("windows") or []:
+        by_thread.setdefault((window[0], window[1]), []).append(window)
+    pid = sync.get("pid")
+    added = 0
+    for (native, ident), windows in by_thread.items():
+        tid = next((k for k in _thread_keys(native, ident) if k in calls_by_tid), native)
+        marks = sorted((e for e in calls_by_tid.get(tid, ()) if e.get("name") == CLOCK_SYNC_CALL),
+                       key=lambda e: float(e["ts"]))
+        paired = len(marks) == 2 * len(windows)
+        for k, (_, _, t0, t1, name) in enumerate(windows):
+            if paired:
+                ts = float(marks[2 * k]["ts"])
+                end = float(marks[2 * k + 1]["ts"]) + float(marks[2 * k + 1].get("dur", 0.0))
+            else:
+                ts, end = t0 * 1e6 + offset_us, t1 * 1e6 + offset_us
+            events.append({
+                "ph": "X", "cat": "user_annotation", "name": name, "pid": pid, "tid": tid,
+                "ts": round(ts, 3), "dur": round(end - ts, 3),
+                "args": {"launch_log": "bracketed" if paired else "clock"},
+            })
+            added += 1
+    return added
+
+
 def summarize_profile_dir(log_dir: str, launchers: dict | None = None, top_k: int = 0) -> dict:
-    """Find the capture's trace file, parse, summarize. Raises
-    ``FileNotFoundError`` when the directory holds no trace."""
+    """Find the capture's trace file, parse it, merge the launch log beside
+    it (:func:`merge_launch_log`), summarize. Raises ``FileNotFoundError``
+    when the directory holds no trace."""
     path = find_trace_file(log_dir)
     if path is None:
         raise FileNotFoundError(f"no *trace.json(.gz) under {log_dir}")
-    summary = summarize(load_trace(path), launchers=launchers, top_k=top_k)
+    doc = load_trace(path)
+    log_path = os.path.join(os.path.dirname(path), LAUNCH_LOG)
+    merged = 0
+    if os.path.exists(log_path):
+        with open(log_path) as fh:
+            merged = merge_launch_log(doc, json.load(fh))
+    summary = summarize(doc, launchers=launchers, top_k=top_k)
     summary["trace_file"] = path
+    summary["launch_log_windows"] = merged
     return summary

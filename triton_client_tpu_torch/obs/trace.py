@@ -17,9 +17,9 @@ back in the response's ``trace_summary`` parameter
 (:func:`encode_span_summary`), which a client grafts onto its own clock
 (:func:`graft_span_summary`). :func:`chrome_trace` (``Tracer.chrome_trace``)
 exports traces in the Chrome trace format that Perfetto and
-``chrome://tracing`` load, one row a request. The JAX ``Tracer``'s
-``profiler=`` and ``histograms=`` feeds wait for the telemetry plane
-(ROADMAP.md Queue 1 item 8, step 3).
+``chrome://tracing`` load, one row a request. A finished trace also feeds
+the ``Tracer``'s ``profiler=`` (each span a ``span_<name>`` stage sample)
+and ``histograms=`` (the per-(model, stage) latency histograms).
 """
 
 from __future__ import annotations
@@ -233,11 +233,21 @@ class MultiTrace:
 class Tracer:
     """Trace factory and bounded ring buffer of finished request traces.
     ``capacity`` 0 (or ``enabled=False``) makes ``start`` return None,
-    which every call site reads as the untraced path."""
+    which every call site reads as the untraced path.
 
-    def __init__(self, enabled: bool = True, capacity: int = 256) -> None:
+    ``profiler`` (a ``StageProfiler``) receives each finished span as a
+    ``span_<name>`` stage sample, which ``PrometheusStageExporter`` exports.
+    ``histograms`` (an ``obs.histogram.HistogramFamily``) receives each span
+    named in ``SLO_STAGES`` as (model, stage) and the whole request wall as
+    (model, ``"e2e"``): the one feed of ``tpu_serving_latency_seconds``."""
+
+    def __init__(
+        self, enabled: bool = True, capacity: int = 256, profiler=None, histograms=None
+    ) -> None:
         self.enabled = bool(enabled) and capacity > 0
         self.capacity = int(capacity)
+        self._profiler = profiler
+        self._histograms = histograms
         self._ring: collections.deque[RequestTrace] = collections.deque(
             maxlen=max(1, self.capacity)
         )
@@ -260,6 +270,18 @@ class Tracer:
         with self._lock:
             self._ring.append(trace)
             self._finished += 1
+        if self._profiler is not None:
+            for s in list(trace.spans):
+                self._profiler.record(f"span_{s.name}", s.duration_s)
+        if self._histograms is not None:
+            from triton_client_tpu_torch.obs.histogram import SLO_STAGES
+
+            model = trace.model or ""
+            for s in list(trace.spans):
+                stage = SLO_STAGES.get(s.name)
+                if stage is not None:
+                    self._histograms.observe(model, stage, s.duration_s)
+            self._histograms.observe(model, "e2e", trace.t_end - trace.t_start)
 
     def recent(self, n: int = 0) -> list[RequestTrace]:
         """The most recent ``n`` finished traces (0: all buffered), oldest

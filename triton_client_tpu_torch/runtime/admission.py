@@ -4,9 +4,11 @@ serving stack (the port's copy of ``runtime/admission.py``).
 One exception per deliberate degradation decision, so a caller can tell
 a shed request from a bug; each maps to the gRPC status code the client
 retry ladder keys on (``runtime/server._grpc_code``).
-:class:`AdmissionController` is the per-model queue-depth gate the
-server consults before parsing a request: a request that finds its
-model's queue at the limit is rejected at the door.
+:class:`AdmissionController` is the per-model gate the server consults
+before parsing a request: a request that finds its model's queue at the
+limit, or whose estimated queue wait already eats its deadline budget, is
+rejected at the door (rejecting in microseconds beats timing out after
+taking a device slot).
 :class:`CircuitBreaker` is the closed -> open -> half-open machine the
 staged channel wraps around launch and readback: consecutive failures
 open the circuit (fail fast, launch cache dropped), a timed probe
@@ -24,8 +26,9 @@ class OverloadError(RuntimeError):
 
 
 class AdmissionRejectedError(OverloadError):
-    """Shed at the door: the model's queue is at its limit
-    (``RESOURCE_EXHAUSTED`` on the wire)."""
+    """Shed at the door: the model's queue is at its limit, or the
+    estimated wait exceeds the deadline budget (``RESOURCE_EXHAUSTED`` on
+    the wire)."""
 
 
 class QueueFullError(AdmissionRejectedError):
@@ -55,57 +58,109 @@ class ReplicaDownError(OverloadError):
 
 
 class AdmissionController:
-    """Per-model bounded queue-depth admission.
+    """Per-model bounded queue-depth and estimated-wait admission.
 
     ``max_queue``: cap on a model's admitted-but-unfinished requests (the
     knee for priority >= 0; lower priorities hit ``max_queue *
-    low_priority_fraction``). The JAX module's estimated-wait check (a
-    service-time EWMA against the request's deadline budget) waits for the
-    SLO plane, the only producer of deadlines, and its per-tenant caps for
-    the tenant table (ROADMAP.md Queue 1 item 8)."""
+    low_priority_fraction``). ``concurrency``: how many requests the
+    serving stack works on at once for a model (batcher width x pipeline
+    depth, roughly); it divides the estimated wait, so a healthy batched
+    server is not over-shed. The service-time estimate is an EWMA over
+    completed requests, seeded by the first; until then only the depth knee
+    applies. The JAX module's per-tenant caps wait for the tenant table
+    (ROADMAP.md Queue 1 item 8, step 2); ``stats()`` keeps their keys,
+    empty, as JAX's does without a table."""
 
-    def __init__(self, max_queue: int = 64, low_priority_fraction: float = 0.5) -> None:
+    def __init__(
+        self,
+        max_queue: int = 64,
+        concurrency: int = 4,
+        low_priority_fraction: float = 0.5,
+        ewma_alpha: float = 0.2,
+    ) -> None:
         self._max_queue = max(1, int(max_queue))
+        self._concurrency = max(1, int(concurrency))
         self._low_frac = min(1.0, max(0.05, float(low_priority_fraction)))
+        self._alpha = min(1.0, max(0.01, float(ewma_alpha)))
         self._lock = threading.Lock()
         self._inflight: dict[str, int] = {}
+        self._ewma_s: dict[str, float] = {}
         self._rejects: dict[tuple[str, int], int] = {}
         self._admitted = 0
 
-    def admit(self, model: str, priority: int = 0) -> None:
-        """Admit or raise :class:`AdmissionRejectedError`. An admitted
-        request counts against the model's queue until :meth:`finished`,
-        which the caller must reach on every exit path."""
+    def admit(
+        self,
+        model: str,
+        deadline_s: float | None = None,
+        priority: int = 0,
+        now: float | None = None,
+    ) -> None:
+        """Admit or raise :class:`AdmissionRejectedError`: the model's queue
+        is at its limit, or the estimated wait (queue depth x service-time
+        EWMA / concurrency) exceeds what is left of ``deadline_s``, the
+        request's absolute ``perf_counter`` deadline. An admitted request
+        counts against the model's queue until :meth:`finished`, which the
+        caller must reach on every exit path."""
         with self._lock:
             depth = self._inflight.get(model, 0)
             limit = self._max_queue
             if priority < 0:
                 # the background class sheds first
                 limit = max(1, int(limit * self._low_frac))
+            reason = None
             if depth >= limit:
+                reason = f"queue depth {depth} >= limit {limit} (priority {priority})"
+            if reason is None and deadline_s is not None:
+                ewma = self._ewma_s.get(model)
+                if ewma is not None:
+                    if now is None:
+                        now = time.perf_counter()
+                    est_wait = depth * ewma / self._concurrency
+                    budget = deadline_s - now
+                    if est_wait > budget:
+                        reason = (
+                            f"estimated queue wait {est_wait * 1e3:.1f}ms "
+                            f"exceeds deadline budget {budget * 1e3:.1f}ms"
+                        )
+            if reason is not None:
                 key = (model, int(priority))
                 self._rejects[key] = self._rejects.get(key, 0) + 1
-                raise AdmissionRejectedError(
-                    f"model '{model}' overloaded: queue depth {depth} >= limit {limit} "
-                    f"(priority {priority})"
-                )
+                raise AdmissionRejectedError(f"model '{model}' overloaded: {reason}")
             self._inflight[model] = depth + 1
             self._admitted += 1
 
-    def finished(self, model: str) -> None:
-        """One admitted request left (any outcome)."""
+    def finished(self, model: str, service_s: float | None = None) -> None:
+        """One admitted request left (any outcome). ``service_s`` (wall
+        seconds, successful requests only) feeds the EWMA the
+        estimated-wait check divides by."""
         with self._lock:
             depth = self._inflight.get(model, 0)
             if depth > 0:
                 self._inflight[model] = depth - 1
+            if service_s is not None and service_s >= 0:
+                prev = self._ewma_s.get(model)
+                self._ewma_s[model] = (
+                    service_s if prev is None else prev + self._alpha * (service_s - prev)
+                )
+
+    def estimated_wait_s(self, model: str) -> float:
+        with self._lock:
+            ewma = self._ewma_s.get(model)
+            if ewma is None:
+                return 0.0
+            return self._inflight.get(model, 0) * ewma / self._concurrency
 
     def stats(self) -> dict:
         with self._lock:
             return {
                 "max_queue": self._max_queue,
+                "concurrency": self._concurrency,
                 "admitted": self._admitted,
                 "inflight": dict(self._inflight),
+                "ewma_ms": {m: round(v * 1e3, 3) for m, v in self._ewma_s.items()},
                 "rejects": {f"{m}|{p}": n for (m, p), n in self._rejects.items()},
+                "tenant_inflight": {},
+                "tenant_rejects": {},
             }
 
 

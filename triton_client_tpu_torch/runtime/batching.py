@@ -171,6 +171,12 @@ class BatchingChannel(BaseChannel):
 
     # -- BaseChannel ----------------------------------------------------------
 
+    @property
+    def inner(self) -> BaseChannel:
+        """The wrapped channel (``obs.collector.RuntimeCollector`` walks the
+        stack through it)."""
+        return self._inner
+
     def register_channel(self) -> None:
         self._inner.register_channel()
 

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import weakref
 from typing import Callable
 
@@ -284,6 +285,18 @@ class CUDAGraphBackend:
         return (parts[0] if len(parts) == 1 else replay), outputs, _reserved(device) - before
 
 
+# process-global capture listeners, ``fn(name, seconds)`` once a capture
+# (``obs.collector.CompileEvents`` counts them: a capture is the port's
+# compile of a new input signature)
+_capture_listeners: list[Callable[[str, float], None]] = []
+
+
+def add_capture_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, seconds)`` after every successful capture, its
+    warmup calls included, for the rest of the process."""
+    _capture_listeners.append(fn)
+
+
 class CapturedFunction:
     """``fn`` captured per input signature and replayed (module docstring)."""
 
@@ -341,6 +354,7 @@ class CapturedFunction:
 
     def _capture(self, backend, key, args) -> _Entry:
         scope = self._capture_scope() if self._capture_scope else contextlib.nullcontext()
+        t0 = time.perf_counter()
         try:
             inputs = tuple(a.clone() for a in args)
             with scope as keep:
@@ -353,6 +367,12 @@ class CapturedFunction:
             ) from e
         self._stats["captures"] += 1
         self._stats["pool_bytes"] += int(nbytes)
+        seconds = time.perf_counter() - t0
+        for listener in list(_capture_listeners):
+            try:
+                listener(self.name, seconds)
+            except Exception:  # a listener never fails the capture
+                pass
         return _Entry(replay, inputs, outputs, dict(rec.record), keep)
 
     def _replay(self, entry: _Entry, key, args):

@@ -22,6 +22,17 @@ reach the models the port serves, dispatching through a ``BaseChannel``
 - **Tracing** is on by default (``trace_capacity=256``): every request
   gets a trace from the server's ``Tracer``, and every response carries
   its span summary in the ``trace_summary`` parameter.
+- **Telemetry** (``metrics_port``, ``"auto"`` for an ephemeral port): the
+  ``obs/http.TelemetryServer`` serves ``/metrics`` (the per-server
+  Prometheus registry: ``obs/collector.RuntimeCollector`` and the stage
+  histograms), ``/traces``, ``/snapshot``, ``/profile`` and ``/history``;
+  the ``Tracer`` feeds the per-(model, stage) latency histograms, a
+  ``DeviceTimeLedger`` is attached to the staged channel (one ``inner``
+  level below a batcher), and the metric history and the continuous op
+  sampler run when asked. ``slo_ms`` stamps each request's deadline at
+  admission and scores it met or missed on every exit path
+  (``obs/slo.SLOTracker``); the admission controller then also sheds on
+  the estimated wait.
 - **Streams** keep up to ``stream_pipeline_depth`` requests in flight and
   answer in request order, each response the moment it resolves.
 - **Shared memory** (Triton's system-shared-memory extension, the JAX
@@ -34,10 +45,8 @@ reach the models the port serves, dispatching through a ``BaseChannel``
   (``runtime/wire_encoding.py``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item (the defaults keep them off, as in the JAX server): the telemetry
-endpoint (``metrics_port``), the op sampler and metric history, the SLO
-plane (``slo_ms > 0``), lifecycle, tenants, and the quality and temporal
-planes.
+item (the defaults keep them off, as in the JAX server): lifecycle,
+tenants, and the quality and temporal planes.
 """
 
 from __future__ import annotations
@@ -84,8 +93,6 @@ _MIN_MSG_BYTES = 64 << 20
 
 # the ROADMAP.md Queue 1 item each unported option waits for
 ROADMAP_ITEMS = {
-    "telemetry": "8 (obs/{collector,histogram,slo,history,sampler}.py)",
-    "slo": "8 (obs/slo.py)",
     "lifecycle": "8 (runtime/lifecycle.py)",
     "tenants": "8 (runtime/lifecycle.py TenantTable)",
     "quality": "8 (eval/{shadow,quality_plane}.py)",
@@ -146,12 +153,22 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         replica_of: str | None = None,
         status: dict | None = None,
         shm_registry: SystemSharedMemoryRegistry | None = None,
+        profiler=None,
+        collector=None,
+        slo=None,
     ) -> None:
         """``status``: status name -> code for ``context.abort`` (the grpc
         table, from ``service.grpc_status_table``); None aborts with the
         names, for an in-process context. ``shm_registry``: the regions
-        the shared-memory RPCs register (a new one when None)."""
+        the shared-memory RPCs register (a new one when None).
+        ``profiler``: a ``StageProfiler`` each request's wall lands in as
+        ``infer_<model>``; ``collector``: the ``RuntimeCollector`` the
+        request hooks feed; ``slo``: the ``SLOTracker`` that stamps
+        deadlines and scores requests."""
         self._repo = repository
+        self._profiler = profiler
+        self._collector = collector
+        self._slo = slo
         self._channel = channel
         self._shm = shm_registry if shm_registry is not None else SystemSharedMemoryRegistry()
         self._stream_depth = max(1, int(stream_pipeline_depth))
@@ -335,11 +352,16 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         params = request.parameters
         if params and "priority" in params:
             priority = int(params["priority"].int64_param)
+        deadline_s = None
+        if self._slo is not None:
+            deadline_s = self._slo.deadline_for(request.model_name, t0)
         sequence_id = codec.get_string_param(request, codec.SEQUENCE_ID_PARAM)
         sequence_start = sequence_end = False
         if sequence_id:
             sequence_start = codec.get_bool_param(request, codec.SEQUENCE_START_PARAM)
             sequence_end = codec.get_bool_param(request, codec.SEQUENCE_END_PARAM)
+        if self._collector is not None:
+            self._collector.request_started()
         with self._active_lock:
             self._active += 1
         admitted = False
@@ -351,7 +373,13 @@ class _Servicer(service.GRPCInferenceServiceServicer):
             if self._replica_down_now():
                 raise ReplicaDownError("replica is down (injected)")
             if self._admission is not None:
-                self._admission.admit(request.model_name, priority=priority)
+                try:
+                    self._admission.admit(request.model_name, deadline_s=deadline_s,
+                                          priority=priority, now=t0)
+                except AdmissionRejectedError:
+                    if self._collector is not None:
+                        self._collector.record_shed(request.model_name, priority, "admission")
+                    raise
                 admitted = True
             if inputs_override is not None:
                 inputs = inputs_override
@@ -380,6 +408,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 inputs=inputs,
                 request_id=request_id,
                 trace=trace,
+                deadline_s=deadline_s,
                 priority=priority,
                 sequence_id=sequence_id or "",
                 sequence_start=sequence_start,
@@ -392,7 +421,8 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 if (params := codec.shm_params(t)) is not None
             }
         except BaseException as e:
-            self._account(request.model_name, t0, trace, error=e, admitted=admitted)
+            self._account(request.model_name, t0, trace, error=e, deadline_s=deadline_s,
+                          priority=priority, admitted=admitted)
             raise
 
         def finish():
@@ -428,13 +458,18 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 error = e
                 raise
             finally:
-                self._account(request.model_name, t0, trace, error=error, admitted=admitted)
+                self._account(request.model_name, t0, trace, error=error, deadline_s=deadline_s,
+                              priority=priority, admitted=admitted)
 
         return finish
 
-    def _account(self, model_name, t0, trace, error=None, admitted=False) -> None:
+    def _account(
+        self, model_name, t0, trace, error=None, deadline_s=None, priority=0, admitted=False
+    ) -> None:
         """Per-request bookkeeping on every exit path: the log line, the
-        trace's finish, the admission slot and the in-flight count."""
+        trace's finish (which feeds the latency histograms), the SLO score,
+        the stage sample, the error and in-flight counters, and the
+        admission slot (a success also feeds its service-time EWMA)."""
         now = time.perf_counter()
         if error is not None:
             log.debug("request for model %s failed with %s: %s%s",
@@ -442,10 +477,23 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         elif log.isEnabledFor(logging.DEBUG):
             log.debug("request for model %s served in %.1f ms%s",
                       model_name, (now - t0) * 1e3, log_tag(trace))
+        status = "ok" if error is None else _grpc_code(error)
         if self._tracer is not None:
-            self._tracer.finish(trace, status="ok" if error is None else _grpc_code(error))
+            # first: the histograms it feeds are what the SLO tracker's p99
+            # criterion reads below
+            self._tracer.finish(trace, status=status)
+        if self._slo is not None:
+            self._slo.observe_request(model_name, wall_s=now - t0, deadline_s=deadline_s,
+                                      priority=priority, status=status, trace=trace, now=now)
+        if self._profiler is not None:
+            self._profiler.record(f"infer_{model_name}", time.perf_counter() - t0)
+        if self._collector is not None:
+            if error is not None:
+                self._collector.record_error(model_name, status)
+            self._collector.request_finished()
         if self._admission is not None and admitted:
-            self._admission.finished(model_name)
+            self._admission.finished(
+                model_name, service_s=(now - t0) if error is None else None)
         with self._active_lock:
             self._active -= 1
 
@@ -459,6 +507,32 @@ class _Servicer(service.GRPCInferenceServiceServicer):
     @staticmethod
     def _stream_group_size(request) -> int:
         return max(1, codec.get_int_param(request, codec.STREAM_GROUP_PARAM, 1))
+
+    def _record_transport(self, request, context) -> None:
+        """The transport-mix counters: which transport carried this
+        request's input tensors and how many payload bytes each path
+        moved."""
+        if self._collector is None:
+            return
+        wire_bytes = sum(len(b) for b in request.raw_input_contents)
+        shm_bytes = 0
+        for t in request.inputs:
+            p = t.parameters
+            if "shared_memory_region" in p and "shared_memory_byte_size" in p:
+                shm_bytes += int(p["shared_memory_byte_size"].int64_param)
+        peer = getattr(context, "peer", None)
+        uds = peer is not None and peer().startswith("unix:")
+        if shm_bytes:
+            transport = "uds+shm" if uds else "shm"
+        else:
+            transport = "uds" if uds else "grpc"
+        self._collector.record_transport(transport, wire_bytes, shm_bytes)
+
+    def _record_stream(self, request, context) -> None:
+        """A stream message's transport and, for a packed group, its size."""
+        self._record_transport(request, context)
+        if self._collector is not None and (g := self._stream_group_size(request)) > 1:
+            self._collector.record_stream_group(g)
 
     def _issue_group(self, request):
         """Fan one multi-frame stream message (G frames along the leading
@@ -513,6 +587,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
     def ModelInfer(self, request, context):
         if self._uses_shm(request):
             self._require_local(context)
+        self._record_transport(request, context)
         try:
             return self._issue(request)()
         except OverloadError as e:
@@ -540,6 +615,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
             for request in request_iterator:
                 if self._uses_shm(request):
                     self._require_local(context)
+                self._record_stream(request, context)
                 try:
                     finishers = self._issue_group(request)
                 except self._STREAM_ERRORS as e:
@@ -562,6 +638,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                     if self._uses_shm(request) and not self._is_local_peer(context):
                         q.put(("non_local", None))  # the abort runs on the handler thread
                         return
+                    self._record_stream(request, context)
                     try:
                         finishers = self._issue_group(request)
                     except self._STREAM_ERRORS as e:
@@ -608,16 +685,22 @@ class InferenceServer:
         uds_address: str | None = None,
         max_workers: int = 8,
         max_message_bytes: int | None = None,
+        profiler=None,
         metrics_port: int | str = 0,
         stream_pipeline_depth: int = 2,
         trace_capacity: int = 256,
         slo_ms: float = 0.0,
+        slo_per_model: dict | None = None,
+        slo_tail_capacity: int = 64,
         admission_max_queue: int = 0,
+        admission_concurrency: int = 4,
         lifecycle=None,
         tenants=None,
         replica_of: str | None = None,
         op_sample_interval_s: float = 0.0,
-        history_interval_s: float = 0.0,
+        op_sample_window_s: float = 0.2,
+        history_interval_s: float = 10.0,
+        history_capacity: int = 360,
         history_path: str | None = None,
         quality=None,
         temporal=None,
@@ -626,8 +709,24 @@ class InferenceServer:
         ModelStreamInfer stream (1 is serial). ``trace_capacity``: the ring
         of recent request traces (0 turns request tracing off).
         ``admission_max_queue``: per-model admitted-but-unfinished cap (0:
-        no admission control); beyond it requests are rejected with
-        RESOURCE_EXHAUSTED before parse.
+        no admission control); beyond it, or when the estimated queue wait
+        already exceeds a request's deadline budget, requests are rejected
+        with RESOURCE_EXHAUSTED before parse. ``admission_concurrency``: the
+        per-model service concurrency the estimated wait divides by.
+        ``metrics_port``: serve the telemetry endpoint (0: off; ``"auto"``:
+        an ephemeral port, read back from ``.metrics_port``). ``profiler``:
+        a ``StageProfiler`` to record into (made when ``metrics_port`` is
+        set). ``slo_ms``: the default per-request latency budget (0: none;
+        the histograms and the tail sampler's p99 criterion still run);
+        ``slo_per_model`` overrides it a model; ``slo_tail_capacity``
+        bounds the ``/traces?slo_violations=1`` ring. The SLO plane lives
+        on the telemetry plane: without ``metrics_port`` it is off.
+        ``op_sample_interval_s`` > 0 starts the continuous op sampler (a
+        ``torch.profiler`` window of ``op_sample_window_s`` every interval,
+        at most a 1% duty cycle, sharing ``/profile``'s capture guard).
+        ``history_interval_s`` / ``history_capacity``: the metric-history
+        ring served at ``/history`` (0: off); ``history_path``: persisted
+        there on ``stop()`` and restored from it at start.
         ``replica_of``: replica-set label (keys the ``replica_down`` fault
         point; advertised in ServerMetadata.extensions). ``uds_address``:
         also listen on a unix socket (``unix:/path``, a bare path, or
@@ -637,11 +736,6 @@ class InferenceServer:
         ``stop()``. The other options are not ported and raise when set
         (module docstring)."""
         for what, value, option in (
-            ("telemetry", metrics_port, "metrics_port"),
-            ("telemetry", op_sample_interval_s, "op_sample_interval_s"),
-            ("telemetry", history_interval_s, "history_interval_s"),
-            ("telemetry", history_path, "history_path"),
-            ("slo", slo_ms, "slo_ms"),
             ("lifecycle", lifecycle, "lifecycle"),
             ("tenants", tenants, "tenants"),
             ("quality", quality, "quality"),
@@ -653,13 +747,27 @@ class InferenceServer:
 
         self.replica_of = replica_of
         self.admission = (
-            AdmissionController(max_queue=admission_max_queue) if admission_max_queue > 0 else None
+            AdmissionController(max_queue=admission_max_queue, concurrency=admission_concurrency)
+            if admission_max_queue > 0 else None
         )
         self._draining = threading.Event()
-        self.tracer = Tracer(capacity=trace_capacity) if trace_capacity > 0 else None
+        self._history_path = history_path
+        self._telemetry = None
+        self.metrics_enabled = False
+        self.histograms = self.slo = self.device_time = None
+        self.history = self.sampler = self.collector = None
+        if metrics_port:
+            self._start_telemetry(
+                repository, channel, metrics_port, profiler, trace_capacity, slo_ms,
+                slo_per_model, slo_tail_capacity, op_sample_interval_s, op_sample_window_s,
+                history_interval_s, history_capacity)
+        else:
+            self.profiler = profiler
+            self.tracer = Tracer(capacity=trace_capacity) if trace_capacity > 0 else None
         limit = max_message_bytes or message_limit(repository)
+        self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=max_workers)
         self._server = grpc.server(
-            concurrent.futures.ThreadPoolExecutor(max_workers=max_workers),
+            self._executor,
             options=[
                 ("grpc.max_send_message_length", limit),
                 ("grpc.max_receive_message_length", limit),
@@ -676,6 +784,9 @@ class InferenceServer:
             replica_of=replica_of,
             status=service.grpc_status_table(),
             shm_registry=self.shm_registry,
+            profiler=self.profiler,
+            collector=self.collector,
+            slo=self.slo,
         )
         service.add_GRPCInferenceServiceServicer_to_server(self._servicer, self._server)
         self._port = self._server.add_insecure_port(address)
@@ -704,9 +815,100 @@ class InferenceServer:
             self._uds_path = path
         self.channel = channel
 
+    def _start_telemetry(
+        self, repository, channel, metrics_port, profiler, trace_capacity, slo_ms,
+        slo_per_model, slo_tail_capacity, op_sample_interval_s, op_sample_window_s,
+        history_interval_s, history_capacity,
+    ) -> None:
+        """The telemetry and SLO planes (``__init__``'s docstring). A missing
+        ``prometheus_client`` or a taken port degrades, never fails the
+        server: ``/metrics`` answers 503, or the endpoint is off."""
+        from triton_client_tpu_torch.obs.collector import RuntimeCollector
+        from triton_client_tpu_torch.obs.device_time import DeviceTimeLedger
+        from triton_client_tpu_torch.obs.histogram import HistogramFamily
+        from triton_client_tpu_torch.obs.profiling import PrometheusStageExporter, StageProfiler
+        from triton_client_tpu_torch.obs.slo import SLOTracker
+
+        self.profiler = profiler if profiler is not None else StageProfiler()
+        registry = None
+        try:
+            import prometheus_client
+
+            # a registry a server: several servers in one process each
+            # export their whole metric set
+            registry = prometheus_client.CollectorRegistry()
+            PrometheusStageExporter(0, registry=registry).attach(self.profiler)
+        except ImportError:
+            log.warning("prometheus_client not installed; /metrics on port %s disabled "
+                        "(traces still export)", metrics_port)
+        self.histograms = HistogramFamily()
+        self.slo = SLOTracker(slo_ms=slo_ms, per_model=slo_per_model,
+                              tail_capacity=slo_tail_capacity, histograms=self.histograms)
+        self.tracer = (Tracer(capacity=trace_capacity, profiler=self.profiler,
+                              histograms=self.histograms) if trace_capacity > 0 else None)
+        # the ledger on the staged channel, one `inner` level below a batcher
+        target = channel
+        if not hasattr(target, "attach_device_time"):
+            target = getattr(channel, "inner", None)
+        if target is not None and hasattr(target, "attach_device_time"):
+            self.device_time = DeviceTimeLedger(devices=1)
+            target.attach_device_time(self.device_time)
+        if self.device_time is not None and history_interval_s > 0:
+            from triton_client_tpu_torch.obs.history import MetricHistory
+
+            self.history = MetricHistory(ledger=self.device_time, interval_s=history_interval_s,
+                                         capacity=history_capacity)
+            if self._history_path and os.path.exists(self._history_path):
+                try:
+                    self.history.restore(MetricHistory.load(self._history_path))
+                except (OSError, ValueError):
+                    log.warning("could not restore metric history from %s",
+                                self._history_path, exc_info=True)
+            self.history.start()
+        self.collector = RuntimeCollector(
+            channel=channel, tracer=self.tracer, registry=registry, repository=repository,
+            histograms=self.histograms, slo=self.slo, admission=self.admission,
+            device_time=self.device_time,
+        )
+        if self.history is not None:
+            self.collector.attach_history(self.history)
+        from triton_client_tpu_torch.obs.profiling import prime_profiler
+
+        try:
+            prime_profiler()
+        except Exception:  # /profile and the sampler then report their own failures
+            log.warning("could not prime the profiler", exc_info=True)
+        try:
+            from triton_client_tpu_torch.obs.http import TelemetryServer
+
+            self._telemetry = TelemetryServer(
+                port=0 if metrics_port == "auto" else int(metrics_port), registry=registry,
+                tracer=self.tracer, collector=self.collector, slo=self.slo, history=self.history,
+            )
+        except OSError as e:
+            log.warning("could not bind metrics port %s (%s); telemetry endpoint disabled",
+                        metrics_port, e)
+            return
+        self.metrics_enabled = registry is not None
+        if op_sample_interval_s > 0:
+            from triton_client_tpu_torch.obs.sampler import ContinuousSampler
+
+            self.sampler = ContinuousSampler(
+                sink=self.collector, interval_s=op_sample_interval_s,
+                window_s=op_sample_window_s, lock=self._telemetry.profile_lock,
+                hlo_modules=self.collector.hlo_modules,
+            )
+            self.collector.attach_sampler(self.sampler)
+            self.sampler.start()
+
     @property
     def port(self) -> int:
         return self._port
+
+    @property
+    def metrics_port(self) -> int:
+        """The bound telemetry port (0 when telemetry is off)."""
+        return self._telemetry.port if self._telemetry is not None else 0
 
     @property
     def servicer(self) -> _Servicer:
@@ -732,6 +934,8 @@ class InferenceServer:
         ``timeout_s``, then stop the transport and close the channel stack.
         True when the server emptied in time."""
         self._draining.set()
+        if self.collector is not None:
+            self.collector.set_draining(True)
         deadline = time.monotonic() + max(0.0, float(timeout_s))
         drained = False
         while time.monotonic() < deadline:
@@ -746,7 +950,31 @@ class InferenceServer:
         return drained
 
     def stop(self, grace: float = 1.0) -> None:
+        """Stop the transport, then the telemetry planes: the sampler, the
+        history (a last tick, persisted to ``history_path``), the endpoint
+        and the collector's registration; then the handler threads.
+        Idempotent."""
         self._server.stop(grace).wait()
+        if self.sampler is not None:
+            self.sampler.close()
+            self.sampler = None
+        if self.history is not None:
+            self.history.close()
+            self.history.tick()
+            if self._history_path:
+                try:
+                    self.history.persist(self._history_path)
+                except OSError:
+                    log.warning("could not persist metric history to %s",
+                                self._history_path, exc_info=True)
+                self._history_path = None
+        if self._telemetry is not None:
+            self._telemetry.close()
+            self._telemetry = None
+        if self.collector is not None:
+            self.collector.close()
+        # the RPCs have ended: the handler threads go too
+        self._executor.shutdown(wait=True)
         # detach, never unlink: the segments are the clients'
         self.shm_registry.unregister_all()
         if self._uds_path is not None:
