@@ -9,8 +9,9 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
 centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
-second_sparse, telemetry, telemetry_plane), with the
-groups whose served models they reuse run first; an unknown name exits 2.
+second_sparse, telemetry, telemetry_plane, lifecycle), with the
+groups whose served models they reuse, or whose kernel rows they add to,
+run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
 record (the rows of the kernels its groups measured) and the ``{"ok":
 true, ...}`` line.
@@ -34,7 +35,9 @@ and evaluation from bags (phase 30), YOLOv4, RetinaNet and FCOS from disk
 (phase 31), server-side preprocess and ensembles (phase 32), the load
 generator against `serve` (phase 33), SECOND-IoU's sparse middle at the
 reference's 0.05 m grid (phase 34) and the measurement units: the
-device-time ledger, the roofline, op attribution and the tools (phase 35).
+device-time ledger, the roofline, op attribution and the tools (phase 35),
+the telemetry and SLO planes behind serve (phase 36) and the model
+lifecycle and tenant plane (phase 37).
 One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
@@ -374,6 +377,28 @@ One JSON line per phase:
                  server thread alive after stop. Line telemetry_plane:
                  frames/s, p50, p99 with and without telemetry, attainment
                  at 33 ms, the sampler's duty cycle and captures
+ 37. lifecycle — the model lifecycle and tenant plane (runtime/lifecycle.py):
+                 serve's wiring in this process over copies of
+                 examples/yolov5_crop, yolov5l_crop (conf 0.05),
+                 pointpillar_kitti and second_iou with a tenants.yaml
+                 (yolov5_crop pinned in a tenant with a quota; the others in
+                 a tenant with max_inflight), a seeded schedule of 24
+                 requests (6 a model, interleaved) through a loopback
+                 client: unbudgeted first (the reference answers, each
+                 model's measured cost: param_bytes + graph-pool bytes),
+                 then under an --hbm-budget where the two largest costs fit
+                 and the three largest do not. Held: answers bitwise equal;
+                 promotions >= 5, evictions >= 3; the pinned model never
+                 evicted; resident bytes within the budget; a cold model's
+                 live pool bytes 0; /snapshot and /metrics lifecycle lines;
+                 two promotions while a second client keeps the pinned model
+                 busy, every answer of both bitwise;
+                 kernels 1, 3, 4 and 5 bitwise against their plain versions
+                 on the phase's inputs, their launches split into capture
+                 warmups and replays. Lines lifecycle_costs and lifecycle:
+                 recapture and promotion ms, cold and warm request p50, the
+                 card's memory around an eviction with and without
+                 empty_cache
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -795,6 +820,7 @@ PHASES = {
     "second_sparse": ("34", ()),
     "telemetry": ("35", ()),
     "telemetry_plane": ("36", ()),
+    "lifecycle": ("37", ("yolov5", "3d", "second")),
 }
 
 
@@ -941,6 +967,12 @@ def main(argv: list[str] | None = None) -> int:
         run_telemetry(card, counters)
     if "telemetry_plane" in groups:
         run_telemetry_plane(card)
+    # phase 37: kernels 1, 3, 4 and 5 recaptured after each promotion
+    if "lifecycle" in groups:
+        for name, split in run_lifecycle(card, counters).items():
+            if name in rows:
+                rows[name]["launches_by_path"]["lifecycle_capture"] = split["capture"]
+                rows[name]["launches_by_path"]["lifecycle_replay"] = split["replay"]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6268,6 +6300,420 @@ def _hist_q(h, q: float) -> float:
     from triton_client_tpu_torch.obs.histogram import quantile_from_snapshot
 
     return quantile_from_snapshot(h or {}, q)
+
+
+
+# phase 37: four examples/ entries behind `serve`'s wiring with a lifecycle;
+# yolov5_crop pinned in its tenant, the rest in a second tenant
+LIFECYCLE_ENTRIES = ("yolov5_crop", "yolov5l_crop", "pointpillar_kitti", "second_iou")
+LIFECYCLE_PINNED = "yolov5_crop"
+LIFECYCLE_REQUESTS = 6  # a model, interleaved from a seed
+LIFECYCLE_FLEET_INFLIGHT = 4
+# the kernels (COUNTER_NAMES) each entry's request launches once
+LIFECYCLE_KERNELS = {
+    "yolov5_crop": ("decode_nms_2d",),
+    "yolov5l_crop": ("decode_nms_2d",),
+    "pointpillar_kitti": ("residual_decode_3d", "suppress_pack_3d", "residual_decode_3d_gathered"),
+    "second_iou": ("residual_decode_3d", "suppress_pack_3d", "residual_decode_3d_gathered",
+                   "segment_mean"),
+}
+
+
+def lifecycle_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """Copies of the four entries' ``config.yaml`` (seeded weights at build),
+    the 2D ones at conf 0.05: seeded weights keep nothing at 0.3."""
+    for name in LIFECYCLE_ENTRIES:
+        (tmp / name).mkdir()
+        text = (ROOT / "examples" / name / "config.yaml").read_text()
+        if name.startswith("yolov5"):
+            check("conf_thresh: 0.3" in text, f"examples/{name} changed its conf_thresh")
+            text = text.replace("conf_thresh: 0.3", "conf_thresh: 0.05")
+        (tmp / name / "config.yaml").write_text(text)
+    return tmp
+
+
+def lifecycle_inputs(spec_extra: dict, name: str, seed: int) -> dict:
+    """One request's inputs: a seeded FP32 frame at the entry's input size
+    (the key its page-in captures), or a seeded 20,000-point scan padded to
+    the entry's buckets."""
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+
+    rng = np.random.default_rng(seed)
+    if name.startswith("yolov5"):
+        h, w = spec_extra["model_input_hw"]
+        return {"images": rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)}
+    pc = uniform_clouds(seed, (0.0, -39.68, -3.0, 69.12, 39.68, 1.0), SCAN_POINTS[0], 1)[0]
+    padded, m = prepare_points(pc, 4, spec_extra["point_buckets"], spec_extra["z_offset"])
+    return {"points": padded, "num_points": np.asarray(m, np.int32)}
+
+
+def memory_reading() -> dict:
+    """The card's reserved and allocated bytes (the caching allocator) and
+    its free bytes (``mem_get_info``), after a synchronize."""
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    return {"reserved": int(stats["reserved_bytes.all.current"]),
+            "allocated": int(stats["allocated_bytes.all.current"]), "free": int(free),
+            "total": int(total)}
+
+
+def memory_change(before: dict, after: dict) -> dict:
+    """after - before of each reading: an eviction that frees memory reads
+    a negative reserved and a positive free."""
+    return {k: after[k] - before[k] for k in ("reserved", "allocated", "free")}
+
+
+def lifecycle_server(root: pathlib.Path, flags: list[str]):
+    """``serve``'s wiring in this process (cli/serve.build_server), started
+    on a loopback port: (server, its repository, a client of it)."""
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.cli import serve
+
+    args = serve.parser().parse_args(["-r", str(root), "-a", "127.0.0.1:0", "--uds", "off",
+                                      "--max-workers", "4", *flags])
+    server = serve.build_server(args)
+    server.start()
+    return server, server.channel._repository, GRPCChannel(f"127.0.0.1:{server.port}",
+                                                           timeout_s=300.0)
+
+
+def timed_hooks(lifecycle) -> dict:
+    """Wrap the manager's page-in and page-out hooks to time each event
+    (host clock, the card synchronized after): {"warm": [(model, s)],
+    "evict": [(model, s)]}."""
+    events: dict = {"warm": [], "evict": []}
+    warmer, evictor = lifecycle._warmer, lifecycle._evictor
+
+    def timed(kind, hook):
+        def run(name, version):
+            t0 = time.perf_counter()
+            hook(name, version)
+            torch.cuda.synchronize()
+            events[kind].append((name, time.perf_counter() - t0))
+        return run
+
+    lifecycle.set_hooks(warmer=timed("warm", warmer), evictor=timed("evict", evictor))
+    return events
+
+
+def promote_beside_serving(server, lifecycle, requests, want, promotions: int = 2) -> dict:
+    """``promotions`` cold models promoted, one after the other, through the
+    main client while a second client keeps the pinned model busy: each
+    promotion's capture, and the eviction and ``empty_cache`` it makes, run
+    beside the pinned model's replays on other RPC threads. Every answer of
+    both is held bitwise against the unbudgeted server's, and resident
+    bytes against the budget. Returns the promotions' walls, the busy
+    client's requests and how many of them overlapped a promotion."""
+    import threading
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+
+    def bitwise(got, ref) -> bool:
+        return set(got) == set(ref) and all(
+            np.asarray(got[k]).tobytes() == np.asarray(ref[k]).tobytes() for k in ref)
+
+    address = f"127.0.0.1:{server.port}"
+    pinned = [(inputs, ref) for (name, inputs), ref in zip(requests, want)
+              if name == LIFECYCLE_PINNED][:2]
+    stop, busy, errors = threading.Event(), [], []
+    busy_client = GRPCChannel(address, timeout_s=300.0)
+    main_client = GRPCChannel(address, timeout_s=300.0)
+
+    def keep_busy():
+        i = 0
+        while not stop.is_set() and i < 5000:
+            inputs, ref = pinned[i % len(pinned)]
+            t0 = time.perf_counter()
+            try:
+                got = busy_client.do_inference(InferRequest(LIFECYCLE_PINNED, inputs)).outputs
+            except Exception as e:  # re-raised below, on the phase's thread
+                errors.append(e)
+                return
+            busy.append((t0, time.perf_counter(), bitwise(got, ref)))
+            i += 1
+
+    worker = threading.Thread(target=keep_busy, daemon=True)
+    windows, promoted = [], []
+    try:
+        worker.start()
+        bound = time.perf_counter() + 60.0
+        while len(busy) < 3 and not errors and time.perf_counter() < bound:
+            time.sleep(0.01)
+        for _ in range(promotions):
+            s = lifecycle.stats()
+            cold = [n for n in LIFECYCLE_ENTRIES if s["models"][f"{n}:1"]["state"] == "cold"]
+            check(bool(cold), f"no cold model to promote: {s['models']}")
+            name = cold[0]
+            inputs, ref = next((i, r) for (n, i), r in zip(requests, want) if n == name)
+            t0 = time.perf_counter()
+            got = main_client.do_inference(InferRequest(name, inputs)).outputs
+            windows.append((t0, time.perf_counter()))
+            promoted.append(name)
+            check(bitwise(got, ref), f"{name}: promoted beside a serving model, its answer differs")
+            s = lifecycle.stats()
+            check(s["models"][f"{name}:1"]["state"] == "warm"
+                  and s["resident_bytes"] <= lifecycle.budget_bytes,
+                  f"{name} beside a serving model: {s['models'][f'{name}:1']}, resident "
+                  f"{s['resident_bytes']} of {lifecycle.budget_bytes}")
+    finally:
+        stop.set()
+        worker.join(timeout=60.0)
+        busy_client.close()
+        main_client.close()
+    check(not worker.is_alive(), "the busy client did not stop")
+    if errors:
+        raise errors[0]
+    check(all(ok for _, _, ok in busy), "the pinned model's answer changed beside a promotion")
+    overlapping = [sum(1 for b0, b1, _ in busy if b0 < w1 and b1 > w0) for w0, w1 in windows]
+    check(all(n >= 1 for n in overlapping),
+          f"no request of the pinned model overlapped a promotion: {overlapping}")
+    check(lifecycle.stats()["models"][f"{LIFECYCLE_PINNED}:1"]["evictions"] == 0,
+          f"the pinned {LIFECYCLE_PINNED} was evicted")
+    return {"promoted": promoted, "promotion_request_ms": [1e3 * (w1 - w0) for w0, w1 in windows],
+            "busy_requests": len(busy), "busy_overlapping": overlapping,
+            "busy_p50_ms": 1e3 * float(np.percentile([b1 - b0 for b0, b1, _ in busy], 50))}
+
+
+def run_lifecycle(card: str, counters) -> dict:
+    """Phase 37: the model lifecycle and tenant plane on the card.
+    ``serve``'s wiring in this process over copies of examples/yolov5_crop,
+    yolov5l_crop (both at conf 0.05), pointpillar_kitti and second_iou, with
+    a ``tenants.yaml`` that pins yolov5_crop in a tenant with a quota and
+    puts the other three in a tenant with ``max_inflight``. First an
+    unbudgeted server (``--tenants`` only: models page in and never out)
+    answers a seeded schedule of 24 requests, 6 a model interleaved, through
+    a loopback client and gives each model's measured cost
+    (``param_bytes`` + its graph pools). It is stopped and freed; then a
+    server with ``--hbm-budget`` set so that the two largest costs fit and
+    the three largest do not (``--metrics-port auto``, ``--admission``)
+    answers the same schedule. Held: every answer bitwise equal to the
+    unbudgeted server's; promotions >= 5, evictions >= 3; the pinned model
+    never evicted; resident bytes within the budget after every request;
+    every COLD model's live graph-pool bytes and keys 0; /snapshot and
+    /metrics carrying the lifecycle; two cold models promoted while a
+    second client keeps the pinned model busy (their captures, and the
+    evictions and ``empty_cache`` they make, beside its replays), every
+    answer of both bitwise equal to the unbudgeted server's and resident
+    bytes within the budget; kernels 1, 3, 4 and 5 bitwise equal to
+    their plain versions on the phase's own inputs; each kernel's launches
+    in the schedule equal to the replays' plus the captures' warmup calls
+    (``runtime/graphs.WARMUP_CALLS`` a capture) plus the ledger's one
+    measuring run a model. Then the page-out's two steps apart (the
+    graphs' release, then ``empty_cache``) and a whole eviction, the card's
+    memory read around each. Lines lifecycle_costs and lifecycle."""
+    import gc
+    import tempfile
+    import urllib.request
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.staged import cast_wire_input
+    from triton_client_tpu_torch.obs.histogram import quantile_from_snapshot
+    from triton_client_tpu_torch.runtime import graphs
+    from triton_client_tpu_torch.runtime.precision import host_tensor
+
+    t_phase = time.perf_counter()
+    names = list(LIFECYCLE_ENTRIES)
+    order = [n for n in names for _ in range(LIFECYCLE_REQUESTS)]
+    np.random.default_rng(37).shuffle(order)
+    with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
+        root = pathlib.Path(tmp) / "repo"
+        root.mkdir()
+        lifecycle_repository(root)
+        tenants = pathlib.Path(tmp) / "tenants.yaml"
+
+        def write_tenants(quota_mb: float) -> None:
+            fleet = ", ".join(n for n in names if n != LIFECYCLE_PINNED)
+            tenants.write_text(
+                f"tenants:\n  lines:\n    share: 4\n    hbm_quota_mb: {quota_mb}\n"
+                f"    models: [{LIFECYCLE_PINNED}]\n    pinned: [{LIFECYCLE_PINNED}]\n"
+                f"  fleet:\n    share: 1\n    max_inflight: {LIFECYCLE_FLEET_INFLIGHT}\n"
+                f"    models: [{fleet}]\n")
+
+        # -- the unbudgeted server: the reference answers and the costs
+        write_tenants(65536)
+        mem_a0 = memory_reading()
+        server, repo, client = lifecycle_server(root, ["--tenants", str(tenants)])
+        requests = [(name, lifecycle_inputs(repo.get(name).spec.extra, name, 3700 + i))
+                    for i, name in enumerate(order)]
+        want = []
+        try:
+            for name, inputs in requests:
+                want.append(client.do_inference(InferRequest(name, inputs)).outputs)
+            stats_a = server.lifecycle.stats()
+            costs = {m.split(":")[0]: row["cost_bytes"] for m, row in stats_a["models"].items()}
+            pools = {n: repo.get(n).infer_fn.graph_stats()["pool_bytes"] for n in names}
+            params = {n: int(repo.get(n).spec.extra.get("param_bytes", 0)) for n in names}
+            check(stats_a["evictions"] == 0 and stats_a["promotions"] == len(names),
+                  f"unbudgeted: {stats_a['promotions']} promotions, {stats_a['evictions']} "
+                  "evictions")
+            check(all(costs[n] == params[n] + pools[n] > params[n] for n in names),
+                  f"costs {costs} are not param_bytes {params} + pool bytes {pools}")
+            mem_a1 = memory_reading()
+        finally:
+            client.close()
+            server.stop()
+        del server, repo, client
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranked = sorted(costs.values(), reverse=True)
+        budget = ranked[0] + ranked[1] + ranked[2] // 2
+        budget_mb = budget / (1 << 20)
+        emit("lifecycle_costs", card, costs=costs, param_bytes=params, pool_bytes=pools,
+             budget_bytes=budget, memory_unbudgeted=memory_change(mem_a0, mem_a1),
+             memory_after_free=memory_change(mem_a0, memory_reading()))
+
+        # -- the budgeted server
+        write_tenants(costs[LIFECYCLE_PINNED] * 1.5 / (1 << 20))
+        mem_b0 = memory_reading()
+        server, repo, client = lifecycle_server(root, [
+            "--hbm-budget", repr(budget_mb), "--tenants", str(tenants), "--metrics-port", "auto",
+            "--admission", "64"])
+        lifecycle, channel = server.lifecycle, server.channel
+        events = timed_hooks(lifecycle)
+        try:
+            check(abs(lifecycle.budget_bytes - budget) <= 1,
+                  f"budget {lifecycle.budget_bytes} != {budget}")
+            graph_stats = {n: repo.get(n).infer_fn.graph_stats for n in names}
+            before = {n: graph_stats[n]() for n in names}
+            measured0 = set(channel._cost_measured)
+            torch.cuda.synchronize()
+            for counter in counters:
+                counter.reset()
+            latencies = {"cold": [], "warm": []}
+            max_resident = 0
+            for (name, inputs), ref in zip(requests, want):
+                promoted = lifecycle.stats()["models"].get(f"{name}:1", {}).get("promotions", 0)
+                t0 = time.perf_counter()
+                got = client.do_inference(InferRequest(name, inputs)).outputs
+                wall = time.perf_counter() - t0
+                s = lifecycle.stats()
+                cold = s["models"][f"{name}:1"]["promotions"] > promoted
+                latencies["cold" if cold else "warm"].append((name, wall))
+                check(set(got) == set(ref) and all(
+                    np.asarray(got[k]).tobytes() == np.asarray(ref[k]).tobytes() for k in ref),
+                    f"{name}: a paged answer differs from the unbudgeted server's")
+                max_resident = max(max_resident, s["resident_bytes"])
+                check(s["resident_bytes"] <= budget,
+                      f"resident {s['resident_bytes']} over the budget {budget}")
+                for model, row in s["models"].items():
+                    if row["state"] == "cold":
+                        g = graph_stats[model.split(":")[0]]()
+                        check(g["pool_bytes"] == 0 and g["keys"] == 0,
+                              f"{model} is cold and holds graphs: {g}")
+            torch.cuda.synchronize()
+            launches = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+            after = {n: graph_stats[n]() for n in names}
+            measured = set(channel._cost_measured) - measured0
+            s = lifecycle.stats()
+            check(s["promotions"] >= 5 and s["evictions"] >= 3,
+                  f"{s['promotions']} promotions, {s['evictions']} evictions")
+            check(s["models"][f"{LIFECYCLE_PINNED}:1"]["evictions"] == 0,
+                  f"the pinned {LIFECYCLE_PINNED} was evicted")
+            # launches: replays, the captures' eager warmup calls, the
+            # ledger's one measuring run a model
+            split = {}
+            for kernel in sorted({k for ks in LIFECYCLE_KERNELS.values() for k in ks}):
+                users = [n for n in names if kernel in LIFECYCLE_KERNELS[n]]
+                replay = sum(after[n]["replays"] - before[n]["replays"] for n in users)
+                capture = sum(graphs.WARMUP_CALLS * (after[n]["captures"] - before[n]["captures"])
+                              for n in users)
+                cost = sum((n, "1") in measured for n in users)
+                split[kernel] = {"total": launches[kernel], "replay": replay,
+                                 "capture_warmup": capture, "ledger_cost": cost}
+                check(launches[kernel] == replay + capture + cost,
+                      f"{kernel}: {launches[kernel]} launches != {replay} replays + {capture} "
+                      f"capture warmups + {cost} ledger runs")
+            check(all(launches[k] == 0 for k in ("greedy_nms", "segment_sum")),
+                  f"launches off the path: {launches}")
+            mem_b1 = memory_reading()
+            # the telemetry plane reads the manager
+            base = f"http://127.0.0.1:{server.metrics_port}"
+            code, snap = http_json(base + "/snapshot")
+            check(code == 200 and snap["lifecycle"]["budget_bytes"] == lifecycle.budget_bytes
+                  and snap["lifecycle"]["promotion_latency"]["count"] == s["promotions"],
+                  f"/snapshot lifecycle: {code} {snap and snap.get('lifecycle')}")
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+                text = resp.read().decode()
+            for line in ('tpu_serving_tenant_hbm_bytes{tenant="fleet"}',
+                         'tpu_serving_tenant_hbm_bytes{tenant="lines"}',
+                         "tpu_serving_promotion_seconds_bucket",
+                         'tpu_serving_lifecycle_models{state="warm"}'):
+                check(line in text, f"/metrics lacks {line}")
+            check(server.admission.stats()["tenant_inflight"] == {"lines": 0, "fleet": 0},
+                  f"tenant in-flight {server.admission.stats()['tenant_inflight']}")
+            beside = promote_beside_serving(server, lifecycle, requests, want)
+            # kernels 1, 3, 4 and 5 against their plain versions, on the
+            # phase's own first input of each model (eager, outside the window)
+            shapes = {}
+            for name in names:
+                model = repo.get(name)
+                inputs = next(i for n, i in requests if n == name)
+                on_card = {k: host_tensor(np.require(cast_wire_input(model, k, np.asarray(v)),
+                                                     requirements="C")).cuda()
+                           for k, v in inputs.items()}
+                _, calls = recorded_kernel_calls(lambda: model.member_device_fn(on_card))
+                # kernel 3 records under its gathered form
+                check(set(calls) == set(LIFECYCLE_KERNELS[name]) - {"residual_decode_3d"},
+                      f"{name}: the eager run called {sorted(calls)}")
+                shapes[name] = kernels_equal_plain(calls, f"lifecycle_{name}")
+            # the page-out's two steps apart, then whole: the graphs'
+            # release alone, empty_cache after it, and an eviction (both)
+            victim = "pointpillar_kitti"
+            lifecycle.prefetch(victim)
+            pool = graph_stats[victim]()["pool_bytes"]
+            r0 = memory_reading()
+            t0 = time.perf_counter()
+            repo.get(victim).infer_fn.release_graphs()
+            torch.cuda.synchronize()
+            release_s = time.perf_counter() - t0
+            r1 = memory_reading()
+            t0 = time.perf_counter()
+            graphs.empty_cache()
+            empty_s = time.perf_counter() - t0
+            r2 = memory_reading()
+            check(lifecycle.evict(victim), f"{victim} did not evict")
+            lifecycle.prefetch(victim)
+            r3 = memory_reading()
+            t0 = time.perf_counter()
+            check(lifecycle.evict(victim), f"{victim} did not evict")
+            evict_s = time.perf_counter() - t0
+            r4 = memory_reading()
+            page_out = {
+                "pool_bytes": pool,
+                "release": {"s": release_s, "change": memory_change(r0, r1)},
+                "empty_cache_after_release": {"s": empty_s, "change": memory_change(r1, r2)},
+                "evict": {"s": evict_s, "change": memory_change(r3, r4)},
+            }
+        finally:
+            client.close()
+            server.stop()
+    warm_s = [t for _, t in events["warm"]]
+    evict_s = [t for _, t in events["evict"]]
+    hist = s["promotion_latency"]
+    emit("lifecycle", card, entries=names, order=order, budget_bytes=budget,
+         max_resident_bytes=max_resident, promotions=s["promotions"], evictions=s["evictions"],
+         models={m: {k: row[k] for k in ("state", "cost_bytes", "tenant", "pinned", "promotions",
+                                         "evictions")} for m, row in s["models"].items()},
+         promotion_ms={"p50_hist": 1e3 * quantile_from_snapshot(hist, 0.5),
+                       "p99_hist": 1e3 * quantile_from_snapshot(hist, 0.99),
+                       "mean": 1e3 * hist["sum"] / max(1, hist["count"]), "count": hist["count"]},
+         recapture_ms={"p50": 1e3 * float(np.percentile(warm_s, 50)),
+                       "p99": 1e3 * float(np.percentile(warm_s, 99)), "n": len(warm_s),
+                       "by_model": {n: [1e3 * t for m, t in events["warm"] if m == n]
+                                    for n in names}},
+         evict_ms={"p50": 1e3 * float(np.percentile(evict_s, 50)), "n": len(evict_s)},
+         request_p50_ms={kind: 1e3 * float(np.percentile([t for _, t in rows], 50))
+                         for kind, rows in latencies.items() if rows},
+         request_p50_ms_by_model={n: {kind: 1e3 * float(np.percentile(
+             [t for m, t in rows if m == n], 50)) for kind, rows in latencies.items()
+             if any(m == n for m, _ in rows)} for n in names},
+         launches=split, kernel_shapes=shapes, page_out=page_out, beside_serving=beside,
+         memory={"unbudgeted": memory_change(mem_a0, mem_a1),
+                 "budgeted": memory_change(mem_b0, mem_b1)},
+         wall_s=time.perf_counter() - t_phase)
+    return {k: {"capture": v["capture_warmup"], "replay": v["replay"]} for k, v in split.items()}
 
 
 if __name__ == "__main__":

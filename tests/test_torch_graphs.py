@@ -814,3 +814,37 @@ def test_fused_ensemble_capture_equals_eager_bitwise_on_card(cuda_device, batch)
                               (torch.from_numpy(hosted["boxes"]), torch.from_numpy(hosted["valid"])),
                               f"request {i} against the host path")
     assert any(int(out["valid"].sum()) > 0 for out in got)
+
+
+@pytest.mark.cuda
+def test_release_frees_the_graph_pool_on_card(cuda_device):
+    """``release`` drops every key's graph: ``keys`` and ``pool_bytes`` read
+    0, the pool's blocks go back to CUDA at ``graphs.empty_cache``
+    (reserved falls by at least the pool's bytes), and the next call
+    captures into a new pool and answers bitwise as before, with the
+    replayed launches counted again."""
+    from triton_client_tpu_torch.pipelines.detect2d import Detect2DConfig, build_yolov5_pipeline
+    from triton_client_tpu_torch.runtime import graphs
+
+    cfg = Detect2DConfig(model_name="y", input_hw=(256, 256), num_classes=2, conf_thresh=0.05,
+                         max_det=100)
+    pipe, _, _ = build_yolov5_pipeline(num_classes=2, config=cfg, device="cuda", seed=0)
+    frames = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 255, (2, 256, 256, 3), dtype=np.uint8)).to(cuda_device)
+    first = [t.clone() for t in pipe._jit(frames)]
+    stats = pipe._jit.stats()
+    assert stats["keys"] == 1 and stats["pool_bytes"] > 0
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    pipe._jit.release()
+    graphs.empty_cache()
+    freed = reserved - torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    assert pipe._jit.stats()["keys"] == pipe._jit.stats()["pool_bytes"] == 0
+    assert freed >= stats["pool_bytes"], (freed, stats["pool_bytes"])
+    c0 = _counts()
+    again = pipe._jit(frames)
+    torch.cuda.synchronize()
+    after = pipe._jit.stats()
+    assert after["captures"] == 2 and after["keys"] == 1 and after["pool_bytes"] > 0
+    assert sum(b - a for a, b in zip(c0, _counts())) == graphs.WARMUP_CALLS + 1
+    _assert_outputs_equal(tuple(again), tuple(first), "after a release")

@@ -121,8 +121,7 @@ NON_DEFAULT = {
     "quality_window": ["--quality-window", "8"],
     "quality_promote_after": ["--quality-promote-after", "1"],
     "quality_pin_fused_off": ["--quality-pin-fused-off"],
-    "hbm_budget": ["--hbm-budget", "256"],
-    "tenants": ["--tenants", "t.yaml"], "max_sessions": ["--max-sessions", "64"],
+    "max_sessions": ["--max-sessions", "64"],
     "session_ttl_s": ["--session-ttl-s", "5"],
     "session_id_namespace": ["--session-id-namespace", "3"],
     "temporal_reuse": ["--temporal-reuse", "on"], "temporal_k_max": ["--temporal-k-max", "4"],
@@ -130,10 +129,17 @@ NON_DEFAULT = {
     "replica_of": ["--replica-of", "cell0/pool"],
 }
 
-# the telemetry and SLO flags (served since they left UNPORTED): flags ->
-# what the built server shows for them
+# the flags served since they left UNPORTED (the telemetry and SLO planes,
+# the lifecycle and tenants): flags -> what the built server shows for them
 _METRICS = ["--metrics-port", "auto"]
 SERVED = {
+    "hbm_budget": (["--hbm-budget", "256"],
+                   lambda s: s.lifecycle.budget_bytes == 256 << 20
+                   and s.channel.lifecycle is s.lifecycle),
+    "tenants": (["--tenants", "TENANTS", "--batching", "--admission", "4"],
+                lambda s: s.tenants.tenant_of("tiny") == "crop" and s.lifecycle.tenants is s.tenants
+                and s.channel._tenant_table is s.tenants
+                and s.admission.stats()["tenant_inflight"] == {}),
     "metrics_port": (_METRICS, lambda s: s.metrics_enabled and s.metrics_port > 0),
     "op_sample_interval": (_METRICS + ["--op-sample-interval", "2"],
                            lambda s: s.sampler.interval_s == 2.0),
@@ -166,7 +172,9 @@ def test_telemetry_and_slo_flags_are_served(tmp_path, monkeypatch, dest):
     monkeypatch.chdir(ROOT)
     flags, holds = SERVED[dest]
     history = tmp_path / "history.json"
-    flags = [str(history) if f == "HISTORY" else f for f in flags]
+    tenants = tmp_path / "tenants.yaml"
+    tenants.write_text("tenants:\n  crop:\n    max_inflight: 2\n    models: [tiny]\n")
+    flags = [{"HISTORY": str(history), "TENANTS": str(tenants)}.get(f, f) for f in flags]
     server = serve.build_server(_args(tmp_path, *flags))
     try:
         assert holds is None or holds(server)

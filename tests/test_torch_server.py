@@ -532,8 +532,7 @@ def test_grpc_code_mapping_agrees(name):
 
 def test_unported_options_raise_naming_their_item():
     repo = ModelRepository()
-    for kw in ({"tenants": object()}, {"lifecycle": object()}, {"quality": object()},
-               {"temporal": object()}):
+    for kw in ({"quality": object()}, {"temporal": object()}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 8"):
             tserver.InferenceServer(repo, None, address="127.0.0.1:0", **kw)
 

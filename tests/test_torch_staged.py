@@ -315,16 +315,27 @@ def test_a_fault_fails_only_its_own_future(point):
 
 @pytest.mark.parametrize("hook", ["attach_lifecycle", "attach_device_time", "attach_sessions"])
 def test_slot_buffers_and_hooks_not_ported(hook):
-    """The lifecycle and sessions hooks still raise naming ROADMAP; the
-    device-time hook is ported: it takes a ledger, which then accounts
-    one launch a request (tests/test_torch_device_time.py holds the rest)."""
+    """The sessions hook still raises naming ROADMAP; the device-time hook is
+    ported: it takes a ledger, which then accounts one launch a request
+    (tests/test_torch_device_time.py holds the rest); so is the lifecycle
+    hook: a request promotes its model (tests/test_torch_lifecycle.py holds
+    the rest)."""
     from triton_client_tpu_torch.obs.device_time import DeviceTimeLedger
+    from triton_client_tpu_torch.runtime.lifecycle import ModelLifecycleManager
 
     _, chan = _port()
     attach = getattr(chan, hook)
-    if hook != "attach_device_time":
+    if hook == "attach_sessions":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(object())
+        return
+    if hook == "attach_lifecycle":
+        manager = ModelLifecycleManager(chan._repository)
+        attach(manager)
+        assert chan.lifecycle is manager
+        chan.do_inference(InferRequest("staged", {"x": _frame(0)}))
+        stats = manager.stats()
+        assert stats["promotions"] == 1 and stats["states"]["warm"] == 1
         return
     ledger = DeviceTimeLedger()
     attach(ledger)

@@ -31,6 +31,13 @@ at the boundary, lazily (``channel/staged.py``).
   (``ops/gpu_segment.owned_tickets``). The dead segment slots are sliced
   off the outputs whose leading dim is the segment bucket. Their inputs
   skip the per-tensor spec check.
+- **Page-out** (``attach_lifecycle``, ``channel/staged.py``): an evicted
+  model's graphs are released, then ``runtime/graphs.empty_cache`` hands
+  their freed pools back to CUDA (the caching allocator would keep
+  the blocks reserved for this process, and cannot release a dead pool
+  while another thread captures). A model's cost is ``param_bytes`` plus
+  the live bytes of its graph pools, noted after each capture. The
+  weights stay on the card: a page-out frees graphs, not parameters.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from triton_client_tpu_torch.channel.staged import (  # noqa: F401 (re-exported)
 from triton_client_tpu_torch.device import resolve_device
 from triton_client_tpu_torch.ops.gpu_segment import owned_tickets
 from triton_client_tpu_torch.runtime.precision import host_tensor
-from triton_client_tpu_torch.runtime.graphs import CapturedFunction
+from triton_client_tpu_torch.runtime.graphs import CapturedFunction, empty_cache
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
 
@@ -216,6 +223,10 @@ class CUDAChannel(StagedChannel):
         end = torch.cuda.Event(enable_timing=True)
         end.record(torch.cuda.current_stream(self.device))
         return end, lambda: start.elapsed_time(end) / 1e3
+
+    def _after_page_out(self) -> None:
+        if self.device.type == "cuda":
+            empty_cache()
 
     # -- launcher ---------------------------------------------------------------
 

@@ -33,9 +33,15 @@ first launch of each model identity measures its flops and bytes
 (``obs/roofline.record_launch_cost``) into ``spec.extra``. With no ledger
 attached neither happens.
 
-The JAX engine's lifecycle and sessions hooks are not ported:
-``attach_lifecycle`` and ``attach_sessions`` raise
-``NotImplementedError``.
+``attach_lifecycle`` attaches a ``runtime/lifecycle.ModelLifecycleManager``:
+``stage`` then waits until the model is WARM (promoting it on demand) and
+holds an in-flight reference until the request resolves or fails. The
+manager's page-in hook (:meth:`StagedChannel._warm_model`) builds the
+launcher, or captures the graphs of a model that serves through its
+``infer_fn``; its page-out hook (:meth:`StagedChannel._evict_model`) drops
+the model's launchers and releases every CUDA graph the model serves
+through, with their pools. The JAX engine's sessions hook is not ported:
+``attach_sessions`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from triton_client_tpu_torch.runtime.admission import (
     CircuitOpenError,
     DeadlineExpiredError,
 )
+from triton_client_tpu_torch.runtime.graphs import captures_on_this_thread
 from triton_client_tpu_torch.runtime.precision import bf16_words_to_f32, host_array, is_bf16_words
 from triton_client_tpu_torch.runtime.repository import ModelRepository
 
@@ -133,13 +140,16 @@ class StagedRequest:
     ``meta`` carries the subclass's placement state (the staging slot, or
     a packed request's layout)."""
 
-    __slots__ = ("model", "device_inputs", "request", "meta")
+    __slots__ = ("model", "device_inputs", "request", "meta", "lifecycle_key")
 
-    def __init__(self, model, device_inputs, request, meta=None) -> None:
+    def __init__(self, model, device_inputs, request, meta=None, lifecycle_key=None) -> None:
         self.model = model
         self.device_inputs = device_inputs
         self.request = request
         self.meta = meta
+        # the (name, version) in-flight reference held on the lifecycle
+        # manager, dropped once by StagedChannel._release_lifecycle
+        self.lifecycle_key = lifecycle_key
 
 
 class _Inflight:
@@ -215,6 +225,7 @@ class StagedChannel(BaseChannel):
         self._launch_cache: dict = {}
         self._device_time = None  # obs/device_time.DeviceTimeLedger
         self._cost_measured: set = set()  # model identities whose cost is recorded
+        self._lifecycle = None  # runtime/lifecycle.ModelLifecycleManager
         repository.add_unregister_listener(self._on_unregister)
         self.register_channel()
 
@@ -361,25 +372,46 @@ class StagedChannel(BaseChannel):
                         f"request has {sorted(request.inputs)}"
                     )
                 tensor_spec.validate(np.asarray(request.inputs[tensor_spec.name]))
-        if tr is not None:
-            t_w0 = time.perf_counter()
-            self._acquire_slot()
-            tr.add("slot_wait", t_w0, time.perf_counter())
-        else:
-            self._acquire_slot()
+        lifecycle_key = None
+        if self._lifecycle is not None:
+            # wait until the model is WARM (a cold model promotes here: the
+            # first request pays the page-in, its peers queue behind it
+            # with a deadline-aware bound) and take the in-flight reference
+            # that keeps it from eviction
+            t_p0 = time.perf_counter()
+            try:
+                lifecycle_key = self._lifecycle.acquire(
+                    model.spec.name, model.spec.version, deadline_s=request.deadline_s)
+            except Exception:
+                self._count_shed(model.spec.name, request.priority, "lifecycle")
+                raise
+            if tr is not None:
+                tr.add("lifecycle", t_p0, time.perf_counter())
+        staged = StagedRequest(model, None, request, lifecycle_key=lifecycle_key)
+        try:
+            if tr is not None:
+                t_w0 = time.perf_counter()
+                self._acquire_slot()
+                tr.add("slot_wait", t_w0, time.perf_counter())
+            else:
+                self._acquire_slot()
+        except BaseException:
+            self._release_lifecycle(staged)
+            raise
         try:
             if ragged:
-                device_inputs, meta = self._place_ragged(model, request)
+                staged.device_inputs, staged.meta = self._place_ragged(model, request)
             else:
-                device_inputs, meta = self._place_inputs(model, request)
+                staged.device_inputs, staged.meta = self._place_inputs(model, request)
         except Exception:
             self._release_slot()
+            self._release_lifecycle(staged)
             raise
         with self._slot_cv:
             self._stats["staged"] += 1
         if tr is not None:
             tr.add("stage", t_s0, time.perf_counter())
-        return StagedRequest(model, device_inputs, request, meta)
+        return staged
 
     def _acquire_slot(self) -> None:
         waited = False
@@ -453,6 +485,7 @@ class StagedChannel(BaseChannel):
         donate_names = frozenset()
         ledger = self._device_time
         device_seconds = None
+        captured = captures_on_this_thread()
         try:
             faults.probe("slow_launch", name)
             faults.probe("launch", name)
@@ -484,6 +517,8 @@ class StagedChannel(BaseChannel):
             self._record_launch_failure(name)
             return InferFuture.failed(e)
         self._consumed(staged)
+        if self._lifecycle is not None and captures_on_this_thread() != captured:
+            self._note_cost(model)  # the launch captured: the model's cost grew
         rec = _Inflight(event)
         t_launched = time.perf_counter()
         if tr is not None:
@@ -515,6 +550,7 @@ class StagedChannel(BaseChannel):
                 raise
             finally:
                 self._retire(rec)
+                self._release_lifecycle(staged)
             if self._breaker is not None:
                 self._breaker.record_success(name)
             return InferResponse(
@@ -528,10 +564,11 @@ class StagedChannel(BaseChannel):
         return InferFuture(resolve)
 
     def _abandon(self, staged: StagedRequest) -> None:
-        """A staged request that will not launch: free its placement and
-        its slot."""
+        """A staged request that will not launch: free its placement, its
+        slot and its lifecycle reference."""
         self._consumed(staged)
         self._release_slot()
+        self._release_lifecycle(staged)
 
     def _ragged_launcher(self, model, num_segments: int):
         """(launcher, wire dtypes) of a model's packed route at one segment
@@ -622,10 +659,90 @@ class StagedChannel(BaseChannel):
     def device_time(self):
         return self._device_time
 
-    # -- hooks of layers not ported -------------------------------------------
+    # -- model lifecycle (runtime/lifecycle.py) -------------------------------
 
     def attach_lifecycle(self, manager) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("model lifecycle"))
+        """Attach a ``ModelLifecycleManager`` (module docstring): ``stage``
+        then waits until the model is WARM and brackets each request with
+        acquire/release, so an eviction never takes a model with work in
+        flight."""
+        self._lifecycle = manager
+        manager.set_hooks(warmer=self._warm_model, evictor=self._evict_model)
+
+    @property
+    def lifecycle(self):
+        return self._lifecycle
+
+    def _warm_model(self, name: str, version: str) -> None:
+        """The page-in hook: build and cache the launcher of a model with a
+        ``device_fn`` (its graphs capture at its first launch), or run the
+        ``warmup`` of a model that serves through its ``infer_fn`` (a disk
+        entry's pipeline captures its graphs there), then note the
+        measured cost (which makes room again if it grew)."""
+        model = self._repository.get(name, version)
+        if model.device_fn is not None:
+            self._launcher(model)
+        elif model.warmup is not None:
+            model.warmup()
+        self._note_cost(model)
+
+    def _evict_model(self, name: str, version: str) -> None:
+        """The page-out hook: drop the model's cached launchers, dense and
+        ragged, release their graphs and the graphs its ``infer_fn`` serves
+        through (each ``CapturedFunction.release`` waits for its last
+        replay), then :meth:`_after_page_out`. A fused ensemble's graph is
+        its own model's: evicting a member leaves it alone."""
+        for launcher in self._invalidate_model(name, version):
+            graphs = getattr(launcher, "graphs", None)
+            if graphs is not None:
+                graphs.release()
+        try:
+            model = self._repository.get(name, version)
+        except KeyError:
+            model = None
+        release = getattr(getattr(model, "infer_fn", None), "release_graphs", None)
+        if release is not None:
+            release()
+        self._after_page_out()
+
+    def _after_page_out(self) -> None:
+        """What the device does once a model's graphs are released
+        (nothing here; ``CUDAChannel`` hands the freed pools back to
+        CUDA)."""
+
+    def _model_graph_stats(self, model) -> list[dict]:
+        """``stats()`` of every ``CapturedFunction`` the model serves
+        through here: its cached launchers', and its ``infer_fn``'s
+        (``graph_stats``) when it has no ``device_fn``."""
+        key = (model.spec.name, model.spec.version)
+        with self._slot_cv:
+            launchers = [v[1] for k, v in self._launch_cache.items()
+                         if k[:2] == key and v[0] is model]
+        out = [g.stats() for g in (getattr(fn, "graphs", None) for fn in launchers)
+               if g is not None]
+        graph_stats = getattr(model.infer_fn, "graph_stats", None)
+        if model.device_fn is None and graph_stats is not None:
+            out.append(graph_stats())
+        return out
+
+    def _note_cost(self, model) -> None:
+        """Rebase the model's lifecycle cost to ``param_bytes`` plus the
+        live bytes of its graph pools (the counterpart of the JAX sharded
+        channel's placed-tree bytes). Called after a page-in and after a
+        launch that captured (``runtime/graphs.captures_on_this_thread``)."""
+        pool = sum(s.get("pool_bytes", 0) for s in self._model_graph_stats(model))
+        if pool > 0:
+            param = int((model.spec.extra or {}).get("param_bytes", 0) or 0)
+            self._lifecycle.note_cost(model.spec.name, model.spec.version, param + pool)
+
+    def _release_lifecycle(self, staged: StagedRequest) -> None:
+        """Drop the request's in-flight lifecycle reference, once: every
+        failure path and resolve's ``finally`` come through here."""
+        key, staged.lifecycle_key = staged.lifecycle_key, None
+        if key is not None and self._lifecycle is not None:
+            self._lifecycle.release(*key)
+
+    # -- hooks of layers not ported -------------------------------------------
 
     def attach_sessions(self, manager) -> None:
         raise NotImplementedError(_NOT_PORTED.format("streaming sessions"))
@@ -635,9 +752,14 @@ class StagedChannel(BaseChannel):
     def _on_unregister(self, name: str, version: str) -> None:
         # an unregistered model must not keep serving from, or holding
         # device memory through, a stale cached launcher
+        self._invalidate_model(name, version)
+
+    def _invalidate_model(self, name: str, version: str) -> list:
+        """Drop every cached launcher of one (name, version), the dense one
+        and every ragged segment bucket's; returns them."""
         with self._slot_cv:
-            for key in [k for k in self._launch_cache if k[0] == name and k[1] == version]:
-                del self._launch_cache[key]
+            keys = [k for k in self._launch_cache if k[0] == name and k[1] == version]
+            return [self._launch_cache.pop(k)[1] for k in keys]
 
     def _count_shed(self, model: str, priority: int, stage: str) -> None:
         with self._slot_cv:

@@ -21,6 +21,15 @@ and ``/history`` (``obs/http.py``), with the SLO plane (``--slo-ms``), the
 metric history (``--history-*``) and the continuous op sampler
 (``--op-sample-*``) behind it.
 
+``--hbm-budget`` (MB) and ``--tenants`` (a ``tenants.yaml`` path) attach
+the model lifecycle (``runtime/lifecycle.py``): models start COLD, page in
+on their first request (their CUDA graphs captured) and page out
+LRU-within-priority under the budget (their graphs released); tenants get
+quotas, in-flight caps at admission and, on the continuous batcher, fair
+shares. With a lifecycle, ``--warmup`` prefetches the models in list
+order while the next one fits beside those already warm, and stops at the
+first that would evict another (or cannot fit at all).
+
 The JAX CLI's flags for layers the port does not serve yet keep their
 off values here and raise at any other value, naming the ROADMAP item
 (:data:`UNPORTED`). Two flags default differently from the JAX CLI,
@@ -48,8 +57,6 @@ UNPORTED = {
     "quality_window": ("--quality-window", 32, "quality"),
     "quality_promote_after": ("--quality-promote-after", 3, "quality"),
     "quality_pin_fused_off": ("--quality-pin-fused-off", False, "quality"),
-    "hbm_budget": ("--hbm-budget", 0.0, "lifecycle"),
-    "tenants": ("--tenants", "", "tenants"),
     "max_sessions": ("--max-sessions", 0, "sessions"),
     "session_ttl_s": ("--session-ttl-s", 60.0, "sessions"),
     "session_id_namespace": ("--session-id-namespace", 0, "sessions"),
@@ -154,13 +161,25 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-capacity", type=int, default=256,
                    help="recent request traces kept; 0 turns request tracing off")
     p.add_argument("--warmup", action="store_true",
-                   help="capture every registered model's graphs before serving")
+                   help="capture every registered model's graphs before serving; with "
+                   "--hbm-budget/--tenants, prefetch models in list order while the next fits "
+                   "without an eviction")
     p.add_argument("--precision", default="", choices=["", "f32", "bf16", "int8w", "int8"],
                    help="serving precision policy of EVERY repository entry, over each "
                    "config.yaml model.precision (runtime/precision.py): bf16 = parameters, "
                    "compute and float wire inputs in bfloat16; int8w = int8 weights with "
                    "per-channel scales; int8 = int8w plus the int8 wire where an entry "
                    "carries calibrated scales (none from a config.yaml: float32 wire)")
+    p.add_argument("--hbm-budget", type=float, default=0.0,
+                   help="device-memory paging budget in MB for the models' parameters and graph "
+                   "pools (runtime/lifecycle.py): models start COLD, page in (capture their "
+                   "CUDA graphs) on first request, and evict LRU-within-priority (release "
+                   "their graphs) under pressure: register more models than fit at once. "
+                   "0 = every model stays resident")
+    p.add_argument("--tenants", default="",
+                   help="tenants.yaml path mapping models to tenants with memory quotas, "
+                   "fair-share weights and in-flight caps (see docs/OPERATIONS.md "
+                   "'Multi-tenant serving')")
     p.add_argument("-v", "--verbose", action="store_true")
     for dest, (flag, default, what) in UNPORTED.items():
         kw = {"dest": dest, "default": default,
@@ -220,6 +239,29 @@ def main(argv=None) -> None:
     print(f"serve stopped; threads alive: {alive}", flush=True)
 
 
+def prefetch_fitting(lifecycle, models) -> int:
+    """Prefetch ``models`` in order while each fits without an eviction;
+    stop at the first that does not (its estimate is over the room left,
+    its measured cost evicted another, or it cannot fit at all). Returns
+    how many were prefetched."""
+    from triton_client_tpu_torch.runtime.lifecycle import HBMBudgetExceededError
+
+    done = 0
+    for name, version in models:
+        evictions = lifecycle.stats()["evictions"]
+        if not lifecycle.fits(name, version):
+            break
+        try:
+            lifecycle.prefetch(name, version)
+        except HBMBudgetExceededError:
+            break
+        if lifecycle.stats()["evictions"] > evictions:
+            break
+        done += 1
+    print(f"warmup: {done} of {len(models)} models prefetched under the budget", flush=True)
+    return done
+
+
 def build_server(args):
     """Repository scan, channel stack and InferenceServer (not started)
     from parsed ``main`` args, so tests and embedders can stand a server up
@@ -234,11 +276,24 @@ def build_server(args):
     device = resolve_device(getattr(args, "device", None))
     repo = scan_disk(args.model_repository, device=device,
                      precision=getattr(args, "precision", "") or None)
+    # multi-tenant model lifecycle: budgeted paging and tenant policy
+    tenants = None
+    if getattr(args, "tenants", ""):
+        from triton_client_tpu_torch.runtime.lifecycle import load_tenants
+
+        tenants = load_tenants(args.tenants)
+    lifecycle = None
+    budget_mb = float(getattr(args, "hbm_budget", 0.0) or 0.0)
+    if budget_mb > 0 or tenants is not None:
+        from triton_client_tpu_torch.runtime.lifecycle import ModelLifecycleManager
+
+        lifecycle = ModelLifecycleManager(repo, budget_bytes=int(budget_mb * (1 << 20)),
+                                          tenants=tenants)
     for name, version in repo.list_models():
         model = repo.get(name, version)
         print(f"loaded {name}:{version} ({model.spec.platform}, device={device.type}) "
               f"precision={model.spec.extra.get('precision', 'f32')}")
-        if getattr(args, "warmup", False) and model.warmup is not None:
+        if getattr(args, "warmup", False) and model.warmup is not None and lifecycle is None:
             model.warmup()
 
     if getattr(args, "fault_plan", ""):
@@ -259,6 +314,13 @@ def build_server(args):
         breaker_threshold=getattr(args, "breaker_threshold", 5),
         breaker_reset_s=getattr(args, "breaker_reset_s", 10.0),
     )
+    if lifecycle is not None:
+        channel.attach_lifecycle(lifecycle)
+        print(f"model lifecycle: hbm_budget={f'{budget_mb:g}MB' if budget_mb > 0 else 'unlimited'} "
+              f"tenants={len(tenants.tenants()) if tenants else 0} "
+              "(models page in on demand, evict LRU-within-priority)", flush=True)
+        if getattr(args, "warmup", False):
+            prefetch_fitting(lifecycle, repo.list_models())
     batcher = getattr(args, "batcher", None) or (
         "continuous" if getattr(args, "batching", False) else "none"
     )
@@ -277,6 +339,9 @@ def build_server(args):
                     log.warning("--batch-timeout-us has no effect with the continuous "
                                 "scheduler (it has no admission window)")
             channel = ContinuousBatchingChannel(channel, **common)
+            if tenants is not None:
+                # deficit-round-robin fair share folded into the EDF order
+                channel.attach_tenants(tenants)
             note = "windowless"
         else:
             timeout_us = 2000 if timeout_us is None else timeout_us
@@ -306,6 +371,8 @@ def build_server(args):
         history_interval_s=getattr(args, "history_interval", 10.0),
         history_capacity=getattr(args, "history_capacity", 360),
         history_path=getattr(args, "history_path", "") or None,
+        lifecycle=lifecycle,
+        tenants=tenants,
     )
 
 

@@ -14,9 +14,10 @@ already holds. :class:`RuntimeCollector` is the bridge:
   scrape time (no background thread, no second book).
 
 Every family of :data:`METRIC_TYPES` is exported even when its component
-is absent (the lifecycle, sessions, quality and temporal planes are not
-ported: their families export zeros), so a dashboard built on the JAX
-package's names reads the same series. Two readings are the port's own:
+is absent (the lifecycle families export zeros without a lifecycle
+manager; the sessions, quality and temporal planes are not ported: their
+families export zeros), so a dashboard built on the JAX package's names
+reads the same series. Two readings are the port's own:
 
 - :class:`CompileEvents` counts CUDA-graph captures (``runtime/graphs``,
   the port's compile of a new input signature) under JAX's
@@ -97,7 +98,7 @@ METRIC_TYPES: dict[str, str] = {
     "tpu_serving_breaker_opens_total": "counter",
     "tpu_serving_admission_queue_depth": "gauge",
     "tpu_serving_draining": "gauge",
-    # multi-tenant lifecycle (not ported: zeros)
+    # multi-tenant lifecycle (zeros without a lifecycle manager)
     "tpu_serving_hbm_budget_bytes": "gauge",
     "tpu_serving_hbm_resident_bytes": "gauge",
     "tpu_serving_tenant_hbm_bytes": "gauge",
@@ -255,8 +256,8 @@ class RuntimeCollector:
     ) -> None:
         """``histograms``: an ``obs.histogram.HistogramFamily``; ``slo``: an
         ``obs.slo.SLOTracker``; ``admission``: a ``runtime.admission.
-        AdmissionController``; ``lifecycle``: anything with ``stats()`` in
-        the JAX lifecycle manager's shape; ``device_time``: an
+        AdmissionController``; ``lifecycle``: a ``runtime.lifecycle.
+        ModelLifecycleManager``; ``device_time``: an
         ``obs.device_time.DeviceTimeLedger``. All optional: their families
         export empty when absent."""
         self._batching, self._staged = _split_channel(channel)
@@ -715,8 +716,9 @@ class RuntimeCollector:
         yield gauge(f"{ns}_draining", "1 while the server is draining (SIGTERM / drain())",
                     snap.get("draining", 0))
 
-        # multi-tenant lifecycle (its plane is not ported: the families
-        # export their zeros until it is)
+        # multi-tenant lifecycle: budget and residency, models per state,
+        # promotions and evictions with the promotion latency, tenant sheds
+        # (zeros without a lifecycle manager)
         lc = snap.get("lifecycle") or {}
         yield gauge(f"{ns}_hbm_budget_bytes", "configured device-memory paging budget "
                     "(0 = unbudgeted)", lc.get("budget_bytes", 0))

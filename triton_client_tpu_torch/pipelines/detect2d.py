@@ -170,6 +170,7 @@ class Detect2DPipeline:
             return self._outputs(*self._jit(inputs["images"]), torch.int64)
 
         fn.graph_stats = self.graph_stats  # the captures behind a registered model
+        fn.release_graphs = self._jit.release  # the lifecycle's page-out
         return fn
 
     def device_fn(self):

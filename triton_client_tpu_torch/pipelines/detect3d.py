@@ -299,6 +299,7 @@ class Detect3DPipeline:
             return self._outputs(dets, valid)
 
         fn.graph_stats = self.graph_stats  # the captures behind a registered model
+        fn.release_graphs = self._jit.release  # the lifecycle's page-out
         return fn
 
     def device_fn(self):

@@ -80,6 +80,7 @@ class Preprocess2DPipeline:
             return {"preprocessed": self._jit(inputs["images"])}
 
         fn.graph_stats = self.graph_stats
+        fn.release_graphs = self._jit.release  # the lifecycle's page-out
         return fn
 
     def device_fn(self) -> Callable:

@@ -67,9 +67,7 @@ class AdmissionController:
     depth, roughly); it divides the estimated wait, so a healthy batched
     server is not over-shed. The service-time estimate is an EWMA over
     completed requests, seeded by the first; until then only the depth knee
-    applies. The JAX module's per-tenant caps wait for the tenant table
-    (ROADMAP.md Queue 1 item 8, step 2); ``stats()`` keeps their keys,
-    empty, as JAX's does without a table."""
+    applies."""
 
     def __init__(
         self,
@@ -77,16 +75,28 @@ class AdmissionController:
         concurrency: int = 4,
         low_priority_fraction: float = 0.5,
         ewma_alpha: float = 0.2,
+        tenants=None,
     ) -> None:
+        """``tenants``: an optional ``runtime/lifecycle.TenantTable``. With
+        one, a tenant's ``max_inflight`` caps admitted-but-unfinished
+        requests across its models, on top of the per-model knees: a tenant
+        flooding its models sheds at its own cap instead of taking the whole
+        server's queue."""
         self._max_queue = max(1, int(max_queue))
         self._concurrency = max(1, int(concurrency))
         self._low_frac = min(1.0, max(0.05, float(low_priority_fraction)))
         self._alpha = min(1.0, max(0.01, float(ewma_alpha)))
+        self._tenants = tenants
         self._lock = threading.Lock()
         self._inflight: dict[str, int] = {}
+        self._tenant_inflight: dict[str, int] = {}
+        self._tenant_rejects: dict[str, int] = {}
         self._ewma_s: dict[str, float] = {}
         self._rejects: dict[tuple[str, int], int] = {}
         self._admitted = 0
+
+    def _tenant_of(self, model: str) -> str | None:
+        return None if self._tenants is None else self._tenants.tenant_of(model)
 
     def admit(
         self,
@@ -99,8 +109,9 @@ class AdmissionController:
         is at its limit, or the estimated wait (queue depth x service-time
         EWMA / concurrency) exceeds what is left of ``deadline_s``, the
         request's absolute ``perf_counter`` deadline. An admitted request
-        counts against the model's queue until :meth:`finished`, which the
-        caller must reach on every exit path."""
+        counts against the model's queue (and its tenant's cap) until
+        :meth:`finished`, which the caller must reach on every exit path."""
+        tenant = self._tenant_of(model)
         with self._lock:
             depth = self._inflight.get(model, 0)
             limit = self._max_queue
@@ -110,6 +121,11 @@ class AdmissionController:
             reason = None
             if depth >= limit:
                 reason = f"queue depth {depth} >= limit {limit} (priority {priority})"
+            if reason is None and tenant is not None:
+                cap = self._tenants.max_inflight(tenant)
+                t_depth = self._tenant_inflight.get(tenant, 0)
+                if cap > 0 and t_depth >= cap:
+                    reason = f"tenant '{tenant}' in-flight {t_depth} >= cap {cap}"
             if reason is None and deadline_s is not None:
                 ewma = self._ewma_s.get(model)
                 if ewma is not None:
@@ -125,18 +141,27 @@ class AdmissionController:
             if reason is not None:
                 key = (model, int(priority))
                 self._rejects[key] = self._rejects.get(key, 0) + 1
+                if tenant is not None:
+                    self._tenant_rejects[tenant] = self._tenant_rejects.get(tenant, 0) + 1
                 raise AdmissionRejectedError(f"model '{model}' overloaded: {reason}")
             self._inflight[model] = depth + 1
+            if tenant is not None:
+                self._tenant_inflight[tenant] = self._tenant_inflight.get(tenant, 0) + 1
             self._admitted += 1
 
     def finished(self, model: str, service_s: float | None = None) -> None:
         """One admitted request left (any outcome). ``service_s`` (wall
         seconds, successful requests only) feeds the EWMA the
         estimated-wait check divides by."""
+        tenant = self._tenant_of(model)
         with self._lock:
             depth = self._inflight.get(model, 0)
             if depth > 0:
                 self._inflight[model] = depth - 1
+            if tenant is not None:
+                t_depth = self._tenant_inflight.get(tenant, 0)
+                if t_depth > 0:
+                    self._tenant_inflight[tenant] = t_depth - 1
             if service_s is not None and service_s >= 0:
                 prev = self._ewma_s.get(model)
                 self._ewma_s[model] = (
@@ -159,8 +184,8 @@ class AdmissionController:
                 "inflight": dict(self._inflight),
                 "ewma_ms": {m: round(v * 1e3, 3) for m, v in self._ewma_s.items()},
                 "rejects": {f"{m}|{p}": n for (m, p), n in self._rejects.items()},
-                "tenant_inflight": {},
-                "tenant_rejects": {},
+                "tenant_inflight": dict(self._tenant_inflight),
+                "tenant_rejects": dict(self._tenant_rejects),
             }
 
 

@@ -363,6 +363,7 @@ def build_ensemble(
             return dag(*(to_device(inputs[n]) for n in in_names))
 
         infer_fn.graph_stats = dag.stats
+        infer_fn.release_graphs = dag.release
     elif mixed:
         # one captured function per device-capable member: consecutive
         # device steps hand tensors over on the card; a host-only step
@@ -394,6 +395,12 @@ def build_ensemble(
             k: sum(fn.stats()[k] for _, fn in captured.values())
             for k in ("calls", "captures", "replays", "keys", "pool_bytes")
         }
+
+        def release_graphs() -> None:
+            for _, fn in captured.values():
+                fn.release()
+
+        infer_fn.release_graphs = release_graphs
     else:
         infer_fn = host_infer_fn
     infer_fn.transfer_stats = transfers.stats

@@ -30,6 +30,13 @@ inputs' and no host sync (a sync cannot be captured).
   lives (the ragged route's kernel-6 tickets, ``ops/gpu_segment.
   owned_tickets``: a buffer the warmups allocate and the captured
   launches use).
+- **Release.** :meth:`CapturedFunction.release` drops every key's graph
+  with its static buffers and what its capture scope kept, once the last
+  replay has finished on the card, and lets the wrapper's pool go: the
+  caching allocator frees a private pool when its last graph dies, and
+  keeps its blocks reserved until :func:`empty_cache`. The next call
+  captures again, into a new pool (a freed pool must not be captured
+  into again).
 - **Errors.** A capture or a replay that fails raises
   ``cuda_build.KernelError`` naming the function and the key. There is
   no eager retry: the caller fails, as on any kernel failure.
@@ -42,9 +49,10 @@ inputs' and no host sync (a sync cannot be captured).
   copied behind each block into pinned memory) that a pass changed
   nothing, then the last.
 
-``stats()`` reads ``calls``, ``captures``, ``replays``, ``keys`` and
-``pool_bytes`` (the reserved device memory that each capture added,
-``torch.cuda.memory_stats`` around it: the graphs' private pool).
+``stats()`` reads ``calls``, ``captures`` (every capture, released ones
+included), ``replays``, ``keys`` and ``pool_bytes`` (the reserved device
+memory that each live key's capture added, ``torch.cuda.memory_stats``
+around it: the graphs' private pool; 0 after a release).
 """
 
 from __future__ import annotations
@@ -100,6 +108,23 @@ _capturing = threading.local()
 LOOP_BLOCK, LOOP_AHEAD = 8, 2
 # eager calls before a capture
 WARMUP_CALLS = 2
+# held across a capture and across empty_cache: the allocator must not hand
+# cached blocks back to CUDA (cudaFree) while another thread captures
+_capture_lock = threading.RLock()
+
+
+def captures_on_this_thread() -> int:
+    """How many captures this thread has made: a caller that reads it
+    before and after a call knows whether the call captured."""
+    return getattr(_capturing, "count", 0)
+
+
+def empty_cache() -> None:
+    """``torch.cuda.empty_cache()``, never during another thread's capture:
+    returns the blocks of released graph pools (and every other cached free
+    block) to CUDA (``cudaFree``)."""
+    with _capture_lock:
+        torch.cuda.empty_cache()
 
 
 class _Segments:
@@ -260,8 +285,8 @@ class CUDAGraphBackend:
         segments = _Segments(device, pool)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
-        before = _reserved(device)
-        with torch.cuda.stream(stream):
+        with _capture_lock, torch.cuda.stream(stream):
+            before = _reserved(device)
             _capturing.segments = segments
             try:
                 segments.begin()
@@ -275,6 +300,7 @@ class CUDAGraphBackend:
                 raise
             finally:
                 _capturing.segments = None
+            nbytes = _reserved(device) - before
         torch.cuda.current_stream(device).wait_stream(stream)
         parts = segments.parts  # each holds its graph (a bound replay or a closure)
 
@@ -282,7 +308,12 @@ class CUDAGraphBackend:
             for part in parts:
                 part()
 
-        return (parts[0] if len(parts) == 1 else replay), outputs, _reserved(device) - before
+        return (parts[0] if len(parts) == 1 else replay), outputs, nbytes
+
+    def forget(self, owner) -> None:
+        """Let ``owner``'s pools go (its graphs are released): its next
+        capture takes a new pool."""
+        self._pools.pop(owner, None)
 
 
 # process-global capture listeners, ``fn(name, seconds)`` once a capture
@@ -335,6 +366,22 @@ class CapturedFunction:
             out["keys"] = len(self._keys)
         return out
 
+    def release(self) -> None:
+        """Drop every key's graph, static buffers and capture-scope keep
+        (module docstring), after the last replay's event: ``keys`` and
+        ``pool_bytes`` read 0 and the next call captures again."""
+        with self._lock:
+            if self._last_event is not None:
+                self._last_event.synchronize()  # no replay of a graph that dies here
+                self._last_event = None
+            entries, self._entries = self._entries, {}
+            self._keys.clear()
+            self._stats["pool_bytes"] = 0
+            forget = getattr(self._backend or _backend, "forget", None)
+            if forget is not None:
+                forget(self)
+            entries.clear()  # the graphs' last references: their pools go back
+
     def __call__(self, *args: torch.Tensor):
         key = self.key(args)
         on_card = any(a.device.type == "cuda" for a in args)
@@ -367,6 +414,7 @@ class CapturedFunction:
             ) from e
         self._stats["captures"] += 1
         self._stats["pool_bytes"] += int(nbytes)
+        _capturing.count = captures_on_this_thread() + 1
         seconds = time.perf_counter() - t0
         for listener in list(_capture_listeners):
             try:

@@ -76,6 +76,11 @@ class ModelRepository:
         # a dropped model also drops its cached launcher (and the graphs
         # it holds in device memory)
         self._unregister_listeners: list[Callable[[str, str], None]] = []
+        # access accounting: per-name get() hits and the repository-wide
+        # sequence number of the last one (the lifecycle's LRU raw material)
+        self._access_count: dict[str, int] = {}
+        self._access_seq: dict[str, int] = {}
+        self._seq = 0
 
     def add_unregister_listener(self, fn: Callable[[str, str], None]) -> None:
         with self._lock:
@@ -119,6 +124,9 @@ class ModelRepository:
             versions = self._models.get(name)
             if not versions:
                 raise KeyError(f"model '{name}' is not registered")
+            self._seq += 1
+            self._access_count[name] = self._access_count.get(name, 0) + 1
+            self._access_seq[name] = self._seq
             if version:
                 if version not in versions:
                     raise KeyError(f"model '{name}' has no version '{version}'")
@@ -139,3 +147,13 @@ class ModelRepository:
     def versions(self, name: str) -> list[str]:
         with self._lock:
             return sorted(self._models.get(name, {}), key=_version_key)
+
+    def access_stats(self) -> dict[str, dict[str, int]]:
+        """Per-name ``get()`` hit count and last-touch sequence (monotonic,
+        repository-wide) of every registered name."""
+        with self._lock:
+            return {
+                name: {"count": self._access_count.get(name, 0),
+                       "last_seq": self._access_seq.get(name, 0)}
+                for name in self._models
+            }

@@ -43,10 +43,19 @@ reach the models the port serves, dispatching through a ``BaseChannel``
   listener beside TCP. ``content_encoding`` inputs (``jpeg``, ``q8``,
   ``q16``) decode as the JAX server decodes them
   (``runtime/wire_encoding.py``).
+- **Lifecycle and tenants** (``lifecycle``: a
+  ``runtime/lifecycle.ModelLifecycleManager`` already attached to the
+  staged channel; ``tenants``: a ``TenantTable``): a request for a COLD
+  model waits on its RPC thread, after admission, while the model pages
+  in, so a batcher's dispatcher never waits on a promotion; the reference
+  it takes is dropped in ``_account``. Tenants' ``max_inflight`` caps join
+  the admission controller, the device-time ledger bills each tenant, and
+  the collector and ``/snapshot`` read the manager. ``server.lifecycle``
+  serves the runbook's ``evict`` and ``prefetch``.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item (the defaults keep them off, as in the JAX server): lifecycle,
-tenants, and the quality and temporal planes.
+item (the defaults keep them off, as in the JAX server): the quality and
+temporal planes.
 """
 
 from __future__ import annotations
@@ -93,8 +102,6 @@ _MIN_MSG_BYTES = 64 << 20
 
 # the ROADMAP.md Queue 1 item each unported option waits for
 ROADMAP_ITEMS = {
-    "lifecycle": "8 (runtime/lifecycle.py)",
-    "tenants": "8 (runtime/lifecycle.py TenantTable)",
     "quality": "8 (eval/{shadow,quality_plane}.py)",
     "temporal": "8 (runtime/temporal.py)",
     "sessions": "8 (runtime/sessions.py)",
@@ -156,6 +163,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         profiler=None,
         collector=None,
         slo=None,
+        lifecycle=None,
     ) -> None:
         """``status``: status name -> code for ``context.abort`` (the grpc
         table, from ``service.grpc_status_table``); None aborts with the
@@ -164,8 +172,10 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         ``profiler``: a ``StageProfiler`` each request's wall lands in as
         ``infer_<model>``; ``collector``: the ``RuntimeCollector`` the
         request hooks feed; ``slo``: the ``SLOTracker`` that stamps
-        deadlines and scores requests."""
+        deadlines and scores requests; ``lifecycle``: the
+        ``ModelLifecycleManager`` a request waits on for its model."""
         self._repo = repository
+        self._lifecycle = lifecycle
         self._profiler = profiler
         self._collector = collector
         self._slo = slo
@@ -365,6 +375,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         with self._active_lock:
             self._active += 1
         admitted = False
+        lifecycle_key = None
         try:
             # the overload checks come before the parse: a shed request
             # costs microseconds, not a deserialize
@@ -381,6 +392,17 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                         self._collector.record_shed(request.model_name, priority, "admission")
                     raise
                 admitted = True
+            if self._lifecycle is not None:
+                # the promotion wait, on this RPC thread: a batcher's
+                # dispatcher never waits on a warming model. The channel
+                # takes its own reference across the device window
+                try:
+                    lifecycle_key = self._lifecycle.acquire(
+                        request.model_name, request.model_version, deadline_s=deadline_s)
+                except OverloadError:
+                    if self._collector is not None:
+                        self._collector.record_shed(request.model_name, priority, "lifecycle")
+                    raise
             if inputs_override is not None:
                 inputs = inputs_override
             else:
@@ -422,7 +444,7 @@ class _Servicer(service.GRPCInferenceServiceServicer):
             }
         except BaseException as e:
             self._account(request.model_name, t0, trace, error=e, deadline_s=deadline_s,
-                          priority=priority, admitted=admitted)
+                          priority=priority, admitted=admitted, lifecycle_key=lifecycle_key)
             raise
 
         def finish():
@@ -459,17 +481,19 @@ class _Servicer(service.GRPCInferenceServiceServicer):
                 raise
             finally:
                 self._account(request.model_name, t0, trace, error=error, deadline_s=deadline_s,
-                              priority=priority, admitted=admitted)
+                              priority=priority, admitted=admitted, lifecycle_key=lifecycle_key)
 
         return finish
 
     def _account(
-        self, model_name, t0, trace, error=None, deadline_s=None, priority=0, admitted=False
+        self, model_name, t0, trace, error=None, deadline_s=None, priority=0, admitted=False,
+        lifecycle_key=None,
     ) -> None:
         """Per-request bookkeeping on every exit path: the log line, the
         trace's finish (which feeds the latency histograms), the SLO score,
-        the stage sample, the error and in-flight counters, and the
-        admission slot (a success also feeds its service-time EWMA)."""
+        the stage sample, the error and in-flight counters, the admission
+        slot (a success also feeds its service-time EWMA) and the lifecycle
+        reference."""
         now = time.perf_counter()
         if error is not None:
             log.debug("request for model %s failed with %s: %s%s",
@@ -494,6 +518,8 @@ class _Servicer(service.GRPCInferenceServiceServicer):
         if self._admission is not None and admitted:
             self._admission.finished(
                 model_name, service_s=(now - t0) if error is None else None)
+        if self._lifecycle is not None and lifecycle_key is not None:
+            self._lifecycle.release(*lifecycle_key)
         with self._active_lock:
             self._active -= 1
 
@@ -727,6 +753,13 @@ class InferenceServer:
         ``history_interval_s`` / ``history_capacity``: the metric-history
         ring served at ``/history`` (0: off); ``history_path``: persisted
         there on ``stop()`` and restored from it at start.
+        ``lifecycle``: a ``runtime/lifecycle.ModelLifecycleManager``,
+        already attached to the serving channel: a request for a COLD
+        model waits, deadline-aware, on its RPC thread while the model
+        pages in. ``tenants``: a ``TenantTable``: its ``max_inflight`` caps
+        join the admission controller, and the device-time ledger bills its
+        tenants (fair-share ordering is attached on the continuous batcher
+        with ``attach_tenants``).
         ``replica_of``: replica-set label (keys the ``replica_down`` fault
         point; advertised in ServerMetadata.extensions). ``uds_address``:
         also listen on a unix socket (``unix:/path``, a bare path, or
@@ -735,19 +768,17 @@ class InferenceServer:
         target back from ``.uds_address``. The socket file is unlinked on
         ``stop()``. The other options are not ported and raise when set
         (module docstring)."""
-        for what, value, option in (
-            ("lifecycle", lifecycle, "lifecycle"),
-            ("tenants", tenants, "tenants"),
-            ("quality", quality, "quality"),
-            ("temporal", temporal, "temporal"),
-        ):
+        for what, value in (("quality", quality), ("temporal", temporal)):
             if value:
-                raise not_ported(what, option)
+                raise not_ported(what)
         import grpc
 
+        self.lifecycle = lifecycle
+        self.tenants = tenants
         self.replica_of = replica_of
         self.admission = (
-            AdmissionController(max_queue=admission_max_queue, concurrency=admission_concurrency)
+            AdmissionController(max_queue=admission_max_queue, concurrency=admission_concurrency,
+                                tenants=tenants)
             if admission_max_queue > 0 else None
         )
         self._draining = threading.Event()
@@ -787,6 +818,7 @@ class InferenceServer:
             profiler=self.profiler,
             collector=self.collector,
             slo=self.slo,
+            lifecycle=lifecycle,
         )
         service.add_GRPCInferenceServiceServicer_to_server(self._servicer, self._server)
         self._port = self._server.add_insecure_port(address)
@@ -851,7 +883,10 @@ class InferenceServer:
         if not hasattr(target, "attach_device_time"):
             target = getattr(channel, "inner", None)
         if target is not None and hasattr(target, "attach_device_time"):
-            self.device_time = DeviceTimeLedger(devices=1)
+            tenant_table = self.tenants
+            if tenant_table is None and self.lifecycle is not None:
+                tenant_table = self.lifecycle.tenants
+            self.device_time = DeviceTimeLedger(tenants=tenant_table, devices=1)
             target.attach_device_time(self.device_time)
         if self.device_time is not None and history_interval_s > 0:
             from triton_client_tpu_torch.obs.history import MetricHistory
@@ -868,7 +903,7 @@ class InferenceServer:
         self.collector = RuntimeCollector(
             channel=channel, tracer=self.tracer, registry=registry, repository=repository,
             histograms=self.histograms, slo=self.slo, admission=self.admission,
-            device_time=self.device_time,
+            lifecycle=self.lifecycle, device_time=self.device_time,
         )
         if self.history is not None:
             self.collector.attach_history(self.history)

@@ -18,8 +18,9 @@ Everything else raises :class:`YAMLSubsetError` with the file and the
 line: anchors and aliases, tags, block scalars (``|``, ``>``), tabs in
 indentation, document markers and directives, complex keys, merge keys,
 timestamps, and plain scalars that continue on a following line.
-``tests/test_torch_yaml_subset.py`` holds it equal to ``yaml.safe_load``
-on every YAML file under ``data/`` and ``examples/``.
+``tests/test_torch_disk_repository.py``
+(``test_yaml_subset_equals_safe_load_on_every_file``) holds it equal to
+``yaml.safe_load`` on every YAML file under ``data/`` and ``examples/``.
 """
 
 from __future__ import annotations
