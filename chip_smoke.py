@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
 centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
-second_sparse, telemetry, telemetry_plane, lifecycle), with the
+second_sparse, telemetry, telemetry_plane, lifecycle, sessions), with the
 groups whose served models they reuse, or whose kernel rows they add to,
 run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
@@ -36,8 +36,9 @@ and evaluation from bags (phase 30), YOLOv4, RetinaNet and FCOS from disk
 generator against `serve` (phase 33), SECOND-IoU's sparse middle at the
 reference's 0.05 m grid (phase 34) and the measurement units: the
 device-time ledger, the roofline, op attribution and the tools (phase 35),
-the telemetry and SLO planes behind serve (phase 36) and the model
-lifecycle and tenant plane (phase 37).
+the telemetry and SLO planes behind serve (phase 36), the model
+lifecycle and tenant plane (phase 37) and streaming sessions with the
+tracker on the card (phase 38).
 One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
@@ -320,9 +321,9 @@ One JSON line per phase:
                  hand-chained paths, and the fused warmup's 64x64 graph
  33. loadgen   — `serve` over the phase-32 repository in a process of its
                  own, and utils/loadgen on loopback against yolov5_crop and
-                 ensemble_fused_pipeline: run_pool with 4 clients for 5 s in
+                 ensemble_fused_pipeline: run_pool with 4 clients for 2.5 s in
                  the unary, stream and async modes, run_open_loop at half
-                 the unary frames/s for 5 s, slo_capacity_search at a 33 ms
+                 the unary frames/s for 2.5 s, slo_capacity_search at a 33 ms
                  SLO with 2 s probes and 4 bisections; frames/s, p50, p99,
                  errors (none allowed) and capacity
  34. second_sparse — SECOND-IoU with the sparse middle built from
@@ -399,6 +400,29 @@ One JSON line per phase:
                  recapture and promotion ms, cold and warm request p50, the
                  card's memory around an eviction with and without
                  empty_cache
+ 38. sessions  — streaming sessions (runtime/sessions.py) and the tracker
+                 (ops/tracking.py): the captured step, group step (4
+                 cameras) and coast on the card against the plain tracker
+                 over a seeded 40-frame drive of 128 CenterPoint-shaped rows
+                 with a tie and a NaN centre (ids and associations bitwise,
+                 floats within 1e-5), greedy_assign on a tied and a NaN
+                 matrix, advance/release under
+                 torch.cuda.set_sync_debug_mode("error"); serve
+                 --max-sessions 16 in this process over
+                 examples/centerpoint_nusc (seeded det3d weights) and
+                 yolov5_crop: run_streams replays 4 x 12 clouds at the
+                 262,144 bucket and 2 x 6 frames, every response carrying
+                 the track outputs, which the plain tracker re-run on the
+                 CPU over the responses' detections gives bitwise; one
+                 kernel-4 launch a CenterPoint frame and one kernel-1 launch
+                 a yolov5_crop frame; the echo drive (8 streams x 30 frames
+                 at 10 fps, TrackerConfig(max_tracks=32)): goodput 1.0, no
+                 alias, no ID switch, the plain tracker's re-run over its
+                 responses bitwise. Line sessions: the largest float
+                 difference, the step's device and host us a frame at G = 1
+                 and 4, a CenterPoint request's p50 with and without a
+                 sequence_id, the replays' p50 and frames/s, each echo
+                 stream's sustained frames/s and the worst inter-frame p99
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -821,6 +845,7 @@ PHASES = {
     "telemetry": ("35", ()),
     "telemetry_plane": ("36", ()),
     "lifecycle": ("37", ("yolov5", "3d", "second")),
+    "sessions": ("38", ()),
 }
 
 
@@ -973,6 +998,12 @@ def main(argv: list[str] | None = None) -> int:
             if name in rows:
                 rows[name]["launches_by_path"]["lifecycle_capture"] = split["capture"]
                 rows[name]["launches_by_path"]["lifecycle_replay"] = split["replay"]
+    # phase 38: kernel 4 once a CenterPoint session frame, kernel 1 once a
+    # yolov5_crop one
+    if "sessions" in groups:
+        for name, n in run_sessions(card, counters).items():
+            if name in rows:
+                rows[name]["launches_by_path"]["sessions"] = n
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4403,7 +4434,7 @@ REPLAY_FRAMES, REPLAY_SCANS, REPLAY_SWEEPS, REPLAY_HW = 32, 16, 20, (512, 512)
 # ~25,000 points a sweep, so that ten fit the largest bucket (262,144) as
 # phase 28's do
 REPLAY_KITTI, REPLAY_NUSC = dict(n_clutter=118_000), dict(n_clutter=24_000, pc_range=NUSC_RANGE)
-REPLAY_READS = 3  # passes over each source for the host read-and-decode time
+REPLAY_READS = 2  # passes over each source for the host read-and-decode time
 
 
 def optional_package(name: str) -> bool:
@@ -5328,7 +5359,7 @@ def run_ensemble(card: str, counters) -> int:
 
 
 # phase 33: the load generator against `serve` in a process of its own
-LOADGEN_CLIENTS, LOADGEN_WINDOW_S, LOADGEN_STAGGER_S = 4, 5.0, 0.1
+LOADGEN_CLIENTS, LOADGEN_WINDOW_S, LOADGEN_STAGGER_S = 4, 2.5, 0.1
 LOADGEN_SLO_MS, LOADGEN_PROBE_S, LOADGEN_ITERS = 33.0, 2.0, 4  # a 30 fps camera
 LOADGEN_MODELS = (("yolov5_crop", "images"), ("ensemble_fused_pipeline", "camera_raw"))
 
@@ -5384,9 +5415,9 @@ def run_loadgen(card: str) -> None:
     """Phase 33: ``serve`` on the phase-32 repository in a process of its
     own, and ``utils/loadgen`` driving ``yolov5_crop`` and
     ``ensemble_fused_pipeline`` on loopback with one seeded 480x640 frame a
-    request: ``run_pool`` with 4 clients for 5 s in each mode (unary;
+    request: ``run_pool`` with 4 clients for 2.5 s in each mode (unary;
     stream and async with 2 in flight), ``run_open_loop`` at half the
-    unary closed loop's frames/s for 5 s, and ``slo_capacity_search`` at a
+    unary closed loop's frames/s for 2.5 s, and ``slo_capacity_search`` at a
     33 ms SLO (a 30 fps camera) with 2 s probes and 4 bisections. Every run
     must end with no error and no unanswered request; reports frames/s,
     p50, p99, errors and capacity."""
@@ -6714,6 +6745,468 @@ def run_lifecycle(card: str, counters) -> dict:
                  "budgeted": memory_change(mem_b0, mem_b1)},
          wall_s=time.perf_counter() - t_phase)
     return {k: {"capture": v["capture_warmup"], "replay": v["replay"]} for k, v in split.items()}
+
+
+# phase 38: streaming sessions and the tracker on the card
+SESSION_FRAMES, SESSION_ROWS, SESSION_GROUP = 40, 128, 4  # the tracker drive
+SESSION_CP_STREAMS, SESSION_CP_FRAMES, SESSION_CP_POINTS = 4, 12, 200000
+SESSION_2D_STREAMS, SESSION_2D_FRAMES = 2, 6
+SESSION_ECHO_STREAMS, SESSION_ECHO_FRAMES, SESSION_ECHO_FPS = 8, 30, 10.0
+SESSION_TIMED = 50  # captured steps timed a group size; CenterPoint requests a leg: 30
+SESSION_TOL = 1e-5  # float leaves, card against the plain tracker
+SESSION_EXACT = ("track_assign", "det_track_ids", "track_ids", "tracks_valid")
+SESSION_INT_STATE = ("tid", "age", "hits", "next_id", "frame", "births", "deaths")
+
+
+def tracker_drive(seed: int, frames: int = SESSION_FRAMES, rows: int = SESSION_ROWS,
+                  objects: int = 72) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A seeded drive of CenterPoint-shaped rows (``rows`` x 11, the packed
+    ``[box7, vx, vy, score, label]``): ``objects`` constant-velocity movers
+    over the nuScenes range, some in close pairs, with noisy positions,
+    scores that dip below the stage-1 split and below the low one, leavers
+    and late arrivals, clutter, invalid padding rows, and the row order
+    shuffled every frame."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-45.0, 45.0, (objects, 2)).astype(np.float32)
+    pos[1::6] = pos[0::6][: len(pos[1::6])] + rng.uniform(-1.5, 1.5, (len(pos[1::6]), 2))
+    vel = rng.uniform(-1.2, 1.2, (objects, 2)).astype(np.float32)
+    born = rng.integers(0, frames // 2, objects) * (rng.random(objects) < 0.3)
+    gone = np.where(rng.random(objects) < 0.2, rng.integers(frames // 3, frames, objects), frames)
+    out = []
+    for k in range(frames):
+        live = np.flatnonzero((born <= k) & (k < gone))[:rows - 8]
+        det = np.zeros((rows, 11), np.float32)
+        n = len(live)
+        det[:n, 0:2] = pos[live] + k * vel[live] + rng.normal(0.0, 0.08, (n, 2))
+        det[:n, 2] = rng.normal(0.0, 0.2, n)
+        det[:n, 3:6] = (4.2, 1.9, 1.6)
+        det[:n, 6] = rng.uniform(-np.pi, np.pi, n)
+        det[:n, 7:9] = vel[live] + rng.normal(0.0, 0.1, (n, 2))
+        det[:n, 9] = np.where(rng.random(n) < 0.15, rng.uniform(0.1, 0.5, n),
+                              rng.uniform(0.5, 0.95, n))
+        det[:n, 9] = np.where(rng.random(n) < 0.05, 0.05, det[:n, 9])
+        det[:n, 10] = rng.integers(0, 10, n)
+        clutter = min(8, rows - n)
+        det[n:n + clutter, 0:2] = rng.uniform(-50.0, 50.0, (clutter, 2))
+        det[n:n + clutter, 9] = rng.uniform(0.05, 0.3, clutter)
+        valid = np.zeros(rows, bool)
+        valid[:n + clutter] = True
+        order = rng.permutation(rows)
+        out.append((det[order], valid[order]))
+    return out
+
+
+def tracker_compare(card_state, card_out, plain_state, plain_out, label: str, keys) -> float:
+    """The card's tracker state and outputs against the plain tracker's:
+    integers and flags bitwise, floats within SESSION_TOL. Returns the
+    largest float difference."""
+    worst = 0.0
+    for key in keys:
+        check(torch.equal(card_out[key].cpu(), plain_out[key]), f"{label}: {key} differs")
+    for key in SESSION_INT_STATE:
+        check(torch.equal(card_state[key].cpu(), plain_state[key]), f"{label}: state {key}")
+    for key in ("mean", "cov", "box", "tracks", "innovation"):
+        got = (card_state.get(key) if key in card_state else card_out.get(key))
+        want = (plain_state.get(key) if key in plain_state else plain_out.get(key))
+        if got is None or want is None:
+            continue
+        got = got.cpu()
+        check(bool((torch.isnan(got) == torch.isnan(want)).all()), f"{label}: {key} NaN")
+        diff = (got - want).abs().nan_to_num(0.0)
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    check(worst <= SESSION_TOL, f"{label}: float leaves differ by {worst}")
+    return worst
+
+
+def tracker_on_card(dev: torch.device) -> dict:
+    """Part 1 of phase 38: the captured tracker (``ops/tracking.TrackerStep``,
+    TrackerConfig()) on the card against the plain tracker on the CPU, frame
+    by frame over seeded drives: the single step, the group step at
+    SESSION_GROUP cameras (each camera against its own plain step), coasts
+    between keyframes, a frame with equal affinities and one with a NaN
+    centre; greedy_assign's card form against its plain form on a tied and
+    a NaN matrix; the session frame bracket under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns what it measured."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.ops import tracking
+    from triton_client_tpu_torch.runtime.sessions import SessionManager
+
+    cfg = tracking.TrackerConfig()
+    on = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    worst = {}
+
+    # the single step, with coasts and the tie and NaN frames
+    drive = tracker_drive(380)
+    det, valid = drive[7]
+    tie = det.copy()
+    live = np.flatnonzero(valid & (det[:, 9] >= 0.5))
+    tie[live[1], 0:2] = tie[live[0], 0:2]  # two rows at one centre: equal affinities
+    drive[7] = (tie, valid)
+    nan = drive[12][0].copy()
+    nan[np.flatnonzero(drive[12][1])[3], 0] = np.nan
+    drive[12] = (nan, drive[12][1])
+    step, coast = tracking.make_step(cfg), tracking.make_coast_step(cfg)
+    card = {k: v.to(dev) for k, v in tracking.init_state(cfg, 11).items()}
+    plain = tracking.init_state(cfg, 11)
+    worst["single"] = 0.0
+    for k, (det, valid) in enumerate(drive):
+        if k % 5 == 4:
+            card, cout = coast(card)
+            plain, pout = tracking.reference_coast(cfg, plain)
+            keys = tracking.COAST_OUTPUT_KEYS[1:]
+        else:
+            card, cout = step(card, on(det), on(valid))
+            plain, pout = tracking.reference_step(cfg, plain, det, valid)
+            keys = SESSION_EXACT
+        worst["single"] = max(worst["single"], tracker_compare(
+            card, cout, plain, pout, f"tracker frame {k}", keys))
+    births = int(plain["births"])
+    check(births > 20 and int(plain["deaths"]) > 0, f"the drive made {births} births")
+
+    # the group step: each camera against its own plain step
+    group_step = tracking.make_group_step(cfg)
+    drives = [tracker_drive(381 + c) for c in range(SESSION_GROUP)]
+    span = (1 << 16) // SESSION_GROUP
+    bases = [tracking.init_state(cfg, 11) for _ in range(SESSION_GROUP)]
+    for c, b in enumerate(bases):
+        b["next_id"] = torch.tensor(1 + c * span, dtype=torch.int32)
+    gcard = {k: torch.stack([b[k] for b in bases]).to(dev) for k in tracking.STATE_KEYS}
+    worst["group"] = 0.0
+    for k in range(SESSION_FRAMES):
+        dets = np.stack([d[k][0] for d in drives])
+        valids = np.stack([d[k][1] for d in drives])
+        gcard, gout = group_step(gcard, on(dets), on(valids))
+        for c in range(SESSION_GROUP):
+            bases[c], pout = tracking.reference_step(cfg, bases[c], dets[c], valids[c])
+            worst["group"] = max(worst["group"], tracker_compare(
+                {key: v[c] for key, v in gcard.items()}, {key: v[c] for key, v in gout.items()},
+                bases[c], pout, f"group frame {k} camera {c}", SESSION_EXACT))
+
+    # greedy_assign alone on a tied and a NaN affinity matrix
+    tied = torch.full((64, SESSION_ROWS), -2.0)
+    tied[::3, ::5] = -1.0
+    nan_cost = torch.randn(64, SESSION_ROWS, generator=torch.Generator().manual_seed(38))
+    nan_cost[5, 7] = float("nan")
+    for name, cost in (("tie", tied), ("nan", nan_cost)):
+        want = tracking.greedy_assign(cost, 64, plain=True)
+        got = tracking.greedy_assign(cost.to(dev), 64)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"greedy_assign's card form differs on the {name} matrix")
+
+    # the frame bracket: advance/release never wait for the card once warm
+    manager = SessionManager(max_sessions=4)
+    frames = [(on(d), on(v)) for d, v in drive[:12]]
+    groups = [(on(np.stack([d[k][0] for d in drives])), on(np.stack([d[k][1] for d in drives])))
+              for k in range(4)]
+    for sid, (d, v) in (("r1", frames[0]), ("rg", groups[0])):
+        manager.advance(InferRequest("m", {}, sequence_id=sid, sequence_start=True),
+                        {"detections": d, "valid": v})
+        manager.release(sid)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (d, v), (gd, gv) in zip(frames[1:], groups[1:] * 4):
+            manager.advance(InferRequest("m", {}, sequence_id="r1"), {"detections": d, "valid": v})
+            manager.release("r1")
+            manager.advance(InferRequest("m", {}, sequence_id="rg"),
+                            {"detections": gd, "valid": gv})
+            manager.release("rg")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    residency_frames = manager.stats()["frames_total"]
+    check(residency_frames == 2 * len(frames), f"{residency_frames} frames in the bracket")
+
+    # the captured step's time a frame: on the card's clock, CUDA events
+    # around each call queued behind a sleep kernel (so the window holds the
+    # input copies, the replay and the output clones, not the host issuing
+    # them), and the call's host time
+    timing = {}
+    for g, fn, state, inputs in (
+            (1, step, card, frames[1]), (SESSION_GROUP, group_step, gcard, groups[1])):
+        dev_ms, host_ms = [], []
+        cycles = 1 << 22  # about 2 ms at 1.98 GHz; grown while the host is slower
+        while len(dev_ms) < SESSION_TIMED + 3:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            t0 = time.perf_counter()
+            state, _ = fn(state, *inputs)
+            host = 1e3 * (time.perf_counter() - t0)
+            b.record()
+            queued = not a.query()
+            b.synchronize()
+            if not queued:
+                check(cycles < 1 << 28, "the card reached the timing event before the step "
+                      "was queued, behind a sleep of 2^28 cycles")
+                cycles *= 4
+                continue
+            host_ms.append(host)
+            dev_ms.append(a.elapsed_time(b))
+        timing[g] = {"device_us_median": 1e3 * float(np.median(dev_ms[3:])),
+                     "device_us_p90": 1e3 * float(np.percentile(dev_ms[3:], 90)),
+                     "host_us_median": 1e3 * float(np.median(host_ms[3:])),
+                     "captures": fn.graphs.stats()["captures"]}
+    return {"max_abs_err": worst, "drive_births": births, "residency_frames": residency_frames,
+            "step_device_us": timing}
+
+
+def sessions_repository(tmp: pathlib.Path) -> pathlib.Path:
+    """The phase-38 repository root: examples/centerpoint_nusc with a seeded
+    det3d-named ``1/weights.pth`` (phase 28's importer path) and
+    examples/yolov5_crop at conf 0.05 (seeded at build)."""
+    from triton_client_tpu_torch.runtime.disk_repository import _Entry
+
+    root = tmp / "repo"
+    (root / CP_ENTRY / "1").mkdir(parents=True)
+    (root / CP_ENTRY / "config.yaml").write_bytes(
+        (ROOT / "examples" / CP_ENTRY / "config.yaml").read_bytes())
+    _, _, model = _Entry(root / CP_ENTRY, device="cpu")._build()
+    torch.save({"state_dict": det3d_state(model)}, root / CP_ENTRY / "1" / "weights.pth")
+    (root / "yolov5_crop").mkdir()
+    text = (ROOT / "examples" / "yolov5_crop" / "config.yaml").read_text()
+    check("conf_thresh: 0.3" in text, "examples/yolov5_crop changed its conf_thresh")
+    (root / "yolov5_crop" / "config.yaml").write_text(
+        text.replace("conf_thresh: 0.3", "conf_thresh: 0.05"))
+    return root
+
+
+class _Recorder:
+    """A channel-shaped wrapper of a client that keeps every response's
+    outputs by (sequence id, frame index): what ``run_streams`` returned to
+    each stream, for the plain tracker's re-run."""
+
+    def __init__(self, client) -> None:
+        import threading
+
+        self._client, self._lock = client, threading.Lock()
+        self.frames: dict = {}
+
+    def do_inference_async(self, request):
+        raise NotImplementedError
+
+    def do_inference(self, request):
+        resp = self._client.do_inference(request)
+        with self._lock:
+            self.frames.setdefault(request.sequence_id, []).append(resp.outputs)
+        return resp
+
+
+def replay_matches_plain(recorded: dict, cfg, label: str) -> dict:
+    """Each recorded stream's frames re-run through the plain tracker on the
+    CPU, from a state whose ids start where the stream's first id says its
+    session epoch starts: ids and associations bitwise, floats within
+    SESSION_TOL. A response of a group of one is camera 0."""
+    from triton_client_tpu_torch.ops import tracking
+    from triton_client_tpu_torch.runtime.sessions import id_base_for
+
+    worst, births, associated = 0.0, 0, 0
+    for sid, outs in sorted(recorded.items()):
+        ids = [int(t) for o in outs for t in np.asarray(o["track_ids"]).reshape(-1) if t > 0]
+        base = id_base_for(0, (ids[0] >> 16) & 2047) if ids else 0
+        det_dim = np.asarray(outs[0]["detections"]).shape[-1]
+        state = tracking.init_state(cfg, det_dim, base)
+        for k, o in enumerate(outs):
+            check(set(tracking.OUTPUT_KEYS) <= set(o), f"{label} {sid} frame {k}: {sorted(o)}")
+            # copies: a wire array is a read-only view of the response's bytes
+            det, valid = np.array(o["detections"]), np.array(o["valid"])
+            got = {key: torch.from_numpy(np.array(o[key])) for key in tracking.OUTPUT_KEYS}
+            if det.ndim == 3:  # a group of one
+                check(det.shape[0] == 1, f"{label}: a group of {det.shape[0]}")
+                det, valid = det[0], valid[0]
+                got = {key: v[0] for key, v in got.items()}
+            state, want = tracking.reference_step(cfg, state, det, valid)
+            for key in SESSION_EXACT:
+                check(torch.equal(got[key], want[key]), f"{label} {sid} frame {k}: {key}")
+            for key in ("tracks", "innovation"):
+                diff = (got[key] - want[key]).abs().nan_to_num(0.0)
+                worst = max(worst, float(diff.max()))
+            associated += int((want["track_assign"] >= 0).sum())
+        births += int(state["births"])
+    check(worst <= SESSION_TOL, f"{label}: served tracks differ from the plain by {worst}")
+    return {"max_abs_err": worst, "births": births, "associations": associated}
+
+
+def run_sessions(card: str, counters) -> dict:
+    """Phase 38: streaming sessions (runtime/sessions.py) and the tracker
+    (ops/tracking.py) on the card.
+
+    1. The captured tracker against the plain one (``tracker_on_card``).
+    2. ``serve --max-sessions 16`` (its wiring in this process) over a disk
+       repository of examples/centerpoint_nusc (seeded det3d weights, phase
+       28's importer) and examples/yolov5_crop (conf 0.05):
+       ``utils/loadgen.run_streams(realtime=False)`` replays 4 streams x 12
+       seeded clouds at the 262,144 bucket (each stream one cloud drifting
+       0.2 m a frame) and 2 streams x 6 seeded 512x512 frames over loopback.
+       Held: every frame answered with OUTPUT_KEYS; the plain tracker re-run
+       on the CPU over the detections and valid masks the responses carry
+       gives their ids and associations bitwise (yolov5_crop: a group of
+       one, velocity narrowed to None); one kernel-4 launch a CenterPoint
+       frame, one kernel-1 launch a yolov5_crop frame, no other kernel.
+    3. The echo drive (JAX's ``streaming_sessions`` row on the port): 8
+       streams of ``synthetic_stream(n_frames=30, fps=10, n_objects=4)``
+       at real time against an echo model with TrackerConfig(max_tracks=32):
+       goodput 1.0, no alias, no ID switch, 240 frames and 8 ended sessions,
+       and the plain tracker re-run over the responses bitwise, as in 2.
+    4. Timing: the captured step's device us a frame at G = 1 and G = 4, and
+       a CenterPoint request's p50 through the channel with and without a
+       sequence_id, in turns.
+    Line sessions. Returns kernels 1 and 4's launches in part 2."""
+    import tempfile
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.cli import serve as serve_cli
+    from triton_client_tpu_torch.config import ModelSpec, TensorSpec
+    from triton_client_tpu_torch.ops import tracking
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.repository import ModelRepository
+    from triton_client_tpu_torch.runtime.server import InferenceServer
+    from triton_client_tpu_torch.runtime.sessions import SessionManager
+    from triton_client_tpu_torch.utils import loadgen
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    result = {"tracker": tracker_on_card(dev)}
+    t_tracker = time.perf_counter() - t_phase
+
+    # -- 2. full width through serve --------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="sessions_") as tmp:
+        cwd = os.getcwd()
+        os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+        try:
+            root = sessions_repository(pathlib.Path(tmp))
+            args = serve_cli.parser().parse_args(
+                ["-r", str(root), "-a", "127.0.0.1:0", "--uds", "off", "--warmup",
+                 "--max-workers", "8", "--max-sessions", "16"])
+            server = serve_cli.build_server(args)
+        finally:
+            os.chdir(cwd)
+        server.start()
+        channel = server.channel
+        manager = channel.sessions
+        client = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=300.0)
+        try:
+            check(manager is not None and manager.stats()["max_sessions"] == 16,
+                  "serve --max-sessions 16 attached no manager")
+            cp_extra = channel._repository.get(CP_ENTRY).spec.extra
+            y_hw = channel._repository.get("yolov5_crop").spec.extra["model_input_hw"]
+
+            def cloud(stream: int, k: int) -> dict:
+                pc = uniform_clouds(3800 + stream, NUSC_RANGE, SESSION_CP_POINTS, 1)[0]
+                pc[:, 0] += 0.2 * k
+                padded, m = prepare_points(pc, 5, cp_extra["point_buckets"],
+                                           cp_extra.get("z_offset", 0.0))
+                return {"points": padded, "num_points": np.asarray(m, np.int32)}
+
+            def image(stream: int, k: int) -> dict:
+                rng = np.random.default_rng(3900 + 100 * stream + k)
+                return {"images": rng.integers(0, 256, (1, *y_hw, 3)).astype(np.float32)}
+
+            legs = {CP_ENTRY: (cloud, SESSION_CP_STREAMS, SESSION_CP_FRAMES, "suppress_pack_3d"),
+                    "yolov5_crop": (image, SESSION_2D_STREAMS, SESSION_2D_FRAMES,
+                                    "decode_nms_2d")}
+            for name, (make, _, _, _) in legs.items():  # warm: the model and the tracker
+                client.do_inference(InferRequest(name, make(0, 0)))
+                for k in range(2):
+                    client.do_inference(InferRequest(name, make(0, k), sequence_id=f"warm-{name}",
+                                                     sequence_start=k == 0, sequence_end=k == 1))
+            served, launches = {}, {}
+            for name, (make, streams, frames, kernel) in legs.items():
+                frames_in = {i: [(0.0, make(i, k)) for k in range(frames)]
+                             for i in range(streams)}
+                recorder = _Recorder(client)
+                torch.cuda.synchronize()
+                for counter in counters:
+                    counter.reset()
+                res = loadgen.run_streams(recorder, name, streams, lambda i: frames_in[i],
+                                          deadline_s=300.0, stream_id_prefix=name,
+                                          realtime=False)
+                torch.cuda.synchronize()
+                counts = dict(zip(COUNTER_NAMES, (c.count for c in counters)))
+                want = {c: 0 for c in COUNTER_NAMES}
+                want[kernel] = streams * frames
+                check(counts == want, f"{name} session launches {counts}, want {want}")
+                check(res.frames_ok == res.frames_sent == streams * frames and res.goodput == 1.0,
+                      f"{name}: {res.frames_ok} of {res.frames_sent} frames answered, errors "
+                      f"{[e for s in res.streams for e in s.errors][:3]}")
+                cfg = manager._cfg_for(11 if name == CP_ENTRY else 6)
+                check((cfg.velocity_cols is None) == (name != CP_ENTRY),
+                      f"{name}: velocity_cols {cfg.velocity_cols}")
+                lat = [x for s in res.streams for x in s.latencies_ms]
+                served[name] = {**replay_matches_plain(recorder.frames, cfg, name),
+                                "streams": streams, "frames": streams * frames,
+                                "p50_ms": float(np.percentile(lat, 50)),
+                                "p99_ms": float(np.percentile(lat, 99)),
+                                "frames_per_s": res.frames_ok / res.wall_s}
+                launches[kernel] = counts[kernel]
+            stats = manager.stats()
+            check(stats["inflight_frames"] == 0 and stats["ended_total"] == (
+                SESSION_CP_STREAMS + SESSION_2D_STREAMS + 2), f"session stats {stats}")
+            result["served"] = served
+
+            # -- 4b. a CenterPoint request's p50 with and without a sequence_id
+            inputs = cloud(0, 0)
+            lat = {"stateless": [], "session": []}
+            for r in range(2 * 30):
+                kind = ("stateless", "session")[(r + r // 2) % 2]  # A B B A
+                req = InferRequest(CP_ENTRY, inputs, sequence_id="p50" if kind == "session"
+                                   else "")
+                t0 = time.perf_counter()
+                channel.do_inference(req)
+                lat[kind].append(time.perf_counter() - t0)
+            p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+            result["centerpoint_p50_ms"] = {**p50, "added": p50["session"] - p50["stateless"]}
+        finally:
+            client.close()
+            server.stop()
+
+    # -- 3. the echo drive -------------------------------------------------------
+    spec = ModelSpec(name="echo", version="1",
+                     inputs=(TensorSpec("detections", (-1, 11), "FP32"),
+                             TensorSpec("valid", (-1,), "BOOL")),
+                     outputs=(TensorSpec("detections", (-1, 11), "FP32"),
+                              TensorSpec("valid", (-1,), "BOOL")))
+    repo = ModelRepository()
+    repo.register(spec, lambda inputs: {"detections": inputs["detections"],
+                                        "valid": inputs["valid"]})
+    echo_channel = CUDAChannel(repo)
+    echo = SessionManager(max_sessions=16, tracker=tracking.TrackerConfig(max_tracks=32))
+    echo_channel.attach_sessions(echo)
+    server = InferenceServer(repo, echo_channel, address="127.0.0.1:0", max_workers=16)
+    server.start()
+    try:
+        # one warm stream: the tracker's graph for these shapes is captured
+        # before the drive
+        loadgen.run_streams(f"127.0.0.1:{server.port}", "echo", 1,
+                            lambda i: loadgen.synthetic_stream(n_frames=2, seed=99),
+                            stream_id_prefix="warm", realtime=False)
+        before = echo.stats()
+        client = GRPCChannel(f"127.0.0.1:{server.port}", timeout_s=60.0)
+        recorder = _Recorder(client)
+        try:
+            res = loadgen.run_streams(
+                recorder, "echo", SESSION_ECHO_STREAMS,
+                lambda i: loadgen.synthetic_stream(n_frames=SESSION_ECHO_FRAMES,
+                                                   fps=SESSION_ECHO_FPS, n_objects=4, seed=i),
+                deadline_s=60.0)
+        finally:
+            client.close()
+    finally:
+        server.stop()
+    summary, stats = res.summary(), echo.stats()
+    check(res.goodput == 1.0 and res.aliases == 0 and res.id_switches == 0,
+          f"echo drive {summary}")
+    check(stats["frames_total"] - before["frames_total"] == SESSION_ECHO_STREAMS
+          * SESSION_ECHO_FRAMES and stats["ended_total"] - before["ended_total"]
+          == SESSION_ECHO_STREAMS and stats["active_sessions"] == 0,
+          f"echo drive session stats {stats} (before it {before})")
+    result["echo"] = {**summary, "sustained_fps": [s.sustained_fps for s in res.streams],
+                      "track_births": stats["track_births_total"],
+                      "vs_plain": replay_matches_plain(recorder.frames, echo.tracker, "echo")}
+    emit("sessions", card, **result, launches=launches, tracker_s=t_tracker,
+         wall_s=time.perf_counter() - t_phase)
+    return launches
 
 
 if __name__ == "__main__":

@@ -139,6 +139,51 @@ def test_collect_exports_the_jax_samples():
     assert types == {k: v for k, v in tcol.METRIC_TYPES.items() if not k.startswith(_SKIP)}
 
 
+_SESSION_FAMILIES = ("tpu_serving_sessions", "tpu_serving_session_", "tpu_serving_track_")
+
+
+def test_sessions_families_export_the_manager_as_jax_does():
+    """With a session manager on the staged channel (its stats() from a real
+    port manager that tracked, ended and rejected), both collectors export
+    the same sessions samples, and they count."""
+    import prometheus_client
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.ops.tracking import TrackerConfig
+    from triton_client_tpu_torch.runtime.sessions import SessionLimitError, SessionManager
+
+    manager = SessionManager(max_sessions=1, tracker=TrackerConfig(max_tracks=4))
+    det = torch.zeros((3, 11))
+    det[:2, 0] = torch.tensor([0.0, 9.0])
+    det[:2, -2] = 0.9
+    frame = {"detections": det, "valid": det[:, -2] > 0}
+    manager.advance(InferRequest("m", {}, sequence_id="a", sequence_start=True), frame)
+    with pytest.raises(SessionLimitError):
+        manager.advance(InferRequest("m", {}, sequence_id="b"), frame)
+    manager.release("a")
+    manager.advance(InferRequest("m", {}, sequence_id="a", sequence_end=True), frame)
+    manager.release("a")
+    stats = manager.stats()
+
+    class _Sessions:
+        def stats(self) -> dict:
+            return dict(stats)
+
+    lines = []
+    for col in (jcol, tcol):
+        registry = prometheus_client.CollectorRegistry()
+        staged = _Staged()
+        staged.sessions = _Sessions()
+        c = col.RuntimeCollector(channel=staged, registry=registry)
+        lines.append([line for line in _samples(registry) if line.startswith(_SESSION_FAMILIES)])
+        c.close()
+    assert lines[1] == lines[0]
+    for want in ("tpu_serving_session_frames_total 2.0", "tpu_serving_track_births_total 2.0",
+                 "tpu_serving_sessions_rejected_total 1.0",
+                 'tpu_serving_sessions_total{event="ended"} 1.0'):
+        assert want in lines[1], want
+
+
 def test_every_family_exports_without_components():
     """No channel, tracer or plane: every family still has its TYPE line,
     at the type METRIC_TYPES names (the lifecycle, sessions, quality and

@@ -13,6 +13,11 @@ package's, on the CPU.
   Every client thread has exited and every shared-memory region is
   unregistered when a run returns.
 - A list of addresses raises naming ROADMAP item 8 (the router).
+- The streaming replay's pieces: ``synthetic_stream`` equals JAX's bit for
+  bit for the same arguments (every ``dynamics``); ``_score_tracking``,
+  ``_score_coast`` and ``StreamsResult.summary()`` equal JAX's on the same
+  recorded stats; ``run_streams`` through a channel-shaped echo stub gives
+  JAX's per-stream counts and scores.
 """
 
 import math
@@ -142,7 +147,8 @@ def test_slo_capacity_search_through_a_stub_equals_jax(fail):
 def test_a_list_of_addresses_raises_naming_the_router_item():
     for call in (lambda: tlg._dial(["127.0.0.1:1", "127.0.0.1:2"], 1.0),
                  lambda: tlg.run_open_loop(["127.0.0.1:1"], [("m", {})], 1.0, 0.1),
-                 lambda: tlg.slo_capacity_search(("127.0.0.1:1",), [("m", {})], 10.0)):
+                 lambda: tlg.slo_capacity_search(("127.0.0.1:1",), [("m", {})], 10.0),
+                 lambda: tlg.run_streams(["127.0.0.1:1"], "m", 1, lambda i: [])):
         with pytest.raises(NotImplementedError, match="item 8, step 5"):
             call()
     with pytest.raises(TypeError, match="loadgen target"):
@@ -151,6 +157,105 @@ def test_a_list_of_addresses_raises_naming_the_router_item():
         tlg.run_open_loop(_Stub(), [], 1.0, 0.1)
     with pytest.raises(ValueError, match="unknown pool mode"):
         tlg.run_pool("127.0.0.1:1", "m", {}, 1, 0.1, mode="bogus")
+
+
+# -- streaming replay ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_frames=6), dict(n_frames=12, fps=40.0, n_objects=3, seed=2),
+    dict(n_frames=9, det_dim=13, clutter=0, speed=2.5, seed=5),
+    dict(n_frames=14, dynamics="static", seed=1), dict(n_frames=14, dynamics="pan", seed=3),
+    dict(n_frames=30, dynamics="burst", phase_frames=5, seed=4),
+    dict(n_frames=40, dynamics="mixed", phase_frames=4, seed=9),
+])
+def test_synthetic_stream_equals_jax_bitwise(kw):
+    got, want = list(tlg.synthetic_stream(**kw)), list(jlg.synthetic_stream(**kw))
+    assert len(got) == len(want) == kw["n_frames"]
+    for (g_off, g_in, g_gt), (w_off, w_in, w_gt) in zip(got, want):
+        assert g_off == w_off
+        for name in ("detections", "valid"):
+            assert g_in[name].dtype == w_in[name].dtype
+            np.testing.assert_array_equal(g_in[name], w_in[name])
+        np.testing.assert_array_equal(g_gt, w_gt)
+    for bad in (dict(n_frames=1, det_dim=9), dict(n_frames=1, dynamics="spin")):
+        with pytest.raises(ValueError):
+            list(tlg.synthetic_stream(**bad))
+
+
+def _scored(mod, seed):
+    """One StreamStats per module, fed the same seeded per-frame track ids
+    (switches, clutter, -1 rows, an alias) and coast frames."""
+    rng = np.random.default_rng(seed)
+    stats = mod.StreamStats(f"stream-{seed}")
+    gt_to_tid, tids_per_gt = {}, {}
+    gt = np.array([0, 1, 2, -1])
+    for k in range(12):
+        tids = np.array([10, 11, 12, 99], np.int32)
+        tids[rng.random(4) < 0.2] = -1
+        if k == 6:
+            tids[:2] = tids[1::-1]  # two objects swap ids: switches and aliases
+        mod._score_tracking(stats, tids, gt, gt_to_tid, tids_per_gt)
+        live = np.array([10, 11, 12, 13]) if k % 4 else np.array([10, 0, 12, 13])
+        mod._score_coast(stats, {"track_ids": live, "tracks_valid": live > 0}, gt_to_tid)
+        stats.frames_sent += 1
+        stats.frames_ok += int(k != 3)
+        stats.latencies_ms.append(float(rng.uniform(1, 20)))
+        stats.inter_frame_ms.append(float(rng.uniform(20, 40)))
+    stats.wall_s = 1.25 + seed
+    stats.fragmentation = sum(len(s) - 1 for s in tids_per_gt.values())
+    return stats
+
+
+def test_stream_scores_and_summary_equal_jax():
+    got = tlg.StreamsResult(streams=[_scored(tlg, s) for s in range(3)], wall_s=4.5)
+    want = jlg.StreamsResult(streams=[_scored(jlg, s) for s in range(3)], wall_s=4.5)
+    assert got.summary() == want.summary()
+    assert got.summary()["id_switches"] > 0 and got.summary()["coast_track_drops"] > 0
+    for g, w in zip(got.streams, want.streams):
+        assert (g.track_map, g.aliases, g.inter_frame_p99(), g.sustained_fps) == \
+            (w.track_map, w.aliases, w.inter_frame_p99(), w.sustained_fps)
+    assert tlg.StreamsResult().summary() == jlg.StreamsResult().summary()
+
+
+class _EchoTracker:
+    """A channel-shaped stub that answers each frame with per-detection
+    track ids ``100 + gt`` (a perfect tracker), clutter -1."""
+
+    def __init__(self, response_cls, swap_at=None):
+        self._cls = response_cls
+        self._swap_at = swap_at
+        self._frames = {}  # sequence_id -> frames seen (one stream's thread each)
+
+    def do_inference_async(self, request):  # marks the stub channel-shaped
+        raise NotImplementedError
+
+    def do_inference(self, request):
+        k = self._frames[request.sequence_id] = self._frames.get(request.sequence_id, 0) + 1
+        det = np.asarray(request.inputs["detections"])
+        ids = np.where(det[:, -2] > 0.5, 100 + np.arange(det.shape[0]), -1).astype(np.int32)
+        if self._swap_at is not None and k % self._swap_at == 0:
+            ids[:2] = ids[1::-1]
+        return self._cls(model_name=request.model_name, model_version="1",
+                         outputs={"det_track_ids": ids})
+
+
+@pytest.mark.parametrize("swap_at", [None, 5])
+def test_run_streams_through_a_stub_equals_jax(swap_at):
+    from triton_client_tpu.channel.base import InferResponse as JResponse
+
+    def source(i):
+        return tlg.synthetic_stream(n_frames=10, n_objects=3, seed=i)
+
+    got = tlg.run_streams(_EchoTracker(InferResponse, swap_at), "m", 3, source, realtime=False)
+    want = jlg.run_streams(_EchoTracker(JResponse, swap_at), "m", 3, source, realtime=False)
+    for key in ("streams", "frames_sent", "frames_ok", "goodput", "frames_detected",
+                "id_switches", "fragmentation", "track_id_aliases"):
+        assert got.summary()[key] == want.summary()[key], key
+    for g, w in zip(got.streams, want.streams):
+        assert (g.stream_id, g.track_map, g.id_switches) == (w.stream_id, w.track_map,
+                                                             w.id_switches)
+    assert (got.id_switches > 0) == (swap_at is not None)
 
 
 # -- against the port's serve on a loopback port ----------------------------------------

@@ -121,16 +121,14 @@ NON_DEFAULT = {
     "quality_window": ["--quality-window", "8"],
     "quality_promote_after": ["--quality-promote-after", "1"],
     "quality_pin_fused_off": ["--quality-pin-fused-off"],
-    "max_sessions": ["--max-sessions", "64"],
-    "session_ttl_s": ["--session-ttl-s", "5"],
-    "session_id_namespace": ["--session-id-namespace", "3"],
     "temporal_reuse": ["--temporal-reuse", "on"], "temporal_k_max": ["--temporal-k-max", "4"],
     "temporal_tile": ["--temporal-tile", "4"], "temporal_forced_k": ["--temporal-forced-k", "3"],
     "replica_of": ["--replica-of", "cell0/pool"],
 }
 
 # the flags served since they left UNPORTED (the telemetry and SLO planes,
-# the lifecycle and tenants): flags -> what the built server shows for them
+# the lifecycle and tenants, the streaming sessions): flags -> what the built
+# server shows for them
 _METRICS = ["--metrics-port", "auto"]
 SERVED = {
     "hbm_budget": (["--hbm-budget", "256"],
@@ -156,6 +154,11 @@ SERVED = {
     "admission_concurrency": (["--admission", "2", "--admission-concurrency", "8"],
                               lambda s: s.admission.stats()["concurrency"] == 8),
     "shed_expired": (["--shed-expired"], lambda s: s.channel._shed_expired),
+    "max_sessions": (["--max-sessions", "16"],
+                     lambda s: s.channel.sessions.stats()["max_sessions"] == 16),
+    "session_ttl_s": (["--session-ttl-s", "5"], lambda s: s.channel.sessions._ttl_s == 5.0),
+    "session_id_namespace": (["--session-id-namespace", "3"],
+                             lambda s: s.channel.sessions._namespace == 3),
 }
 
 
@@ -182,6 +185,23 @@ def test_telemetry_and_slo_flags_are_served(tmp_path, monkeypatch, dest):
         server.stop()
     if dest == "history_path":
         assert json.loads(history.read_text())["snapshots"]
+
+
+def test_sessions_default_on_under_any_batcher_and_zero_disables(tmp_path, monkeypatch, capsys):
+    """``--max-sessions`` defaults to 64, as in the JAX CLI: the manager sits
+    on the staged channel under a batcher too; 0 attaches none."""
+    monkeypatch.chdir(ROOT)
+    server = serve.build_server(_args(tmp_path, "--batching"))
+    try:
+        assert server.channel.inner.sessions.stats()["max_sessions"] == 64
+    finally:
+        server.stop()
+    assert "streaming sessions: max_sessions=64 ttl=60s id_namespace=0" in capsys.readouterr().out
+    server = serve.build_server(_args(tmp_path, "--max-sessions", "0"))
+    try:
+        assert server.channel.sessions is None
+    finally:
+        server.stop()
 
 
 def test_every_unported_flag_has_a_case():

@@ -315,19 +315,39 @@ def test_a_fault_fails_only_its_own_future(point):
 
 @pytest.mark.parametrize("hook", ["attach_lifecycle", "attach_device_time", "attach_sessions"])
 def test_slot_buffers_and_hooks_not_ported(hook):
-    """The sessions hook still raises naming ROADMAP; the device-time hook is
-    ported: it takes a ledger, which then accounts one launch a request
-    (tests/test_torch_device_time.py holds the rest); so is the lifecycle
-    hook: a request promotes its model (tests/test_torch_lifecycle.py holds
-    the rest)."""
+    """Every hook is ported. The sessions hook attaches a manager, and a
+    session frame then carries the track tensors (the toy model has no
+    detections head, so a 6-column echo model rides beside it;
+    tests/test_torch_sessions.py holds the rest); the device-time hook takes
+    a ledger, which then accounts one launch a request
+    (tests/test_torch_device_time.py holds the rest); the lifecycle hook: a
+    request promotes its model (tests/test_torch_lifecycle.py holds the
+    rest)."""
     from triton_client_tpu_torch.obs.device_time import DeviceTimeLedger
+    from triton_client_tpu_torch.ops.tracking import OUTPUT_KEYS
     from triton_client_tpu_torch.runtime.lifecycle import ModelLifecycleManager
+    from triton_client_tpu_torch.runtime.sessions import SessionManager
 
     _, chan = _port()
     attach = getattr(chan, hook)
     if hook == "attach_sessions":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attach(object())
+        manager = SessionManager(max_sessions=2)
+        attach(manager)
+        assert chan.sessions is manager
+        spec = ModelSpec(name="echo6", version="1",
+                         inputs=(TensorSpec("detections", (-1, 6), "FP32"),),
+                         outputs=(TensorSpec("detections", (-1, 6), "FP32"),
+                                  TensorSpec("valid", (-1,), "BOOL")))
+        chan._repository.register(spec, lambda inputs: {
+            "detections": inputs["detections"], "valid": inputs["detections"][:, 4] > 0})
+        det = np.zeros((3, 6), np.float32)
+        det[0] = (1.0, 2.0, 5.0, 6.0, 0.9, 0.0)
+        plain = chan.do_inference(InferRequest("staged", {"x": _frame(0)}, sequence_id="s"))
+        assert set(plain.outputs) == {"y", "cls"}  # no detections head: passes through
+        resp = chan.do_inference(InferRequest("echo6", {"detections": det}, sequence_id="s"))
+        assert set(OUTPUT_KEYS) <= set(resp.outputs)
+        assert resp.outputs["det_track_ids"][0] > 0 and resp.outputs["tracks"].shape == (64, 6)
+        assert manager.stats()["frames_total"] == 1 and manager.stats()["inflight_frames"] == 0
         return
     if hook == "attach_lifecycle":
         manager = ModelLifecycleManager(chan._repository)

@@ -40,8 +40,18 @@ manager's page-in hook (:meth:`StagedChannel._warm_model`) builds the
 launcher, or captures the graphs of a model that serves through its
 ``infer_fn``; its page-out hook (:meth:`StagedChannel._evict_model`) drops
 the model's launchers and releases every CUDA graph the model serves
-through, with their pools. The JAX engine's sessions hook is not ported:
-``attach_sessions`` raises ``NotImplementedError``.
+through, with their pools.
+
+``attach_sessions`` attaches a ``runtime/sessions.SessionManager``: a
+request with a ``sequence_id`` then runs ``manager.advance`` on the
+launch's device outputs, on the launch stream, before the completion event
+and inside the ledger's device window, so ``wait_device`` covers the
+tracker's step and the stream's device seconds include it (recorded under
+the tenant ``stream:<sequence_id>``). The track tensors join the outputs
+and come back at their own dtypes (int32 ids, bool valid flags). A failed
+``advance`` frees the slot and the lifecycle reference, counts a
+``session`` shed and fails only that request; ``resolve`` releases the
+session's reference in its ``finally``.
 """
 
 from __future__ import annotations
@@ -77,11 +87,6 @@ from triton_client_tpu_torch.runtime.repository import ModelRepository
 
 # the key under which a packed request's segment ids ride with its inputs
 SEGMENT_IDS_KEY = "__segment_ids__"
-
-_NOT_PORTED = (
-    "the {} hook of the staged channel is not ported yet "
-    "(ROADMAP.md Queue 1, 'Serving breadth')"
-)
 
 log = logging.getLogger(__name__)
 
@@ -226,6 +231,7 @@ class StagedChannel(BaseChannel):
         self._device_time = None  # obs/device_time.DeviceTimeLedger
         self._cost_measured: set = set()  # model identities whose cost is recorded
         self._lifecycle = None  # runtime/lifecycle.ModelLifecycleManager
+        self._sessions = None  # runtime/sessions.SessionManager
         repository.add_unregister_listener(self._on_unregister)
         self.register_channel()
 
@@ -486,6 +492,9 @@ class StagedChannel(BaseChannel):
         ledger = self._device_time
         device_seconds = None
         captured = captures_on_this_thread()
+        sessions = self._sessions
+        session_id = request.sequence_id if sessions is not None else ""
+        advanced = False
         try:
             faults.probe("slow_launch", name)
             faults.probe("launch", name)
@@ -505,6 +514,17 @@ class StagedChannel(BaseChannel):
                 # session closes while it starts and stops
                 window = self._begin_window() if ledger is not None else None
                 outputs = call()
+            if session_id:
+                # the stream's tracker step on this launch's outputs, on the
+                # launch stream; the slot reference it takes drops in
+                # resolve's finally
+                try:
+                    outputs = sessions.advance(request, outputs)
+                except Exception as e:
+                    self._abandon(staged)
+                    self._count_shed(name, request.priority, "session")
+                    return InferFuture.failed(e)
+                advanced = True
             if window is None:
                 event = self._record_done()
             else:
@@ -513,6 +533,8 @@ class StagedChannel(BaseChannel):
             # the error goes to THIS request's future only; the slot frees
             # and the channel stays serviceable (the breaker decides whether
             # the model needs a timeout)
+            if advanced:
+                sessions.release(session_id)
             self._abandon(staged)
             self._record_launch_failure(name)
             return InferFuture.failed(e)
@@ -540,7 +562,10 @@ class StagedChannel(BaseChannel):
                 if tr is not None:
                     tr.add("device_execute", t_launched, t_ready)
                 if device_seconds is not None:
-                    ledger.record(name, device_seconds(), model.spec.extra)
+                    # a session frame bills its stream, so the ledger's
+                    # tenant axis reads device seconds per live stream
+                    ledger.record(name, device_seconds(), model.spec.extra,
+                                  tenant=f"stream:{session_id}" if session_id else None)
                 faults.probe("readback", name)
                 host = self._host_outputs(outputs, out_dtype, staged.meta)
                 if tr is not None:
@@ -551,6 +576,8 @@ class StagedChannel(BaseChannel):
             finally:
                 self._retire(rec)
                 self._release_lifecycle(staged)
+                if session_id:
+                    sessions.release(session_id)
             if self._breaker is not None:
                 self._breaker.record_success(name)
             return InferResponse(
@@ -742,10 +769,17 @@ class StagedChannel(BaseChannel):
         if key is not None and self._lifecycle is not None:
             self._lifecycle.release(*key)
 
-    # -- hooks of layers not ported -------------------------------------------
+    # -- streaming sessions (runtime/sessions.py) -------------------------------
 
     def attach_sessions(self, manager) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("streaming sessions"))
+        """Attach a ``SessionManager`` (None detaches): launches whose request
+        carries a ``sequence_id`` advance that stream's tracker on the
+        launch's outputs and hold the slot's reference until resolve."""
+        self._sessions = manager
+
+    @property
+    def sessions(self):
+        return self._sessions
 
     # -- failure isolation ----------------------------------------------------
 

@@ -30,11 +30,16 @@ shares. With a lifecycle, ``--warmup`` prefetches the models in list
 order while the next one fits beside those already warm, and stops at the
 first that would evict another (or cannot fit at all).
 
+``--max-sessions`` (default 64, as in the JAX CLI; 0 disables),
+``--session-ttl-s`` and ``--session-id-namespace`` attach the streaming
+sessions (``runtime/sessions.py``) to the channel: a request carrying a
+``sequence_id`` parameter gets device-resident per-stream tracker state,
+and its response carries the track tensors.
+
 The JAX CLI's flags for layers the port does not serve yet keep their
 off values here and raise at any other value, naming the ROADMAP item
-(:data:`UNPORTED`). Two flags default differently from the JAX CLI,
-which turns them on: ``--metrics-port`` (0: off) and ``--max-sessions``
-(0).
+(:data:`UNPORTED`). ``--metrics-port`` defaults differently from the JAX
+CLI, which turns it on (0: off here).
 """
 
 from __future__ import annotations
@@ -57,9 +62,6 @@ UNPORTED = {
     "quality_window": ("--quality-window", 32, "quality"),
     "quality_promote_after": ("--quality-promote-after", 3, "quality"),
     "quality_pin_fused_off": ("--quality-pin-fused-off", False, "quality"),
-    "max_sessions": ("--max-sessions", 0, "sessions"),
-    "session_ttl_s": ("--session-ttl-s", 60.0, "sessions"),
-    "session_id_namespace": ("--session-id-namespace", 0, "sessions"),
     "temporal_reuse": ("--temporal-reuse", "off", "temporal"),
     "temporal_k_max": ("--temporal-k-max", 8, "temporal"),
     "temporal_tile": ("--temporal-tile", 8, "temporal"),
@@ -180,6 +182,19 @@ def parser() -> argparse.ArgumentParser:
                    help="tenants.yaml path mapping models to tenants with memory quotas, "
                    "fair-share weights and in-flight caps (see docs/OPERATIONS.md "
                    "'Multi-tenant serving')")
+    p.add_argument("--max-sessions", type=int, default=64,
+                   help="streaming-session slot pool size (runtime/sessions.py): requests "
+                   "carrying a sequence_id parameter get device-resident per-stream tracker "
+                   "state in one of this many slots; ended and TTL-expired slots are reclaimed, "
+                   "a full unreclaimable pool sheds with RESOURCE_EXHAUSTED. 0 disables sessions "
+                   "(sequence params pass through untracked)")
+    p.add_argument("--session-ttl-s", type=float, default=60.0,
+                   help="idle seconds before a streaming session's slot is reclaimable (streams "
+                   "that vanish without sequence_end)")
+    p.add_argument("--session-id-namespace", type=int, default=0,
+                   help="track-id namespace (0-15) stamped into this replica's track ids: give "
+                   "each replica of a fleet a distinct value so ids stay globally unique across "
+                   "session re-homing")
     p.add_argument("-v", "--verbose", action="store_true")
     for dest, (flag, default, what) in UNPORTED.items():
         kw = {"dest": dest, "default": default,
@@ -321,6 +336,19 @@ def build_server(args):
               "(models page in on demand, evict LRU-within-priority)", flush=True)
         if getattr(args, "warmup", False):
             prefetch_fitting(lifecycle, repo.list_models())
+    # streaming sessions: device-resident per-stream tracker state keyed by
+    # the KServe sequence_id parameter, on the staged channel under any batcher
+    max_sessions = int(getattr(args, "max_sessions", 64) or 0)
+    if max_sessions > 0:
+        from triton_client_tpu_torch.runtime.sessions import SessionManager
+
+        ttl_s = float(getattr(args, "session_ttl_s", 60.0))
+        namespace = int(getattr(args, "session_id_namespace", 0))
+        channel.attach_sessions(SessionManager(max_sessions=max_sessions, ttl_s=ttl_s,
+                                               id_namespace=namespace))
+        print(f"streaming sessions: max_sessions={max_sessions} ttl={ttl_s:g}s "
+              f"id_namespace={namespace} (device-resident tracking keyed by sequence_id)",
+              flush=True)
     batcher = getattr(args, "batcher", None) or (
         "continuous" if getattr(args, "batching", False) else "none"
     )

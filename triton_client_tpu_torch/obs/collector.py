@@ -14,9 +14,9 @@ already holds. :class:`RuntimeCollector` is the bridge:
   scrape time (no background thread, no second book).
 
 Every family of :data:`METRIC_TYPES` is exported even when its component
-is absent (the lifecycle families export zeros without a lifecycle
-manager; the sessions, quality and temporal planes are not ported: their
-families export zeros), so a dashboard built on the JAX package's names
+is absent (the lifecycle and sessions families export zeros without a
+lifecycle or session manager; the quality and temporal planes are not
+ported: their families export zeros), so a dashboard built on the JAX package's names
 reads the same series. Two readings are the port's own:
 
 - :class:`CompileEvents` counts CUDA-graph captures (``runtime/graphs``,
@@ -120,7 +120,7 @@ METRIC_TYPES: dict[str, str] = {
     "tpu_serving_wire_bytes_total": "counter",
     "tpu_serving_shm_bytes_total": "counter",
     "tpu_serving_stream_group_size": "histogram",
-    # streaming sessions (not ported: zeros)
+    # streaming sessions (zeros without a session manager)
     "tpu_serving_sessions_active": "gauge",
     "tpu_serving_session_slot_occupancy": "gauge",
     "tpu_serving_session_inflight_frames": "gauge",
@@ -771,7 +771,7 @@ class RuntimeCollector:
                     labels=["model"],
                     samples=[([m], v) for m, v in (dt_window.get("mfu") or {}).items()])
 
-        # streaming sessions (not ported: zeros)
+        # streaming sessions: the staged channel's manager (zeros without one)
         ses = snap.get("sessions") or {}
         yield gauge(f"{ns}_sessions_active",
                     "streaming sessions currently holding a device-resident tracker slot",

@@ -52,6 +52,13 @@ reach the models the port serves, dispatching through a ``BaseChannel``
   the admission controller, the device-time ledger bills each tenant, and
   the collector and ``/snapshot`` read the manager. ``server.lifecycle``
   serves the runbook's ``evict`` and ``prefetch``.
+- **Streaming sessions** (``runtime/sessions.SessionManager``, attached to
+  the staged channel by ``serve --max-sessions``): the servicer decodes the
+  ``sequence_id`` / ``sequence_start`` / ``sequence_end`` parameters onto
+  the request, the channel advances the stream's tracker on the launch's
+  outputs and the track tensors ride back in the response; a full pool
+  answers ``RESOURCE_EXHAUSTED`` (``SessionLimitError``), and the
+  collector's sessions families read the manager.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item (the defaults keep them off, as in the JAX server): the quality and
@@ -104,7 +111,6 @@ _MIN_MSG_BYTES = 64 << 20
 ROADMAP_ITEMS = {
     "quality": "8 (eval/{shadow,quality_plane}.py)",
     "temporal": "8 (runtime/temporal.py)",
-    "sessions": "8 (runtime/sessions.py)",
     "router": "8 (runtime/router.py)",
     "mesh": "8 (channel/sharded_channel.py)",
 }

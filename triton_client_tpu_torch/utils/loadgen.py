@@ -1,5 +1,5 @@
-"""Closed- and open-loop gRPC load generators for serving benchmarks (port
-of ``utils/loadgen.py``, without the streaming replay).
+"""Closed-loop, open-loop and streaming-replay gRPC load generators for
+serving benchmarks (port of ``utils/loadgen.py``).
 
 The role Triton's ``perf_analyzer`` plays in the reference's ecosystem
 (its README benchmarks the server with concurrent closed-loop clients):
@@ -32,11 +32,15 @@ in the percentile (``co_percentile``), so saturation reads as a blown
 p99, never as a shrunk sample. ``slo_capacity_search`` searches the
 offered rate for the largest one whose p99 meets an SLO.
 
-Not ported yet: ``run_streams``, ``synthetic_stream`` and their scoring
-(``StreamStats``, ``StreamsResult``), which replay tracked streams and
-wait for the streaming sessions (ROADMAP.md Queue 1 item 8, step 4). A
-list of addresses (a replica fleet) needs the front-door router (item 8,
-step 5).
+Streaming replay (``run_streams``): N timestamped sequences, one thread
+and one ``sequence_id`` each, replayed at their recorded pace against the
+server's streaming sessions (``runtime/sessions.py``), latency charged
+from each frame's scheduled time, and the track ids each response carries
+scored against the replayer's ground truth (ID switches, fragmentation,
+id aliases). ``synthetic_stream`` generates such a sequence from a seed.
+
+Not ported yet: a list of addresses (a replica fleet) needs the front-door
+router (ROADMAP.md Queue 1 item 8, step 5).
 """
 
 from __future__ import annotations
@@ -623,3 +627,342 @@ def slo_capacity_search(
                 chan.close()
             except Exception:
                 pass
+
+
+# -- streaming replay -----------------------------------------------------------
+
+
+@dataclass
+class StreamStats:
+    """One replayed stream's ledger.
+
+    Latencies are measured from each frame's SCHEDULED send time (the
+    recorded timestamp replayed against the stream's epoch), so a frame
+    issued late because the previous one stalled still charges the server,
+    the coordinated-omission discipline of ``run_open_loop``.
+    ``inter_frame_ms`` is completion to completion: the cadence the
+    stream's consumer sees. ``frames_detected`` / ``frames_coasted`` /
+    ``frames_partial`` split the OK frames by the response's
+    ``reuse_mode`` output (0 full detector, 1 tracker coast, 2 ROI-tile
+    partial); ``coast_track_drops`` counts bound ground-truth tracks whose
+    id vanished from a coast frame's live track set."""
+
+    stream_id: str
+    frames_sent: int = 0
+    frames_ok: int = 0
+    frames_detected: int = 0
+    frames_coasted: int = 0
+    frames_partial: int = 0
+    coast_track_drops: int = 0
+    wall_s: float = 0.0
+    latencies_ms: list = field(default_factory=list)
+    inter_frame_ms: list = field(default_factory=list)
+    id_switches: int = 0
+    fragmentation: int = 0
+    # track id -> the ground-truth object it was first bound to; ``aliases``
+    # counts REBINDS (a track id later seen on another object)
+    track_map: dict = field(default_factory=dict)
+    aliases: int = 0
+    errors: list = field(default_factory=list)
+
+    @property
+    def sustained_fps(self) -> float:
+        return self.frames_ok / self.wall_s if self.wall_s > 0 else 0.0
+
+    def inter_frame_p99(self) -> float:
+        if not self.inter_frame_ms:
+            return 0.0
+        return co_percentile(self.inter_frame_ms, len(self.inter_frame_ms), 99.0)
+
+
+@dataclass
+class StreamsResult:
+    streams: list = field(default_factory=list)
+    wall_s: float = 0.0
+
+    @property
+    def frames_sent(self) -> int:
+        return sum(s.frames_sent for s in self.streams)
+
+    @property
+    def frames_ok(self) -> int:
+        return sum(s.frames_ok for s in self.streams)
+
+    @property
+    def goodput(self) -> float:
+        """Fraction of replayed frames that came back OK."""
+        sent = self.frames_sent
+        return self.frames_ok / sent if sent else 0.0
+
+    @property
+    def id_switches(self) -> int:
+        return sum(s.id_switches for s in self.streams)
+
+    @property
+    def fragmentation(self) -> int:
+        return sum(s.fragmentation for s in self.streams)
+
+    @property
+    def aliases(self) -> int:
+        return sum(s.aliases for s in self.streams)
+
+    @property
+    def frames_coasted(self) -> int:
+        return sum(s.frames_coasted for s in self.streams)
+
+    @property
+    def frames_partial(self) -> int:
+        return sum(s.frames_partial for s in self.streams)
+
+    @property
+    def coast_track_drops(self) -> int:
+        return sum(s.coast_track_drops for s in self.streams)
+
+    def summary(self) -> dict:
+        per99 = [s.inter_frame_p99() for s in self.streams]
+        fps = [s.sustained_fps for s in self.streams]
+        return {
+            "streams": len(self.streams),
+            "frames_sent": self.frames_sent,
+            "frames_ok": self.frames_ok,
+            "goodput": round(self.goodput, 4),
+            "frames_detected": sum(s.frames_detected for s in self.streams),
+            "frames_coasted": self.frames_coasted,
+            "frames_partial": self.frames_partial,
+            "coast_track_drops": self.coast_track_drops,
+            "id_switches": self.id_switches,
+            "fragmentation": self.fragmentation,
+            "track_id_aliases": self.aliases,
+            "min_sustained_fps": round(min(fps), 3) if fps else 0.0,
+            "worst_inter_frame_p99_ms": round(max(per99), 3) if per99 else 0.0,
+            "wall_s": round(self.wall_s, 3),
+        }
+
+
+def synthetic_stream(
+    n_frames: int,
+    fps: float = 10.0,
+    n_objects: int = 4,
+    det_dim: int = 11,
+    seed: int = 0,
+    speed: float = 1.0,
+    clutter: int = 2,
+    dynamics: str | None = None,
+    phase_frames: int = 12,
+):
+    """A synthetic timestamped detection stream for replay: ``n_objects``
+    constant-velocity movers plus ``clutter`` low-score distractors a frame.
+    Yields ``(offset_s, inputs, gt_ids)`` frames in the shape ``run_streams``
+    replays: ``inputs`` carries ``detections`` (N, det_dim) float32 rows
+    ``[x y z dx dy dz heading vx vy ... score label]`` and a ``valid`` bool
+    mask; ``gt_ids`` aligns ground-truth object ids with rows (clutter rows
+    are -1, never scored).
+
+    ``dynamics`` shapes the scene motion: None (constant-velocity movers),
+    ``"static"`` (objects hold position), ``"pan"`` (one coherent drift for
+    every object), ``"burst"`` (static with high-speed velocities re-drawn
+    every ``phase_frames`` frames) or ``"mixed"`` (static -> pan -> burst
+    phases of ``phase_frames`` each). The same arguments give the JAX
+    package's stream bit for bit."""
+    import numpy as np
+
+    if det_dim < 11:
+        raise ValueError("synthetic_stream needs det_dim >= 11")
+    if dynamics not in (None, "static", "pan", "burst", "mixed"):
+        raise ValueError(f"dynamics must be None/static/pan/burst/mixed, not {dynamics!r}")
+    phase_frames = max(1, int(phase_frames))
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-20.0, 20.0, size=(n_objects, 2))
+    base_vel = rng.uniform(-1.0, 1.0, size=(n_objects, 2)) * speed
+    pan_vel = rng.uniform(-1.0, 1.0, size=(1, 2)) * speed * 2.0
+    dt = 1.0 / fps
+    n_rows = n_objects + clutter
+    vel = base_vel
+    for k in range(n_frames):
+        if dynamics is not None:
+            phase = dynamics
+            if dynamics == "mixed":
+                phase = ("static", "pan", "burst")[(k // phase_frames) % 3]
+            if phase == "static":
+                vel = np.zeros_like(base_vel)
+            elif phase == "pan":
+                vel = np.broadcast_to(pan_vel, base_vel.shape)
+            elif phase == "burst" and k % phase_frames == 0:
+                # a burst edge: new high-speed velocities, held through the phase
+                vel = rng.uniform(-1.0, 1.0, base_vel.shape) * speed * 4.0
+        det = np.zeros((n_rows, det_dim), dtype=np.float32)
+        det[:n_objects, 0:2] = pos + rng.normal(0.0, 0.05, pos.shape)
+        det[:n_objects, 3:6] = (4.0, 2.0, 1.5)
+        det[:n_objects, 7:9] = vel
+        det[:n_objects, -2] = 0.9
+        if clutter:
+            det[n_objects:, 0:2] = rng.uniform(-30.0, 30.0, (clutter, 2))
+            det[n_objects:, -2] = 0.05
+        gt = np.concatenate([np.arange(n_objects, dtype=np.int64),
+                             np.full((clutter,), -1, dtype=np.int64)])
+        inputs = {"detections": det, "valid": np.ones((n_rows,), dtype=np.bool_)}
+        yield (k * dt, inputs, gt)
+        pos = pos + vel * dt
+
+
+def _score_tracking(stats, det_tids, gt_ids, gt_to_tid, tids_per_gt):
+    """Fold one frame's track assignment into the stream's ID-switch counter
+    and per-object track-id sets. ``det_tids``: the server's per-detection
+    track ids; ``gt_ids``: the replayer's aligned ground truth (-1 rows are
+    clutter, never scored)."""
+    import numpy as np
+
+    tids = np.asarray(det_tids).reshape(-1)
+    gts = np.asarray(gt_ids).reshape(-1)
+    if tids.shape[0] != gts.shape[0]:
+        return
+    for g, tid in zip(gts.tolist(), tids.tolist()):
+        if g < 0 or tid < 0:
+            continue
+        prev = gt_to_tid.get(g)
+        if prev is not None and prev != tid:
+            stats.id_switches += 1
+        gt_to_tid[g] = tid
+        tids_per_gt.setdefault(g, set()).add(tid)
+        bound = stats.track_map.setdefault(tid, g)
+        if bound != g:
+            stats.aliases += 1
+
+
+def _score_coast(stats, outputs, gt_to_tid) -> None:
+    """Score one coasted frame: with no per-detection assignment, the
+    checkable claim is track persistence: every ground-truth object's bound
+    track id must still be live in the frame's ``track_ids`` /
+    ``tracks_valid``. Each vanished binding counts one
+    ``coast_track_drops``."""
+    import numpy as np
+
+    tids = outputs.get("track_ids")
+    if tids is None or not gt_to_tid:
+        return
+    live = np.asarray(tids).reshape(-1)
+    valid = outputs.get("tracks_valid")
+    if valid is not None:
+        mask = np.asarray(valid, bool).reshape(-1)
+        if mask.shape == live.shape:
+            live = live[mask]
+    live_set = {int(t) for t in live.tolist() if t > 0}
+    stats.coast_track_drops += sum(1 for tid in gt_to_tid.values() if tid not in live_set)
+
+
+def run_streams(
+    target,
+    model_name: str,
+    n_streams: int,
+    source,
+    deadline_s: float = 60.0,
+    stream_id_prefix: str = "stream",
+    track_output: str = "det_track_ids",
+    realtime: bool = True,
+) -> StreamsResult:
+    """Replay ``n_streams`` timestamped sequences at their recorded pace: the
+    streaming-session counterpart of ``run_pool``'s stateless closed loop.
+
+    ``target`` is a ``_dial`` shape (an endpoint, or a built channel; a
+    list of endpoints raises until the router is ported).
+    ``source(stream_idx)`` returns an iterable of ``(offset_s, inputs)`` or
+    ``(offset_s, inputs, gt_ids)`` frames (:func:`synthetic_stream`). Every
+    stream gets its own thread and ``sequence_id``; the first frame carries
+    ``sequence_start``, the last ``sequence_end``, so the server's session
+    slots open and close with the replay.
+
+    Pacing: frame ``i`` is sent no earlier than ``epoch + offset_i`` and
+    never before frame ``i-1`` resolved (a session's frames are ordered).
+    With ``realtime=False`` the offsets are ignored and each stream replays
+    back to back. Latency is charged from the SCHEDULED time.
+
+    ID switches and fragmentation need ground truth: frames that carry
+    ``gt_ids`` are scored against the ``track_output`` tensor of each
+    response (an ID switch: a ground-truth object's track id changed
+    between consecutive sightings; fragmentation: distinct track ids per
+    object beyond the first)."""
+    from triton_client_tpu_torch.channel.base import InferRequest
+
+    if n_streams < 1:
+        raise ValueError("run_streams needs n_streams >= 1")
+    chan, owned = _dial(target, deadline_s)
+    results = [StreamStats(f"{stream_id_prefix}-{i}") for i in range(n_streams)]
+    ready = threading.Barrier(n_streams + 1)
+
+    def stream_loop(idx: int) -> None:
+        import numpy as np
+
+        stats = results[idx]
+        frames = []
+        for f in source(idx):
+            gt = f[2] if len(f) > 2 else None
+            frames.append((float(f[0]), f[1], gt))
+        gt_to_tid: dict = {}
+        tids_per_gt: dict = {}
+        try:
+            ready.wait(timeout=deadline_s)
+        except threading.BrokenBarrierError:
+            return
+        t0 = time.perf_counter()
+        last_done = None
+        for k, (off, inputs, gt) in enumerate(frames):
+            sched = t0 + off if realtime else time.perf_counter()
+            delay = sched - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            req = InferRequest(
+                model_name=model_name,
+                inputs=inputs,
+                sequence_id=stats.stream_id,
+                sequence_start=(k == 0),
+                sequence_end=(k == len(frames) - 1),
+            )
+            stats.frames_sent += 1
+            try:
+                resp = chan.do_inference(req)
+            except Exception as e:  # the stream outlives one lost frame
+                stats.errors.append(e)
+                continue
+            now = time.perf_counter()
+            stats.frames_ok += 1
+            stats.latencies_ms.append((now - sched) * 1e3)
+            if last_done is not None:
+                stats.inter_frame_ms.append((now - last_done) * 1e3)
+            last_done = now
+            mode = resp.outputs.get("reuse_mode")
+            mode = 0 if mode is None else int(np.asarray(mode).reshape(-1)[0])
+            if mode == 1:
+                stats.frames_coasted += 1
+            elif mode == 2:
+                stats.frames_partial += 1
+            else:
+                stats.frames_detected += 1
+            if gt is None:
+                continue
+            if mode == 1:
+                # coasted: no per-detection assignment came back; score
+                # track persistence instead of ID switches
+                _score_coast(stats, resp.outputs, gt_to_tid)
+            else:
+                tids = resp.outputs.get(track_output)
+                if tids is not None:
+                    _score_tracking(stats, tids, gt, gt_to_tid, tids_per_gt)
+        stats.wall_s = time.perf_counter() - t0
+        stats.fragmentation = sum(len(s) - 1 for s in tids_per_gt.values())
+
+    threads = [threading.Thread(target=stream_loop, args=(i,), name=f"stream-{i}", daemon=True)
+               for i in range(n_streams)]
+    t_start = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        ready.wait(timeout=deadline_s)
+        for t in threads:
+            t.join()
+    finally:
+        if owned:
+            try:
+                chan.close()
+            except Exception:
+                pass
+    return StreamsResult(streams=results, wall_s=time.perf_counter() - t_start)
