@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 ``--phase NAME`` runs phase 1 and the named groups (``PHASES``: yolov5,
 3d, second, ragged, dense_batched, graphs, driver, facade, layout, remote,
 centerpoint, precision, replay, detectron_v4, ensemble, loadgen,
-second_sparse, telemetry, telemetry_plane, lifecycle, sessions), with the
+second_sparse, telemetry, telemetry_plane, lifecycle, sessions, router), with the
 groups whose served models they reuse, or whose kernel rows they add to,
 run first; an unknown name exits 2.
 A named run ends as a whole run does, with the ``{"kernels": [...]}``
@@ -37,8 +37,9 @@ generator against `serve` (phase 33), SECOND-IoU's sparse middle at the
 reference's 0.05 m grid (phase 34) and the measurement units: the
 device-time ledger, the roofline, op attribution and the tools (phase 35),
 the telemetry and SLO planes behind serve (phase 36), the model
-lifecycle and tenant plane (phase 37) and streaming sessions with the
-tracker on the card (phase 38).
+lifecycle and tenant plane (phase 37), streaming sessions with the
+tracker on the card (phase 38) and the front-door router over two serve
+replicas (phase 39).
 One JSON line per phase:
 
   1. card      — the card's name and power limit, the kernels' build time
@@ -264,7 +265,7 @@ One JSON line per phase:
                  share and top device ops (torch.profiler), param_bytes and
                  graph-pool bytes; the phase's wall time
  30. replay    — bags written from a seed with io/synthdata in a temporary
-                 directory: 32 rgb8 512² frames with their GT, 16 KITTI
+                 directory: 32 rgb8 512² frames with their GT, 8 KITTI
                  scans of ~120,000 points (uncompressed and bz2) and 20
                  nuScenes sweeps of ~30,000 points with an Odometry topic.
                  detect2d -i <bag> on yolov5_crop's conf-0.05 copy with
@@ -321,9 +322,9 @@ One JSON line per phase:
                  hand-chained paths, and the fused warmup's 64x64 graph
  33. loadgen   — `serve` over the phase-32 repository in a process of its
                  own, and utils/loadgen on loopback against yolov5_crop and
-                 ensemble_fused_pipeline: run_pool with 4 clients for 2.5 s in
+                 ensemble_fused_pipeline: run_pool with 4 clients for 1.5 s in
                  the unary, stream and async modes, run_open_loop at half
-                 the unary frames/s for 2.5 s, slo_capacity_search at a 33 ms
+                 the unary frames/s for 1.5 s, slo_capacity_search at a 33 ms
                  SLO with 2 s probes and 4 bisections; frames/s, p50, p99,
                  errors (none allowed) and capacity
  34. second_sparse — SECOND-IoU with the sparse middle built from
@@ -368,7 +369,7 @@ One JSON line per phase:
                  pointpillar_kitti in a process of its own, without and with
                  --metrics-port auto --slo-ms 33 --op-sample-interval 2
                  --history-interval 1; utils/loadgen.run_pool with 4 clients
-                 for 3 s an entry (a seeded 480x640 frame, 20,000- and
+                 for 1.5 s an entry (a seeded 480x640 frame, 20,000- and
                  120,000-point scans). Held: every METRIC_TYPES family on
                  /metrics, each model's e2e histogram count equal to the
                  requests it answered, SLO met + missed equal to them, the
@@ -423,6 +424,24 @@ One JSON line per phase:
                  and 4, a CenterPoint request's p50 with and without a
                  sequence_id, the replays' p50 and frames/s, each echo
                  stream's sustained frames/s and the worst inter-frame p99
+ 39. router    — the front-door router (runtime/router.py) over two serve
+                 processes (--replica-of smoke/fleet, --warmup, session id
+                 namespaces 1 and 2) of phase 38's repository: `route`
+                 prints both IN-ROTATION with the label; 24 yolov5_crop
+                 requests with hedging forced, each bitwise the answer
+                 replica 0 gives directly, at least one hedge, kernel 1
+                 launched once an attempt that ran (the replicas report
+                 their counts on SIGUSR1); run_streams over the list, 2
+                 CenterPoint streams x 8 clouds pinned to their rendezvous
+                 owners (8 kernel-4 launches on each replica, ids equal to
+                 a drive against one replica); run_open_loop over the list
+                 at half 4 unary clients' frames/s for 3 s with replica 1
+                 SIGKILLed 1 s in: nothing lost, 90% complete, a failover,
+                 `route` 1/2 in rotation, then one frame of a stream of the
+                 dead replica re-homed (one handoff, the session restarted
+                 on replica 0). Line router: routed against direct p50 and
+                 p99, the time from the kill to the first routed success,
+                 hedges, each router's stats()
 
 then the ``{"kernels": [...]}`` record and, last, the ``{"ok": true, ...}``
 line. Any failed check exits nonzero; nothing is caught or falls back.
@@ -846,6 +865,7 @@ PHASES = {
     "telemetry_plane": ("36", ()),
     "lifecycle": ("37", ("yolov5", "3d", "second")),
     "sessions": ("38", ()),
+    "router": ("39", ()),
 }
 
 
@@ -1004,6 +1024,12 @@ def main(argv: list[str] | None = None) -> int:
         for name, n in run_sessions(card, counters).items():
             if name in rows:
                 rows[name]["launches_by_path"]["sessions"] = n
+    # phase 39: kernel 1 once a hedged request's attempt that ran on a
+    # replica, kernel 4 once a routed CenterPoint session frame
+    if "router" in groups:
+        for name, n in run_router(card).items():
+            if name in rows:
+                rows[name]["launches_by_path"]["router"] = n
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4430,11 +4456,11 @@ def _only(root: pathlib.Path, name: str, dest: pathlib.Path) -> pathlib.Path:
 # KITTI scans with the clutter raised to ~120,000 points (the full HDL-64
 # scan of phases 10 and 15), nuScenes sweeps of ~30,000 points; the scans
 # 1/8 s apart (synthdata.REPLAY_PERIOD, stamps a bag holds exactly)
-REPLAY_FRAMES, REPLAY_SCANS, REPLAY_SWEEPS, REPLAY_HW = 32, 16, 20, (512, 512)
+REPLAY_FRAMES, REPLAY_SCANS, REPLAY_SWEEPS, REPLAY_HW = 32, 8, 20, (512, 512)
 # ~25,000 points a sweep, so that ten fit the largest bucket (262,144) as
 # phase 28's do
 REPLAY_KITTI, REPLAY_NUSC = dict(n_clutter=118_000), dict(n_clutter=24_000, pc_range=NUSC_RANGE)
-REPLAY_READS = 2  # passes over each source for the host read-and-decode time
+REPLAY_READS = 1  # passes over each source for the host read-and-decode time
 
 
 def optional_package(name: str) -> bool:
@@ -5359,7 +5385,7 @@ def run_ensemble(card: str, counters) -> int:
 
 
 # phase 33: the load generator against `serve` in a process of its own
-LOADGEN_CLIENTS, LOADGEN_WINDOW_S, LOADGEN_STAGGER_S = 4, 2.5, 0.1
+LOADGEN_CLIENTS, LOADGEN_WINDOW_S, LOADGEN_STAGGER_S = 4, 1.5, 0.1
 LOADGEN_SLO_MS, LOADGEN_PROBE_S, LOADGEN_ITERS = 33.0, 2.0, 4  # a 30 fps camera
 LOADGEN_MODELS = (("yolov5_crop", "images"), ("ensemble_fused_pipeline", "camera_raw"))
 
@@ -5368,12 +5394,19 @@ def start_serve(root: pathlib.Path, flags=(), timeout_s: float = 180.0):
     """``python -m triton_client_tpu_torch serve -r root [flags]`` on a
     loopback port of its choosing: (process, address, its output lines so
     far, the reader thread that drains its output)."""
+    return wait_serve(spawn_serve(root, flags), timeout_s)
+
+
+def spawn_serve(root: pathlib.Path, flags=(), command=("-m", "triton_client_tpu_torch")):
+    """Start ``<python> <command> serve -r root [flags]`` without waiting:
+    (process, its output lines, the reader thread that drains them, the
+    queue its port arrives on)."""
     import queue
     import threading
 
     proc = subprocess.Popen(
-        [sys.executable, "-m", "triton_client_tpu_torch", "serve", "-r", str(root),
-         "-a", "127.0.0.1:0", "--uds", "off", *flags],
+        [sys.executable, *command, "serve", "-r", str(root), "-a", "127.0.0.1:0", "--uds",
+         "off", *flags],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: list[str] = []
     ports: queue.Queue = queue.Queue()
@@ -5387,6 +5420,15 @@ def start_serve(root: pathlib.Path, flags=(), timeout_s: float = 180.0):
 
     reader = threading.Thread(target=read, daemon=True)
     reader.start()
+    return proc, lines, reader, ports
+
+
+def wait_serve(spawned, timeout_s: float = 180.0):
+    """A spawned ``serve``'s port: (process, address, lines, reader); a
+    server that does not start is stopped and fails the run."""
+    import queue
+
+    proc, lines, reader, ports = spawned
     try:
         port = ports.get(timeout=timeout_s)
     except queue.Empty:
@@ -5415,9 +5457,9 @@ def run_loadgen(card: str) -> None:
     """Phase 33: ``serve`` on the phase-32 repository in a process of its
     own, and ``utils/loadgen`` driving ``yolov5_crop`` and
     ``ensemble_fused_pipeline`` on loopback with one seeded 480x640 frame a
-    request: ``run_pool`` with 4 clients for 2.5 s in each mode (unary;
+    request: ``run_pool`` with 4 clients for 1.5 s in each mode (unary;
     stream and async with 2 in flight), ``run_open_loop`` at half the
-    unary closed loop's frames/s for 2.5 s, and ``slo_capacity_search`` at a
+    unary closed loop's frames/s for 1.5 s, and ``slo_capacity_search`` at a
     33 ms SLO (a 30 fps camera) with 2 s probes and 4 bisections. Every run
     must end with no error and no unanswered request; reports frames/s,
     p50, p99, errors and capacity."""
@@ -6082,10 +6124,13 @@ def run_telemetry(card: str, counters) -> None:
 # own without and with them, 4 closed-loop clients an entry, the endpoint
 # read while it serves
 PLANE_ENTRIES = ("yolov5_crop", "pointpillar_kitti")
-PLANE_CLIENTS, PLANE_WINDOW_S, PLANE_SLO_MS = 4, 3.0, 33.0
+PLANE_CLIENTS, PLANE_WINDOW_S, PLANE_SLO_MS = 4, 1.5, 33.0
 PLANE_FLAGS = ("--metrics-port", "auto", "--slo-ms", "33", "--op-sample-interval", "2",
                "--history-interval", "1")
 PLANE_PROFILE_TRIES = 3
+# /profile refusals (409: the sampler's window held the capture guard) a
+# capture may meet before it counts as a try
+PLANE_PROFILE_REFUSALS = 8
 # the hand kernels each entry's path runs once a request
 PLANE_KERNELS = {"yolov5_crop": ("decode_nms_2d",),
                  "pointpillar_kitti": ("residual_decode_3d", "suppress_pack_3d")}
@@ -6162,12 +6207,13 @@ def http_json(url: str, timeout: float = 60.0):
 
 def plane_profile(base: str, address: str, workload: list[tuple]) -> dict:
     """``/profile?seconds=1`` while one client an entry drives yolov5_crop
-    and the 20k scans: up to PLANE_PROFILE_TRIES captures (a 409 from the
-    sampler's window, or a window that dropped a kernel's records, takes
-    another) until kernel 1's functions sit under yolov5_crop and kernels 3
+    and the 20k scans: up to PLANE_PROFILE_TRIES captures (a window that
+    dropped a kernel's records takes another; a 409 from the sampler's
+    window is asked again, up to PLANE_PROFILE_REFUSALS times, and is no
+    try) until kernel 1's functions sit under yolov5_crop and kernels 3
     and 4's under pointpillar_kitti. Returns the kernel rows by model, the
-    tries and the capture's wall (the window, the session's stop and the
-    parse)."""
+    tries, the refusals met and the capture's wall (the window, the
+    session's stop and the parse)."""
     import threading
 
     from triton_client_tpu_torch.obs import opstats
@@ -6176,7 +6222,8 @@ def plane_profile(base: str, address: str, workload: list[tuple]) -> dict:
     want = {model: {fn for k in kernels for fn in KERNEL_FUNCTIONS[k]}
             for model, kernels in PLANE_KERNELS.items()}
     rows: dict = {}
-    for attempt in range(1, PLANE_PROFILE_TRIES + 1):
+    attempt = refused = 0
+    while attempt < PLANE_PROFILE_TRIES:
         errors: list = []
 
         def drive(model, inputs):
@@ -6197,12 +6244,17 @@ def plane_profile(base: str, address: str, workload: list[tuple]) -> dict:
         check(not errors and not any(t.is_alive() for t in threads),
               f"load under /profile: errors {errors[:3]}")
         if code == 409:
+            refused += 1
+            check(refused <= PLANE_PROFILE_REFUSALS,
+                  f"/profile refused {refused} times (409): the sampler held the guard")
             continue
+        attempt += 1
         check(code == 200 and doc and "op_summary" in doc,
               f"/profile answered {code}: {doc and doc.get('op_summary_error')}")
         rows = {model: kernel_rows(doc["op_summary"], model) for model in PLANE_KERNELS}
         if all(want[m] <= set(rows[m]) for m in want):
-            return {"kernel_rows": rows, "tries": attempt, "capture_wall_s": wall,
+            return {"kernel_rows": rows, "tries": attempt, "refused": refused,
+                    "capture_wall_s": wall,
                     "launch_log_windows": doc["op_summary"].get("launch_log_windows"),
                     "models_us": doc["op_summary"]["models"],
                     "unattributed_us": doc["op_summary"]["unattributed_us"],
@@ -6218,7 +6270,7 @@ def run_telemetry_plane(card: str) -> None:
     pointpillar_kitti in a process of its own, once without telemetry and
     once with ``--metrics-port auto --slo-ms 33 --op-sample-interval 2
     --history-interval 1``; in each, ``utils/loadgen.run_pool`` with 4
-    clients for 3 s an entry (a seeded 480x640 frame; 20,000- and
+    clients for 1.5 s an entry (a seeded 480x640 frame; 20,000- and
     120,000-point scans). With telemetry, held: every METRIC_TYPES family on
     /metrics; each model's e2e latency histogram count equal to the
     requests it answered (the ledger's launches, one a request); SLO met +
@@ -7208,6 +7260,426 @@ def run_sessions(card: str, counters) -> dict:
          wall_s=time.perf_counter() - t_phase)
     return launches
 
+
+# phase 39: the front-door router over two serve replicas
+ROUTER_LABEL = "smoke/fleet"
+ROUTER_HEDGED = 24  # hedged yolov5_crop requests, each held bitwise to replica 0's answer
+ROUTER_TIMED = 40  # yolov5_crop requests a leg, routed and direct in turns
+ROUTER_STREAMS, ROUTER_STREAM_FRAMES = 2, 8  # CenterPoint streams at the 262,144 bucket
+ROUTER_RATE_S, ROUTER_OPEN_S, ROUTER_KILL_S = 1.0, 3.0, 1.0
+ROUTER_COMPLETE = 0.9  # the share of the open loop that must complete across the kill
+# a replica: `serve`, and on SIGUSR1 a line of its kernels' launch counts
+# (COUNTER_NAMES' order)
+REPLICA_CHILD = (
+    "import json, signal, sys\n"
+    "from triton_client_tpu_torch.cli import serve\n"
+    "from triton_client_tpu_torch.ops import (gpu_decode, gpu_decode3d, gpu_nms, gpu_segment,\n"
+    "                                         gpu_suppress3d, gpu_voxel)\n"
+    "counters = (gpu_decode.launches, gpu_nms.launches, gpu_decode3d.launches,\n"
+    "            gpu_suppress3d.launches, gpu_voxel.launches, gpu_segment.launches,\n"
+    "            gpu_decode3d.gathered_launches)\n"
+    "signal.signal(signal.SIGUSR1, lambda *_: print('launches ' + json.dumps(\n"
+    "    [c.count for c in counters]), flush=True))\n"
+    "serve.main(sys.argv[2:])\n")
+
+
+def replica_launches(replica, timeout_s: float = 30.0) -> dict:
+    """A replica's kernel launch counts so far, by COUNTER_NAMES."""
+    import signal
+
+    proc, _, lines, _ = replica
+    seen = len(lines)
+    proc.send_signal(signal.SIGUSR1)
+    t_end = time.perf_counter() + timeout_s
+    while time.perf_counter() < t_end:
+        for line in lines[seen:]:
+            if line.startswith("launches "):
+                return dict(zip(COUNTER_NAMES, json.loads(line.split(" ", 1)[1])))
+        time.sleep(0.01)
+    fail(f"replica {proc.pid} sent no launch counts: {lines[-5:]}")
+
+
+def arrays_bitwise_equal(got: dict, want: dict) -> bool:
+    """Two responses' outputs: the same names, dtypes, shapes and bytes."""
+    return got.keys() == want.keys() and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.asarray(got[k]).shape == np.asarray(want[k]).shape
+        and np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes() for k in got)
+
+
+def launches_between(before: list[dict], after: list[dict]) -> list[dict]:
+    return [{k: a[k] - b[k] for k in COUNTER_NAMES if a[k] - b[k]} for b, a in zip(before, after)]
+
+
+def route_tool(endpoints: list[str], models: list[str]) -> tuple[int, str]:
+    """``python -m triton_client_tpu_torch route`` as a user runs it."""
+    argv = [sys.executable, "-m", "triton_client_tpu_torch", "route", *endpoints,
+            "--timeout", "10"]
+    for m in models:
+        argv += ["-m", m]
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    return out.returncode, out.stdout + out.stderr
+
+
+class dialed_routers:
+    """While open, every FrontDoorRouter that utils/loadgen dials from a
+    list of endpoints is kept, with each request's (start, end, ok, its
+    attempts' (kind, endpoint)) and each stream's responses: what a list
+    target's run hides."""
+
+    def __enter__(self) -> list:
+        import threading
+
+        from triton_client_tpu_torch.runtime import router
+
+        self._module, self._base, built = router, router.FrontDoorRouter, []
+
+        class Kept(router.FrontDoorRouter):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.calls, self.frames, self._keep = [], {}, threading.Lock()
+                self._attempts = threading.local()  # _route runs on the caller's thread
+                built.append(self)
+
+            def _launch(self, rep, request, done, kind, index=0, ctx=None):
+                self._attempts.log.append((kind, rep.endpoint))
+                return super()._launch(rep, request, done, kind, index, ctx)
+
+            def do_inference(self, request):
+                t0, ok, self._attempts.log = time.perf_counter(), False, []
+                try:
+                    resp = super().do_inference(request)
+                    ok = True
+                finally:
+                    with self._keep:
+                        self.calls.append((t0, time.perf_counter(), ok,
+                                           tuple(self._attempts.log)))
+                        if ok and request.sequence_id:
+                            self.frames.setdefault(request.sequence_id, []).append(resp.outputs)
+                return resp
+
+        router.FrontDoorRouter = Kept
+        return built
+
+    def __exit__(self, *exc) -> None:
+        self._module.FrontDoorRouter = self._base
+
+
+def local_ids(outputs: dict) -> dict:
+    """A session response's track ids without the replica namespace and the
+    session epoch (ids below 1 kept), and the namespaces its ids carry."""
+    out, spaces = {}, set()
+    for key in ("det_track_ids", "track_ids"):
+        ids = np.asarray(outputs[key]).astype(np.int64)
+        spaces |= {int(v) >> 27 for v in ids[ids > 0].reshape(-1)}
+        out[key] = np.where(ids > 0, ids & 0xFFFF, ids).tobytes()
+    return {"ids": out, "namespaces": spaces}
+
+
+def run_router(card: str) -> dict:
+    """Phase 39: the front-door router (runtime/router.py) over two `serve`
+    replicas on the card, each a process of its own over one repository
+    (phase 38's: examples/centerpoint_nusc with seeded det3d weights and
+    yolov5_crop at conf 0.05, full width) with --warmup --replica-of
+    smoke/fleet and session id namespaces 1 and 2.
+
+    a. `route` over both endpoints: both IN-ROTATION with the label, 2/2.
+    b. 24 seeded 480x640 yolov5_crop frames through a FrontDoorRouter whose
+       hedging is forced (4 samples, the 5% quantile, budget 1.0): every
+       response bitwise equal to the same request sent by a GRPCChannel to
+       replica 0, at least one hedge; kernel 1 launched on the replicas
+       once an attempt that ran (24 to 24 + hedges), no other kernel. Then
+       40 requests a leg through a router without hedges and directly to
+       replica 0, in turns: the router's host cost in p50 and p99.
+    c. run_streams over the list, 2 CenterPoint streams x 8 clouds at the
+       262,144 bucket, realtime=False, the prefix chosen so the streams'
+       rendezvous owners differ: 16 affinity-routed frames, no hedge or
+       handoff, 8 kernel-4 launches on each replica and no other kernel;
+       every response's detections bitwise and track ids equal (less the
+       namespace and epoch bits) to the same drive against replica 0 alone,
+       and its ids in its owner's namespace.
+    d. run_open_loop over the list, yolov5_crop at half the frames/s of 4
+       unary clients against replica 0 (phase 33's closed loop), for 3 s;
+       replica 1 is SIGKILLed 1 s in. Every scheduled request completes or
+       surfaces an error, at least 90% complete, failovers >= 1; `route`
+       then prints 1/2 in rotation; one more frame of the stream replica 1
+       owned, through a router that has not probed, re-homes: one handoff,
+       its retry on replica 0 with the session restarted, its ids in
+       namespace 1.
+    Line router: the routed and direct p50/p99, the time from the kill to
+    the first routed success, hedges launched and won, each router's
+    stats(). Returns the kernels' launches in parts b and c."""
+    import signal
+    import tempfile
+    import threading
+
+    from triton_client_tpu_torch.channel.base import InferRequest
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.io.sources import SyntheticImageSource
+    from triton_client_tpu_torch.obs.trace import Tracer
+    from triton_client_tpu_torch.pipelines.detect3d import prepare_points
+    from triton_client_tpu_torch.runtime.router import FrontDoorRouter, _rendezvous_score
+    from triton_client_tpu_torch.utils import loadgen
+
+    t_phase = time.perf_counter()
+    result, launches = {}, {}
+    models = ["yolov5_crop", CP_ENTRY]
+    with tempfile.TemporaryDirectory(prefix="router_") as tmp:
+        cwd = os.getcwd()
+        os.chdir(ROOT)  # the entries name data/ files relative to the checkout
+        try:
+            root = sessions_repository(pathlib.Path(tmp))
+        finally:
+            os.chdir(cwd)
+        flags = ("--warmup", "--replica-of", ROUTER_LABEL, "--max-workers", "8",
+                 "--max-sessions", "16")
+        spawned = [spawn_serve(root, (*flags, "--session-id-namespace", str(ns)),
+                               command=("-c", REPLICA_CHILD)) for ns in (1, 2)]
+        direct = None
+        try:
+            replicas = [wait_serve(sp, timeout_s=300.0) for sp in spawned]
+            endpoints = [r[1] for r in replicas]
+            result["serve_ready_s"] = time.perf_counter() - t_phase
+
+            # -- a. the route tool ------------------------------------------------
+            code, out = route_tool(endpoints, models)
+            check(code == 0 and out.count("IN-ROTATION") == 2
+                  and out.count(f"replica_of={ROUTER_LABEL}") == 2
+                  and "-- 2/2 in rotation" in out, f"route over the fleet: rc {code}\n{out}")
+            result["route_before"] = out.strip().splitlines()
+
+            # -- b. hedged requests, bitwise against replica 0 ----------------------
+            frames = [f.data[None] for f in SyntheticImageSource(ROUTER_HEDGED, FRAME_HW, seed=39)]
+            direct = GRPCChannel(endpoints[0], timeout_s=120.0)
+            want = [direct.do_inference(InferRequest("yolov5_crop", {"images": f})).outputs
+                    for f in frames]
+            # replica 1's first frame of this shape captures its graph: off the count
+            warm = GRPCChannel(endpoints[1], timeout_s=120.0)
+            try:
+                warm.do_inference(InferRequest("yolov5_crop", {"images": frames[0]}))
+            finally:
+                warm.close()
+            before = [replica_launches(r) for r in replicas]
+            hedging = FrontDoorRouter(endpoints, models=models, timeout_s=120.0,
+                                      hedge_min_samples=4, hedge_quantile=0.05,
+                                      hedge_budget_fraction=1.0)
+            try:
+                got = [hedging.do_inference(InferRequest("yolov5_crop", {"images": f})).outputs
+                       for f in frames]
+                time.sleep(0.5)  # a cancelled loser still runs on its replica
+                hedged = hedging.stats()
+            finally:
+                hedging.close()
+            ran = launches_between(before, [replica_launches(r) for r in replicas])
+            for k, (g, w) in enumerate(zip(got, want)):
+                check(arrays_bitwise_equal(g, w), f"routed request {k} differs from replica 0's")
+            n1 = sum(r.get("decode_nms_2d", 0) for r in ran)
+            check(hedged["hedges_launched"] >= 1 and hedged["errors_total"] == 0,
+                  f"hedging router stats {hedged}")
+            check(ROUTER_HEDGED <= n1 <= ROUTER_HEDGED + hedged["hedges_launched"]
+                  and all(set(r) <= {"decode_nms_2d"} for r in ran),
+                  f"hedged leg launches {ran}, {hedged['hedges_launched']} hedges")
+            launches["decode_nms_2d"] = n1
+            result["hedged"] = {"requests": ROUTER_HEDGED, "bitwise": True,
+                                "launches_by_replica": ran, "stats": hedged}
+
+            plain = FrontDoorRouter(endpoints, models=models, timeout_s=120.0,
+                                    hedge_min_samples=10**9)
+            lat = {"routed": [], "direct": []}
+            try:
+                req = InferRequest("yolov5_crop", {"images": frames[0]})
+                for r in range(2 * ROUTER_TIMED):
+                    kind = ("routed", "direct")[(r + r // 2) % 2]  # A B B A
+                    t0 = time.perf_counter()
+                    (plain if kind == "routed" else direct).do_inference(req)
+                    lat[kind].append(1e3 * (time.perf_counter() - t0))
+                result["timed_stats"] = plain.stats()
+            finally:
+                plain.close()
+            result["yolov5_crop_ms"] = {
+                k: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+                for k, v in lat.items()}
+            result["router_cost_p50_ms"] = (result["yolov5_crop_ms"]["routed"]["p50"]
+                                            - result["yolov5_crop_ms"]["direct"]["p50"])
+
+            # -- c. streams by affinity -----------------------------------------------
+            def owner(sid: str) -> str:
+                return max(endpoints, key=lambda e: (_rendezvous_score(sid, e), e))
+
+            prefix = next(f"cp{k}" for k in range(256)
+                          if owner(f"cp{k}-0") != owner(f"cp{k}-1"))
+            cp_extra = direct.get_metadata(CP_ENTRY).extra
+
+            def cloud(stream: int, k: int) -> dict:
+                pc = uniform_clouds(3900 + stream, NUSC_RANGE, SESSION_CP_POINTS, 1)[0]
+                pc[:, 0] += 0.2 * k
+                padded, m = prepare_points(pc, 5, cp_extra["point_buckets"],
+                                           cp_extra.get("z_offset", 0.0))
+                return {"points": padded, "num_points": np.asarray(m, np.int32)}
+
+            clouds = {i: [(0.0, cloud(i, k)) for k in range(ROUTER_STREAM_FRAMES + 1)]
+                      for i in range(ROUTER_STREAMS)}
+
+            def source(i):
+                return clouds[i][:ROUTER_STREAM_FRAMES]
+
+            # warm: each replica's tracker graph for these shapes, off the count
+            for ep in endpoints:
+                loadgen.run_streams(ep, CP_ENTRY, 1, lambda i: source(0)[:2],
+                                    stream_id_prefix="warm", realtime=False, deadline_s=300.0)
+            before = [replica_launches(r) for r in replicas]
+            with dialed_routers() as built:
+                res = loadgen.run_streams(endpoints, CP_ENTRY, ROUTER_STREAMS, source,
+                                          deadline_s=300.0, stream_id_prefix=prefix,
+                                          realtime=False)
+            ran = launches_between(before, [replica_launches(r) for r in replicas])
+            (streams_router,) = built
+            streamed = streams_router.stats()
+            n_frames = ROUTER_STREAMS * ROUTER_STREAM_FRAMES
+            check(res.frames_ok == res.frames_sent == n_frames and res.goodput == 1.0,
+                  f"routed streams: {res.frames_ok} of {res.frames_sent}, errors "
+                  f"{[e for s in res.streams for e in s.errors][:3]}")
+            check(streamed["affinity_routed"] == n_frames and streamed["hedges_launched"] == 0
+                  and streamed["affinity_handoffs"] == 0 and streamed["failovers"] == 0,
+                  f"streams router stats {streamed}")
+            check(ran == [{"suppress_pack_3d": ROUTER_STREAM_FRAMES}] * 2,
+                  f"stream launches by replica {ran}: each replica owns one stream")
+            launches["suppress_pack_3d"] = n_frames
+            solo = _Recorder(direct)
+            loadgen.run_streams(solo, CP_ENTRY, ROUTER_STREAMS, source, deadline_s=300.0,
+                                stream_id_prefix=prefix, realtime=False)
+            ids_seen = 0
+            for sid, outs in streams_router.frames.items():
+                ns = endpoints.index(owner(sid)) + 1
+                check(len(outs) == len(solo.frames[sid]) == ROUTER_STREAM_FRAMES,
+                      f"{sid}: {len(outs)} routed frames")
+                for k, (o, w) in enumerate(zip(outs, solo.frames[sid])):
+                    check(arrays_bitwise_equal({"d": o["detections"]}, {"d": w["detections"]}),
+                          f"{sid} frame {k} detections")
+                    got_ids, want_ids = local_ids(o), local_ids(w)
+                    check(got_ids["ids"] == want_ids["ids"], f"{sid} frame {k}: track ids")
+                    check(got_ids["namespaces"] <= {ns} and want_ids["namespaces"] <= {1},
+                          f"{sid} frame {k}: namespaces {got_ids['namespaces']}, owner {ns}")
+                    ids_seen += int((np.asarray(o["track_ids"]) > 0).sum())
+            result["streams"] = {"frames": n_frames, "owners": {s: owner(s) for s in
+                                                               streams_router.frames},
+                                 "launches_by_replica": ran, "positive_track_ids": ids_seen,
+                                 "p50_ms": float(np.percentile(
+                                     [x for s in res.streams for x in s.latencies_ms], 50)),
+                                 "stats": streamed}
+
+            # -- d. failover: replica 1 killed under an open loop ---------------------
+            pool = loadgen.run_pool(endpoints[0], "yolov5_crop", {"images": frames[0]}, 4,
+                                    ROUTER_RATE_S, deadline_s=120.0, stagger_s=0.1,
+                                    mode="unary")
+            check(not pool.errors and pool.served_frames > 0, f"closed loop: {pool.errors[:3]}")
+            rate = pool.fps / 2
+            killed = {}
+
+            def kill():
+                time.sleep(ROUTER_KILL_S)
+                killed["t"] = time.perf_counter()
+                replicas[1][0].send_signal(signal.SIGKILL)
+
+            # this process's own view of the card across the kill: one tiny op
+            # and a sync at a time; a long gap is the card, not the router
+            probe_stop, gaps = threading.Event(), []
+
+            def probe_card():
+                x = torch.zeros(1, device="cuda")
+                last = time.perf_counter()
+                while not probe_stop.is_set():
+                    x += 1
+                    torch.cuda.synchronize()
+                    now = time.perf_counter()
+                    gaps.append((now, now - last))
+                    last = now
+                    time.sleep(0.001)
+
+            killer = threading.Thread(target=kill)
+            prober = threading.Thread(target=probe_card)
+            with dialed_routers() as built:
+                prober.start()
+                killer.start()
+                try:
+                    res = loadgen.run_open_loop(endpoints,
+                                                [("yolov5_crop", {"images": frames[0]})],
+                                                rate_qps=rate, duration_s=ROUTER_OPEN_S, seed=39,
+                                                deadline_s=60.0, warm=False)
+                finally:
+                    killer.join()
+                    probe_stop.set()
+                    prober.join()
+            (open_router,) = built
+            opened = open_router.stats()
+            replicas[1][0].wait(timeout=30)
+            check(res.completed + len(res.errors) == res.scheduled,
+                  f"open loop lost requests: {res.completed} + {len(res.errors)} of "
+                  f"{res.scheduled}")
+            check(res.completed >= ROUTER_COMPLETE * res.scheduled,
+                  f"open loop across the kill: {res.completed} of {res.scheduled}, errors "
+                  f"{res.errors[:3]}")
+            check(opened["failovers"] >= 1, f"no failover across the kill: {opened}")
+            after_kill = [(t1 - killed["t"], t1 - t0) for t0, t1, ok, _ in open_router.calls
+                          if ok and t0 >= killed["t"]]
+            check(bool(after_kill), "no routed success after the kill")
+            # the slowest requests of the window: when they started against
+            # the kill, and the attempts each took
+            slowest = [{"start_after_kill_ms": 1e3 * (t0 - killed["t"]),
+                        "ms": 1e3 * (t1 - t0), "ok": ok,
+                        "attempts": [f"{kind}@{endpoints.index(ep)}" for kind, ep in atts]}
+                       for t0, t1, ok, atts in sorted(open_router.calls,
+                                                       key=lambda c: c[0] - c[1])[:8]]
+            code, out = route_tool(endpoints, models)
+            check(code == 0 and "-- 1/2 in rotation" in out and "DEAD" in out,
+                  f"route after the kill: rc {code}\n{out}")
+            result["route_after"] = out.strip().splitlines()
+
+            moved = next(s for s in streams_router.frames if owner(s) == endpoints[1])
+            tracer = Tracer(capacity=4)
+            rehome = FrontDoorRouter(endpoints, probe_interval_s=0.0, timeout_s=120.0,
+                                     tracer=tracer)
+            try:
+                before0 = replica_launches(replicas[0])
+                resp = rehome.do_inference(InferRequest(
+                    CP_ENTRY, clouds[int(moved.rsplit("-", 1)[1])][ROUTER_STREAM_FRAMES][1],
+                    sequence_id=moved))
+                handed = rehome.stats()
+            finally:
+                rehome.close()
+            ran0 = launches_between([before0], [replica_launches(replicas[0])])[0]
+            (trace,) = tracer.recent()
+            atts = sorted((sp.attrs for sp in trace.spans if sp.name == "attempt"),
+                          key=lambda a: a["attempt"])
+            check(handed["affinity_handoffs"] == 1 and handed["failovers"] == 1,
+                  f"re-homing router stats {handed}")
+            check([(a["kind"], a["endpoint"], a.get("error")) for a in atts]
+                  == [("primary", endpoints[1], "UNAVAILABLE"), ("retry", endpoints[0], None)],
+                  f"re-homed frame's attempts {atts}")
+            check(local_ids(resp.outputs)["namespaces"] <= {1}, "re-homed ids not namespace 1")
+            check(ran0 == {"suppress_pack_3d": 1}, f"re-homed frame's launches {ran0}")
+            result["failover"] = {
+                "offered_qps": rate, "closed_loop_frames_per_s": pool.fps,
+                "scheduled": res.scheduled, "completed": res.completed,
+                "errors": len(res.errors), "p50_ms": res.percentile(50),
+                "p99_ms": res.percentile(99),
+                "kill_to_first_success_ms": 1e3 * min(t for t, _ in after_kill),
+                "worst_after_kill_ms": 1e3 * max(lat for _, lat in after_kill),
+                "slowest": slowest,
+                "card_gap_ms": {
+                    "before_kill": 1e3 * max((g for t, g in gaps if t < killed["t"]), default=0.0),
+                    "after_kill": 1e3 * max((g for t, g in gaps if t >= killed["t"]),
+                                            default=0.0)},
+                "stats": opened, "rehomed_stream": moved, "rehome_stats": handed,
+                "rehome_positive_track_ids": int((np.asarray(resp.outputs["track_ids"])
+                                                  > 0).sum())}
+        finally:
+            if direct is not None:
+                direct.close()
+            codes = [stop_serve(proc, reader) for proc, _, reader, _ in spawned]
+    check(codes[0] == 0, f"replica 0 exited {codes[0]}")
+    emit("router", card, **result, launches=launches, wall_s=time.perf_counter() - t_phase)
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,7 +4,10 @@ larger message cap, unary, async and streamed inference (stream groups
 included), the health RPCs, ``repository_index``, the retry ladder and
 its counters, deadlines that fail before the wire, and ``close``. Each
 answer is held to what the JAX package's ``GRPCChannel`` gets from the
-same server, bit for bit.
+same server, bit for bit. ``InferFuture.cancel`` and ``add_done_callback``
+behave as JAX's on lazy, completed, failed, hooked and wire futures, and a
+cancelled shared-memory attempt retires its output region, so the late
+outputs of the cancelled request never land in the slot's next owner's.
 """
 
 import threading
@@ -14,6 +17,7 @@ import grpc
 import numpy as np
 import pytest
 
+from triton_client_tpu.channel import base as jbase
 from triton_client_tpu.channel.base import InferRequest as JInferRequest
 from triton_client_tpu.channel.grpc_channel import GRPCChannel as JGRPCChannel
 from triton_client_tpu.channel.tpu_channel import TPUChannel
@@ -22,6 +26,7 @@ from triton_client_tpu.config import TensorSpec as JTensorSpec
 from triton_client_tpu.runtime import server as jserver
 from triton_client_tpu.runtime.repository import ModelRepository as JRepository
 
+from triton_client_tpu_torch.channel import base as tbase
 from triton_client_tpu_torch.channel import grpc_channel as tgc
 from triton_client_tpu_torch.channel.base import InferRequest
 from triton_client_tpu_torch.channel.cuda_channel import CUDAChannel
@@ -258,6 +263,148 @@ def test_shared_memory_is_not_ported():
         assert e.value.code() == grpc.StatusCode.UNAVAILABLE
         assert port.transport == "shm"
         port.close()
+
+
+def _future_semantics(base):
+    """What a caller sees of each kind of future: cancel's answer, when a
+    done-callback fires, the result, and a callback that raises."""
+    out, fired = [], []
+
+    def note(tag):
+        return lambda: fired.append(tag)
+
+    def boom():
+        raise RuntimeError("a callback that raises is swallowed")
+
+    lazy = base.InferFuture(lambda: 5)
+    out.append(lazy.cancel())
+    lazy.add_done_callback(note("lazy"))
+    lazy.add_done_callback(boom)
+    out += [list(fired), lazy.result(), lazy.cancel(), lazy.map(lambda v: v + 1).result()]
+    for fut in (base.InferFuture.completed(7), base.InferFuture.failed(ValueError("x"))):
+        out.append(fut.cancel())
+        fut.add_done_callback(note("done"))
+        try:
+            out.append(fut.result())
+        except ValueError as e:
+            out.append(repr(e))
+    held = []
+    hooked = base.InferFuture(lambda: 3, cancel=lambda: True, subscribe=held.append)
+    hooked.add_done_callback(note("hooked"))
+    out += [list(fired), len(held), hooked.cancel()]
+    held[0]()  # the transport completes
+    out += [list(fired), hooked.result(), hooked.cancel()]
+    hooked.add_done_callback(note("after"))  # retired: at once
+    refusing = base.InferFuture(lambda: 4, cancel=boom, subscribe=lambda fn: boom())
+    refusing.add_done_callback(note("refused-subscribe"))  # falls back to at once
+    out += [list(fired), refusing.cancel(), refusing.map(lambda v: v * 2).result()]
+    return out
+
+
+def test_future_cancel_and_done_callback_equal_jax():
+    got, want = _future_semantics(tbase), _future_semantics(jbase)
+    assert got == want
+    assert got[:5] == [False, ["lazy"], 5, False, 6]
+
+
+def _wire_future_run(chan):
+    """A request held on the server, cancelled: cancel's answer, the
+    callback, the error; then a request that completes."""
+    fired = threading.Event()
+    fut = chan.do_inference_async(InferRequest("slow", {"x": _x(0)}))
+    fut.add_done_callback(fired.set)
+    out = [fired.is_set(), fut.cancel(), fired.wait(10)]
+    with pytest.raises(grpc.FutureCancelledError) as e:
+        fut.result()
+    out += [type(e.value).__name__, fut.cancel()]
+    done = threading.Event()
+    fut = chan.do_inference_async(InferRequest("addone", {"x": _x(1)}))
+    fut.add_done_callback(done.set)
+    out += [done.wait(10), fut.cancel(), fut.result().outputs["y"].tobytes()]
+    late = []
+    fut.add_done_callback(lambda: late.append(1))
+    return out + [late]
+
+
+@pytest.mark.parametrize("kind", ["jax", "port"])
+def test_wire_futures_cancel_and_subscribe_equal_jax(kind):
+    srv = _make_server(kind)
+    endpoint = f"127.0.0.1:{srv.port}"
+    port = GRPCChannel(endpoint, timeout_s=30, retries=0, use_shared_memory=False)
+    jax_ = JGRPCChannel(endpoint, timeout_s=30, retries=0, use_shared_memory=False)
+    try:
+        got, want = _wire_future_run(port), _wire_future_run(jax_)
+        assert got == want
+        assert got[:5] == [False, True, True, "FutureCancelledError", False]
+        assert got[5:7] == [True, False] and got[-1] == [1]
+    finally:
+        srv.gate.set()
+        port.close()
+        jax_.close()
+        srv.stop()
+
+
+def _wait_for(cond, timeout_s=10.0):
+    t_end = time.perf_counter() + timeout_s
+    while not cond():
+        assert time.perf_counter() < t_end, "timed out"
+        time.sleep(0.01)
+
+
+def test_a_cancelled_shm_attempt_cannot_write_into_the_next_owners_region():
+    """A request held on the server is cancelled over shared memory; the
+    slot goes to the next request; then the cancelled request finishes and
+    writes its outputs, late. The cancel retired the output region, so that
+    write misses and the next owner's region holds only its own outputs.
+    The held model answers a constant: it reads its inputs from the slot's
+    input region, which the next owner has overwritten by then."""
+    gate = threading.Event()
+    repo = ModelRepository()
+    repo.register(ModelSpec("addone", inputs=(TensorSpec("x", (-1, 4)),),
+                            outputs=(TensorSpec("y", (-1, 4)),)), _fns(gate)[0])
+
+    def hold(inputs):
+        gate.wait(10)
+        return {"y": inputs["x"] * 0 - 7}
+
+    repo.register(ModelSpec("hold", inputs=(TensorSpec("x", (-1, 4)),),
+                            outputs=(TensorSpec("y", (-1, 4)),)), hold)
+    srv = tserver.InferenceServer(repo, CUDAChannel(repo, device="cpu"),
+                                  address="127.0.0.1:0", max_workers=8)
+    srv.start()
+    gate.set()
+    chan = GRPCChannel(f"127.0.0.1:{srv.port}", timeout_s=30, retries=0,
+                       use_shared_memory=True)
+    try:
+        ghost_x, own_x = _x(1), _x(2)
+        for model in ("hold", "addone"):  # the first answers teach the output sizes
+            chan.do_inference(InferRequest(model, {"x": ghost_x}))
+        gate.clear()
+        fut = chan.do_inference_async(InferRequest("hold", {"x": ghost_x}))
+        (slot,) = [s for s in chan._pool._slots if s.busy]
+        ghost_name = slot.regions["o"].key.lstrip("/")
+        assert ghost_name in srv.shm_registry.status()
+        _wait_for(lambda: srv._servicer.active_requests() == 1)  # the server holds it
+        assert fut.cancel() is True
+        assert "o" not in slot.regions and not slot.busy
+        assert ghost_name not in srv.shm_registry.status()
+        nxt = chan.do_inference_async(InferRequest("addone", {"x": own_x}))
+        assert slot.busy and slot.regions["o"].key.lstrip("/") != ghost_name  # LIFO: same slot
+        with pytest.raises(grpc.FutureCancelledError):
+            fut.result()
+        assert slot.busy  # the cancelled future's result() left the next owner's slot alone
+        own = nxt.result().outputs["y"]
+        gate.set()  # the cancelled request runs on, and answers late
+        _wait_for(lambda: srv._servicer.active_requests() == 0)
+        np.testing.assert_array_equal(own, own_x + 1)
+        arena = np.frombuffer(slot.regions["o"].read(0, own_x.nbytes), np.float32)
+        np.testing.assert_array_equal(arena.reshape(own_x.shape), own_x + 1)
+        assert chan._pool.stats()["aliased"] == 0 and not slot.busy
+    finally:
+        gate.set()
+        chan.close()
+        srv.stop()
+    assert srv.shm_registry.status() == {}
 
 
 class socket_port:

@@ -214,7 +214,7 @@ def test_launch_gate_holds_launches_while_a_session_switches():
     assert order == ["first", "closed", "alive", "second"]
 
 
-@pytest.mark.parametrize("named_by", ["native", "ident", "ident_low32"])
+@pytest.mark.parametrize("named_by", ["native", "ident", "ident_low32", "ident_low32_negated"])
 def test_logged_windows_attribute_correlated_kernels(named_by):
     """A trace whose launch annotation came from the launch log attributes
     the kernel the logged launch's runtime call launched to the model, and
@@ -224,9 +224,13 @@ def test_logged_windows_attribute_correlated_kernels(named_by):
     annotation, named by its ``pthread_t`` or native id, not on a lone query
     of the profiler's start or another thread's), and a thread's runtime
     calls name it by its native id, its ``pthread_t`` or that cut to 32
-    bits."""
-    native, ident = 42, 139973856589504
-    tid = {"native": native, "ident": ident, "ident_low32": ident & 0xFFFFFFFF}[named_by]
+    bits; a cut id with its top bit set, read as a signed int, comes
+    negated."""
+    native = 42
+    ident = 140492272563904 if named_by == "ident_low32_negated" else 139973856589504
+    low = ident & 0xFFFFFFFF
+    tid = {"native": native, "ident": ident, "ident_low32": low,
+           "ident_low32_negated": (1 << 32) - low}[named_by]
     skew = -830.0
     doc = {"traceEvents": [
         {"ph": "X", "cat": "user_annotation", "name": opstats.CLOCK_SYNC, "pid": 7,

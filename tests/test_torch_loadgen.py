@@ -12,7 +12,9 @@ package's, on the CPU.
   counts and errors are asserted, rates are not (they are the host's).
   Every client thread has exited and every shared-memory region is
   unregistered when a run returns.
-- A list of addresses raises naming ROADMAP item 8 (the router).
+- A list of addresses is a replica fleet: ``_dial`` builds one
+  ``FrontDoorRouter`` over it (one for a whole ``slo_capacity_search``),
+  and ``run_open_loop`` drives two ``serve`` replicas through it.
 - The streaming replay's pieces: ``synthetic_stream`` equals JAX's bit for
   bit for the same arguments (every ``dynamics``); ``_score_tracking``,
   ``_score_coast`` and ``StreamsResult.summary()`` equal JAX's on the same
@@ -145,12 +147,20 @@ def test_slo_capacity_search_through_a_stub_equals_jax(fail):
 
 
 def test_a_list_of_addresses_raises_naming_the_router_item():
-    for call in (lambda: tlg._dial(["127.0.0.1:1", "127.0.0.1:2"], 1.0),
-                 lambda: tlg.run_open_loop(["127.0.0.1:1"], [("m", {})], 1.0, 0.1),
-                 lambda: tlg.slo_capacity_search(("127.0.0.1:1",), [("m", {})], 10.0),
-                 lambda: tlg.run_streams(["127.0.0.1:1"], "m", 1, lambda i: [])):
-        with pytest.raises(NotImplementedError, match="item 8, step 5"):
-            call()
+    """A list of addresses no longer raises: ``_dial`` of a list or tuple
+    is an owned ``FrontDoorRouter`` over it, as in the JAX package (the
+    fleet itself is driven in ``test_run_open_loop_over_two_replicas``);
+    other targets still raise as before."""
+    from triton_client_tpu_torch.runtime.router import FrontDoorRouter
+
+    for target in (["127.0.0.1:1", "127.0.0.1:2"], ("127.0.0.1:1",)):
+        chan, owned = tlg._dial(target, 1.5)
+        try:
+            assert isinstance(chan, FrontDoorRouter) and owned
+            assert [r.endpoint for r in chan.replica_set.replicas] == list(target)
+            assert chan._timeout_s == 1.5
+        finally:
+            chan.close()
     with pytest.raises(TypeError, match="loadgen target"):
         tlg._dial(3, 1.0)
     with pytest.raises(ValueError, match="at least one scenario"):
@@ -321,3 +331,51 @@ def test_run_open_loop_against_serve(served):
     assert res.percentile(99) < math.inf and res.wall_s == 1.0
     assert _no_loadgen_threads()
     assert served[0].shm_registry.status() == {}
+
+
+def test_run_open_loop_over_two_replicas(served, monkeypatch, tmp_path):
+    """Two ``serve`` replicas behind one router: every scheduled request
+    completes, both replicas take traffic, and a capacity search over the
+    fleet dials ONE router for all its probes and closes it."""
+    from triton_client_tpu_torch.runtime import router
+
+    first, a = served
+    (tmp_path / "tiny").mkdir()
+    (tmp_path / "tiny" / "config.yaml").write_text(TINY)
+    mp = pytest.MonkeyPatch()
+    mp.chdir(ROOT)
+    try:
+        second = serve.build_server(serve.parser().parse_args(
+            ["-r", str(tmp_path), "-a", "127.0.0.1:0", "--device", "cpu",
+             "--replica-of", "loadgen/fleet"]))
+    finally:
+        mp.undo()
+    second.start()
+    b = f"127.0.0.1:{second.port}"
+    built = []
+
+    class Counted(router.FrontDoorRouter):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(router, "FrontDoorRouter", Counted)
+    try:
+        scen = [("tiny", {"images": FRAME})]
+        res = tlg.run_open_loop([a, b], scen, rate_qps=20.0, duration_s=1.0, seed=4,
+                                resolvers=4)
+        assert res.errors == [] and res.completed == res.scheduled > 5
+        (fleet,) = built
+        snap = fleet.snapshot()
+        assert snap["requests_total"] == res.scheduled + 1  # the warm request
+        assert all(r["successes"] > 0 for r in snap["replicas"])
+        cap = tlg.slo_capacity_search((a, b), scen, slo_ms=5000.0, duration_s=0.3, seed=1,
+                                      qps_lo=4.0, qps_hi=8.0, iters=1)
+        assert len(built) == 2 and len(cap["probes"]) == 2
+        assert sum(p["scheduled"] for p in cap["probes"]) + 1 == \
+            built[1].stats()["requests_total"]
+        assert all(p["errors"] == 0 for p in cap["probes"])
+    finally:
+        second.stop()
+    assert _no_loadgen_threads()
+    assert first.shm_registry.status() == {} and second.shm_registry.status() == {}

@@ -128,6 +128,7 @@ def test_no_module_imports_jax_flax_yaml_or_the_jax_package():
         "triton_client_tpu_torch.pipelines.preprocess2d",
         "triton_client_tpu_torch.runtime.ensemble",
         "triton_client_tpu_torch.utils.loadgen",
+        "triton_client_tpu_torch.runtime.router",
         "triton_client_tpu_torch.obs.roofline",
         "triton_client_tpu_torch.obs.device_time",
         "triton_client_tpu_torch.obs.opstats",

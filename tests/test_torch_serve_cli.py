@@ -123,12 +123,17 @@ NON_DEFAULT = {
     "quality_pin_fused_off": ["--quality-pin-fused-off"],
     "temporal_reuse": ["--temporal-reuse", "on"], "temporal_k_max": ["--temporal-k-max", "4"],
     "temporal_tile": ["--temporal-tile", "4"], "temporal_forced_k": ["--temporal-forced-k", "3"],
-    "replica_of": ["--replica-of", "cell0/pool"],
 }
 
+
+def _advertised(server) -> list:
+    from triton_client_tpu_torch.channel.kserve import pb
+
+    return list(server._servicer.ServerMetadata(pb.ServerMetadataRequest(), None).extensions)
+
 # the flags served since they left UNPORTED (the telemetry and SLO planes,
-# the lifecycle and tenants, the streaming sessions): flags -> what the built
-# server shows for them
+# the lifecycle and tenants, the streaming sessions, the replica label):
+# flags -> what the built server shows for them
 _METRICS = ["--metrics-port", "auto"]
 SERVED = {
     "hbm_budget": (["--hbm-budget", "256"],
@@ -159,6 +164,9 @@ SERVED = {
     "session_ttl_s": (["--session-ttl-s", "5"], lambda s: s.channel.sessions._ttl_s == 5.0),
     "session_id_namespace": (["--session-id-namespace", "3"],
                              lambda s: s.channel.sessions._namespace == 3),
+    "replica_of": (["--replica-of", "cell0/pool"],
+                   lambda s: s.replica_of == "cell0/pool"
+                   and "replica_of:cell0/pool" in _advertised(s)),
 }
 
 

@@ -1,11 +1,12 @@
 """The port's streaming sessions (``runtime/sessions.py``), the staged
 channel's sessions hook and the servicer's sequence thread, on the CPU:
 every case of the JAX package's ``tests/test_sessions.py`` pool, group and
-server classes, run against the port (the router's affinity cases wait for
-ROADMAP.md Queue 1 item 8, step 5), plus the two-stream isolation case,
-a failed ``advance`` inside a launch, and the replay drive of
+server classes, run against the port (the router's rendezvous cases are
+held to JAX's in tests/test_torch_router.py), plus the two-stream isolation
+case, a failed ``advance`` inside a launch, the replay drive of
 ``utils/loadgen.run_streams`` (48 frames, 4 ``stream:`` tenants on the
-device-time ledger).
+device-time ledger) and the same replay over two replicas behind the
+front-door router, each stream pinned to its rendezvous owner.
 
 The serving model of every end-to-end test is an ECHO detector (its body
 returns the request's ``detections``/``valid`` unchanged), so the
@@ -452,11 +453,47 @@ def test_replay_streams_sustained_and_consistent():
         server.stop()
 
 
-def test_run_streams_refuses_a_replica_list():
-    from triton_client_tpu_torch.utils.loadgen import run_streams
+def test_run_streams_refuses_a_replica_list(monkeypatch):
+    """A replica list no longer raises: ``run_streams`` routes every stream
+    by affinity through one ``FrontDoorRouter``. Each stream's frames all
+    land on its rendezvous owner, whose id namespace its track ids carry;
+    no frame is hedged or handed off."""
+    from triton_client_tpu_torch.runtime import router
+    from triton_client_tpu_torch.runtime.router import _rendezvous_score
+    from triton_client_tpu_torch.utils.loadgen import run_streams, synthetic_stream
 
-    with pytest.raises(NotImplementedError, match="item 8, step 5"):
-        run_streams(["127.0.0.1:1", "127.0.0.1:2"], "echo", 1, source=lambda i: [])
+    built = []
+
+    class Counted(router.FrontDoorRouter):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(router, "FrontDoorRouter", Counted)
+    servers = [_server(max_sessions=16, id_namespace=ns) for ns in (1, 2)]
+    endpoints = [f"127.0.0.1:{s.port}" for s, _ in servers]
+    try:
+        res = run_streams(
+            endpoints, "echo", n_streams=4,
+            source=lambda i: synthetic_stream(n_frames=6, fps=40.0, n_objects=3, seed=i),
+            deadline_s=30.0, realtime=False)
+        assert res.frames_ok == res.frames_sent == 4 * 6
+        assert res.id_switches == 0 and res.aliases == 0
+        (fleet,) = built
+        s = fleet.stats()
+        assert s["affinity_routed"] == 24 and s["affinity_handoffs"] == 0
+        assert s["hedges_launched"] == 0 and s["failovers"] == 0
+        owner = {st.stream_id: max(endpoints, key=lambda e: (_rendezvous_score(st.stream_id, e), e))
+                 for st in res.streams}
+        for ns, ep, (_, manager) in zip((1, 2), endpoints, servers):
+            mine = [sid for sid, o in owner.items() if o == ep]
+            assert manager.stats()["frames_total"] == 6 * len(mine)
+            for st in res.streams:
+                if st.stream_id in mine:
+                    assert st.track_map and {tid >> 27 for tid in st.track_map} == {ns}
+    finally:
+        for server, _ in servers:
+            server.stop()
 
 
 # -- on the card ----------------------------------------------------------------------

@@ -14,6 +14,8 @@ Commands ported so far:
   bag-stitch — copy the first N messages of a bag into a new bag
   bag-info   — topics, types and counts of a bag
   repo-index — list a model repository (local dir or grpc:<addr>)
+  route      — one health pass over a replica set (live / ready /
+               ModelReady, replica_of labels, transport; --watch N)
   trace-dump — --ops PATH ranks the card's ops by device time with their
                owning model, from a --profile-trace capture
   trace-join — merge Chrome-trace dumps onto one timeline (per-source pid
@@ -27,7 +29,7 @@ from __future__ import annotations
 import sys
 
 COMMANDS = ("detect2d", "detect3d", "evaluate", "serve", "pc-extract", "bag-stitch",
-            "bag-info", "repo-index", "trace-dump", "trace-join", "roofline")
+            "bag-info", "repo-index", "route", "trace-dump", "trace-join", "roofline")
 
 
 def main() -> None:
@@ -51,6 +53,8 @@ def main() -> None:
         from triton_client_tpu_torch.cli.tools import bag_info as run
     elif cmd == "repo-index":
         from triton_client_tpu_torch.cli.tools import repo_index as run
+    elif cmd == "route":
+        from triton_client_tpu_torch.cli.tools import route as run
     elif cmd == "trace-dump":
         from triton_client_tpu_torch.cli.tools import trace_dump as run
     elif cmd == "trace-join":

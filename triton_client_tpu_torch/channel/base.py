@@ -63,15 +63,26 @@ class InferResponse:
 class InferFuture:
     """Handle for an in-flight inference. ``result()`` blocks until the
     response is ready and returns it, or raises the deferred error.
-    Single-consumer: each future is retired once."""
+    Single-consumer: each future is retired once.
 
-    __slots__ = ("_resolve", "_done", "_value", "_error")
+    Transports whose handle can signal completion or be abandoned (the
+    gRPC call futures) wire the optional ``cancel`` / ``subscribe``
+    hooks; the front-door router (runtime/router.py) uses them to take
+    the first hedged winner and cancel the loser. Lazy futures leave
+    them unset: ``cancel()`` then returns False, and
+    ``add_done_callback`` fires at once, since ``result()`` of a lazy
+    future may always be called."""
 
-    def __init__(self, resolve) -> None:
+    __slots__ = ("_resolve", "_done", "_value", "_error", "_cancel",
+                 "_subscribe")
+
+    def __init__(self, resolve, cancel=None, subscribe=None) -> None:
         self._resolve = resolve
         self._done = False
         self._value = None
         self._error: BaseException | None = None
+        self._cancel = cancel
+        self._subscribe = subscribe
 
     @classmethod
     def completed(cls, value) -> "InferFuture":
@@ -101,6 +112,37 @@ class InferFuture:
     def map(self, fn) -> "InferFuture":
         """A future whose result is ``fn(self.result())`` (lazy)."""
         return InferFuture(lambda: fn(self.result()))
+
+    def cancel(self) -> bool:
+        """Best-effort abandon of the in-flight work. True only when the
+        transport accepted the cancellation (the call had not completed);
+        a lazy or retired future returns False. After a successful
+        cancel, ``result()`` raises the transport's cancellation error
+        (``grpc.FutureCancelledError``)."""
+        if self._done or self._cancel is None:
+            return False
+        try:
+            return bool(self._cancel())
+        except Exception:
+            return False
+
+    def add_done_callback(self, fn) -> None:
+        """Run ``fn()`` (no arguments) once ``result()`` will no longer
+        block: from the transport's completion thread on a wired future
+        (keep it tiny), at once on the caller's thread otherwise. A
+        raise from ``fn`` is swallowed: completion threads must not
+        die."""
+        sub = self._subscribe
+        if sub is not None and not self._done:
+            try:
+                sub(fn)
+                return
+            except Exception:
+                pass
+        try:
+            fn()
+        except Exception:
+            pass
 
 
 class BaseChannel(abc.ABC):

@@ -23,8 +23,15 @@ seam ``CUDAChannel`` implements.
   client does).
 - **Tracing**: a ``do_inference`` whose request carries a
   ``RequestTrace`` gets the client's ``encode`` and ``decode`` spans with
-  the server's span summary grafted between them, as the JAX router
-  grafts a replica's (this package has no router).
+  the server's span summary grafted between them, as the front-door
+  router (``runtime/router.py``) grafts a replica's.
+- **Cancellable futures**: ``do_inference_async`` futures carry the gRPC
+  call's ``cancel`` and completion hooks (``InferFuture.cancel`` /
+  ``add_done_callback``), so the router can race a hedge and drop the
+  loser. A cancelled shared-memory attempt retires its output region
+  before its slot goes back to the pool: the server may still write the
+  cancelled outputs there, and the slot's next owner must never read
+  them.
 """
 
 from __future__ import annotations
@@ -356,7 +363,8 @@ class GRPCChannel(BaseChannel):
                 resp = self._async_retry(e, wire, request)
             return self._response(resp, t0)
 
-        return InferFuture(resolve)
+        return InferFuture(resolve, cancel=call.cancel,
+                           subscribe=lambda fn: call.add_done_callback(lambda _c: fn()))
 
     def _issue_async(self, wire, deadline_s: float | None):
         timeout = self._timeout_s
@@ -368,6 +376,10 @@ class GRPCChannel(BaseChannel):
         return self._stub.ModelInfer.future(wire, timeout=timeout)
 
     def _async_retry(self, e, wire, request: InferRequest):
+        """Resolution-time fallback of the wire and shm async paths: only
+        UNAVAILABLE re-issues (a DEADLINE_EXCEEDED or RESOURCE_EXHAUSTED
+        request may have run on the server), and CANCELLED, our own
+        ``cancel()`` winning the race, never does."""
         self._record_infer_error(e)
         code = e.code() if hasattr(e, "code") else None
         if code not in self._infer_retryable:
@@ -555,6 +567,8 @@ class GRPCChannel(BaseChannel):
             pool.release(slot)
             raise
 
+        cancelled = []
+
         def resolve() -> InferResponse:
             try:
                 try:
@@ -566,9 +580,22 @@ class GRPCChannel(BaseChannel):
                         resp = self._async_retry(e, wire, request)
                 return self._parse_shm_response(resp, slot, request.model_name, t0)
             finally:
-                pool.release(slot)
+                if not cancelled:  # a cancel released the slot; it may be another's now
+                    pool.release(slot)
 
-        return InferFuture(resolve)
+        def cancel() -> bool:
+            ok = call.cancel()
+            if ok:
+                # the server may still write this request's outputs into the
+                # arena arbitrarily late: retire it (the next use creates a
+                # fresh generation) so the slot's next owner never reads them
+                cancelled.append(True)
+                slot.retire("o")
+                pool.release(slot)
+            return ok
+
+        return InferFuture(resolve, cancel=cancel,
+                           subscribe=lambda fn: call.add_done_callback(lambda _c: fn()))
 
     # -- health and the repository --------------------------------------------
 

@@ -36,6 +36,11 @@ sessions (``runtime/sessions.py``) to the channel: a request carrying a
 ``sequence_id`` parameter gets device-resident per-stream tracker state,
 and its response carries the track tensors.
 
+``--replica-of LABEL`` makes this server one replica of a named fleet:
+the label rides ServerMetadata's extensions (``route`` prints it) and
+keys the ``replica_down`` fault point. Clients drive a fleet through the
+front-door router (``runtime/router.py``).
+
 The JAX CLI's flags for layers the port does not serve yet keep their
 off values here and raise at any other value, naming the ROADMAP item
 (:data:`UNPORTED`). ``--metrics-port`` defaults differently from the JAX
@@ -66,7 +71,6 @@ UNPORTED = {
     "temporal_k_max": ("--temporal-k-max", 8, "temporal"),
     "temporal_tile": ("--temporal-tile", 8, "temporal"),
     "temporal_forced_k": ("--temporal-forced-k", 0, "temporal"),
-    "replica_of": ("--replica-of", "", "router"),
 }
 
 
@@ -195,6 +199,11 @@ def parser() -> argparse.ArgumentParser:
                    help="track-id namespace (0-15) stamped into this replica's track ids: give "
                    "each replica of a fleet a distinct value so ids stay globally unique across "
                    "session re-homing")
+    p.add_argument("--replica-of", default="",
+                   help="replica-set label: this server is one replica of the named fleet. "
+                   "Advertised via ServerMetadata extensions (the `route` tool reads it back) "
+                   "and keys the replica_down fault point so a chaos plan can kill one labeled "
+                   "replica")
     p.add_argument("-v", "--verbose", action="store_true")
     for dest, (flag, default, what) in UNPORTED.items():
         kw = {"dest": dest, "default": default,
@@ -401,6 +410,7 @@ def build_server(args):
         history_path=getattr(args, "history_path", "") or None,
         lifecycle=lifecycle,
         tenants=tenants,
+        replica_of=getattr(args, "replica_of", "") or None,
     )
 
 

@@ -1,6 +1,6 @@
-"""Dataset, repository and measurement utility commands (the port's copy of
-the bag tools, ``repo-index``, ``trace-dump``, ``trace-join`` and
-``roofline`` of ``cli/tools.py``).
+"""Dataset, repository, fleet and measurement utility commands (the port's
+copy of the bag tools, ``repo-index``, ``route``, ``trace-dump``,
+``trace-join`` and ``roofline`` of ``cli/tools.py``).
 
   pc-extract  — PointCloud2 topic of a bag -> numbered .npy point clouds
                 (the input of the 3D ``.npy`` replay source).
@@ -10,6 +10,11 @@ the bag tools, ``repo-index``, ``trace-dump``, ``trace-join`` and
                 equivalent, for hosts with no ROS tooling).
   repo-index  — list a model repository: a local directory (parsed, not
                 built) or a live server's RepositoryIndex over gRPC.
+  route       — one health pass over a replica set as the front-door
+                router sees it (live, ready, ModelReady per ``-m``), each
+                replica's ``replica_of`` label and negotiated transport;
+                ``--watch N`` re-probes every N seconds. Exits 1 when no
+                replica would take traffic.
   trace-dump  — a live server's recent request traces (its telemetry
                 ``/traces``) as Chrome-trace JSON; ``--ops PATH``: rank the
                 card's ops by device time with their owning model, from a
@@ -32,6 +37,7 @@ Usage:
   python -m triton_client_tpu_torch bag-info scans.bag
   python -m triton_client_tpu_torch repo-index examples
   python -m triton_client_tpu_torch repo-index grpc:127.0.0.1:8001
+  python -m triton_client_tpu_torch route 127.0.0.1:8001 127.0.0.1:8011 -m yolov5_crop
   python -m triton_client_tpu_torch detect2d -r examples -m yolov5_crop \
       -i synthetic:8:512x512 --profile-trace prof
   python -m triton_client_tpu_torch trace-dump --ops prof -o ops.json
@@ -168,6 +174,75 @@ def repo_index(argv=None) -> None:
                 f"{model_dir.name}:{vdir.name}  family={doc.get('family')}  "
                 f"{artifact}"
             )
+
+
+def route(argv=None) -> None:
+    """Probe a replica set as the ``FrontDoorRouter`` sees it: one health
+    pass over every endpoint (ServerLive, ServerReady, ModelReady per
+    ``-m``), each replica's label from ServerMetadata, and with ``--watch``
+    a live rotation view: which replicas would take traffic right now,
+    without standing up a router."""
+    p = argparse.ArgumentParser(description="probe a replica set (health / readiness / labels)")
+    p.add_argument("endpoints", nargs="+", help="replica endpoints (host:port ...)")
+    p.add_argument("-m", "--model", action="append", default=[],
+                   help="also require ModelReady for this model (repeatable)")
+    p.add_argument("--timeout", type=float, default=2.0, help="per-probe RPC deadline in seconds")
+    p.add_argument("--watch", type=float, default=0.0,
+                   help="re-probe every N seconds until interrupted (0 = once)")
+    args = p.parse_args(argv)
+
+    import time
+
+    from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
+    from triton_client_tpu_torch.channel.kserve import pb
+
+    channels = [GRPCChannel(ep, timeout_s=args.timeout, retries=0) for ep in args.endpoints]
+
+    def label_of(chan) -> str:
+        try:
+            meta = chan._call(chan._stub.ServerMetadata, pb.ServerMetadataRequest(),
+                              retryable=(), timeout_s=args.timeout)
+        except Exception:
+            return "-"
+        for ext in meta.extensions:
+            if ext.startswith("replica_of:"):
+                return ext.split(":", 1)[1]
+        return "-"
+
+    def pass_once() -> int:
+        in_rotation = 0
+        for ep, chan in zip(args.endpoints, channels):
+            live = chan.server_live(timeout_s=args.timeout)
+            ready = live and chan.server_ready(timeout_s=args.timeout)
+            models_ok = ready and all(chan.model_ready(m, timeout_s=args.timeout)
+                                      for m in args.model)
+            ok = ready and models_ok
+            in_rotation += 1 if ok else 0
+            state = "IN-ROTATION" if ok else "NOT-READY" if live else "DEAD"
+            detail = "" if models_ok or not ready else " (model not ready)"
+            transport = getattr(chan, "transport", "grpc")
+            print(f"{ep:<28} {state:<12} transport={transport:<8} "
+                  f"replica_of={label_of(chan)}{detail}", flush=True)
+        print(f"-- {in_rotation}/{len(args.endpoints)} in rotation", flush=True)
+        return in_rotation
+
+    try:
+        ok = pass_once()
+        while args.watch > 0:
+            time.sleep(args.watch)
+            print()
+            ok = pass_once()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        for chan in channels:
+            try:
+                chan.close()
+            except Exception:
+                pass
+    # for scripts: nonzero when nothing would take traffic
+    if ok == 0:
+        raise SystemExit(1)
 
 
 def trace_dump(argv=None) -> None:

@@ -388,10 +388,12 @@ CLOCK_SYNC_CALLS = 3
 
 def _thread_keys(native: int, ident: int) -> tuple:
     """The ids a trace may name a thread by: its native id, or its
-    ``pthread_t`` (``threading.get_ident``), whole or cut to 32 bits, as
-    the card's traces name the runtime calls of some threads."""
+    ``pthread_t`` (``threading.get_ident``), whole or cut to 32 bits. The
+    card's traces name a thread's runtime calls by the cut id, and where
+    its top bit is set, by that read as a signed int and negated."""
     low = ident & 0xFFFFFFFF
-    return (native, ident, low, low - (1 << 32) if low >= 1 << 31 else low)
+    signed = low - (1 << 32) if low >= 1 << 31 else low
+    return (native, ident, low, signed, -signed)
 
 
 def _clock_sync(events, thread: list | None) -> dict | None:

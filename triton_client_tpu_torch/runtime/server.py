@@ -111,7 +111,6 @@ _MIN_MSG_BYTES = 64 << 20
 ROADMAP_ITEMS = {
     "quality": "8 (eval/{shadow,quality_plane}.py)",
     "temporal": "8 (runtime/temporal.py)",
-    "router": "8 (runtime/router.py)",
     "mesh": "8 (channel/sharded_channel.py)",
 }
 

@@ -39,8 +39,9 @@ from each frame's scheduled time, and the track ids each response carries
 scored against the replayer's ground truth (ID switches, fragmentation,
 id aliases). ``synthetic_stream`` generates such a sequence from a seed.
 
-Not ported yet: a list of addresses (a replica fleet) needs the front-door
-router (ROADMAP.md Queue 1 item 8, step 5).
+Every generator also takes a list of addresses: a replica fleet, driven
+through the front-door router (``runtime/router.py``), so capacity
+numbers become fleet numbers and streams are routed by affinity.
 """
 
 from __future__ import annotations
@@ -374,20 +375,20 @@ def _dial(target, deadline_s: float):
     Target shapes:
       * ``"host:port"`` — one endpoint, a fresh ``GRPCChannel``
         (owned: closed by the caller when the window ends);
-      * ``["host:port", ...]`` — a replica set, which raises until the
-        front-door router is ported (module docstring);
+      * ``["host:port", ...]`` — a replica set: a fresh
+        ``FrontDoorRouter`` over the endpoints (owned);
       * a channel-shaped object (anything with ``do_inference_async``)
-        — used as-is and NOT closed, so one channel can be driven across
-        several windows."""
+        — used as-is and NOT closed, so a caller-configured router
+        (custom hedge/budget knobs, a warm latency histogram) can be
+        driven across several windows."""
     if isinstance(target, str):
         from triton_client_tpu_torch.channel.grpc_channel import GRPCChannel
 
         return GRPCChannel(target, timeout_s=deadline_s), True
     if isinstance(target, (list, tuple)):
-        raise NotImplementedError(
-            "a list of addresses is driven through the front-door router, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 8, step 5: runtime/router.py)"
-        )
+        from triton_client_tpu_torch.runtime.router import FrontDoorRouter
+
+        return FrontDoorRouter(list(target), timeout_s=deadline_s), True
     if hasattr(target, "do_inference_async"):
         return target, False
     raise TypeError(
@@ -409,8 +410,9 @@ def run_open_loop(
 ) -> OpenLoopResult:
     """Drive one open-loop window against a KServe v2 endpoint.
 
-    ``address`` is a ``_dial`` target: one endpoint string, or an
-    already-built channel (driven, not closed).
+    ``address`` is a ``_dial`` target: one endpoint string, a list of
+    endpoints (a fleet behind a ``FrontDoorRouter``), or an already-built
+    channel or router (driven, not closed).
 
     ``scenarios``: the traffic mix — a list of ``(model_name, inputs)``
     or ``(model_name, inputs, weight)`` tuples; arrivals pick a
@@ -545,7 +547,10 @@ def slo_capacity_search(
     and the full probe log.
 
     ``address`` takes the same target shapes as ``run_open_loop``; one
-    channel is dialled and shared across every probe."""
+    channel is dialled and shared across every probe: a list of
+    endpoints dials ONE router, so its rolling hedge quantile and health
+    state carry over and the fleet capacity measures the steady-state
+    front door, not a cold one per probe."""
     if deadline_s is None:
         # the gRPC deadline must comfortably exceed the SLO so a miss
         # is measured, not truncated into an error
@@ -863,8 +868,9 @@ def run_streams(
     """Replay ``n_streams`` timestamped sequences at their recorded pace: the
     streaming-session counterpart of ``run_pool``'s stateless closed loop.
 
-    ``target`` is a ``_dial`` shape (an endpoint, or a built channel; a
-    list of endpoints raises until the router is ported).
+    ``target`` is a ``_dial`` shape (an endpoint, a list of endpoints,
+    routed with session affinity through a ``FrontDoorRouter``, or a
+    built channel or router).
     ``source(stream_idx)`` returns an iterable of ``(offset_s, inputs)`` or
     ``(offset_s, inputs, gt_ids)`` frames (:func:`synthetic_stream`). Every
     stream gets its own thread and ``sequence_id``; the first frame carries
